@@ -1,0 +1,415 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each a check that exits non-zero when it fails:
+
+1. device: the card's name and power limit (``nvidia-smi``);
+2. build: every CUDA kernel of the port, from ``src/repro_torch/kernels/
+   csrc``, one ``nvcc`` per source, all started together;
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the shapes the serve path gives it, bit for bit (the gather is a copy),
+   with its time, the plain version's, one PyTorch library call's and the
+   bound (HBM bytes over 3.35 TB/s);
+4. serve: full-width olmo-1b (16 layers, bf16 params from a seed) through
+   ``ServeEngine`` with the paged cache — 8 requests on 4 slots, so slots
+   are recycled — with the launch counts zeroed just before and read just
+   after: every decode step must launch the gather 2 x 16 times. Then the
+   same requests on the contiguous cache must give the same tokens;
+5. reference: olmo-1b-smoke in float32 (TF32 off), paged prefill + decode
+   on the card against the same code on the CPU, logits within 1e-4.
+
+It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
+Without CUDA, or without the package beside it, it fails and prints no
+result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+SERVE_ARCH = "olmo-1b"
+BATCH, MAX_LEN, PAGE_SIZE = 4, 256, 16
+N_REQUESTS, PROMPT_LO, PROMPT_HI, MAX_NEW = 8, 16, 64, 32
+COLD_POOLS = 16                  # 16 pools of 8.5 (f32) / 4.3 MB > 50 MB L2
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def time_ms(fn, n_iter: int = 100, reps: int = 5) -> float:
+    """Device time of one ``fn(i)``: ``n_iter`` calls captured in a CUDA
+    graph after a warm-up, the graph replayed ``reps`` times between CUDA
+    events. The graph takes the Python wrapper out of the timing, so this
+    is the card's time, not the host's launch rate."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n_iter):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / (reps * n_iter)
+
+
+def eager_ms(fn, n_iter: int = 200) -> float:
+    """Wall time of one eager ``fn(i)`` in a loop, host overhead included."""
+    import torch
+    for i in range(10):
+        fn(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_iter):
+        fn(i)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n_iter
+
+
+def phase_device() -> None:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    check(r.returncode == 0, f"nvidia-smi failed: {r.stderr.strip()}")
+    line = r.stdout.strip().splitlines()[0]
+    print(line, flush=True)
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import _build
+    t0 = time.time()
+    logs = _build.build_all()
+    for name, log in logs.items():
+        for ln in log.splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"build {name}: {ln.strip()}")
+    print(f"build: {len(logs)} kernel(s) compiled in {time.time() - t0:.2f}s "
+          f"({sorted(_build.KERNELS)})", flush=True)
+
+
+def phase_kernels() -> dict:
+    """paged_gather vs paged_gather_plain at the olmo-1b serve shape."""
+    import torch
+    from repro_torch.kernels.paged_kv import paged_gather, paged_gather_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    np_, b, maxp = 1 + BATCH * (MAX_LEN // PAGE_SIZE), BATCH, MAX_LEN // PAGE_SIZE
+    table = torch.randint(0, np_, (b, maxp), generator=gen, device=dev,
+                          dtype=torch.int32)
+    table[torch.rand((b, maxp), generator=gen, device=dev) < 0.25] = -1
+    table[0, 0] = -1
+    ids = table.long().clamp(0, np_ - 1).reshape(-1)
+    mapped = table[table >= 0].unique().numel()
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        pools = torch.randn((COLD_POOLS, np_, PAGE_SIZE, 16, 128),
+                            generator=gen, device=dev).to(dtype)
+        got = paged_gather(pools[0], table)
+        want = paged_gather_plain(pools[0], table)
+        torch.cuda.synchronize()
+        ib = torch.int32 if dtype == torch.float32 else torch.int16
+        check(torch.equal(got.view(ib), want.view(ib)),
+              f"paged_gather kernel != plain version ({dtype})")
+        err = (got.float() - want.float()).abs().max().item()
+        kernel_ms = time_ms(lambda i: paged_gather(pools[i % COLD_POOLS],
+                                                   table))
+        plain_ms = time_ms(lambda i: paged_gather_plain(pools[i % COLD_POOLS],
+                                                        table))
+        library_ms = time_ms(lambda i: pools[i % COLD_POOLS].index_select(
+            0, ids))
+        host_ms = eager_ms(lambda i: paged_gather(pools[i % COLD_POOLS],
+                                                  table))
+        page_bytes = pools[0, 0].numel() * pools.element_size()
+        nbytes = mapped * page_bytes + table.nbytes + got.nbytes
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        res[str(dtype).replace("torch.", "")] = dict(
+            max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms)
+        print(f"kernel paged_gather {dtype}: pool {tuple(pools.shape[1:])} "
+              f"table {tuple(table.shape)} ({int((table < 0).sum())} "
+              f"unmapped) bitwise equal to plain, max_abs_err={err}; "
+              f"kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} "
+              f"library_ms(index_select)={library_ms:.5f} "
+              f"bound_ms={bound_ms:.5f} ({nbytes} B); eager call incl. "
+              f"host {host_ms:.5f} ms", flush=True)
+        del pools
+    return res
+
+
+def _requests(vocab: int):
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(0)
+    return [Request(prompt=rng.integers(0, vocab, (int(rng.integers(
+        PROMPT_LO, PROMPT_HI + 1)),), dtype=np.int32),
+        max_new_tokens=MAX_NEW) for _ in range(N_REQUESTS)]
+
+
+class _Timed:
+    """Wraps an engine's prefill/step callable: host time to completion."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds, self.calls = fn, 0.0, 0
+
+    def __call__(self, *a, **kw):
+        import torch
+        t0 = time.perf_counter()
+        out = self.fn(*a, **kw)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+
+def phase_serve() -> dict:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_kv import paged_gather
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.time()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"serve: {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
+          f"H={cfg.num_heads} hd={cfg.head_dim} vocab={cfg.vocab_size} "
+          f"params={cfg.param_count() / 1e9:.3f}B {cfg.param_dtype} "
+          f"(init {time.time() - t0:.1f}s)", flush=True)
+    runs = {}
+    for layout in ("paged", "contiguous"):
+        eng = ServeEngine(cfg, params, batch_size=BATCH, max_len=MAX_LEN,
+                          device="cuda", paged=layout == "paged",
+                          page_size=PAGE_SIZE)
+        eng.generate([Request(prompt=r.prompt[:PROMPT_LO], max_new_tokens=2)
+                      for r in _requests(cfg.vocab_size)[:2]])  # warm-up
+        reqs = _requests(cfg.vocab_size)
+        eng._prefill, eng._step = _Timed(eng._prefill), _Timed(eng._step)
+        torch.cuda.synchronize()
+        paged_gather.launches = 0
+        t0 = time.perf_counter()
+        eng.generate(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = paged_gather.launches
+        n_tok = sum(len(r.generated) for r in reqs)
+        for i, r in enumerate(reqs):
+            g = r.generated
+            check(len(g) == MAX_NEW, f"{layout}: request {i} made {len(g)} "
+                  f"tokens, want {MAX_NEW}")
+            check(bool(((g >= 0) & (g < cfg.vocab_size)).all()),
+                  f"{layout}: request {i} has out-of-range ids")
+        steps = eng.decode_steps
+        runs[layout] = dict(tokens=[r.generated.tolist() for r in reqs],
+                            launches=launches, bytes=eng.cache_bytes_resident)
+        print(f"serve {layout}: {len(reqs)} requests (prompts "
+              f"{[len(r.prompt) for r in reqs]}), {n_tok} new tokens in "
+              f"{dt:.3f}s ({n_tok / dt:.1f} tok/s) decode_steps={steps} "
+              f"decode_s={eng._step.seconds:.3f} "
+              f"({eng._step.seconds / max(steps, 1) * 1e3:.3f} ms/step) "
+              f"prefill_s={eng._prefill.seconds:.3f} "
+              f"({eng._prefill.calls} prefills incl. admissions) "
+              f"paged_gather.launches={launches} "
+              f"cache_bytes_resident={eng.cache_bytes_resident}", flush=True)
+        if layout == "paged":
+            want = 2 * cfg.num_layers * steps
+            check(steps > 0 and launches == want,
+                  f"paged run launched paged_gather {launches} times, want "
+                  f"2 x {cfg.num_layers} x {steps} = {want}")
+            owner = eng._pages.owner
+            check(bool((owner[1:] == -1).all()), "pages leaked after drain")
+        else:
+            check(launches == 0, "contiguous run launched the page gather")
+    for i, (a, b) in enumerate(zip(runs["paged"]["tokens"],
+                                   runs["contiguous"]["tokens"])):
+        check(a == b, f"request {i}: paged tokens {a} != contiguous {b}")
+    print("serve: paged tokens identical to contiguous tokens for all "
+          f"{N_REQUESTS} requests; resident cache bytes paged/contiguous = "
+          f"{runs['paged']['bytes']}/{runs['contiguous']['bytes']}",
+          flush=True)
+    profile_decode(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def profile_decode(cfg, params) -> None:
+    """Where a paged serve run's time goes on the card: ``torch.profiler``
+    over a short run (4 requests, 16 new tokens each) — device busy time,
+    the device's idle share of the same run's wall time without the
+    profiler, and the kernels by time. Measures only; the checks are
+    done."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine(cfg, params, batch_size=BATCH, max_len=MAX_LEN,
+                      device="cuda", paged=True, page_size=PAGE_SIZE)
+
+    def run() -> float:
+        reqs = _requests(cfg.vocab_size)[:BATCH]
+        for r in reqs:
+            r.max_new_tokens = 16
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(reqs)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    wall_ms = run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_wall_ms = run()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    if busy_ms <= 0:
+        print("profile: the profiler recorded no device time (not measured)",
+              flush=True)
+        return
+    steps = eng.decode_steps
+    print(f"profile: paged {cfg.name}, {BATCH} requests x 16 tokens, "
+          f"{steps} decode steps: wall {wall_ms:.2f} ms ({prof_wall_ms:.2f} "
+          f"under the profiler), device busy {busy_ms:.2f} ms, device idle "
+          f"share {1 - busy_ms / wall_ms:.4f}; {sum(e.count for e in kern)} "
+          f"kernel launches", flush=True)
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d} x {e.self_device_time_total / max(e.count, 1):8.2f}"
+              f" us  {e.key[:90]}", flush=True)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def phase_reference() -> None:
+    """The same paged prefill + decode on the card and on the CPU (f32):
+    the CPU run decodes greedily, the card is fed the CPU's tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import (Model, init_paged_cache,
+                                                init_params)
+
+    cfg = get_config("olmo-1b-smoke")
+    params = init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(1)
+    b, s, ps, max_len, steps = 4, 20, 8, 64, 4
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32))
+    start = torch.tensor([0, 5, 11, 19], dtype=torch.int32)
+    table = torch.arange(1, 1 + b * (max_len // ps),
+                         dtype=torch.int32).reshape(b, -1)
+    model = Model(cfg)
+    logits = {}
+    feeds = []
+    with torch.inference_mode():
+        for dev in ("cpu", "cuda"):
+            p = _to(params, dev)
+            cache = init_paged_cache(cfg, b, max_len, page_size=ps,
+                                     num_pages=1 + table.numel(),
+                                     dtype=torch.float32, device=dev)
+            cache.kv.table.copy_(table)
+            st = start.to(dev)
+            out, _, cache = model.forward(p, {"tokens": tokens.to(dev)},
+                                          cache=cache, start=st)
+            seq = [out[:, -1:].cpu()]
+            for t in range(steps):
+                if dev == "cpu":
+                    feeds.append(seq[-1].argmax(-1).to(torch.int32))
+                out, cache = model.decode_step(p, feeds[t].to(dev), cache,
+                                               start=st)
+                seq.append(out.cpu())
+            logits[dev] = seq
+    worst = 0.0
+    for a, c in zip(logits["cpu"], logits["cuda"]):
+        check(bool(torch.isfinite(c).all()), "non-finite logits on the card")
+        worst = max(worst, (a - c).abs().max().item())
+        check(torch.allclose(c, a, atol=1e-4, rtol=1e-4),
+              f"card logits differ from the CPU's by {worst:.3e}")
+    print(f"reference: olmo-1b-smoke f32 paged prefill + {steps} decode "
+          f"steps, card vs CPU max |logit diff| = {worst:.3e} (tol 1e-4)",
+          flush=True)
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script drives the "
+             "port on a CUDA card")
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"the repro_torch package is not beside this script ({e})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"allow_tf32=False", flush=True)
+
+    t_all = time.time()
+    phase_device()
+    phase_build()
+    kern = phase_kernels()
+    runs = phase_serve()
+    phase_reference()
+
+    f32 = kern["float32"]
+    line = {"kernels": [{
+        "name": "paged_gather",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_gather.cu",
+        "replaces": "src/repro/kernels/paged_kv.py:42",
+        "launches": runs["paged"]["launches"],
+        "max_abs_err": max(k["max_abs_err"] for k in kern.values()),
+        "ms": f32["ms"],
+        "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": f32["library_ms"],
+    }]}
+    print(f"chip_smoke: all phases passed in {time.time() - t_all:.1f}s",
+          flush=True)
+    print(json.dumps(line), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

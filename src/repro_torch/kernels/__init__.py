@@ -1,0 +1,13 @@
+"""Hand-written Hopper kernels of the port.
+
+Each kernel lives in ``csrc/<name>.cu`` (CUDA C++ for ``sm_90a``, built by
+:mod:`repro_torch.kernels._build` at first use and bound with ``ctypes``)
+with its Python wrapper, its plain PyTorch version and its launch count in
+``<name>.py`` beside the reference module of the same name:
+
+* :mod:`repro_torch.kernels.paged_kv` — ``paged_gather`` (replaces
+  ``repro/kernels/paged_kv.py::paged_gather_pallas``).
+
+The other Pallas kernels of the reference are still to be ported; see
+``ROADMAP.md``.
+"""

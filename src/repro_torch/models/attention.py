@@ -1,0 +1,267 @@
+"""Attention: GQA/MQA, causal + sliding-window masks, KV-cache decode.
+
+Port of ``repro.models.attention`` for the serve path of dense archs:
+full (prefill) attention with the per-row ``start`` pad mask, the
+contiguous decode cache and the paged decode cache.
+
+Caches are updated IN PLACE (``index_put_`` / slice assignment into the
+cache tensors) where the reference returns new arrays from donated inputs;
+each update function still returns a cache object carrying the advanced
+write cursor, so call sites read like the reference's. The cursor
+(``length``) is a host ``int``: the engine drives it from the host anyway.
+
+Not in this slice (they raise ``NotImplementedError``): the ring cache for
+sliding-window decode and ``decode_kv_expand > 1`` head expansion.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.paged_kv import paged_gather
+
+NEG_INF = -1e30
+
+
+def _repeat_kv(k, n_rep: int):
+    """(B,S,KV,hd) -> (B,S,KV*n_rep,hd) for GQA."""
+    if n_rep == 1:
+        return k
+    b, s, kv, hd = k.shape
+    return k[:, :, :, None, :].expand(b, s, kv, n_rep, hd).reshape(
+        b, s, kv * n_rep, hd)
+
+
+def causal_mask(q_len: int, kv_len: int, *, window: Optional[int] = None,
+                device=None) -> torch.Tensor:
+    """(q_len, kv_len) bool mask. ``window`` adds the sliding-window band."""
+    q_pos = torch.arange(q_len, device=device)[:, None]
+    k_pos = torch.arange(kv_len, device=device)[None, :]
+    m = k_pos <= q_pos
+    if window is not None:
+        m &= k_pos > q_pos - window
+    return m
+
+
+def attention(cfg: ModelConfig, q, k, v, *,
+              start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full (prefill) attention. q: (B,Sq,H,hd), k/v: (B,Skv,KV,hd), with
+    the causal (and sliding-window) mask.
+
+    ``start`` — (B,) int left-pad lengths — masks each row's pad prefix
+    (key positions ``< start[b]``).
+    """
+    b, sq, h, hd = q.shape
+    n_rep = h // k.shape[2]
+    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    scale = 1.0 / math.sqrt(hd)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    mask = causal_mask(sq, k.shape[1], window=cfg.sliding_window,
+                       device=q.device)[None]                    # (1,Sq,Skv)
+    if start is not None:
+        kpos = torch.arange(k.shape[1], device=q.device)
+        pad_ok = kpos[None, :] >= start[:, None]                 # (B,Skv)
+        mask = mask & pad_ok[:, None, :]
+    logits = torch.where(mask[:, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+# ---------------------------------------------------------------------------
+# contiguous KV cache
+# ---------------------------------------------------------------------------
+
+class KVCache:
+    """Contiguous KV cache ``(B, S_max, KV, hd)`` (or layer-stacked
+    ``(L, B, S_max, KV, hd)``) with a host write cursor."""
+
+    def __init__(self, k, v, length: int):
+        self.k = k
+        self.v = v
+        self.length = int(length)   # tokens written so far (absolute)
+
+
+def kv_cache_shape(cfg: ModelConfig, batch: int, max_len: int):
+    """``(B, max_len, KV, hd)`` of a contiguous (non-ring) cache."""
+    w = cfg.sliding_window
+    if w is not None and w < max_len:
+        raise NotImplementedError(
+            "the ring KV cache (sliding-window decode) is not ported yet; "
+            "see ROADMAP.md Queue 1")
+    return (batch, max_len, _stored_kv_heads(cfg), cfg.head_dim)
+
+
+def _stored_kv_heads(cfg: ModelConfig) -> int:
+    if cfg.decode_kv_expand > 1:
+        raise NotImplementedError(
+            "decode_kv_expand > 1 (KV heads stored per TP rank) belongs to "
+            "the tensor-parallel serve path; see ROADMAP.md Queue 1")
+    return cfg.num_kv_heads
+
+
+def _expand_heads(k_new, kv_stored: int):
+    """The reference may store each KV head ``e`` times; this slice stores
+    them once, so incoming heads must match the cache."""
+    if kv_stored != k_new.shape[2]:
+        raise NotImplementedError(
+            f"cache stores {kv_stored} KV heads, got {k_new.shape[2]}: "
+            f"decode_kv_expand is not ported yet (ROADMAP.md Queue 1)")
+    return k_new
+
+
+def cache_update_decode(cache: KVCache, k_new, v_new) -> KVCache:
+    """Append ONE token (k_new/v_new: (B,1,KV,hd)) in place."""
+    k_new = _expand_heads(k_new, cache.k.shape[2])
+    v_new = _expand_heads(v_new, cache.v.shape[2])
+    pos = min(cache.length, cache.k.shape[1] - 1)
+    cache.k[:, pos] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, pos] = v_new[:, 0].to(cache.v.dtype)
+    return KVCache(cache.k, cache.v, cache.length + 1)
+
+
+def decode_attention(cfg: ModelConfig, q, cache: KVCache,
+                     start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One-token attention against the cache. q: (B,1,H,hd).
+
+    The cache position of the current token must already be written
+    (call :func:`cache_update_decode` first). ``start`` — (B,) int — marks
+    each row's first valid cache slot (left pad / late admission); slots
+    outside ``[start, length)`` are masked with ``NEG_INF``, so a row with
+    no valid slot gets the reference's uniform softmax, not NaN.
+    """
+    b, _, h, hd = q.shape
+    s_cache = cache.k.shape[1]
+    n_rep = h // cache.k.shape[2]
+    k = _repeat_kv(cache.k, n_rep).to(q.dtype)
+    v = _repeat_kv(cache.v, n_rep).to(q.dtype)
+    scale = 1.0 / math.sqrt(hd)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    idx = torch.arange(s_cache, device=q.device)
+    valid = (idx < cache.length).expand(b, s_cache)
+    if start is not None:
+        valid = valid & (idx[None, :] >= start[:, None])
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+# ---------------------------------------------------------------------------
+# paged KV cache: fixed page pool + per-slot page table
+# ---------------------------------------------------------------------------
+
+class PagedKVCache:
+    """Layer-stacked paged KV cache.
+
+    K/V live in a fixed pool of fixed-size pages ``(L, num_pages,
+    page_size, KV, hd)`` with a per-slot page table ``(B, max_pages)``
+    int32 mapping each slot's logical page (virtual position ``p`` ->
+    logical page ``p // page_size``) to a pool page, ``-1`` = unmapped.
+    Pool page 0 is the TRASH page: writes through an unmapped entry (pad
+    prefix, finished slots) land there and are never validly read —
+    attention masks by ``[start, length)`` exactly as on the contiguous
+    cache, so the two layouts are token-identical. The table is shared by
+    every layer; allocation lives in :mod:`repro_torch.serve.paging`.
+    """
+
+    def __init__(self, k, v, table, length: int, page_size: int):
+        self.k = k                # (L, NP, PS, KV, hd)
+        self.v = v
+        self.table = table        # (B, MAXP) int32
+        self.length = int(length)
+        self.page_size = int(page_size)
+
+
+class PagedKVLayer:
+    """One layer's view of a :class:`PagedKVCache` (pool slice + the shared
+    table/cursor) — what the per-layer block code sees in place of a
+    :class:`KVCache`. The pool slice is a view: writes reach the stack."""
+
+    def __init__(self, k, v, table, length: int, page_size: int):
+        self.k = k                # (NP, PS, KV, hd)
+        self.v = v
+        self.table = table        # (B, MAXP) int32
+        self.length = int(length)
+        self.page_size = int(page_size)
+
+
+def _paged_write_ids(table, pos, page_size: int):
+    """Pool page ids for writing virtual position(s) ``pos`` per slot;
+    unmapped entries route to the trash page (0)."""
+    ids = table[:, pos // page_size].long()   # (B,) or (B, n)
+    return torch.where(ids >= 0, ids, 0)
+
+
+def paged_update_decode(layer: PagedKVLayer, k_new, v_new) -> PagedKVLayer:
+    """Append ONE token (k_new/v_new: (B,1,KV,hd)) at the shared cursor, in
+    place: slot ``b`` writes pool page ``table[b, cur // PS]`` at offset
+    ``cur % PS``. Distinct slots own distinct pages, so writes collide only
+    in the trash page, whose content is never read."""
+    ps = layer.page_size
+    k_new = _expand_heads(k_new, layer.k.shape[2])
+    v_new = _expand_heads(v_new, layer.v.shape[2])
+    pos = layer.length
+    ids = _paged_write_ids(layer.table, pos, ps)               # (B,)
+    layer.k[ids, pos % ps] = k_new[:, 0].to(layer.k.dtype)
+    layer.v[ids, pos % ps] = v_new[:, 0].to(layer.v.dtype)
+    return PagedKVLayer(layer.k, layer.v, layer.table, pos + 1, ps)
+
+
+def paged_prefill_update(layer: PagedKVLayer, k_new, v_new) -> PagedKVLayer:
+    """Write a fresh prefill (k_new/v_new: (B,S,KV,hd)) at positions
+    ``[0, S)`` in place — whole pages scattered into the pool; positions
+    whose pages are unmapped (each slot's left-pad prefix) go to the trash
+    page."""
+    ps = layer.page_size
+    k_new = _expand_heads(k_new, layer.k.shape[2])
+    v_new = _expand_heads(v_new, layer.v.shape[2])
+    b, s = k_new.shape[:2]
+    npg = -(-s // ps)
+    pad = npg * ps - s
+    if pad:
+        k_new = F.pad(k_new, (0, 0, 0, 0, 0, pad))
+        v_new = F.pad(v_new, (0, 0, 0, 0, 0, pad))
+    kp = k_new.reshape((b, npg, ps) + tuple(k_new.shape[2:]))
+    vp = v_new.reshape((b, npg, ps) + tuple(v_new.shape[2:]))
+    ids = layer.table[:, :npg].long()
+    ids = torch.where(ids >= 0, ids, 0)                        # (B, npg)
+    layer.k[ids] = kp.to(layer.k.dtype)
+    layer.v[ids] = vp.to(layer.v.dtype)
+    return PagedKVLayer(layer.k, layer.v, layer.table, layer.length + s, ps)
+
+
+def paged_splice(cache: PagedKVCache, slot: int, dest: int, k_rows, v_rows
+                 ) -> PagedKVCache:
+    """Admission splice, in place: write ``k_rows``/``v_rows`` (``(L, S,
+    KV, hd)``) into ``slot``'s pages at virtual positions ``[dest, dest +
+    S)`` — page-table-indirect and not page-aligned (positions below the
+    admitted request's ``start`` fall through unmapped entries to the trash
+    page)."""
+    ps = cache.page_size
+    ll, np_, _, kv, hd = cache.k.shape
+    s = k_rows.shape[1]
+    pos = dest + torch.arange(s, device=cache.table.device)
+    ids = cache.table[slot][pos // ps].long()
+    ids = torch.where(ids >= 0, ids, 0)
+    flat = ids * ps + pos % ps                                 # (S,)
+    cache.k.view(ll, np_ * ps, kv, hd)[:, flat] = k_rows.to(cache.k.dtype)
+    cache.v.view(ll, np_ * ps, kv, hd)[:, flat] = v_rows.to(cache.v.dtype)
+    return cache
+
+
+def paged_decode_attention(cfg: ModelConfig, q, layer: PagedKVLayer,
+                           start: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """One-token attention against the paged cache: gather each slot's
+    pages into sequence order (:func:`repro_torch.kernels.paged_kv.
+    paged_gather` — the CUDA kernel on the card), then the standard masked
+    decode attention. Validity is ``[start, length)`` as on the contiguous
+    layout, which makes the two layouts token-identical."""
+    k_view = paged_gather(layer.k, layer.table)
+    v_view = paged_gather(layer.v, layer.table)
+    return decode_attention(cfg, q, KVCache(k_view, v_view, layer.length),
+                            start=start)

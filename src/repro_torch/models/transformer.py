@@ -1,0 +1,360 @@
+"""The model for the dense text family (PyTorch port).
+
+Port of the dense branch of ``repro.models.transformer``. Params are a
+plain nested dict of tensors in the reference's layout: per-layer weights
+stacked on a leading ``L`` axis, ``(L, in, out)``, applied as ``x @ W`` —
+so :mod:`repro_torch.bridge` copies the reference's params without a
+transpose. The layer stack is a Python loop in place of ``lax.scan``, and
+decode caches are updated in place (see :mod:`repro_torch.models.attention`).
+
+Other families (MoE, SSM, hybrid, VLM, audio) are later slices of the port
+and raise ``NotImplementedError``; see ``ROADMAP.md``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.models.attention import (
+    KVCache,
+    PagedKVCache,
+    PagedKVLayer,
+    _expand_heads,
+    _stored_kv_heads,
+    attention,
+    cache_update_decode,
+    decode_attention,
+    kv_cache_shape,
+    paged_decode_attention,
+    paged_prefill_update,
+    paged_update_decode,
+)
+from repro_torch.models.layers import (
+    apply_norm,
+    apply_rope,
+    dense_init,
+    embed_init,
+    gated_ffn,
+)
+
+# a cursor is a host int here and an int32 scalar in the reference; cache
+# byte counts charge it at the reference's width so the two engines report
+# the same ``cache_bytes_resident``.
+_CURSOR_BYTES = 4
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is in this slice of the port: dense text."""
+    if cfg.family != "dense" or cfg.modality != "text":
+        raise NotImplementedError(
+            f"repro_torch supports the dense text family so far, got "
+            f"family={cfg.family!r} modality={cfg.modality!r}; the other "
+            f"families are later slices (ROADMAP.md Queue 1)")
+
+
+# ---------------------------------------------------------------------------
+# parameter initialization
+# ---------------------------------------------------------------------------
+
+def _norm_params(cfg: ModelConfig, dims, device):
+    if cfg.norm == "nonparametric":
+        return None
+    p = {"scale": torch.ones(dims + (cfg.d_model,), device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(dims + (cfg.d_model,), device=device)
+    return p
+
+
+def _attn_params(cfg: ModelConfig, gen, dims, dtype, device):
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    p = {
+        "wq": dense_init(gen, dims + (d, qd), dtype=dtype, device=device),
+        "wk": dense_init(gen, dims + (d, kvd), dtype=dtype, device=device),
+        "wv": dense_init(gen, dims + (d, kvd), dtype=dtype, device=device),
+        "wo": dense_init(gen, dims + (qd, d), dtype=dtype, device=device),
+    }
+    if cfg.use_bias:
+        for name, n in (("bq", qd), ("bk", kvd), ("bv", kvd), ("bo", d)):
+            p[name] = torch.zeros(dims + (n,), dtype=dtype, device=device)
+    return p
+
+
+def _ffn_params(cfg: ModelConfig, gen, dims, dtype, device):
+    d, dff = cfg.d_model, cfg.d_ff
+    p = {
+        "w_gate": dense_init(gen, dims + (d, dff), dtype=dtype, device=device),
+        "w_up": dense_init(gen, dims + (d, dff), dtype=dtype, device=device),
+        "w_down": dense_init(gen, dims + (dff, d), dtype=dtype, device=device),
+    }
+    if cfg.use_bias:
+        p["b_up"] = torch.zeros(dims + (dff,), dtype=dtype, device=device)
+        p["b_down"] = torch.zeros(dims + (d,), dtype=dtype, device=device)
+    return p
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *,
+                device=None) -> Dict[str, Any]:
+    """Random params from ``seed`` (a ``torch.Generator`` on ``device``), in
+    ``cfg.param_dtype``, made directly on the device. The same tree as the
+    reference's ``init_params`` (norm params in float32); the numbers differ
+    from JAX's — the conformance tests carry JAX's params over with
+    :func:`repro_torch.bridge.params_from_numpy` instead."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.param_dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dims = (cfg.num_layers,)
+    params: Dict[str, Any] = {"embed": {"tok": embed_init(
+        gen, (cfg.vocab_size, cfg.d_model), dtype, dev)}}
+    layer = {"attn": _attn_params(cfg, gen, dims, dtype, dev),
+             "norm1": _norm_params(cfg, dims, dev),
+             "ffn": _ffn_params(cfg, gen, dims, dtype, dev)}
+    if not cfg.parallel_block:
+        layer["norm2"] = _norm_params(cfg, dims, dev)
+    params["layers"] = {k: v for k, v in layer.items() if v is not None}
+    fn = _norm_params(cfg, (), dev)
+    if fn is not None:
+        params["final_norm"] = fn
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": dense_init(
+            gen, (cfg.d_model, cfg.vocab_size), dtype=dtype, device=dev)}
+    return params
+
+
+def layer_params(params: Dict[str, Any], l: int) -> Dict[str, Any]:
+    """Layer ``l``'s slice of the stacked per-layer params (views)."""
+    def take(t):
+        return {k: take(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t[l]
+    return take(params["layers"])
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+@dataclass
+class DecodeCache:
+    """Decode state: a layer-stacked contiguous or paged KV cache and the
+    absolute token cursor. Updated in place; the model returns a new
+    ``DecodeCache`` holding the same tensors and the advanced cursor."""
+
+    kv: Union[KVCache, PagedKVCache]
+    length: int
+
+    def nbytes(self) -> int:
+        """Resident bytes, counted as the reference counts its pytree."""
+        kv = self.kv
+        n = kv.k.nbytes + kv.v.nbytes + 2 * _CURSOR_BYTES
+        if isinstance(kv, PagedKVCache):
+            n += kv.table.nbytes
+        return n
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> DecodeCache:
+    """Contiguous cache ``(L, B, max_len, KV, hd)`` of zeros on ``device``
+    (CUDA unless ``"cpu"`` is asked for)."""
+    check_supported(cfg)
+    if "kv_fp8" in cfg.opts:
+        raise NotImplementedError("kv_fp8 cache storage is not ported yet "
+                                  "(ROADMAP.md Queue 1)")
+    shape = (cfg.num_layers,) + kv_cache_shape(cfg, batch, max_len)
+    dev = resolve_device(device)
+    kv = KVCache(torch.zeros(shape, dtype=dtype, device=dev),
+                 torch.zeros(shape, dtype=dtype, device=dev), 0)
+    return DecodeCache(kv, 0)
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                     page_size: int, num_pages: int, dtype=torch.bfloat16,
+                     device=None) -> DecodeCache:
+    """Paged decode cache: a fixed pool of ``num_pages`` pages of
+    ``page_size`` tokens (page 0 reserved as trash) + an all-unmapped
+    per-slot page table covering virtual positions ``[0, max_len)``."""
+    check_supported(cfg)
+    if cfg.sliding_window is not None and cfg.sliding_window < max_len:
+        raise NotImplementedError(
+            "paged KV cache does not support ring (sliding-window) caches; "
+            "use the contiguous cache")
+    if page_size < 1 or num_pages < 2:
+        raise ValueError(f"need page_size >= 1 and num_pages >= 2 "
+                         f"(page 0 is the trash page), got "
+                         f"{page_size}/{num_pages}")
+    if "kv_fp8" in cfg.opts:
+        raise NotImplementedError("kv_fp8 cache storage is not ported yet "
+                                  "(ROADMAP.md Queue 1)")
+    max_pages = -(-max_len // page_size)
+    shape = (cfg.num_layers, num_pages, page_size, _stored_kv_heads(cfg),
+             cfg.head_dim)
+    dev = resolve_device(device)
+    kv = PagedKVCache(torch.zeros(shape, dtype=dtype, device=dev),
+                      torch.zeros(shape, dtype=dtype, device=dev),
+                      torch.full((batch, max_pages), -1, dtype=torch.int32,
+                                 device=dev),
+                      0, page_size)
+    return DecodeCache(kv, 0)
+
+
+def _layer_kv(kv, l: int):
+    """Layer ``l``'s view of a stacked (contiguous or paged) KV cache."""
+    if isinstance(kv, PagedKVCache):
+        return PagedKVLayer(kv.k[l], kv.v[l], kv.table, kv.length,
+                            kv.page_size)
+    return KVCache(kv.k[l], kv.v[l], kv.length)
+
+
+def _advanced(kv, n: int):
+    """The stacked cache with its cursor moved by ``n`` (same tensors)."""
+    if isinstance(kv, PagedKVCache):
+        return PagedKVCache(kv.k, kv.v, kv.table, kv.length + n, kv.page_size)
+    return KVCache(kv.k, kv.v, kv.length + n)
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _attn_apply(cfg: ModelConfig, x, p, positions, kv=None,
+                decode: bool = False, start=None):
+    """Attention sub-block. ``kv`` is a layer's contiguous or paged cache
+    view (written in place); ``start`` the per-row left-pad offset."""
+    b, s, _ = x.shape
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if cfg.use_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, -1, cfg.head_dim)
+    k = k.reshape(b, s, -1, cfg.head_dim)
+    v = v.reshape(b, s, -1, cfg.head_dim)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    new_kv = None
+    if decode:
+        if isinstance(kv, PagedKVLayer):
+            new_kv = paged_update_decode(kv, k, v)
+            o = paged_decode_attention(cfg, q, new_kv, start=start)
+        else:
+            new_kv = cache_update_decode(kv, k, v)
+            o = decode_attention(cfg, q, new_kv, start=start)
+    else:
+        o = attention(cfg, q, k, v, start=start)
+        if isinstance(kv, PagedKVLayer):  # prefill: write the page pool
+            new_kv = paged_prefill_update(kv, k, v)
+        elif kv is not None:              # prefill: write the cache
+            new_kv = _prefill_cache(kv, k, v)
+    o = o.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+    if cfg.use_bias:
+        o = o + p["bo"]
+    return o, new_kv
+
+
+def _prefill_cache(kv: KVCache, k, v) -> KVCache:
+    """Write a prefill's K/V at positions ``[0, S)`` of a contiguous cache."""
+    k = _expand_heads(k, kv.k.shape[2])
+    v = _expand_heads(v, kv.v.shape[2])
+    s = k.shape[1]
+    n = min(s, kv.k.shape[1])
+    kv.k[:, :n] = k[:, :n].to(kv.k.dtype)
+    kv.v[:, :n] = v[:, :n].to(kv.v.dtype)
+    return KVCache(kv.k, kv.v, kv.length + s)
+
+
+def _dense_block(cfg: ModelConfig, x, p, positions, kv=None, decode=False,
+                 start=None):
+    """Standard (or parallel) transformer block. Returns (x, new_kv)."""
+    h = apply_norm(cfg, x, p.get("norm1"))
+    attn_out, new_kv = _attn_apply(cfg, h, p["attn"], positions, kv=kv,
+                                   decode=decode, start=start)
+    if cfg.parallel_block:
+        x = x + attn_out + gated_ffn(cfg, h, p["ffn"])
+    else:
+        x = x + attn_out
+        h2 = apply_norm(cfg, x, p.get("norm2"))
+        x = x + gated_ffn(cfg, h2, p["ffn"])
+    return x, new_kv
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        check_supported(cfg)
+        self.cfg = cfg
+
+    # -- embeddings ------------------------------------------------------
+    def embed(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Returns (x: (B,S,d), positions: (S,))."""
+        tok = batch["tokens"]
+        emb = params["embed"]["tok"].to(torch_dtype(self.cfg.dtype))
+        x = emb[tok.long()]
+        return x, torch.arange(tok.shape[-1], device=tok.device)
+
+    def unembed(self, params, x) -> torch.Tensor:
+        x = apply_norm(self.cfg, x, params.get("final_norm"))
+        if self.cfg.tie_embeddings:
+            return x @ params["embed"]["tok"].to(x.dtype).T
+        return x @ params["lm_head"]["w"].to(x.dtype)
+
+    # -- full-sequence forward (prefill) ----------------------------------
+    def forward(self, params, batch, *, cache: Optional[DecodeCache] = None,
+                start: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                           Optional[DecodeCache]]:
+        """Returns (logits, aux, new_cache). ``cache`` non-None => prefill
+        (the cache is written in place). ``aux`` is empty: the dense family
+        has no router losses.
+
+        ``start`` — (B,) int left-pad lengths for mixed-length prefill:
+        row ``b``'s real tokens occupy positions ``[start[b], S)``; pad
+        positions are masked out of attention and RoPE positions are shifted
+        so each row computes exactly what it would alone.
+        """
+        x, positions = self.embed(params, batch)
+        if start is not None:
+            # per-row RoPE positions: the first real token sits at 0
+            positions = torch.clamp(positions[None, :] - start[:, None], min=0)
+        for l in range(self.cfg.num_layers):
+            kv = None if cache is None else _layer_kv(cache.kv, l)
+            x, _ = _dense_block(self.cfg, x, layer_params(params, l),
+                                positions, kv=kv, decode=False, start=start)
+        new_cache = None
+        if cache is not None:
+            s = x.shape[1]
+            new_cache = DecodeCache(_advanced(cache.kv, s), cache.length + s)
+        return self.unembed(params, x), {}, new_cache
+
+    # -- one-token decode --------------------------------------------------
+    def decode_step(self, params, tokens, cache: DecodeCache,
+                    start: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, DecodeCache]:
+        """tokens: (B,1). Returns (logits, new_cache); the cache is written
+        in place at the shared cursor.
+
+        ``start`` — (B,) int per-row first-valid cache slot (the serve
+        engine's left-pad/late-admission offset): cache reads mask slots
+        below it and RoPE positions count from it.
+        """
+        emb = params["embed"]["tok"].to(torch_dtype(self.cfg.dtype))
+        x = emb[tokens.long()]
+        if start is not None:
+            positions = (cache.length - start)[:, None]
+        else:
+            positions = torch.full((x.shape[0], 1), cache.length,
+                                   device=x.device)
+        for l in range(self.cfg.num_layers):
+            x, _ = _dense_block(self.cfg, x, layer_params(params, l),
+                                positions, kv=_layer_kv(cache.kv, l),
+                                decode=True, start=start)
+        new_cache = DecodeCache(_advanced(cache.kv, 1), cache.length + 1)
+        return self.unembed(params, x), new_cache

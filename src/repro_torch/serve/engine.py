@@ -1,0 +1,447 @@
+"""Serving: prefill + batched decode with contiguous or paged KV caches.
+
+Port of ``repro.serve.engine`` for dense text archs on one device. The
+``ServeEngine`` is the same host-side continuous-batching loop:
+
+* mixed-length prompts are LEFT-padded to a common width and prefilled with
+  per-row pad masks + shifted RoPE positions, so a request's tokens are
+  identical no matter what it is batched with;
+* greedy or per-request temperature sampling, per-request ``stop_token``
+  and ``max_new_tokens``;
+* early slot recycling: a finished slot is re-filled mid-stream by
+  prefilling the next request alone and splicing its K/V just below the
+  shared write cursor (its ``start`` offset masks everything older);
+* ``paged=True`` swaps the contiguous cache for the paged KV cache (page
+  pool + per-slot page table, allocation in :mod:`repro_torch.serve.
+  paging`): a finished slot's pages return to the pool immediately.
+
+PyTorch runs eagerly, so the reference's ``jax.jit`` wrappers (and their
+per-width trace caches) have no counterpart; caches are written in place
+instead of being donated. Not in this slice (``NotImplementedError``): the
+tensor-parallel decode on VCI streams (``mesh``/``comm_plan``/``num_vcis``)
+and the grouped equal-length fallback for archs without per-row pad masks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.attention import paged_splice
+from repro_torch.models.transformer import (
+    DecodeCache,
+    Model,
+    check_supported,
+    init_cache,
+    init_paged_cache,
+)
+from repro_torch.serve.paging import (
+    alloc_slot_pages,
+    alloc_step_pages,
+    free_slot_pages,
+    page_state_init,
+    pages_for_span,
+)
+
+
+def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
+    """logits: (B, 1, V) -> next token ids (B, 1) int32 (first max wins)."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def select_tokens(logits, temps=None, gen: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """Greedy/temperature sampling with PER-ROW temperatures.
+
+    ``temps`` — (B,) float; rows with ``temp <= 0`` take the argmax, rows
+    with ``temp > 0`` sample from the tempered categorical by Gumbel-max
+    with noise drawn from ``gen`` (a ``torch.Generator`` on the logits'
+    device). ``temps=None`` is pure greedy. logits: (B, 1, V).
+    """
+    greedy = greedy_sample(logits)
+    if temps is None:
+        return greedy
+    if gen is None:
+        raise ValueError("select_tokens: temps given without a generator — "
+                         "pass gen=... or temps=None for greedy")
+    b = logits.shape[0]
+    t = temps.float().clamp(min=1e-4).reshape(b, 1, 1)
+    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    gumbel = -torch.log(-torch.log(u.clamp(min=1e-20)))
+    sampled = torch.argmax(logits.float() / t + gumbel, dim=-1)
+    use = (temps > 0).reshape(b, 1)
+    return torch.where(use, sampled.to(torch.int32), greedy)
+
+
+def make_serve_step(cfg: ModelConfig) -> Callable[..., Tuple]:
+    """Returns ``serve_step(params, tokens, cache, start=None, temps=None,
+    gen=None) -> (next_tokens, cache)``; tokens: (B,1) int."""
+    model = Model(cfg)
+
+    def serve_step(params, tokens, cache: DecodeCache, start=None,
+                   temps=None, gen=None):
+        logits, new_cache = model.decode_step(params, tokens, cache,
+                                              start=start)
+        return select_tokens(logits, temps, gen), new_cache
+
+    return serve_step
+
+
+def make_prefill(cfg: ModelConfig) -> Callable[..., Tuple]:
+    """Returns ``prefill(params, batch, cache, start=None, temps=None,
+    gen=None) -> (next_tokens, cache)`` sampling the first new token."""
+    model = Model(cfg)
+
+    def prefill(params, batch, cache: DecodeCache, start=None, temps=None,
+                gen=None):
+        logits, _, new_cache = model.forward(params, batch, cache=cache,
+                                             start=start)
+        return select_tokens(logits[:, -1:], temps, gen), new_cache
+
+    return prefill
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Request:
+    prompt: np.ndarray                    # (S,) token ids
+    max_new_tokens: int = 32
+    temperature: Optional[float] = None   # None -> engine default; 0 = greedy
+    stop_token: Optional[int] = None      # finish early when sampled
+    generated: Optional[np.ndarray] = None
+
+
+@dataclasses.dataclass
+class _Slot:
+    req: Optional[Request] = None
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    done: bool = True
+
+    def activate(self, req: Request):
+        self.req, self.tokens, self.done = req, [], False
+
+    def finish(self):
+        self.done = True
+        if self.req is not None:
+            self.req.generated = np.asarray(self.tokens, np.int32)
+
+
+# admission prompts pad to multiples of this — kept from the reference so
+# an admitted request is prefilled at the same padded width as there
+_ADMIT_ALIGN = 8
+
+
+class ServeEngine:
+    """Continuous-batching serving loop on one device (see module doc).
+
+    ``device`` — ``None`` means CUDA (raises when it is absent); the CPU
+    runs only when asked for with ``device="cpu"``. ``params`` must already
+    live on that device. ``cache_bytes_resident`` is the largest resident
+    decode-cache footprint of the last ``generate()``; ``decode_steps`` the
+    number of batched decode steps it ran.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, *, batch_size: int,
+                 max_len: int, device=None, mesh=None,
+                 cache_dtype=torch.float32, comm_plan=None,
+                 num_vcis: Optional[int] = None, temperature: float = 0.0,
+                 seed: int = 0, paged: bool = False, page_size: int = 16,
+                 num_pages: Optional[int] = None):
+        if mesh is not None or comm_plan is not None or num_vcis is not None:
+            raise NotImplementedError(
+                "the tensor-parallel serve path on VCI streams (mesh / "
+                "comm_plan / num_vcis) is not ported yet; see ROADMAP.md "
+                "Queue 1 item 10")
+        check_supported(cfg)
+        self.device = resolve_device(device)
+        emb = params["embed"]["tok"]
+        if emb.device.type != self.device.type:
+            raise ValueError(f"params live on {emb.device}, engine runs on "
+                             f"{self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.batch_size = batch_size
+        self.max_len = max_len
+        self.temperature = temperature
+        self._prefill = make_prefill(cfg)
+        self._step = make_serve_step(cfg)
+        self._cache_dtype = cache_dtype
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+        ring = cfg.sliding_window is not None and cfg.sliding_window < max_len
+        if ring:
+            raise NotImplementedError(
+                "sliding-window archs decode through the ring cache and the "
+                "grouped equal-length fallback, which are not ported yet "
+                "(ROADMAP.md Queue 1)")
+        self._paged = bool(paged)
+        self._page_size = int(page_size)
+        self._max_pages = -(-max_len // self._page_size)
+        self._num_pages = (1 + batch_size * self._max_pages
+                           if num_pages is None else int(num_pages))
+        if self._paged and self._num_pages < 2:
+            raise ValueError(f"num_pages must be >= 2 (page 0 is the trash "
+                             f"page), got {self._num_pages}")
+        self._pages = None        # PageState (host), paged mode
+        self.cache_bytes_resident = 0
+        self.decode_steps = 0
+
+    # -- small helpers ---------------------------------------------------
+    def _temp_of(self, r: Request) -> float:
+        return self.temperature if r.temperature is None else r.temperature
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a).to(self.device)
+
+    def _validate(self, requests: List[Request]) -> None:
+        for i, r in enumerate(requests):
+            plen = int(r.prompt.shape[-1])
+            if r.prompt.ndim != 1:
+                raise ValueError(f"request {i}: prompt must be 1-D token ids")
+            if plen < 1:
+                raise ValueError(f"request {i}: empty prompt")
+            if r.max_new_tokens < 1:
+                raise ValueError(f"request {i}: max_new_tokens < 1")
+            if plen + r.max_new_tokens > self.max_len:
+                raise ValueError(
+                    f"request {i}: prompt_len {plen} + max_new_tokens "
+                    f"{r.max_new_tokens} exceeds the cache depth "
+                    f"(max_len={self.max_len}); decode would write past the "
+                    f"cache — shorten the request or raise max_len")
+            if self._paged:
+                need = pages_for_span(0, plen + r.max_new_tokens,
+                                      self._page_size)
+                if need > self._num_pages - 1:
+                    raise ValueError(
+                        f"request {i}: needs {need} pages alone but the "
+                        f"pool holds {self._num_pages - 1} allocatable "
+                        f"pages (num_pages={self._num_pages}, page_size="
+                        f"{self._page_size}) — grow the pool")
+
+    def _note_cache(self, cache: DecodeCache) -> None:
+        self.cache_bytes_resident = max(self.cache_bytes_resident,
+                                        cache.nbytes())
+
+    # -- public API ------------------------------------------------------
+    def generate(self, requests: List[Request]) -> List[Request]:
+        self._validate(requests)
+        self.cache_bytes_resident = 0
+        self.decode_steps = 0
+        with torch.inference_mode():
+            pending = list(requests)
+            while pending:
+                batch = self._take_batch(pending)
+                self._run_continuous(batch, pending)
+        return requests
+
+    # -- batch formation -------------------------------------------------
+    def _take_batch(self, pending: List[Request]) -> List[Request]:
+        """Pop up to ``batch_size`` requests whose LEFT-PADDED runway fits:
+        with pad width P = max(prompt lens), every member still needs
+        ``P + max_new <= max_len``. Paged: additionally, the members'
+        worst-case page spans must fit the pool together."""
+        batch: List[Request] = []
+        pad = 0
+        i = 0
+        while i < len(pending) and len(batch) < self.batch_size:
+            r = pending[i]
+            p_new = max(pad, int(r.prompt.shape[-1]))
+            members = batch + [r]
+            fits = all(p_new + q.max_new_tokens <= self.max_len
+                       for q in members)
+            if fits and self._paged:
+                fits = sum(
+                    pages_for_span(p_new - int(q.prompt.shape[-1]),
+                                   p_new + q.max_new_tokens,
+                                   self._page_size)
+                    for q in members) <= self._num_pages - 1
+            if fits:
+                batch.append(pending.pop(i))
+                pad = p_new
+            else:
+                i += 1
+        assert batch, "a validated request always fits alone"
+        return batch
+
+    # -- continuous (left-padded) path ------------------------------------
+    def _run_continuous(self, batch: List[Request],
+                        pending: List[Request]) -> None:
+        cfg = self.cfg
+        B = self.batch_size
+        PS = self._page_size
+        slots = [_Slot() for _ in range(B)]
+        for s, r in zip(slots, batch):
+            s.activate(r)
+        # empty slots replay batch[0]'s prompt, as the reference does
+        plens = [int(s.req.prompt.shape[-1]) if s.req is not None
+                 else int(batch[0].prompt.shape[-1]) for s in slots]
+        pad = max(plens)
+        tokens = np.zeros((B, pad), np.int32)
+        for i, s in enumerate(slots):
+            tokens[i, pad - plens[i]:] = (s.req or batch[0]).prompt
+        start = np.asarray([pad - p for p in plens], np.int32)
+        temps = np.asarray([self._temp_of(s.req) if s.req else 0.0
+                            for s in slots], np.float32)
+        reserved: Dict[int, int] = {}  # slot -> worst-case page span
+        if self._paged:
+            cache = init_paged_cache(cfg, B, self.max_len, page_size=PS,
+                                     num_pages=self._num_pages,
+                                     dtype=self._cache_dtype,
+                                     device=self.device)
+            self._pages = page_state_init(self._num_pages, B,
+                                          self._max_pages)
+            for i, s in enumerate(slots):
+                if s.req is None:
+                    continue  # empty slot: writes land in the trash page
+                self._palloc(cache, i, int(start[i]) // PS, (pad - 1) // PS)
+                reserved[i] = pages_for_span(
+                    int(start[i]), pad + s.req.max_new_tokens, PS)
+        else:
+            cache = init_cache(cfg, B, self.max_len, dtype=self._cache_dtype,
+                               device=self.device)
+        self._note_cache(cache)
+        nxt, cache = self._prefill(self.params, {"tokens": self._dev(tokens)},
+                                   cache, self._dev(start), self._dev(temps),
+                                   self._gen)
+        cur = pad
+
+        def record(s: _Slot, t: int) -> None:
+            if s.req.stop_token is not None and t == s.req.stop_token:
+                s.finish()
+                return
+            s.tokens.append(t)
+            if len(s.tokens) >= s.req.max_new_tokens:
+                s.finish()
+
+        def reclaim(i: int, s: _Slot) -> None:
+            """The instant a slot finishes its pages go back to the pool
+            (its decode writes re-route to the trash page through the
+            cleared table row)."""
+            if not (self._paged and s.done and i in reserved):
+                return
+            free_slot_pages(self._pages, i)
+            reserved.pop(i, None)
+            self._sync_table(cache)
+
+        while True:
+            toks = nxt.cpu().numpy().copy()  # admission may overwrite a row
+            admitted = False
+            for i, s in enumerate(slots):
+                if not s.done and s.req is not None:
+                    record(s, int(toks[i, 0]))
+                    reclaim(i, s)
+            # early slot recycling: prefill the next request into a finished
+            # slot just below the shared cursor (start masks older rows)
+            if pending:
+                for i, s in enumerate(slots):
+                    if not s.done or not pending:
+                        continue
+                    j = self._admittable(pending, cur, reserved)
+                    if j is None:
+                        continue
+                    r = pending.pop(j)
+                    plen = int(r.prompt.shape[-1])
+                    if self._paged:
+                        self._palloc(cache, i, (cur - plen) // PS,
+                                     (cur - 1) // PS)
+                        reserved[i] = pages_for_span(
+                            cur - plen, cur + r.max_new_tokens, PS)
+                    tok0 = self._admit(r, cache, i, cur)
+                    s.activate(r)
+                    start[i] = cur - plen
+                    temps[i] = self._temp_of(r)
+                    toks[i, 0] = tok0
+                    record(s, tok0)  # the admission prefill's first token
+                    reclaim(i, s)
+                    admitted = True
+            if all(s.done or s.req is None for s in slots):
+                break
+            if admitted:
+                nxt = self._dev(toks)
+            if cur >= self.max_len:  # defensive: budgets guarantee this
+                for s in slots:      # never trips (validated runways)
+                    if not s.done:
+                        s.finish()
+                break
+            if self._paged and cur % PS == 0:
+                # the shared cursor crosses into a fresh logical page: every
+                # live slot gets one (reservation makes this infallible)
+                act = [i for i, s in enumerate(slots) if not s.done]
+                if act:
+                    _, ok = alloc_step_pages(self._pages, act, cur // PS)
+                    if not ok:  # reservations make this unreachable
+                        raise RuntimeError(
+                            "page pool exhausted at the decode boundary — "
+                            "reservation accounting broken")
+                    self._sync_table(cache)
+            nxt, cache = self._step(self.params, nxt, cache, self._dev(start),
+                                    self._dev(temps), self._gen)
+            self.decode_steps += 1
+            cur += 1
+
+    def _admittable(self, pending: List[Request], cur: int,
+                    reserved: Dict[int, int]) -> Optional[int]:
+        """Index of the first pending request that fits at cursor ``cur``:
+        its prompt must fit below the cursor and its token budget inside the
+        remaining cache depth — and, paged, its worst-case page span must
+        fit next to the live slots' reservations."""
+        for j, r in enumerate(pending):
+            plen = int(r.prompt.shape[-1])
+            if plen > cur or cur + r.max_new_tokens > self.max_len:
+                continue
+            if self._paged:
+                need = pages_for_span(cur - plen, cur + r.max_new_tokens,
+                                      self._page_size)
+                if sum(reserved.values()) + need > self._num_pages - 1:
+                    continue
+            return j
+        return None
+
+    # -- page-pool bookkeeping (paged mode) --------------------------------
+    def _sync_table(self, cache: DecodeCache) -> None:
+        """Copy the host allocator's table into the device cache."""
+        cache.kv.table.copy_(self._pages.table)
+
+    def _palloc(self, cache: DecodeCache, slot: int, lo_page: int,
+                hi_page: int) -> None:
+        """Map fresh pool pages at ``slot``'s logical pages [lo, hi]."""
+        _, ok = alloc_slot_pages(self._pages, slot,
+                                 range(lo_page, hi_page + 1))
+        if not ok:  # reservations make this unreachable
+            raise RuntimeError("page pool exhausted at prefill/admission — "
+                               "reservation accounting broken")
+        self._sync_table(cache)
+
+    def _admit(self, r: Request, cache: DecodeCache, slot: int,
+               cur: int) -> int:
+        """Prefill ``r`` alone and splice its K/V into ``slot``'s cache at
+        virtual positions ``[cur - p_adm, cur)``, in place; returns the
+        first token. Contiguous: a slice assignment into the slot's row.
+        Paged: a page-table splice into the slot's freshly allocated
+        pages."""
+        cfg = self.cfg
+        plen = int(r.prompt.shape[-1])
+        p_adm = min(-(-plen // _ADMIT_ALIGN) * _ADMIT_ALIGN, cur)
+        tokens = np.zeros((1, p_adm), np.int32)
+        tokens[0, p_adm - plen:] = r.prompt
+        dest = cur - p_adm
+        tmp = init_cache(cfg, 1, p_adm, dtype=self._cache_dtype,
+                         device=self.device)
+        nxt, tmp = self._prefill(
+            self.params, {"tokens": self._dev(tokens)}, tmp,
+            self._dev(np.asarray([p_adm - plen], np.int32)),
+            self._dev(np.asarray([self._temp_of(r)], np.float32)), self._gen)
+        if self._paged:
+            paged_splice(cache.kv, slot, dest, tmp.kv.k[:, 0], tmp.kv.v[:, 0])
+        else:
+            cache.kv.k[:, slot, dest:cur] = tmp.kv.k[:, 0]
+            cache.kv.v[:, slot, dest:cur] = tmp.kv.v[:, 0]
+        return int(nxt[0, 0])

@@ -59,3 +59,7 @@ def pytest_configure(config):
         "(tests/_multidev_checks.py via the multidev fixture); part of the "
         "default tier-1 run — select with -m multidev, skip with "
         "-m 'not multidev'")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (a hand-written kernel of repro_torch has no "
+        "CPU mode); skips without one — run on the GPU with -m cuda")
