@@ -18,7 +18,27 @@ Phases, each a check that exits non-zero when it fails:
    after: every decode step must launch the gather 2 x 16 times. Then the
    same requests on the contiguous cache must give the same tokens;
 5. reference: olmo-1b-smoke in float32 (TF32 off), paged prefill + decode
-   on the card against the same code on the CPU, logits within 1e-4.
+   on the card against the same code on the CPU, logits within 1e-4;
+6. bucket kernels: the tile-gather pack/unpack kernel against its plain
+   version, bit for bit, on the tables of the full-width olmo-1b plan
+   (``get_comm_plan(params, num_streams=8, pack="pallas")``): every
+   bucket's pack and the step's unpack in f32, the largest bucket's pack
+   in bf16; device times of the largest pack and of the unpack beside the
+   plain version, one ``index_select`` and the HBM bound;
+7. train: full-width olmo-1b (16 layers, bf16 params from a seed,
+   ``remat="block"``) through ``make_train_step(comm="vci",
+   pack="pallas", num_streams=8, num_vcis=8, progress="hybrid")`` on a
+   one-rank NCCL group, batch 8 x seq 1024: a warm-up step, then 5 timed
+   steps with the launch counts zeroed just before and read just after
+   (pack once a bucket a step, unpack once a step), finite loss and grad
+   norm; ``reduce_gradients`` with ``pack="pallas"`` equal bit for bit to
+   ``pack="xla"`` on one real gradient tree; a profile of 2 steps;
+8. reference training: olmo-1b-smoke in float32 (TF32 off), 3 steps of the
+   same train step on the card and on the CPU from the same params and
+   batches: loss and grad norm within rtol 1e-5, params within rtol 2e-5 /
+   atol 1e-4 with at most 1 element in 10^4 outside atol 1e-6 (AdamW turns
+   summation-order noise in a near-zero gradient into an update of up to
+   ``lr``; ``tests/test_torch_train.py`` states the same tolerance).
 
 It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Without CUDA, or without the package beside it, it fails and prints no
@@ -28,7 +48,9 @@ result.
 from __future__ import annotations
 
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -41,6 +63,10 @@ SERVE_ARCH = "olmo-1b"
 BATCH, MAX_LEN, PAGE_SIZE = 4, 256, 16
 N_REQUESTS, PROMPT_LO, PROMPT_HI, MAX_NEW = 8, 16, 64, 32
 COLD_POOLS = 16                  # 16 pools of 8.5 (f32) / 4.3 MB > 50 MB L2
+TRAIN_ARCH = "olmo-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
+TRAIN_KNOBS = dict(comm="vci", pack="pallas", num_streams=8, num_vcis=8,
+                   progress="hybrid")
 
 
 def fail(msg: str) -> None:
@@ -365,6 +391,289 @@ def phase_reference() -> None:
           flush=True)
 
 
+def _bits(t):
+    import torch
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def init_data_group() -> str:
+    """A one-rank data group for the train step: NCCL for CUDA tensors and
+    gloo for CPU tensors (the reference phase trains on both), joined
+    through a FileStore in a temporary directory. Returns the directory."""
+    import tempfile
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    return tmp
+
+
+def phase_bucket_kernels(params) -> dict:
+    """bucket_pack/bucket_unpack vs the plain version on the tables of the
+    full-width plan of ``params`` (random f32 arena of the plan's size)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import get_comm_plan
+    from repro_torch.kernels.bucket_pack import (bucket_pack,
+                                                 bucket_pack_plain,
+                                                 bucket_unpack,
+                                                 bucket_unpack_plain)
+
+    dev = torch.device("cuda")
+    cp = get_comm_plan(params, num_streams=8, pack="pallas")
+    plan = cp.plan
+    tile, _, arena_size, _, _ = cp.tables
+    pack_tables, (ublk, uval) = cp.device_tables(dev)
+    bases = np.cumsum([0] + [b.padded_size for b in plan.buckets]).tolist()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    arena = torch.randn(arena_size, generator=gen, device=dev)
+    staged = torch.empty(plan.total_padded, device=dev)
+    err = {"bucket_pack": 0.0, "bucket_unpack": 0.0}
+
+    def held(name, got, want, what):
+        torch.cuda.synchronize()
+        check(torch.equal(_bits(got), _bits(want)),
+              f"{name} kernel != plain version ({what})")
+        err[name] = max(err[name],
+                        (got.float() - want.float()).abs().max().item())
+
+    for bid, (b, (blk, val)) in enumerate(zip(plan.buckets, pack_tables)):
+        got = bucket_pack(arena, blk, val, b.padded_size,
+                          out=staged[bases[bid]:bases[bid + 1]])
+        held("bucket_pack", got, bucket_pack_plain(arena, blk, val,
+                                                    b.padded_size),
+             f"bucket {bid}, f32")
+    held("bucket_unpack", bucket_unpack(staged, ublk, uval, arena_size),
+         bucket_unpack_plain(staged, ublk, uval, arena_size), "f32")
+    big = max(range(plan.num_buckets),
+              key=lambda i: plan.buckets[i].padded_size)
+    size = plan.buckets[big].padded_size
+    blk, val = pack_tables[big]
+    a16 = arena.to(torch.bfloat16)
+    held("bucket_pack", bucket_pack(a16, blk, val, size),
+         bucket_pack_plain(a16, blk, val, size), f"bucket {big}, bf16")
+    del a16
+    print(f"kernel bucket_pack/bucket_unpack: {plan.num_buckets} buckets, "
+          f"{plan.total_padded // tile} packed tiles, arena {arena_size} "
+          f"f32 ({arena_size // tile} tiles): every pack and the unpack "
+          f"bitwise equal to plain in f32, bucket {big} also in bf16",
+          flush=True)
+
+    res = {}
+    for name, src, (blk, val), n_out in (
+            ("bucket_pack", arena, pack_tables[big], size),
+            ("bucket_unpack", staged, (ublk, uval), arena_size)):
+        fn = bucket_pack if name == "bucket_pack" else bucket_unpack
+        out = torch.empty(n_out, device=dev)
+        ids = blk.long()
+        kernel_ms = time_ms(lambda i: fn(src, blk, val, n_out, out=out),
+                            n_iter=10, reps=3)
+        plain_ms = time_ms(lambda i: bucket_pack_plain(src, blk, val, n_out),
+                           n_iter=10, reps=3)
+        library_ms = time_ms(lambda i: src.view(-1, tile).index_select(
+            0, ids), n_iter=10, reps=3)
+        # valid source bytes read once + the output written once + tables
+        nbytes = int(val.sum()) * 4 + n_out * 4 + 8 * val.numel()
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        res[name] = dict(max_abs_err=err[name], ms=kernel_ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms)
+        print(f"kernel {name} f32 ({'largest bucket, ' if name == 'bucket_pack' else ''}"
+              f"{n_out} elements, {val.numel()} tiles): kernel_ms="
+              f"{kernel_ms:.5f} plain_ms={plain_ms:.5f} "
+              f"library_ms(index_select)={library_ms:.5f} "
+              f"bound_ms={bound_ms:.5f} ({nbytes} B, "
+              f"{bound_ms / kernel_ms:.3f} of the bound)", flush=True)
+        del out
+    del arena, staged
+    torch.cuda.empty_cache()
+    return res
+
+
+def _grads(cfg, params, batch):
+    """One gradient tree of ``params`` on ``batch`` (autograd, no comm)."""
+    import torch
+    from repro_torch.models.transformer import Model
+    from repro_torch.train.losses import total_loss
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    leaves, treedef = tree_flatten(params)
+    leaves = [p.detach().requires_grad_() for p in leaves]
+    b = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    logits, aux, _ = Model(cfg).forward(tree_unflatten(treedef, leaves), b)
+    loss, _ = total_loss(cfg, logits, b["labels"], aux)
+    return tree_unflatten(treedef, list(torch.autograd.grad(loss, leaves)))
+
+
+def phase_train() -> dict:
+    """Full-width olmo-1b VCI training on the card (see the docstring)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import get_comm_plan, reduce_gradients
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels.bucket_pack import bucket_pack, bucket_unpack
+    from repro_torch.train.trainer import make_train_step, train_state_init
+    from repro_torch.tree import tree_flatten
+
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.remat == "block", f"{cfg.name} remat={cfg.remat}")
+    t0 = time.time()
+    state = train_state_init(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"train: {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
+          f"params={cfg.param_count() / 1e9:.3f}B {cfg.param_dtype}, "
+          f"moments {cfg.optimizer_dtype}, remat={cfg.remat}, batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_KNOBS} (init "
+          f"{time.time() - t0:.1f}s)", flush=True)
+    kern = phase_bucket_kernels(state.params)
+
+    torch.cuda.reset_peak_memory_stats()   # the state stays counted
+    step = make_train_step(cfg, **TRAIN_KNOBS)
+    batches = [synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=i)
+               for i in range(TRAIN_STEPS + 3)]
+    t0 = time.perf_counter()
+    state, m = step(state, batches[0])
+    torch.cuda.synchronize()
+    print(f"train: warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+          f"loss {float(m['loss']):.4f}", flush=True)
+    cp = get_comm_plan(state.params, num_streams=8, num_vcis=8,
+                       pack="pallas")
+    n_buckets = cp.plan.num_buckets
+    times, losses, norms = [], [], []
+    torch.cuda.synchronize()
+    bucket_pack.launches = bucket_unpack.launches = 0
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batches[1 + i])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    launches = (bucket_pack.launches, bucket_unpack.launches)
+    check(launches == (n_buckets * TRAIN_STEPS, TRAIN_STEPS),
+          f"{TRAIN_STEPS} steps launched pack/unpack {launches} times, want "
+          f"({n_buckets} x {TRAIN_STEPS}, {TRAIN_STEPS})")
+    check(all(map(math.isfinite, losses + norms)),
+          f"non-finite loss/gnorm {losses} {norms}")
+    ms = sum(times) / len(times)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train: {TRAIN_STEPS} steps, step ms {[round(t, 3) for t in times]}"
+          f" (mean {ms:.3f}), {TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.1f} tok/s, "
+          f"loss {[round(v, 4) for v in losses]}, gnorm "
+          f"{[round(v, 4) for v in norms]}, max_memory_allocated {peak} B; "
+          f"plan {n_buckets} buckets, {cp.plan.total_padded // 1024} packed "
+          f"tiles, arena {cp.tables[2] // 1024} tiles; launches pack "
+          f"{launches[0]} unpack {launches[1]}", flush=True)
+
+    grads = _grads(cfg, state.params, batches[0])
+    red = {}
+    for pack in ("pallas", "xla"):
+        cpk = get_comm_plan(grads, num_streams=8, num_vcis=8, pack=pack)
+        red[pack] = tree_flatten(reduce_gradients(cpk.runtime(), grads, cpk,
+                                                  pack=pack))[0]
+    torch.cuda.synchronize()
+    for i, (a, b, g) in enumerate(zip(red["pallas"], red["xla"],
+                                      tree_flatten(grads)[0])):
+        check(torch.equal(_bits(a), _bits(b)),
+              f"leaf {i}: pack='pallas' reduced grads != pack='xla'")
+        check(torch.equal(_bits(a), _bits(g)),
+              f"leaf {i}: one-rank reduced grads != the grads")
+    print(f"train: reduce_gradients pack='pallas' == pack='xla' bit for bit "
+          f"on one olmo-1b gradient tree ({len(red['xla'])} leaves, both "
+          f"equal to the unreduced grads: a one-rank sum is exact)",
+          flush=True)
+    del grads, red
+    profile_train(step, state, batches[-2:])
+    del state
+    torch.cuda.empty_cache()
+    return dict(kern, launches=launches, step_ms=ms)
+
+
+def profile_train(step, state, batches) -> None:
+    """Device busy time and idle share of 2 train steps, the kernels by
+    time, and the pack+unpack share. Measures only."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            step(state, b)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    wall_ms = run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_wall_ms = run()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    if busy_ms <= 0:
+        print("profile train: the profiler recorded no device time (not "
+              "measured)", flush=True)
+        return
+    pack_ms = sum(e.self_device_time_total for e in kern
+                  if "bucket_pack_kernel" in e.key) / 1e3
+    print(f"profile train: {len(batches)} steps: wall {wall_ms:.2f} ms "
+          f"({prof_wall_ms:.2f} under the profiler), device busy "
+          f"{busy_ms:.2f} ms, device idle share {1 - busy_ms / wall_ms:.4f};"
+          f" pack+unpack {pack_ms:.3f} ms = {pack_ms / busy_ms:.4f} of "
+          f"device time; {sum(e.count for e in kern)} kernel launches",
+          flush=True)
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"profile train:   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d} x {e.self_device_time_total / max(e.count, 1):9.2f}"
+              f" us  {e.key[:90]}", flush=True)
+
+
+def phase_reference_train() -> None:
+    """olmo-1b-smoke f32: 3 steps of the same train step on the card and
+    on the CPU, from the same params and batches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.trainer import make_train_step, train_state_init
+    from repro_torch.tree import tree_flatten, tree_map
+
+    cfg = get_config("olmo-1b-smoke")
+    params = init_params(cfg, 0, device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        state = train_state_init(cfg, params=tree_map(
+            lambda t: t.clone().to(dev), params))
+        step = make_train_step(cfg, **TRAIN_KNOBS)
+        metrics = []
+        for i in range(3):
+            state, m = step(state, synthetic_batch(cfg, 4, 64, seed=i))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[dev] = (metrics, [t.cpu() for t in tree_flatten(state.params)[0]])
+    worst = 0.0
+    for (lc, gc), (la, ga) in zip(runs["cuda"][0], runs["cpu"][0]):
+        for c, a in ((lc, la), (gc, ga)):
+            check(c == c, "non-finite metric on the card")
+            worst = max(worst, abs(c - a) / abs(a))
+            check(abs(c - a) <= 1e-5 * abs(a),
+                  f"card loss/gnorm {c} vs CPU {a} (rtol 1e-5)")
+    off = total = 0
+    pworst = 0.0
+    for c, a in zip(runs["cuda"][1], runs["cpu"][1]):
+        c, a = c.numpy(), a.numpy()
+        d = np.abs(c - a)
+        pworst = max(pworst, float(d.max()))
+        check(bool((d <= 1e-4 + 2e-5 * np.abs(a)).all()),
+              f"card params differ from the CPU's by {d.max():.3e}")
+        off += int((d > 1e-6 + 2e-5 * np.abs(a)).sum())
+        total += a.size
+    check(off <= total * 1e-4, f"{off} of {total} param elements off")
+    print(f"reference train: olmo-1b-smoke f32, 3 steps card vs CPU: "
+          f"loss/gnorm max rel diff {worst:.3e} (tol 1e-5), params max abs "
+          f"diff {pworst:.3e} (tol 1e-4 + 2e-5 rel), {off} of {total} "
+          f"elements beyond 1e-6 + 2e-5 rel", flush=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -388,6 +697,14 @@ def main() -> None:
     kern = phase_kernels()
     runs = phase_serve()
     phase_reference()
+    import torch.distributed as dist
+    tmp = init_data_group()
+    try:
+        train = phase_train()
+        phase_reference_train()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
 
     f32 = kern["float32"]
     line = {"kernels": [{
@@ -402,7 +719,21 @@ def main() -> None:
         "bound_ms": f32["bound_ms"],
         "bound_by": "bytes",
         "library_ms": f32["library_ms"],
-    }]}
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bucket_pack.cu",
+        "replaces": f"src/repro/kernels/bucket_pack.py:{line}",
+        "launches": launches,
+        "max_abs_err": train[name]["max_abs_err"],
+        "ms": train[name]["ms"],
+        "plain_ms": train[name]["plain_ms"],
+        "bound_ms": train[name]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": train[name]["library_ms"],
+    } for name, line, launches in (
+        ("bucket_pack", 83, train["launches"][0]),
+        ("bucket_unpack", 110, train["launches"][1]))]}
     print(f"chip_smoke: all phases passed in {time.time() - t_all:.1f}s",
           flush=True)
     print(json.dumps(line), flush=True)

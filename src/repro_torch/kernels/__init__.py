@@ -6,7 +6,10 @@ with its Python wrapper, its plain PyTorch version and its launch count in
 ``<name>.py`` beside the reference module of the same name:
 
 * :mod:`repro_torch.kernels.paged_kv` — ``paged_gather`` (replaces
-  ``repro/kernels/paged_kv.py::paged_gather_pallas``).
+  ``repro/kernels/paged_kv.py::paged_gather_pallas``);
+* :mod:`repro_torch.kernels.bucket_pack` — ``bucket_pack`` /
+  ``bucket_unpack`` (replace ``repro/kernels/bucket_pack.py::
+  bucket_pack_pallas`` / ``bucket_unpack_pallas``).
 
 The other Pallas kernels of the reference are still to be ported; see
 ``ROADMAP.md``.

@@ -29,6 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNELS: Dict[str, tuple] = {
     "paged_gather": ("paged_gather_launch", [_P, _P, _P, _LL, _I, _LL, _P]),
+    "bucket_pack": ("bucket_pack_launch",
+                    [_P, _P, _P, _P, _LL, _LL, _LL, _I, _P]),
 }
 
 

@@ -1,0 +1,173 @@
+"""Training driver (PyTorch port).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b-smoke \
+        --steps 50 --batch 8 --seq 128 --comm vci --pack pallas
+
+The flags are those of ``repro.launch.train`` plus ``--device``: the card
+by default (raises without CUDA), ``--device cpu`` for the plain CPU path.
+``--mesh N`` starts N data-parallel ranks with ``torch.multiprocessing``
+(gloo on the CPU, NCCL on the card, one card a rank), joined through a
+``FileStore`` in a temporary directory (no network); without it the step
+runs in this process as a group of one. Rank 0 prints.
+
+``--comm vci`` is the ported mode (bucketed VCI gradient reduction). Not
+ported yet, each raising ``NotImplementedError``: ``--comm gspmd`` and
+``--ckpt-dir`` (ROADMAP.md Queue 1 item 14), ``--optimizer zero1`` /
+``--zero1-wire`` (item 7), ``--overlap`` (item 8), a 2-D or 3-D ``--mesh``
+(tensor parallelism).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import shutil
+import tempfile
+import time
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.data.pipeline import synthetic_batch
+from repro_torch.device import resolve_device
+from repro_torch.optim.schedule import cosine_schedule
+from repro_torch.train.trainer import make_train_step, train_state_init
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmo-1b-smoke",
+                    help=f"one of {ARCH_IDS} (+ -smoke / -swa<W> suffixes)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default="none",
+                    help='data-parallel ranks, e.g. "4" ("none": one rank '
+                         'in this process)')
+    ap.add_argument("--comm", choices=("gspmd", "vci"), default="gspmd")
+    ap.add_argument("--progress", choices=("global", "per_vci", "hybrid"),
+                    default="hybrid")
+    ap.add_argument("--vci-policy", default="fcfs")
+    ap.add_argument("--num-streams", type=int, default=8)
+    ap.add_argument("--pack", choices=("xla", "pallas"), default="xla",
+                    help="bucket pack impl: concatenate vs the tile-gather "
+                         "kernel over a tile-aligned arena")
+    ap.add_argument("--reduction", choices=("all_reduce", "reduce_scatter"),
+                    default="all_reduce")
+    ap.add_argument("--optimizer", choices=("replicated", "zero1"),
+                    default="replicated")
+    ap.add_argument("--zero1-wire", default=None)
+    ap.add_argument("--overlap", action="store_true")
+    ap.add_argument("--per-step-plan", action="store_true",
+                    help="rebuild the comm plan every step (default uses "
+                         "the persistent CommPlan cache)")
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default; raises without a card) or cpu")
+    return ap.parse_args(argv)
+
+
+def _world_size(mesh: str) -> int:
+    if mesh in ("none", ""):
+        return 1
+    if "x" in mesh:
+        raise NotImplementedError(
+            f"--mesh {mesh}: only a 1-D data-parallel mesh is ported; "
+            f"tensor parallelism comes with ROADMAP.md Queue 1 item 10")
+    n = int(mesh)
+    if n < 1:
+        raise ValueError(f"--mesh must be >= 1, got {n}")
+    return n
+
+
+def train(args: argparse.Namespace, device: torch.device) -> None:
+    """The training loop of one rank (the data group is initialised)."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = get_config(args.arch)
+    if rank == 0:
+        print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
+              f"devices={world} mesh={args.mesh} comm={args.comm} "
+              f"device={device.type}", flush=True)
+
+    def lr_fn(s):
+        return cosine_schedule(s, peak=args.lr, warmup_steps=args.warmup,
+                               total_steps=args.steps)
+
+    step = make_train_step(
+        cfg, lr_fn=lr_fn, comm=args.comm, accum_steps=args.accum,
+        num_streams=args.num_streams, progress=args.progress,
+        vci_policy=args.vci_policy, pack=args.pack,
+        reduction=args.reduction, persistent_plan=not args.per_step_plan,
+        optimizer=args.optimizer, zero1_wire_dtype=args.zero1_wire,
+        schedule="overlap" if args.overlap else "post")
+    state = train_state_init(cfg, args.seed, optimizer=args.optimizer,
+                             device=device)
+
+    t0 = time.time()
+    tokens_done = 0
+    for i in range(args.steps):
+        batch = synthetic_batch(cfg, args.batch, args.seq, seed=args.seed,
+                                step=i)
+        state, metrics = step(state, batch)
+        tokens_done += args.batch * args.seq
+        if rank == 0 and ((i + 1) % args.log_every == 0
+                          or i == args.steps - 1):
+            loss = float(metrics["loss"])   # waits for the step
+            dt = time.time() - t0
+            print(f"step {i+1:5d}  loss {loss:7.4f}  "
+                  f"ce {float(metrics['ce']):7.4f}  "
+                  f"gnorm {float(metrics['grad_norm']):6.3f}  "
+                  f"tok/s {tokens_done/dt:9.0f}", flush=True)
+
+
+def _rank_main(rank: int, args: argparse.Namespace, device_type: str,
+               world: int, store_path: str) -> None:
+    """One rank: join the data group, train, leave."""
+    device = torch.device(device_type)
+    if device_type == "cuda":
+        torch.cuda.set_device(rank)
+        device = torch.device("cuda", rank)
+    else:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group(
+        "nccl" if device_type == "cuda" else "gloo",
+        store=dist.FileStore(store_path, world), rank=rank, world_size=world)
+    try:
+        train(args, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    if args.ckpt_dir:
+        raise NotImplementedError(
+            "--ckpt-dir (checkpoint save/resume) is ROADMAP.md Queue 1 item "
+            "14 (not ported yet)")
+    device = resolve_device(args.device)
+    world = _world_size(args.mesh)
+    if device.type == "cuda" and world > torch.cuda.device_count():
+        raise ValueError(f"--mesh {world} needs {world} cards, "
+                         f"{torch.cuda.device_count()} visible")
+    tmp = tempfile.mkdtemp(prefix="repro_torch_train_")
+    store = os.path.join(tmp, "store")
+    try:
+        if world == 1:
+            _rank_main(0, args, device.type, 1, store)
+        else:
+            torch.multiprocessing.start_processes(
+                _rank_main, args=(args, device.type, world, store),
+                nprocs=world, start_method="spawn")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+if __name__ == "__main__":
+    main()

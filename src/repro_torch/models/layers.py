@@ -76,6 +76,30 @@ def gated_ffn(cfg: ModelConfig, x, p):
 
 
 # ---------------------------------------------------------------------------
+# gradient dtype boundary (opt "bf16_grads")
+# ---------------------------------------------------------------------------
+
+class _BF16GradBoundary(torch.autograd.Function):
+    """Identity forward; the backward rounds the cotangent through bf16
+    (the reference's ``bf16_grad_boundary`` custom_vjp). Autograd casts
+    the bf16 cotangent back to the input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16)
+
+
+def maybe_bf16_grads(cfg: ModelConfig, x):
+    if "bf16_grads" in cfg.opts:
+        return _BF16GradBoundary.apply(x)
+    return x
+
+
+# ---------------------------------------------------------------------------
 # rotary embeddings (interleaved pairs x[..., ::2] / x[..., 1::2])
 # ---------------------------------------------------------------------------
 

@@ -6,6 +6,8 @@ stacked on a leading ``L`` axis, ``(L, in, out)``, applied as ``x @ W`` —
 so :mod:`repro_torch.bridge` copies the reference's params without a
 transpose. The layer stack is a Python loop in place of ``lax.scan``, and
 decode caches are updated in place (see :mod:`repro_torch.models.attention`).
+The training forward (no cache, autograd on) recomputes each block in the
+backward when ``cfg.remat != "none"`` (``torch.utils.checkpoint``).
 
 Other families (MoE, SSM, hybrid, VLM, audio) are later slices of the port
 and raise ``NotImplementedError``; see ``ROADMAP.md``.
@@ -13,10 +15,12 @@ and raise ``NotImplementedError``; see ``ROADMAP.md``.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
@@ -40,6 +44,7 @@ from repro_torch.models.layers import (
     dense_init,
     embed_init,
     gated_ffn,
+    maybe_bf16_grads,
 )
 
 # a cursor is a host int here and an int32 scalar in the reference; cache
@@ -272,6 +277,7 @@ def _dense_block(cfg: ModelConfig, x, p, positions, kv=None, decode=False,
                  start=None):
     """Standard (or parallel) transformer block. Returns (x, new_kv)."""
     h = apply_norm(cfg, x, p.get("norm1"))
+    h = maybe_bf16_grads(cfg, h)  # opt bf16_grads: bf16 cotangents
     attn_out, new_kv = _attn_apply(cfg, h, p["attn"], positions, kv=kv,
                                    decode=decode, start=start)
     if cfg.parallel_block:
@@ -279,6 +285,7 @@ def _dense_block(cfg: ModelConfig, x, p, positions, kv=None, decode=False,
     else:
         x = x + attn_out
         h2 = apply_norm(cfg, x, p.get("norm2"))
+        h2 = maybe_bf16_grads(cfg, h2)
         x = x + gated_ffn(cfg, h2, p["ffn"])
     return x, new_kv
 
@@ -324,7 +331,17 @@ class Model:
         if start is not None:
             # per-row RoPE positions: the first real token sits at 0
             positions = torch.clamp(positions[None, :] - start[:, None], min=0)
+        # training forward: cfg.remat != "none" recomputes each block in the
+        # backward (the reference's jax.checkpoint around the scan body;
+        # "dots" recomputes the whole block here too, not only the matmuls)
+        remat = (cache is None and self.cfg.remat != "none"
+                 and torch.is_grad_enabled())
         for l in range(self.cfg.num_layers):
+            if remat:
+                x = checkpoint(functools.partial(
+                    self._train_block, params, positions, start, l), x,
+                    use_reentrant=False)
+                continue
             kv = None if cache is None else _layer_kv(cache.kv, l)
             x, _ = _dense_block(self.cfg, x, layer_params(params, l),
                                 positions, kv=kv, decode=False, start=start)
@@ -333,6 +350,11 @@ class Model:
             s = x.shape[1]
             new_cache = DecodeCache(_advanced(cache.kv, s), cache.length + s)
         return self.unembed(params, x), {}, new_cache
+
+    def _train_block(self, params, positions, start, l: int, x):
+        """Layer ``l`` without a cache (the unit that remat recomputes)."""
+        return _dense_block(self.cfg, x, layer_params(params, l), positions,
+                            start=start)[0]
 
     # -- one-token decode --------------------------------------------------
     def decode_step(self, params, tokens, cache: DecodeCache,

@@ -1,0 +1,41 @@
+"""Loss functions: masked next-token cross-entropy (port of
+``repro.train.losses`` for the families this port runs: no MoE aux terms,
+but the same fixed metric keys)."""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.data.pipeline import PAD_LABEL
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked CE in float32. logits: (..., S, V); labels: (..., S) with
+    ``PAD_LABEL`` masked. Returns (sum_loss, num_tokens)."""
+    mask = labels != PAD_LABEL
+    safe = torch.where(mask, labels, 0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    loss = -torch.where(mask, ll, 0.0)
+    return loss.sum(), mask.sum()
+
+
+def total_loss(cfg: ModelConfig, logits, labels, aux: Dict[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean CE over the unmasked tokens, plus the reference's fixed metric
+    structure (``load_balance``/``router_z`` are zero for dense archs)."""
+    if cfg.moe is not None:
+        raise NotImplementedError("MoE aux losses come with the MoE slice "
+                                  "(ROADMAP.md Queue 1 item 9)")
+    ce_sum, n = cross_entropy(logits, labels)
+    ce = ce_sum / torch.clamp(n, min=1)
+    zero = torch.zeros((), device=ce.device)
+    lb = aux.get("load_balance", zero) / max(1, cfg.num_layers)
+    rz = aux.get("router_z", zero) / max(1, cfg.num_layers)
+    metrics = {"ce": ce, "tokens": n.float(), "load_balance": lb,
+               "router_z": rz, "loss": ce}
+    return ce, metrics

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import paged_kv
+from repro_torch.kernels import bucket_pack, paged_kv
 from repro_torch.models.transformer import init_params
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -84,3 +84,60 @@ def test_engine_paged_equals_contiguous_on_card(cuda_device):
         assert paged_kv.paged_gather.launches == want
         toks[paged] = [r.generated.tolist() for r in reqs]
     assert toks[True] == toks[False]
+
+
+def _tables(rng, n_tiles, src_tiles, tile):
+    """Random tables: some tiles unused (valid 0), some partial, some full;
+    each used tile reads a distinct source tile."""
+    block = rng.permutation(src_tiles)[:n_tiles].astype(np.int32)
+    valid = rng.integers(0, tile + 1, n_tiles).astype(np.int32)
+    valid[::5] = tile
+    valid[1::7] = 0
+    valid[2::11] = 1
+    return block, valid
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_tiles,src_tiles", [(1, 1), (7, 9), (300, 301)])
+def test_bucket_pack_kernel_matches_plain(cuda_device, dtype, n_tiles,
+                                          src_tiles):
+    """pack and unpack bit for bit against the plain version, into a fresh
+    buffer and into a slice of a larger one; one launch counted each."""
+    tile = bucket_pack.TILE
+    rng = np.random.default_rng(n_tiles)
+    blk, val = _tables(rng, n_tiles, src_tiles, tile)
+    blk, val = (torch.from_numpy(a).to(cuda_device) for a in (blk, val))
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    src = torch.randn(src_tiles * tile, generator=gen,
+                      device=cuda_device).to(dtype)
+    want = bucket_pack.bucket_pack_plain(src, blk, val, n_tiles * tile)
+    for fn, name in ((bucket_pack.bucket_pack, "pack"),
+                     (bucket_pack.bucket_unpack, "unpack")):
+        n0 = fn.launches
+        got = fn(src, blk, val, n_tiles * tile)
+        big = torch.full((n_tiles * tile + 2 * tile,), 7.0, dtype=dtype,
+                         device=cuda_device)
+        fn(src, blk, val, n_tiles * tile, out=big[tile:-tile])
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 2, name
+        assert torch.equal(_bits(got), _bits(want)), name
+        assert torch.equal(_bits(big[tile:-tile]), _bits(want)), name
+        assert bool((big[:tile] == 7).all() and (big[-tile:] == 7).all())
+
+
+def test_bucket_pack_rejects_what_it_cannot_take(cuda_device):
+    tile = bucket_pack.TILE
+    src = torch.zeros(2 * tile, device=cuda_device)
+    t = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError, match="int32"):
+        bucket_pack.bucket_pack(src, t.long(), t, 2 * tile)
+    with pytest.raises(TypeError, match="takes"):
+        bucket_pack.bucket_pack(src.half(), t, t, 2 * tile)
+    with pytest.raises(ValueError, match="must be on"):
+        bucket_pack.bucket_pack(src, t.cpu(), t, 2 * tile)
+    with pytest.raises(ValueError, match="entries"):
+        bucket_pack.bucket_pack(src, t[:1], t, 2 * tile)
+    with pytest.raises(ValueError, match="contiguous"):
+        bucket_pack.bucket_pack(src, t, t, 2 * tile,
+                                out=torch.zeros((2 * tile, 2),
+                                                device=cuda_device)[:, 0])

@@ -44,5 +44,9 @@ def test_no_jax_or_reference_imports(path):
 def test_port_package_is_scanned():
     rel = {os.path.relpath(p, PORT) for p in _port_files()}
     for must in ("kernels/paged_kv.py", "serve/engine.py",
-                 "models/transformer.py", "launch/serve.py", "bridge.py"):
+                 "models/transformer.py", "launch/serve.py", "bridge.py",
+                 "kernels/bucket_pack.py", "core/bucketing.py",
+                 "core/collectives.py", "core/progress.py", "core/vci.py",
+                 "core/comm.py", "train/trainer.py", "launch/train.py",
+                 "optim/adamw.py", "tree.py"):
         assert must in rel

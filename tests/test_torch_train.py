@@ -1,0 +1,246 @@
+"""The port's VCI train step against the JAX reference.
+
+Same params (the reference's ``init_params`` through
+``repro_torch.bridge``), same numpy batches (``synthetic_batch``), float32
+smoke configs on the CPU.
+
+Tolerances. Loss and grad norm: rtol 1e-5, as the reference's own
+conformance checks (``tests/_multidev_checks.py``). Params: the reference
+checks hold two XLA programs to rtol 2e-5 / atol 1e-6; here two frameworks
+sum the gradients in different orders, and AdamW divides each moment by
+its own square root, so an element whose gradient is at the level of that
+summation noise (≈1e-7 of the gradient norm) takes an update anywhere in
+``±lr`` (lr = 3e-4). Every element must lie within rtol 2e-5 / atol 1e-4
+(a third of one step's lr), and at most one element in 10^4 may lie
+outside the reference's rtol 2e-5 / atol 1e-6.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+from jax.sharding import Mesh
+
+from repro.compat import set_mesh
+from repro.configs import get_config as jax_get_config
+from repro.data.pipeline import synthetic_batch as jax_synthetic_batch
+from repro.optim import schedule as jax_schedule
+from repro.train.trainer import make_train_step as jax_make_train_step
+from repro.train.trainer import train_state_init as jax_train_state_init
+from repro_torch.bridge import params_from_numpy
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import synthetic_batch
+from repro_torch.launch import train as train_cli
+from repro_torch.models.layers import maybe_bf16_grads
+from repro_torch.models.transformer import Model
+from repro_torch.optim import schedule
+from repro_torch.train.losses import total_loss
+from repro_torch.train.trainer import make_train_step, train_state_init
+from repro_torch.tree import tree_flatten, tree_unflatten
+
+from test_torch_ranks import run_ranks
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+METRIC_RTOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def one_rank(tmp_path_factory):
+    """A one-rank gloo data group in this process."""
+    store = tmp_path_factory.mktemp("store") / "store"
+    dist.init_process_group("gloo", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+def _assert_params_close(got_leaves, want_leaves, what):
+    off = total = 0
+    for g, w in zip(got_leaves, want_leaves):
+        g, w = np.asarray(g, np.float32), np.asarray(w, np.float32)
+        np.testing.assert_allclose(g, w, rtol=2e-5, atol=1e-4, err_msg=what)
+        off += int((np.abs(g - w) > 1e-6 + 2e-5 * np.abs(w)).sum())
+        total += w.size
+    assert off <= total * 1e-4, f"{what}: {off} of {total} elements off"
+
+
+def test_synthetic_batch_equals_reference():
+    for arch in ("olmo-1b-smoke", "gemma-2b-smoke"):
+        for seed, step in ((0, 0), (3, 5)):
+            got = synthetic_batch(get_config(arch), 4, 16, seed=seed,
+                                  step=step)
+            want = jax_synthetic_batch(jax_get_config(arch), 4, 16,
+                                       seed=seed, step=step)
+            for k in ("tokens", "labels"):
+                np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_lr_schedules_equal_reference():
+    for step in (0, 3, 19, 20, 21, 57, 99, 150):
+        kw = dict(peak=3e-4, warmup_steps=20)
+        np.testing.assert_allclose(
+            float(schedule.linear_warmup(step, **kw)),
+            float(jax_schedule.linear_warmup(step, **kw)), rtol=1e-6)
+        np.testing.assert_allclose(
+            float(schedule.cosine_schedule(step, total_steps=100, **kw)),
+            float(jax_schedule.cosine_schedule(step, total_steps=100, **kw)),
+            rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b-smoke", "gemma-2b-smoke"])
+def test_vci_step_matches_reference_vci_step(one_rank, arch):
+    """3 steps of the port's pack="pallas" VCI step on a one-rank group
+    against the reference's on a one-device mesh."""
+    jcfg, cfg = jax_get_config(arch), get_config(arch)
+    knobs = dict(comm="vci", pack="pallas", num_streams=4, num_vcis=4)
+    mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
+    jstate = jax_train_state_init(jcfg, jax.random.PRNGKey(0))
+    jstep = jax.jit(jax_make_train_step(jcfg, mesh=mesh, token_impl="data",
+                                        **knobs))
+    state = train_state_init(cfg, params=params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jstate.params), "cpu"))
+    step = make_train_step(cfg, **knobs)
+    with set_mesh(mesh):
+        for i in range(3):
+            batch = jax_synthetic_batch(jcfg, 4, 32, seed=i)
+            jstate, jm = jstep(jstate, batch)
+            state, m = step(state, batch)
+            for k in ("loss", "ce", "grad_norm", "tokens", "lr"):
+                np.testing.assert_allclose(float(m[k]), float(jm[k]),
+                                           rtol=METRIC_RTOL,
+                                           err_msg=f"{arch} step {i} {k}")
+    assert int(state.step) == 3 and int(state.opt.count) == 3
+    _assert_params_close(tree_flatten(state.params)[0],
+                         jax.tree_util.tree_leaves(jstate.params), arch)
+
+
+def test_microbatch_accumulation_matches_reference(one_rank):
+    """accum_steps=2: the port's Python loop over microbatches against the
+    reference's lax.scan, one step, pack="xla", reduce_scatter."""
+    arch = "olmo-1b-smoke"
+    jcfg, cfg = jax_get_config(arch), get_config(arch)
+    knobs = dict(comm="vci", accum_steps=2, reduction="reduce_scatter",
+                 num_streams=3, num_vcis=4)
+    mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
+    jstate = jax_train_state_init(jcfg, jax.random.PRNGKey(1))
+    state = train_state_init(cfg, params=params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jstate.params), "cpu"))
+    batch = jax_synthetic_batch(jcfg, 4, 32, seed=5)
+    with set_mesh(mesh):
+        jstate, jm = jax.jit(jax_make_train_step(
+            jcfg, mesh=mesh, token_impl="data", **knobs))(jstate, batch)
+    state, m = make_train_step(cfg, **knobs)(state, batch)
+    for k in ("loss", "grad_norm", "tokens"):
+        np.testing.assert_allclose(float(m[k]), float(jm[k]),
+                                   rtol=METRIC_RTOL, err_msg=k)
+    _assert_params_close(tree_flatten(state.params)[0],
+                         jax.tree_util.tree_leaves(jstate.params), "accum")
+
+
+def test_4_ranks_match_reference_gspmd_step(tmp_path):
+    """One step over 4 spawned gloo ranks (each on its quarter of the
+    batch), per progress mode, against the reference's single-device
+    comm="gspmd" step on the whole batch (the analogue of
+    check_vci_train_step_matches_gspmd)."""
+    arch, n = "olmo-1b-smoke", 4
+    jcfg = jax_get_config(arch)
+    batch = jax_synthetic_batch(jcfg, 2 * n, 32, seed=1)
+    state = jax_train_state_init(jcfg, jax.random.PRNGKey(0))
+    leaves = [np.asarray(l) for l in jax.tree_util.tree_leaves(state.params)]
+    np.savez(tmp_path / "in.npz", arch=arch, n_leaves=len(leaves),
+             tokens=batch["tokens"], labels=batch["labels"],
+             **{f"p{i}": l for i, l in enumerate(leaves)})
+    ref_state, ref_m = jax.jit(jax_make_train_step(jcfg, comm="gspmd"))(
+        state, batch)
+    r = run_ranks("train", tmp_path, n=n)
+    assert r.returncode == 0, r.stdout + r.stderr
+    want = jax.tree_util.tree_leaves(ref_state.params)
+    for progress in ("hybrid", "per_vci", "global"):
+        out = np.load(tmp_path / f"out_{progress}.npz")
+        np.testing.assert_allclose(float(out["loss"]), float(ref_m["loss"]),
+                                   rtol=METRIC_RTOL, err_msg=progress)
+        np.testing.assert_allclose(float(out["grad_norm"]),
+                                   float(ref_m["grad_norm"]),
+                                   rtol=METRIC_RTOL, err_msg=progress)
+        _assert_params_close([out[f"p{i}"] for i in range(len(want))], want,
+                             progress)
+
+
+def _grads(cfg, params, batch):
+    leaves, treedef = tree_flatten(params)
+    leaves = [l.detach().requires_grad_() for l in leaves]
+    logits, aux, _ = Model(cfg).forward(tree_unflatten(treedef, leaves),
+                                        batch)
+    loss, _ = total_loss(cfg, logits, batch["labels"], aux)
+    return loss, torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b-smoke", "gemma-2b-smoke"])
+def test_remat_gives_the_same_grads(arch):
+    """remat="block" (each block recomputed in the backward) changes no
+    number: the recomputation is the same float32 program."""
+    cfg = get_config(arch)
+    state = train_state_init(cfg, 0, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in
+             synthetic_batch(cfg, 2, 16, seed=0).items()}
+    loss0, g0 = _grads(cfg, state.params, batch)
+    loss1, g1 = _grads(dataclasses.replace(cfg, remat="block"),
+                       state.params, batch)
+    assert torch.equal(loss0, loss1)
+    for a, b in zip(g0, g1):
+        assert torch.equal(a, b)
+
+
+def test_bf16_grad_boundary_rounds_the_cotangent():
+    cfg = get_config("olmo-1b-smoke")
+    x = torch.linspace(-1, 1, 7, requires_grad=True)
+    g = torch.tensor([1 + 2 ** -10] * 7)
+    (maybe_bf16_grads(cfg, x) * g).sum().backward()
+    assert torch.equal(x.grad, g)
+    x.grad = None
+    (maybe_bf16_grads(cfg.with_opts("bf16_grads"), x) * g).sum().backward()
+    assert x.grad.dtype == torch.float32
+    assert torch.equal(x.grad, g.to(torch.bfloat16).float())
+
+
+def test_later_slices_raise():
+    cfg = get_config("olmo-1b-smoke")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        make_train_step(cfg)                       # comm="gspmd" default
+    with pytest.raises(NotImplementedError, match="item 7"):
+        make_train_step(cfg, comm="vci", optimizer="zero1")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        make_train_step(cfg, comm="vci", schedule="overlap")
+    with pytest.raises(NotImplementedError, match="dense text"):
+        make_train_step(get_config("mixtral-8x22b-smoke"), comm="vci")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        train_cli.main(["--device", "cpu", "--ckpt-dir", "/nonexistent"])
+
+
+def test_cli_trains_on_two_cpu_ranks():
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device",
+           "cpu", "--arch", "olmo-1b-smoke", "--steps", "2", "--batch", "4",
+           "--seq", "32", "--mesh", "2", "--comm", "vci", "--pack", "pallas",
+           "--num-streams", "4", "--log-every", "1"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep + \
+        env.get("PYTHONPATH", "")
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=240,
+                       env=env)
+    assert r.returncode == 0, r.stdout + r.stderr
+    steps = [ln for ln in r.stdout.splitlines() if ln.startswith("step ")]
+    assert len(steps) == 2, r.stdout
+    assert all(np.isfinite(float(ln.split()[3])) for ln in steps)
+
+
+def test_cli_needs_a_card_without_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(["--arch", "olmo-1b-smoke", "--steps", "1",
+                        "--comm", "vci"])
