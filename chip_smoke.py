@@ -12,30 +12,42 @@ Phases, each a check that exits non-zero when it fails:
    the shapes the serve path gives it, bit for bit (the gather is a copy),
    with its time, the plain version's, one PyTorch library call's and the
    bound (HBM bytes over 3.35 TB/s);
-4. serve: full-width olmo-1b (16 layers, bf16 params from a seed) through
+4. flash attention: the kernel's (o, lse) against the plain version at (a)
+   the olmo-1b training shape (8,1024,16,128) bf16 causal, (b) an olmo-1b
+   prefill (4,64,16,128) bf16 with pad rows, (c) gemma-2b (2,1024,8,256)
+   with one KV head, (d) f32 hd 64, ragged 100, window 32, GQA 4/2, with
+   pad rows, (e) non-causal with Sq != Skv. f32 within 2e-5; bf16 within
+   1.25 x the plain bf16 version's error (+1e-3), both measured against the
+   plain version run in f32 on the upcast inputs. A second launch gives
+   equal bits; one launch counted a call. At (a) and (b): kernel, plain,
+   ``scaled_dot_product_attention`` and bound times;
+5. serve: full-width olmo-1b (16 layers, bf16 params from a seed) through
    ``ServeEngine`` with the paged cache — 8 requests on 4 slots, so slots
    are recycled — with the launch counts zeroed just before and read just
-   after: every decode step must launch the gather 2 x 16 times. Then the
+   after: every decode step must launch the gather 2 x 16 times and every
+   prefill call (admissions included) the flash kernel 16 times. Then the
    same requests on the contiguous cache must give the same tokens;
-5. reference: olmo-1b-smoke in float32 (TF32 off), paged prefill + decode
-   on the card against the same code on the CPU, logits within 1e-4;
-6. bucket kernels: the tile-gather pack/unpack kernel against its plain
+6. reference: olmo-1b-smoke in float32 (TF32 off), paged prefill + decode
+   on the card against the same code on the CPU, logits within 1e-4, the
+   prefill through the flash kernel;
+7. bucket kernels: the tile-gather pack/unpack kernel against its plain
    version, bit for bit, on the tables of the full-width olmo-1b plan
    (``get_comm_plan(params, num_streams=8, pack="pallas")``): every
    bucket's pack and the step's unpack in f32, the largest bucket's pack
    in bf16; device times of the largest pack and of the unpack beside the
    plain version, one ``index_select`` and the HBM bound;
-7. train: full-width olmo-1b (16 layers, bf16 params from a seed,
+8. train: full-width olmo-1b (16 layers, bf16 params from a seed,
    ``remat="block"``) through ``make_train_step(comm="vci",
    pack="pallas", num_streams=8, num_vcis=8, progress="hybrid")`` on a
    one-rank NCCL group, batch 8 x seq 1024: a warm-up step, then 5 timed
    steps with the launch counts zeroed just before and read just after
-   (pack once a bucket a step, unpack once a step), finite loss and grad
+   (pack once a bucket a step, unpack once a step, the flash kernel twice a
+   layer a step: the forward and remat's recompute), finite loss and grad
    norm; ``reduce_gradients`` with ``pack="pallas"`` equal bit for bit to
    ``pack="xla"`` on one real gradient tree; a profile of 2 steps;
-8. reference training: olmo-1b-smoke in float32 (TF32 off), 3 steps of the
-   same train step on the card and on the CPU from the same params and
-   batches: loss and grad norm within rtol 1e-5, params within rtol 2e-5 /
+9. reference training: olmo-1b-smoke in float32 (TF32 off), 3 steps of the
+   same train step on the card (attention through the flash kernel) and on
+   the CPU from the same params and batches: loss and grad norm within rtol 1e-5, params within rtol 2e-5 /
    atol 1e-4 with at most 1 element in 10^4 outside atol 1e-6 (AdamW turns
    summation-order noise in a near-zero gradient into an update of up to
    ``lr``; ``tests/test_torch_train.py`` states the same tolerance).
@@ -59,6 +71,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+BF16_FLOPS_PER_S = 989e12        # dense tensor-core bf16, same sheet
 SERVE_ARCH = "olmo-1b"
 BATCH, MAX_LEN, PAGE_SIZE = 4, 256, 16
 N_REQUESTS, PROMPT_LO, PROMPT_HI, MAX_NEW = 8, 16, 64, 32
@@ -67,6 +80,15 @@ TRAIN_ARCH = "olmo-1b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
 TRAIN_KNOBS = dict(comm="vci", pack="pallas", num_streams=8, num_vcis=8,
                    progress="hybrid")
+# name, dtype, (B, Sq, Skv, H, KV, hd), causal, window, start, timed
+FLASH_CASES = (
+    ("a", "bfloat16", (8, 1024, 1024, 16, 16, 128), True, None, None, True),
+    ("b", "bfloat16", (4, 64, 64, 16, 16, 128), True, None, (0, 9, 33, 63),
+     True),
+    ("c", "bfloat16", (2, 1024, 1024, 8, 1, 256), True, None, None, False),
+    ("d", "float32", (2, 100, 100, 4, 2, 64), True, 32, (0, 37), False),
+    ("e", "bfloat16", (2, 96, 160, 8, 2, 128), False, None, None, False),
+)
 
 
 def fail(msg: str) -> None:
@@ -191,6 +213,109 @@ def phase_kernels() -> dict:
     return res
 
 
+def flash_work(q, k, kw) -> tuple:
+    """(FLOPs, bytes) the attention of these inputs needs: 4 * hd FLOPs per
+    (query, valid key) pair over all heads, a row with no valid key
+    counting all Skv keys (its mean of V); q, k, v and o once, lse, start."""
+    import torch
+    from repro_torch.kernels.flash_attention import attention_mask
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    n = attention_mask(sq, skv, device=q.device, **kw).sum(-1)
+    pairs = int(torch.where(n == 0, skv, n).expand(b, sq).sum()) * h
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + \
+        b * h * sq * 4 + (0 if kw["start"] is None else b * 4)
+    return 4 * hd * pairs, nbytes
+
+
+def phase_flash() -> dict:
+    """The flash-attention kernel against its plain version at (a)-(e)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    res = {"max_abs_err": 0.0}
+    for (name, dt, (b, sq, skv, h, kvh, hd), causal, window, start,
+         timed) in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((b, sq, h, hd), (b, skv, kvh, hd),
+                                 (b, skv, kvh, hd)))
+        st = None if start is None else torch.tensor(
+            start, dtype=torch.int32, device=dev)
+        kw = dict(causal=causal, window=window, start=st)
+        n0 = fa.flash_attention.launches
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        o2, lse2 = fa.flash_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        what = (f"flash ({name}) {dt} q{tuple(q.shape)} kv{tuple(k.shape)} "
+                f"causal={causal} window={window} start={start}")
+        check(fa.flash_attention.launches == n0 + 2,
+              f"{what}: 2 calls counted {fa.flash_attention.launches - n0}")
+        check(torch.equal(_bits(o), _bits(o2)) and
+              torch.equal(_bits(lse), _bits(lse2)),
+              f"{what}: a second launch gave other bits")
+        check(bool(torch.isfinite(o).all() and torch.isfinite(lse).all()),
+              f"{what}: non-finite output")
+        if dtype == torch.float32:
+            po, plse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            eo = (o - po).abs().max().item()
+            el = (lse - plse).abs().max().item()
+            tol_o = tol_l = 2e-5
+            rule = "vs plain f32, tol 2e-5"
+        else:
+            ro, rlse = fa.flash_attention_fwd_plain(q.float(), k.float(),
+                                                    v.float(), **kw)
+            po, plse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            eo = (o.float() - ro).abs().max().item()
+            el = (lse - rlse).abs().max().item()
+            po_err = (po.float() - ro).abs().max().item()
+            plse_err = (plse - rlse).abs().max().item()
+            tol_o, tol_l = 1.25 * po_err + 1e-3, 1.25 * plse_err + 1e-3
+            rule = (f"vs plain f32 on upcast inputs; plain {dt} errs o "
+                    f"{po_err:.3e} lse {plse_err:.3e}")
+            del ro, rlse
+        check(eo <= tol_o and el <= tol_l,
+              f"{what}: o err {eo:.3e} (tol {tol_o:.3e}), lse err {el:.3e} "
+              f"(tol {tol_l:.3e})")
+        pad = 0 if st is None else int(sum(min(x, sq) for x in start)) * h
+        res["max_abs_err"] = max(res["max_abs_err"], eo)
+        print(f"kernel {what}: o err {eo:.3e} (tol {tol_o:.3e}), lse err "
+              f"{el:.3e} (tol {tol_l:.3e}) [{rule}]; {pad} pad rows; "
+              f"second launch bit-equal", flush=True)
+        del po, plse
+        if timed:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            kernel_ms = time_ms(lambda i: fa.flash_attention_fwd(q, k, v,
+                                                                 **kw),
+                                n_iter=20, reps=3)
+            plain_ms = time_ms(lambda i: fa.flash_attention_fwd_plain(
+                q, k, v, **kw), n_iter=3, reps=2)
+            library_ms = time_ms(lambda i: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), n_iter=20, reps=3)
+            flops, nbytes = flash_work(q, k, kw)
+            flop_ms = flops / BF16_FLOPS_PER_S * 1e3
+            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ms = max(flop_ms, byte_ms)
+            bound_by = "operations" if flop_ms > byte_ms else "bytes"
+            res[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
+            print(f"kernel flash ({name}) times: kernel_ms={kernel_ms:.5f} "
+                  f"plain_ms={plain_ms:.5f} library_ms(sdpa is_causal)="
+                  f"{library_ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}: "
+                  f"{flops} FLOPs -> {flop_ms:.5f} ms, {nbytes} B -> "
+                  f"{byte_ms:.5f} ms; {bound_ms / kernel_ms:.3f} of the "
+                  f"bound, {flops / kernel_ms / 1e9:.1f} TFLOP/s)",
+                  flush=True)
+            del qt, kt, vt
+        del q, k, v, o, lse, o2, lse2
+    torch.cuda.empty_cache()
+    return res
+
+
 def _requests(vocab: int):
     import numpy as np
     from repro_torch.serve.engine import Request
@@ -219,6 +344,7 @@ class _Timed:
 def phase_serve() -> dict:
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_kv import paged_gather
     from repro_torch.models.transformer import init_params
     from repro_torch.serve.engine import Request, ServeEngine
@@ -241,12 +367,12 @@ def phase_serve() -> dict:
         reqs = _requests(cfg.vocab_size)
         eng._prefill, eng._step = _Timed(eng._prefill), _Timed(eng._step)
         torch.cuda.synchronize()
-        paged_gather.launches = 0
+        paged_gather.launches = flash_attention.launches = 0
         t0 = time.perf_counter()
         eng.generate(reqs)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = paged_gather.launches
+        launches, flash = paged_gather.launches, flash_attention.launches
         n_tok = sum(len(r.generated) for r in reqs)
         for i, r in enumerate(reqs):
             g = r.generated
@@ -256,7 +382,8 @@ def phase_serve() -> dict:
                   f"{layout}: request {i} has out-of-range ids")
         steps = eng.decode_steps
         runs[layout] = dict(tokens=[r.generated.tolist() for r in reqs],
-                            launches=launches, bytes=eng.cache_bytes_resident)
+                            launches=launches, flash=flash,
+                            bytes=eng.cache_bytes_resident)
         print(f"serve {layout}: {len(reqs)} requests (prompts "
               f"{[len(r.prompt) for r in reqs]}), {n_tok} new tokens in "
               f"{dt:.3f}s ({n_tok / dt:.1f} tok/s) decode_steps={steps} "
@@ -265,7 +392,13 @@ def phase_serve() -> dict:
               f"prefill_s={eng._prefill.seconds:.3f} "
               f"({eng._prefill.calls} prefills incl. admissions) "
               f"paged_gather.launches={launches} "
+              f"flash_attention.launches={flash} "
               f"cache_bytes_resident={eng.cache_bytes_resident}", flush=True)
+        want = cfg.num_layers * eng._prefill.calls
+        check(eng._prefill.calls > 0 and flash == want,
+              f"{layout} run launched flash_attention {flash} times, want "
+              f"{cfg.num_layers} x {eng._prefill.calls} prefill calls = "
+              f"{want}")
         if layout == "paged":
             want = 2 * cfg.num_layers * steps
             check(steps > 0 and launches == want,
@@ -347,6 +480,7 @@ def phase_reference() -> None:
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.transformer import (Model, init_paged_cache,
                                                 init_params)
 
@@ -370,8 +504,14 @@ def phase_reference() -> None:
                                      dtype=torch.float32, device=dev)
             cache.kv.table.copy_(table)
             st = start.to(dev)
+            flash_attention.launches = 0
             out, _, cache = model.forward(p, {"tokens": tokens.to(dev)},
                                           cache=cache, start=st)
+            if dev == "cuda":
+                check(flash_attention.launches == cfg.num_layers,
+                      f"the card's prefill launched flash_attention "
+                      f"{flash_attention.launches} times, want "
+                      f"{cfg.num_layers}")
             seq = [out[:, -1:].cpu()]
             for t in range(steps):
                 if dev == "cpu":
@@ -386,9 +526,9 @@ def phase_reference() -> None:
         worst = max(worst, (a - c).abs().max().item())
         check(torch.allclose(c, a, atol=1e-4, rtol=1e-4),
               f"card logits differ from the CPU's by {worst:.3e}")
-    print(f"reference: olmo-1b-smoke f32 paged prefill + {steps} decode "
-          f"steps, card vs CPU max |logit diff| = {worst:.3e} (tol 1e-4)",
-          flush=True)
+    print(f"reference: olmo-1b-smoke f32 paged prefill (flash kernel, "
+          f"{cfg.num_layers} launches) + {steps} decode steps, card vs CPU "
+          f"max |logit diff| = {worst:.3e} (tol 1e-4)", flush=True)
 
 
 def _bits(t):
@@ -510,6 +650,7 @@ def phase_train() -> dict:
     from repro_torch.core import get_comm_plan, reduce_gradients
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.kernels.bucket_pack import bucket_pack, bucket_unpack
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.train.trainer import make_train_step, train_state_init
     from repro_torch.tree import tree_flatten
 
@@ -540,6 +681,7 @@ def phase_train() -> dict:
     times, losses, norms = [], [], []
     torch.cuda.synchronize()
     bucket_pack.launches = bucket_unpack.launches = 0
+    flash_attention.launches = 0
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         state, m = step(state, batches[1 + i])
@@ -548,9 +690,16 @@ def phase_train() -> dict:
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     launches = (bucket_pack.launches, bucket_unpack.launches)
+    flash = flash_attention.launches
     check(launches == (n_buckets * TRAIN_STEPS, TRAIN_STEPS),
           f"{TRAIN_STEPS} steps launched pack/unpack {launches} times, want "
           f"({n_buckets} x {TRAIN_STEPS}, {TRAIN_STEPS})")
+    # each layer's attention runs once in the forward and once more when
+    # the non-reentrant checkpoint of remat="block" reruns the block's
+    # forward in the backward (the backward itself is the plain recompute)
+    want = 2 * cfg.num_layers * TRAIN_STEPS
+    check(flash == want, f"{TRAIN_STEPS} steps launched flash_attention "
+          f"{flash} times, want 2 x {cfg.num_layers} x {TRAIN_STEPS} = {want}")
     check(all(map(math.isfinite, losses + norms)),
           f"non-finite loss/gnorm {losses} {norms}")
     ms = sum(times) / len(times)
@@ -561,7 +710,8 @@ def phase_train() -> dict:
           f"{[round(v, 4) for v in norms]}, max_memory_allocated {peak} B; "
           f"plan {n_buckets} buckets, {cp.plan.total_padded // 1024} packed "
           f"tiles, arena {cp.tables[2] // 1024} tiles; launches pack "
-          f"{launches[0]} unpack {launches[1]}", flush=True)
+          f"{launches[0]} unpack {launches[1]} flash_attention {flash}",
+          flush=True)
 
     grads = _grads(cfg, state.params, batches[0])
     red = {}
@@ -584,7 +734,7 @@ def phase_train() -> dict:
     profile_train(step, state, batches[-2:])
     del state
     torch.cuda.empty_cache()
-    return dict(kern, launches=launches, step_ms=ms)
+    return dict(kern, launches=launches, flash=flash, step_ms=ms)
 
 
 def profile_train(step, state, batches) -> None:
@@ -615,11 +765,15 @@ def profile_train(step, state, batches) -> None:
         return
     pack_ms = sum(e.self_device_time_total for e in kern
                   if "bucket_pack_kernel" in e.key) / 1e3
+    flash_ms = sum(e.self_device_time_total for e in kern
+                   if "flash_fwd_kernel" in e.key) / 1e3
     print(f"profile train: {len(batches)} steps: wall {wall_ms:.2f} ms "
           f"({prof_wall_ms:.2f} under the profiler), device busy "
           f"{busy_ms:.2f} ms, device idle share {1 - busy_ms / wall_ms:.4f};"
           f" pack+unpack {pack_ms:.3f} ms = {pack_ms / busy_ms:.4f} of "
-          f"device time; {sum(e.count for e in kern)} kernel launches",
+          f"device time; flash_attention {flash_ms:.3f} ms = "
+          f"{flash_ms / busy_ms:.4f} of device time; "
+          f"{sum(e.count for e in kern)} kernel launches",
           flush=True)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"profile train:   {e.self_device_time_total / 1e3:9.3f} ms "
@@ -634,6 +788,7 @@ def phase_reference_train() -> None:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.transformer import init_params
     from repro_torch.train.trainer import make_train_step, train_state_init
     from repro_torch.tree import tree_flatten, tree_map
@@ -646,9 +801,14 @@ def phase_reference_train() -> None:
             lambda t: t.clone().to(dev), params))
         step = make_train_step(cfg, **TRAIN_KNOBS)
         metrics = []
+        flash_attention.launches = 0
         for i in range(3):
             state, m = step(state, synthetic_batch(cfg, 4, 64, seed=i))
             metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        if dev == "cuda":
+            flash = flash_attention.launches
+            check(flash > 0, "the card's train steps launched no flash "
+                  "attention")
         runs[dev] = (metrics, [t.cpu() for t in tree_flatten(state.params)[0]])
     worst = 0.0
     for (lc, gc), (la, ga) in zip(runs["cuda"][0], runs["cpu"][0]):
@@ -668,7 +828,8 @@ def phase_reference_train() -> None:
         off += int((d > 1e-6 + 2e-5 * np.abs(a)).sum())
         total += a.size
     check(off <= total * 1e-4, f"{off} of {total} param elements off")
-    print(f"reference train: olmo-1b-smoke f32, 3 steps card vs CPU: "
+    print(f"reference train: olmo-1b-smoke f32, 3 steps card (flash "
+          f"launches {flash}) vs CPU: "
           f"loss/gnorm max rel diff {worst:.3e} (tol 1e-5), params max abs "
           f"diff {pworst:.3e} (tol 1e-4 + 2e-5 rel), {off} of {total} "
           f"elements beyond 1e-6 + 2e-5 rel", flush=True)
@@ -695,6 +856,7 @@ def main() -> None:
     phase_device()
     phase_build()
     kern = phase_kernels()
+    flash = phase_flash()
     runs = phase_serve()
     phase_reference()
     import torch.distributed as dist
@@ -733,7 +895,20 @@ def main() -> None:
         "library_ms": train[name]["library_ms"],
     } for name, line, launches in (
         ("bucket_pack", 83, train["launches"][0]),
-        ("bucket_unpack", 110, train["launches"][1]))]}
+        ("bucket_unpack", 110, train["launches"][1]))] + [{
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:95",
+        "launches": runs["paged"]["flash"] + runs["contiguous"]["flash"]
+        + train["flash"],
+        "max_abs_err": flash["max_abs_err"],
+        "ms": flash["a"]["ms"],
+        "plain_ms": flash["a"]["plain_ms"],
+        "bound_ms": flash["a"]["bound_ms"],
+        "bound_by": flash["a"]["bound_by"],
+        "library_ms": flash["a"]["library_ms"],
+    }]}
     print(f"chip_smoke: all phases passed in {time.time() - t_all:.1f}s",
           flush=True)
     print(json.dumps(line), flush=True)

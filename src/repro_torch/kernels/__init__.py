@@ -9,7 +9,10 @@ with its Python wrapper, its plain PyTorch version and its launch count in
   ``repro/kernels/paged_kv.py::paged_gather_pallas``);
 * :mod:`repro_torch.kernels.bucket_pack` — ``bucket_pack`` /
   ``bucket_unpack`` (replace ``repro/kernels/bucket_pack.py::
-  bucket_pack_pallas`` / ``bucket_unpack_pallas``).
+  bucket_pack_pallas`` / ``bucket_unpack_pallas``);
+* :mod:`repro_torch.kernels.flash_attention` — ``flash_attention``, the
+  forward (replaces ``repro/kernels/flash_attention.py::
+  flash_attention_pallas``) with a plain recompute backward.
 
 The other Pallas kernels of the reference are still to be ported; see
 ``ROADMAP.md``.

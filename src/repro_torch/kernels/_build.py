@@ -31,6 +31,8 @@ KERNELS: Dict[str, tuple] = {
     "paged_gather": ("paged_gather_launch", [_P, _P, _P, _LL, _I, _LL, _P]),
     "bucket_pack": ("bucket_pack_launch",
                     [_P, _P, _P, _P, _LL, _LL, _LL, _I, _P]),
+    "flash_attention": ("flash_attention_fwd_launch",
+                        [_P] * 6 + [_LL] * 9 + [_I] * 9 + [_P]),
 }
 
 

@@ -1,8 +1,9 @@
 """Attention: GQA/MQA, causal + sliding-window masks, KV-cache decode.
 
-Port of ``repro.models.attention`` for the serve path of dense archs:
-full (prefill) attention with the per-row ``start`` pad mask, the
-contiguous decode cache and the paged decode cache.
+Port of ``repro.models.attention`` for the dense archs: full
+(prefill/train) attention with the per-row ``start`` pad mask through the
+flash-attention kernel, the contiguous decode cache and the paged decode
+cache.
 
 Caches are updated IN PLACE (``index_put_`` / slice assignment into the
 cache tensors) where the reference returns new arrays from donated inputs;
@@ -23,53 +24,23 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import (NEG_INF, flash_attention,
+                                                  repeat_kv)
 from repro_torch.kernels.paged_kv import paged_gather
-
-NEG_INF = -1e30
-
-
-def _repeat_kv(k, n_rep: int):
-    """(B,S,KV,hd) -> (B,S,KV*n_rep,hd) for GQA."""
-    if n_rep == 1:
-        return k
-    b, s, kv, hd = k.shape
-    return k[:, :, :, None, :].expand(b, s, kv, n_rep, hd).reshape(
-        b, s, kv * n_rep, hd)
-
-
-def causal_mask(q_len: int, kv_len: int, *, window: Optional[int] = None,
-                device=None) -> torch.Tensor:
-    """(q_len, kv_len) bool mask. ``window`` adds the sliding-window band."""
-    q_pos = torch.arange(q_len, device=device)[:, None]
-    k_pos = torch.arange(kv_len, device=device)[None, :]
-    m = k_pos <= q_pos
-    if window is not None:
-        m &= k_pos > q_pos - window
-    return m
 
 
 def attention(cfg: ModelConfig, q, k, v, *,
               start: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full (prefill) attention. q: (B,Sq,H,hd), k/v: (B,Skv,KV,hd), with
-    the causal (and sliding-window) mask.
+    """Full (prefill/train) attention. q: (B,Sq,H,hd), k/v: (B,Skv,KV,hd),
+    with the causal (and sliding-window) mask.
 
-    ``start`` — (B,) int left-pad lengths — masks each row's pad prefix
-    (key positions ``< start[b]``).
+    ``start`` — (B,) int32 left-pad lengths — masks each row's pad prefix
+    (key positions ``< start[b]``). Runs
+    :func:`repro_torch.kernels.flash_attention.flash_attention`: the CUDA
+    kernel on the card, the reference's materialising math on the CPU.
     """
-    b, sq, h, hd = q.shape
-    n_rep = h // k.shape[2]
-    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
-    scale = 1.0 / math.sqrt(hd)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
-    mask = causal_mask(sq, k.shape[1], window=cfg.sliding_window,
-                       device=q.device)[None]                    # (1,Sq,Skv)
-    if start is not None:
-        kpos = torch.arange(k.shape[1], device=q.device)
-        pad_ok = kpos[None, :] >= start[:, None]                 # (B,Skv)
-        mask = mask & pad_ok[:, None, :]
-    logits = torch.where(mask[:, None], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
+                           start=start)
 
 
 # ---------------------------------------------------------------------------
@@ -137,8 +108,8 @@ def decode_attention(cfg: ModelConfig, q, cache: KVCache,
     b, _, h, hd = q.shape
     s_cache = cache.k.shape[1]
     n_rep = h // cache.k.shape[2]
-    k = _repeat_kv(cache.k, n_rep).to(q.dtype)
-    v = _repeat_kv(cache.v, n_rep).to(q.dtype)
+    k = repeat_kv(cache.k, n_rep).to(q.dtype)
+    v = repeat_kv(cache.v, n_rep).to(q.dtype)
     scale = 1.0 / math.sqrt(hd)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     idx = torch.arange(s_cache, device=q.device)

@@ -6,14 +6,18 @@ the GPU machine (no JAX there; this file imports none):
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import bucket_pack, paged_kv
-from repro_torch.models.transformer import init_params
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models.transformer import Model, init_params
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.tree import tree_flatten, tree_unflatten
 
 pytestmark = pytest.mark.cuda
 
@@ -141,3 +145,142 @@ def test_bucket_pack_rejects_what_it_cannot_take(cuda_device):
         bucket_pack.bucket_pack(src, t, t, 2 * tile,
                                 out=torch.zeros((2 * tile, 2),
                                                 device=cuda_device)[:, 0])
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+def _flash_inputs(dev, dtype, b, sq, skv, h, kv, hd, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((b, sq, h, hd), (b, skv, kv, hd),
+                               (b, skv, kv, hd)))
+
+
+def _flash_errors(q, k, v, o, lse, **kw):
+    """(o error, lse error, allowed o error, allowed lse error) of the
+    kernel's (o, lse). f32: against the plain version, 2e-5 (the f32 kernel
+    tolerance of tests/test_kernels.py). bf16: against the plain version
+    run in f32 on the upcast inputs, at most 1.25 x the plain version's own
+    error in the input dtype, + 1e-3."""
+    if q.dtype == torch.float32:
+        po, plse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+        return ((o - po).abs().max().item(), (lse - plse).abs().max().item(),
+                2e-5, 2e-5)
+    ro, rlse = fa.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                            **kw)
+    po, plse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    return ((o.float() - ro).abs().max().item(),
+            (lse - rlse).abs().max().item(),
+            1.25 * (po.float() - ro).abs().max().item() + 1e-3,
+            1.25 * (plse - rlse).abs().max().item() + 1e-3)
+
+
+_FLASH_CASES = [  # hd, b, sq, skv, h, kv, causal, window, start
+    (64, 2, 100, 100, 4, 2, True, 32, [0, 37]),   # ragged, GQA, pad rows
+    (128, 2, 64, 64, 4, 4, True, None, [0, 10]),
+    (256, 1, 96, 96, 4, 1, True, None, None),     # MQA at hd 256
+    (64, 1, 40, 72, 2, 1, False, None, None),     # Sq != Skv
+    (128, 1, 130, 130, 2, 2, True, 16, [129]),    # all but one pad row
+    (64, 1, 80, 24, 2, 2, False, 8, None),        # rows with no valid key
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _FLASH_CASES, ids=str)
+def test_flash_kernel_matches_plain(cuda_device, dtype, case):
+    """o and lse against the plain version (pad rows included); a second
+    launch gives equal bits; one launch counted per call."""
+    hd, b, sq, skv, h, kv, causal, window, start = case
+    q, k, v = _flash_inputs(cuda_device, dtype, b, sq, skv, h, kv, hd)
+    st = None if start is None else torch.tensor(start, dtype=torch.int32,
+                                                  device=cuda_device)
+    kw = dict(causal=causal, window=window, start=st)
+    n0 = fa.flash_attention.launches
+    o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 2
+    assert o.shape == q.shape and o.dtype == dtype
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    assert torch.equal(_bits(o), _bits(o2)) and torch.equal(_bits(lse),
+                                                             _bits(lse2))
+    eo, el, tol_o, tol_l = _flash_errors(q, k, v, o, lse, **kw)
+    assert eo <= tol_o, (eo, tol_o)
+    assert el <= tol_l, (el, tol_l)
+
+
+def test_flash_kernel_takes_strided_heads(cuda_device):
+    """q/k/v as slices of one fused projection (strided over S and H, the
+    last dim contiguous) give the same bits as contiguous copies."""
+    b, s, h, hd = 2, 48, 4, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    qkv = torch.randn((b, s, 3 * h, hd), generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:2 * h], qkv[:, :, 2 * h:]
+    got = fa.flash_attention_fwd(q, k, v)
+    want = fa.flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                  v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    assert torch.equal(_bits(got[1]), _bits(want[1]))
+
+
+def test_flash_kernel_rejects_what_it_cannot_take(cuda_device):
+    q, k, v = _flash_inputs(cuda_device, torch.float32, 1, 8, 8, 2, 2, 64)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(*(t[..., :32].contiguous() for t in (q, k, v)))
+    wide = torch.zeros((1, 8, 2, 128), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        fa.flash_attention(wide[..., ::2], k, v)
+    with pytest.raises(ValueError, match="must be on"):
+        fa.flash_attention(q, k.cpu(), v)
+
+
+def test_flash_function_grads_on_card(cuda_device):
+    """The Function's recompute backward from the kernel's (o, lse) against
+    autograd of the plain forward, f32 (1e-4: the kernel's lse differs from
+    the plain one by <= 2e-5, which each probability carries)."""
+    q, k, v = (t.requires_grad_() for t in _flash_inputs(
+        cuda_device, torch.float32, 2, 72, 72, 4, 2, 64, seed=1))
+    do = torch.randn_like(q)
+    got = torch.autograd.grad(fa.flash_attention(q, k, v, window=24),
+                              (q, k, v), do)
+    want = torch.autograd.grad(
+        fa.flash_attention_fwd_plain(q, k, v, window=24)[0], (q, k, v), do)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 1e-4
+
+
+def test_model_runs_flash_once_a_layer_and_twice_under_remat(cuda_device):
+    """olmo-1b-smoke f32: a forward launches the kernel once a layer; a
+    training forward + backward under remat="block" twice (the block's
+    recompute); logits and grads equal the CPU's within 1e-4 (grads
+    relative to their largest element)."""
+    cfg = dataclasses.replace(get_config("olmo-1b-smoke"), remat="block")
+    params = init_params(cfg, 0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 32)).astype(np.int32))
+    leaves, treedef = tree_flatten(params)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        mine = [t.detach().to(dev).requires_grad_() for t in leaves]
+        n0 = fa.flash_attention.launches
+        logits = Model(cfg).forward(tree_unflatten(treedef, mine),
+                                    {"tokens": tokens.to(dev)})[0]
+        fwd = fa.flash_attention.launches - n0
+        logits.square().mean().backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert fwd == cfg.num_layers
+            assert fa.flash_attention.launches - n0 == 2 * cfg.num_layers
+        out[str(dev)] = (logits.detach().cpu(), [t.grad.cpu() for t in mine])
+    (lc, gc), (lg, gg) = out["cpu"], out[str(cuda_device)]
+    assert (lc - lg).abs().max().item() <= 1e-4
+    for a, b in zip(gc, gg):
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, a.abs().max())

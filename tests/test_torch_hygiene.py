@@ -48,5 +48,5 @@ def test_port_package_is_scanned():
                  "kernels/bucket_pack.py", "core/bucketing.py",
                  "core/collectives.py", "core/progress.py", "core/vci.py",
                  "core/comm.py", "train/trainer.py", "launch/train.py",
-                 "optim/adamw.py", "tree.py"):
+                 "optim/adamw.py", "tree.py", "kernels/flash_attention.py"):
         assert must in rel
