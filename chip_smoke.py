@@ -9,9 +9,15 @@ Phases, each a check that exits non-zero when it fails:
 2. build: every CUDA kernel of the port, from ``src/repro_torch/kernels/
    csrc``, one ``nvcc`` per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the serve path gives it, bit for bit (the gather is a copy),
-   with its time, the plain version's, one PyTorch library call's and the
-   bound (HBM bytes over 3.35 TB/s);
+   the shapes the serve path gives it, bit for bit (the gathers are
+   copies), with its time, the plain version's, one PyTorch library call's
+   and the bound (HBM bytes over 3.35 TB/s): the page gather at the olmo-1b
+   serve shape; the MoE row gather at mixtral-8x22b's d = 6,144 bf16 on
+   routing tables built by the port's ``dispatch_tables`` — a decode
+   dispatch (4 tokens into 4 x 8 x 1 slots), a 64-token prefill group
+   (into 8 x 32 slots), 8 groups of 1,024 tokens at capacity factor 1.25
+   (8,192 rows into 20,480 slots, timed) and its combine — plus an f32
+   case at d = 256 and a table with every row empty;
 4. flash attention: the kernel's (o, lse) against the plain version at (a)
    the olmo-1b training shape (8,1024,16,128) bf16 causal, (b) an olmo-1b
    prefill (4,64,16,128) bf16 with pad rows, (c) gemma-2b (2,1024,8,256)
@@ -30,6 +36,18 @@ Phases, each a check that exits non-zero when it fails:
 6. reference: olmo-1b-smoke in float32 (TF32 off), paged prefill + decode
    on the card against the same code on the CPU, logits within 1e-4, the
    prefill through the flash kernel;
+6b. MoE serve: mixtral-8x22b at full width (d 6,144, 48 heads / 8 KV of
+   128, d_ff 16,384, 8 experts top-2, vocab 32,768) with its depth cut to
+   4 layers (10.4 B params, bf16 from a seed) through the same engine and
+   requests as phase 5, paged and contiguous: every forward call (prefill
+   or decode step) must launch the row gather 2 x 4 times (dispatch and
+   combine), the page gather and flash kernel as in phase 5, and the two
+   layouts must give the same tokens; then a profile of a short run;
+6c. MoE reference: mixtral-8x22b-smoke in float32, paged prefill + greedy
+   decode on the card and on the CPU, at its own capacity and at a
+   dropping one (capacity_factor_eval 0.5): identical routing tables
+   (experts and kept slots of every assignment), logits within 1e-4,
+   identical greedy tokens, the row gather launched 2 x L a call;
 7. bucket kernels: the tile-gather pack/unpack kernel against its plain
    version, bit for bit, on the tables of the full-width olmo-1b plan
    (``get_comm_plan(params, num_streams=8, pack="pallas")``): every
@@ -59,6 +77,7 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -76,6 +95,7 @@ SERVE_ARCH = "olmo-1b"
 BATCH, MAX_LEN, PAGE_SIZE = 4, 256, 16
 N_REQUESTS, PROMPT_LO, PROMPT_HI, MAX_NEW = 8, 16, 64, 32
 COLD_POOLS = 16                  # 16 pools of 8.5 (f32) / 4.3 MB > 50 MB L2
+MOE_ARCH, MOE_LAYERS = "mixtral-8x22b", 4
 TRAIN_ARCH = "olmo-1b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
 TRAIN_KNOBS = dict(comm="vci", pack="pallas", num_streams=8, num_vcis=8,
@@ -213,6 +233,84 @@ def phase_kernels() -> dict:
     return res
 
 
+def _routed(groups, tokens, experts, top_k, cf, gen):
+    """Routing tables of ``groups`` groups of ``tokens`` tokens, each token
+    sent to ``top_k`` distinct random experts, through the port's own
+    ``dispatch_tables`` at the capacity ``moe_ffn`` gives that group."""
+    import torch
+    from repro_torch.models.moe import capacity, dispatch_tables
+    eidx = torch.rand((groups, tokens, experts), generator=gen,
+                      device="cuda").argsort(-1)[..., :top_k]
+    cap = min(capacity(tokens, experts, cf, top_k), tokens)
+    return dispatch_tables(eidx, experts, cap)
+
+
+def phase_row_gather() -> dict:
+    """row_gather vs row_gather_plain, bit for bit, at the MoE serve
+    path's shapes (see the docstring); times at the bandwidth-sized case."""
+    import torch
+    from repro_torch.kernels.moe_gather import row_gather, row_gather_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    d = 6144
+    dec, _ = _routed(4, 1, 8, 2, 2.0, gen)          # decode: C = 1
+    pre, _ = _routed(1, 64, 8, 2, 2.0, gen)         # prefill: C = 32
+    big, comb = _routed(8, 1024, 8, 2, 1.25, gen)   # C = 320
+    smoke, _ = _routed(4, 20, 4, 2, 2.0, gen)       # mixtral-smoke, f32
+    # name, dtype, source rows, table, timed
+    cases = (("decode dispatch", torch.bfloat16, 4, dec, True),
+             ("prefill dispatch", torch.bfloat16, 64, pre, True),
+             ("8x1024 dispatch", torch.bfloat16, 8192, big, True),
+             ("8x1024 combine", torch.bfloat16, big.numel(), comb, False),
+             ("smoke dispatch f32 d=256", torch.float32, 80, smoke, False),
+             ("every row empty", torch.bfloat16, 4,
+              torch.full((32,), -1, dtype=torch.int32, device=dev), False))
+    res = {"max_abs_err": 0.0}
+    for name, dtype, t, idx, timed in cases:
+        width = 256 if dtype == torch.float32 else d
+        src = torch.randn((t, width), generator=gen, device=dev).to(dtype)
+        got = row_gather(src, idx)
+        want = row_gather_plain(src, idx)
+        torch.cuda.synchronize()
+        valid = int((idx >= 0).sum())
+        what = (f"row_gather {name}: src {tuple(src.shape)} {dtype}, idx "
+                f"{tuple(idx.shape)} ({valid} valid)")
+        check(torch.equal(_bits(got), _bits(want)),
+              f"{what}: kernel != plain version")
+        err = (got.float() - want.float()).abs().max().item()
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        print(f"kernel {what}: bitwise equal to plain, max_abs_err={err}",
+              flush=True)
+        if not timed:
+            continue
+        ids = idx.long().clamp(0, t - 1)
+        kernel_ms = time_ms(lambda i: row_gather(src, idx), n_iter=20, reps=3)
+        plain_ms = time_ms(lambda i: row_gather_plain(src, idx), n_iter=20,
+                           reps=3)
+        library_ms = time_ms(lambda i: src.index_select(0, ids), n_iter=20,
+                             reps=3)
+        host_ms = eager_ms(lambda i: row_gather(src, idx))
+        # each distinct source row read once, every output row written
+        # once, the table read once
+        row = width * src.element_size()
+        distinct = int(idx[idx >= 0].unique().numel())
+        nbytes = distinct * row + got.nbytes + idx.nbytes
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        res[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms)
+        print(f"kernel row_gather {name} times: kernel_ms={kernel_ms:.5f} "
+              f"plain_ms={plain_ms:.5f} library_ms(index_select)="
+              f"{library_ms:.5f} bound_ms={bound_ms:.5f} ({nbytes} B: "
+              f"{distinct} distinct rows read for {valid} valid, "
+              f"{idx.numel()} written; {bound_ms / kernel_ms:.3f} of the "
+              f"bound, {nbytes / kernel_ms / 1e9:.3f} TB/s of them); eager "
+              f"call incl. host {host_ms:.5f} ms", flush=True)
+        del src, got, want
+    torch.cuda.empty_cache()
+    return res
+
+
 def flash_work(q, k, kw) -> tuple:
     """(FLOPs, bytes) the attention of these inputs needs: 4 * hd FLOPs per
     (query, valid key) pair over all heads, a row with no valid key
@@ -341,22 +439,29 @@ class _Timed:
         return out
 
 
-def phase_serve() -> dict:
+def phase_serve(cfg) -> dict:
+    """``cfg`` at full width through ``ServeEngine``, paged then contiguous
+    (see the docstring: phase 5 for olmo-1b, 6b for the MoE)."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gather import row_gather
     from repro_torch.kernels.paged_kv import paged_gather
     from repro_torch.models.transformer import init_params
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = get_config(SERVE_ARCH)
+    moe = cfg.moe is not None
     t0 = time.time()
     params = init_params(cfg, 0, device="cuda")
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # the init's float32 temporaries
     print(f"serve: {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
-          f"H={cfg.num_heads} hd={cfg.head_dim} vocab={cfg.vocab_size} "
-          f"params={cfg.param_count() / 1e9:.3f}B {cfg.param_dtype} "
-          f"(init {time.time() - t0:.1f}s)", flush=True)
+          f"H={cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.head_dim} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+          + (f"experts={cfg.moe.num_experts} top_k={cfg.moe.top_k} "
+             if moe else "")
+          + f"params={cfg.param_count() / 1e9:.3f}B {cfg.param_dtype} "
+          f"(init {time.time() - t0:.1f}s, "
+          f"{torch.cuda.memory_allocated()} B on the card)", flush=True)
     runs = {}
     for layout in ("paged", "contiguous"):
         eng = ServeEngine(cfg, params, batch_size=BATCH, max_len=MAX_LEN,
@@ -368,11 +473,13 @@ def phase_serve() -> dict:
         eng._prefill, eng._step = _Timed(eng._prefill), _Timed(eng._step)
         torch.cuda.synchronize()
         paged_gather.launches = flash_attention.launches = 0
+        row_gather.launches = 0
         t0 = time.perf_counter()
         eng.generate(reqs)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches, flash = paged_gather.launches, flash_attention.launches
+        rows = row_gather.launches
         n_tok = sum(len(r.generated) for r in reqs)
         for i, r in enumerate(reqs):
             g = r.generated
@@ -382,9 +489,11 @@ def phase_serve() -> dict:
                   f"{layout}: request {i} has out-of-range ids")
         steps = eng.decode_steps
         runs[layout] = dict(tokens=[r.generated.tolist() for r in reqs],
-                            launches=launches, flash=flash,
-                            bytes=eng.cache_bytes_resident)
-        print(f"serve {layout}: {len(reqs)} requests (prompts "
+                            launches=launches, flash=flash, rows=rows,
+                            bytes=eng.cache_bytes_resident,
+                            step_ms=eng._step.seconds / max(steps, 1) * 1e3,
+                            tok_s=n_tok / dt)
+        print(f"serve {cfg.name} {layout}: {len(reqs)} requests (prompts "
               f"{[len(r.prompt) for r in reqs]}), {n_tok} new tokens in "
               f"{dt:.3f}s ({n_tok / dt:.1f} tok/s) decode_steps={steps} "
               f"decode_s={eng._step.seconds:.3f} "
@@ -393,7 +502,14 @@ def phase_serve() -> dict:
               f"({eng._prefill.calls} prefills incl. admissions) "
               f"paged_gather.launches={launches} "
               f"flash_attention.launches={flash} "
+              f"row_gather.launches={rows} "
               f"cache_bytes_resident={eng.cache_bytes_resident}", flush=True)
+        calls = eng._prefill.calls + steps
+        want = 2 * cfg.num_layers * calls if moe else 0
+        check(rows == want,
+              f"{layout} run launched row_gather {rows} times, want "
+              + (f"2 x {cfg.num_layers} x {calls} forward calls = {want}"
+                 if moe else "0 (no MoE layer)"))
         want = cfg.num_layers * eng._prefill.calls
         check(eng._prefill.calls > 0 and flash == want,
               f"{layout} run launched flash_attention {flash} times, want "
@@ -411,8 +527,9 @@ def phase_serve() -> dict:
     for i, (a, b) in enumerate(zip(runs["paged"]["tokens"],
                                    runs["contiguous"]["tokens"])):
         check(a == b, f"request {i}: paged tokens {a} != contiguous {b}")
-    print("serve: paged tokens identical to contiguous tokens for all "
-          f"{N_REQUESTS} requests; resident cache bytes paged/contiguous = "
+    print(f"serve {cfg.name}: paged tokens identical to contiguous tokens "
+          f"for all {N_REQUESTS} requests; resident cache bytes "
+          f"paged/contiguous = "
           f"{runs['paged']['bytes']}/{runs['contiguous']['bytes']}",
           flush=True)
     profile_decode(cfg, params)
@@ -462,6 +579,14 @@ def profile_decode(cfg, params) -> None:
           f"under the profiler), device busy {busy_ms:.2f} ms, device idle "
           f"share {1 - busy_ms / wall_ms:.4f}; {sum(e.count for e in kern)} "
           f"kernel launches", flush=True)
+    own = [(name, sum(e.self_device_time_total for e in kern
+                      if sym in e.key) / 1e3)
+           for name, sym in (("paged_gather", "paged_gather_kernel"),
+                             ("flash_attention", "flash_fwd_kernel"),
+                             ("row_gather", "row_gather_kernel"))]
+    print("profile: the port's kernels: " + ", ".join(
+        f"{name} {ms:.3f} ms = {ms / busy_ms:.4f} of device time"
+        for name, ms in own), flush=True)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d} x {e.self_device_time_total / max(e.count, 1):8.2f}"
@@ -529,6 +654,100 @@ def phase_reference() -> None:
     print(f"reference: olmo-1b-smoke f32 paged prefill (flash kernel, "
           f"{cfg.num_layers} launches) + {steps} decode steps, card vs CPU "
           f"max |logit diff| = {worst:.3e} (tol 1e-4)", flush=True)
+
+
+def phase_moe_reference() -> None:
+    """mixtral-8x22b-smoke f32: the same paged prefill + greedy decode on
+    the card and on the CPU, at the config's capacity and at a dropping
+    one; every routing table of every layer and call recorded on both."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_gather import row_gather
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import (Model, init_paged_cache,
+                                                init_params)
+
+    base = get_config("mixtral-8x22b-smoke")
+    b, s, ps, max_len, steps = 4, 20, 8, 64, 4
+    rng = np.random.default_rng(4)
+    tokens = torch.from_numpy(
+        rng.integers(0, base.vocab_size, (b, s)).astype(np.int32))
+    start = torch.tensor([0, 6, 13, 19], dtype=torch.int32)
+    table = torch.arange(1, 1 + b * (max_len // ps),
+                         dtype=torch.int32).reshape(b, -1)
+    tables = moe.dispatch_tables
+
+    def recording(log):
+        def wrapped(eidx, num_experts, cap):
+            disp, comb = tables(eidx, num_experts, cap)
+            log.append((eidx.cpu(), comb.cpu()))
+            return disp, comb
+        return wrapped
+
+    for cf in (base.moe.capacity_factor_eval, 0.5):
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(
+            base.moe, capacity_factor_eval=cf))
+        params = init_params(cfg, 0, device="cpu")
+        model = Model(cfg)
+        runs = {}
+        try:
+            for dev in ("cpu", "cuda"):
+                log = []
+                moe.dispatch_tables = recording(log)
+                p = _to(params, dev)
+                cache = init_paged_cache(cfg, b, max_len, page_size=ps,
+                                         num_pages=1 + table.numel(),
+                                         dtype=torch.float32, device=dev)
+                cache.kv.table.copy_(table)
+                st = start.to(dev)
+                row_gather.launches = 0
+                with torch.inference_mode():
+                    out, _, cache = model.forward(
+                        p, {"tokens": tokens.to(dev)}, cache=cache, start=st)
+                    seq, toks = [out[:, -1:].cpu()], []
+                    for _ in range(steps):
+                        toks.append(seq[-1].argmax(-1).to(torch.int32))
+                        out, cache = model.decode_step(p, toks[-1].to(dev),
+                                                       cache, start=st)
+                        seq.append(out.cpu())
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    want = 2 * cfg.num_layers * (1 + steps)
+                    check(row_gather.launches == want,
+                          f"the card's MoE run launched row_gather "
+                          f"{row_gather.launches} times, want {want}")
+                runs[dev] = (seq, toks, log)
+        finally:
+            moe.dispatch_tables = tables
+        (sc, tc, lc), (sg, tg, lg) = runs["cpu"], runs["cuda"]
+        check(len(lc) == len(lg) == cfg.num_layers * (1 + steps),
+              f"{len(lc)}/{len(lg)} routing tables recorded")
+        dropped = 0
+        for i, ((ec, cc), (eg, cg)) in enumerate(zip(lc, lg)):
+            check(torch.equal(ec, eg), f"call/layer {i}: the card routed "
+                  f"tokens to other experts than the CPU")
+            check(torch.equal(cc, cg), f"call/layer {i}: the card kept "
+                  f"other assignments (or slots) than the CPU")
+            dropped += int((cc < 0).sum())
+        check(dropped > 0 or cf == base.moe.capacity_factor_eval,
+              f"capacity_factor_eval {cf} dropped no assignment")
+        worst = 0.0
+        for a, c in zip(sc, sg):
+            check(bool(torch.isfinite(c).all()),
+                  "non-finite MoE logits on the card")
+            worst = max(worst, (a - c).abs().max().item())
+            check(torch.allclose(c, a, atol=1e-4, rtol=1e-4),
+                  f"card MoE logits differ from the CPU's by {worst:.3e}")
+        check(all(torch.equal(a, c) for a, c in zip(tc, tg)),
+              "greedy tokens differ between the card and the CPU")
+        print(f"MoE reference: mixtral-8x22b-smoke f32 capacity_factor_eval="
+              f"{cf}: paged prefill + {steps} greedy decode steps, card vs "
+              f"CPU: {len(lc)} routing tables identical ({dropped} "
+              f"assignments dropped), greedy tokens identical, max |logit "
+              f"diff| = {worst:.3e} (tol 1e-4); row_gather launched "
+              f"{2 * cfg.num_layers * (1 + steps)} times on the card",
+              flush=True)
 
 
 def _bits(t):
@@ -856,9 +1075,14 @@ def main() -> None:
     phase_device()
     phase_build()
     kern = phase_kernels()
+    rows = phase_row_gather()
     flash = phase_flash()
-    runs = phase_serve()
+    from repro_torch.configs import get_config
+    runs = phase_serve(get_config(SERVE_ARCH))
     phase_reference()
+    moe_runs = phase_serve(dataclasses.replace(get_config(MOE_ARCH),
+                                               num_layers=MOE_LAYERS))
+    phase_moe_reference()
     import torch.distributed as dist
     tmp = init_data_group()
     try:
@@ -874,7 +1098,7 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_gather.cu",
         "replaces": "src/repro/kernels/paged_kv.py:42",
-        "launches": runs["paged"]["launches"],
+        "launches": runs["paged"]["launches"] + moe_runs["paged"]["launches"],
         "max_abs_err": max(k["max_abs_err"] for k in kern.values()),
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -900,7 +1124,8 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:95",
-        "launches": runs["paged"]["flash"] + runs["contiguous"]["flash"]
+        "launches": sum(r[layout]["flash"] for r in (runs, moe_runs)
+                        for layout in ("paged", "contiguous"))
         + train["flash"],
         "max_abs_err": flash["max_abs_err"],
         "ms": flash["a"]["ms"],
@@ -908,6 +1133,18 @@ def main() -> None:
         "bound_ms": flash["a"]["bound_ms"],
         "bound_by": flash["a"]["bound_by"],
         "library_ms": flash["a"]["library_ms"],
+    }, {
+        "name": "row_gather",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/row_gather.cu",
+        "replaces": "src/repro/kernels/moe_gather.py:29",
+        "launches": moe_runs["paged"]["rows"] + moe_runs["contiguous"]["rows"],
+        "max_abs_err": rows["max_abs_err"],
+        "ms": rows["8x1024 dispatch"]["ms"],
+        "plain_ms": rows["8x1024 dispatch"]["plain_ms"],
+        "bound_ms": rows["8x1024 dispatch"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": rows["8x1024 dispatch"]["library_ms"],
     }]}
     print(f"chip_smoke: all phases passed in {time.time() - t_all:.1f}s",
           flush=True)

@@ -12,8 +12,11 @@ with its Python wrapper, its plain PyTorch version and its launch count in
   bucket_pack_pallas`` / ``bucket_unpack_pallas``);
 * :mod:`repro_torch.kernels.flash_attention` — ``flash_attention``, the
   forward (replaces ``repro/kernels/flash_attention.py::
-  flash_attention_pallas``) with a plain recompute backward.
+  flash_attention_pallas``) with a plain recompute backward;
+* :mod:`repro_torch.kernels.moe_gather` — ``row_gather``, the MoE
+  dispatch and combine row moves (replaces ``repro/kernels/moe_gather.py::
+  row_gather_pallas``).
 
-The other Pallas kernels of the reference are still to be ported; see
-``ROADMAP.md``.
+The reference's last Pallas kernel, ``ssd_scan.py::ssd_chunk_pallas``, is
+still to be ported; see ``ROADMAP.md``.
 """

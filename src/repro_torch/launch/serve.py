@@ -9,6 +9,12 @@ gathers pages with the CUDA kernel on the card):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
         --vary-prompts --paged --page-size 16
 
+An MoE arch on the CPU (its sliding window, 64 in the smoke config, must
+cover ``--max-len``: the ring cache is not ported):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch mixtral-8x22b-smoke --max-len 64 --paged
+
 The flags are those of ``repro.launch.serve`` plus ``--device``: the card
 by default, ``--device cpu`` for the plain CPU path. ``--tp`` > 1 (the
 tensor-parallel decode on VCI streams) is not ported yet and raises.

@@ -1,0 +1,116 @@
+"""Mixture-of-Experts FFN: top-k router + sort-based capacity dispatch.
+
+Port of ``repro.models.moe`` for one device (``shard=None, comm=None``).
+Per batch row (group) the token->expert assignments are sorted by expert;
+each assignment's rank within its expert decides whether it fits the
+capacity ``C`` (GShard/Switch dropping). The row moves are two launches of
+:func:`repro_torch.kernels.moe_gather.row_gather` a layer:
+
+* *dispatch* — token rows into the capacity buffer ``(E, B*C, d)``, empty
+  slots zero (the reference's ``take_along_axis`` of the tokens and its
+  scatter into the ``(E*C+1, d)`` buffer, ``moe.py:62,66``, in one gather);
+* *combine* — expert outputs back to ``(B, S, K)`` token order, dropped
+  assignments zero (``moe.py:135,140``); the gate-weighted sum over ``K``
+  replaces the reference's scatter-add.
+
+The buffer is expert-major, so the expert FFNs are plain ``bmm`` calls on
+the ``(E, d, ff)`` weights without a transpose. Aux losses: Switch-style
+load balance and the router z-loss, as in the reference.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.moe_gather import row_gather
+from repro_torch.models.layers import act_fn, gated_ffn
+
+
+def capacity(tokens_per_group: int, num_experts: int, cf: float,
+             top_k: int) -> int:
+    c = int(math.ceil(tokens_per_group * top_k * cf / num_experts))
+    return max(4, c)
+
+
+def dispatch_tables(eidx: torch.Tensor, num_experts: int, cap: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Routing tables of the two row moves, built on ``eidx``'s device.
+
+    eidx: (B, S, K) expert of each assignment. Returns ``disp`` (E*B*C,)
+    int32 — the token row ``b*S + s`` each capacity slot ``(e, b, c)``
+    takes, -1 where the slot stays empty — and ``comb`` (B*S*K,) int32 —
+    the capacity slot ``e*B*C + b*C + c`` each assignment reads back, -1
+    where it was dropped. ``comb >= 0`` is the kept set."""
+    B, S, K = eidx.shape
+    E, C = num_experts, cap
+    dev = eidx.device
+    eid = eidx.reshape(B, S * K)
+    order = torch.argsort(eid, dim=1, stable=True)                  # (B,SK)
+    eids = torch.gather(eid, 1, order)
+    # one-hot by comparison: F.one_hot may check its input on the host
+    onehot = (eids[..., None] == torch.arange(E, device=dev)).int()  # (B,SK,E)
+    rank = torch.gather(onehot.cumsum(1) - 1, 2, eids[..., None])[..., 0]
+    keep = rank < C
+    grp = torch.arange(B, device=dev)[:, None]
+    slot = eids * (B * C) + grp * C + rank
+    tok = grp * S + order // K
+    # dropped assignments all land on one extra slot, cut off below (the
+    # reference's drop row); the kept slots are unique
+    disp = torch.full((E * B * C + 1,), -1, dtype=torch.int32, device=dev)
+    disp.scatter_(0, torch.where(keep, slot, E * B * C).reshape(-1),
+                  tok.to(torch.int32).reshape(-1))
+    comb = torch.empty((B, S * K), dtype=torch.int32, device=dev)
+    comb.scatter_(1, order, torch.where(keep, slot, -1).to(torch.int32))
+    return disp[:-1], comb.reshape(-1)
+
+
+def moe_ffn(cfg: ModelConfig, x, p, shard=None, *, inference: bool = False,
+            comm=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, S, d) -> (y, aux). One group per batch row."""
+    if shard is not None or comm is not None:
+        raise NotImplementedError(
+            "the sharded and expert-parallel MoE paths (shard / comm) are "
+            "not ported yet; see ROADMAP.md Queue 1 item 10")
+    m = cfg.moe
+    B, S, d = x.shape
+    E, K = m.num_experts, m.top_k
+    cf = m.capacity_factor_eval if inference else m.capacity_factor
+    C = min(capacity(S, E, cf, K), S)  # C=S is provably drop-free
+
+    logits = (x @ p["router"].to(x.dtype)).float()                 # (B,S,E)
+    probs = torch.softmax(logits, dim=-1)
+    # a stable descending sort breaks ties by the lower expert index, as
+    # jax.lax.top_k does (torch.topk promises no order among equals)
+    top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, eidx = top[..., :K], idx[..., :K]                       # (B,S,K)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+
+    disp, comb = dispatch_tables(eidx, E, C)
+    buf = row_gather(x.reshape(B * S, d), disp).view(E, B * C, d)
+    a = act_fn(cfg.hidden_act)
+    h = a(torch.bmm(buf, p["w_gate"].to(buf.dtype))) \
+        * torch.bmm(buf, p["w_up"].to(buf.dtype))                  # (E,BC,ff)
+    out = torch.bmm(h, p["w_down"].to(h.dtype))                    # (E,BC,d)
+
+    # combine: gather each assignment's expert output (a zero row where it
+    # was dropped) and sum over K. For top_k = 2 (every MoE config here)
+    # this equals the reference's scatter-add bit for bit: 0+a+b = a+b in
+    # either order. ys keeps the activation dtype, as there.
+    ys = row_gather(out.view(E * B * C, d), comb).view(B, S, K, d)
+    gate = torch.where(comb.view(B, S, K) >= 0, gates, 0.0)
+    y = (ys * gate[..., None].to(ys.dtype)).sum(2)
+
+    me = probs.mean(dim=(0, 1))                                    # (E,)
+    routed = eidx[..., None] == torch.arange(E, device=x.device)   # (B,S,K,E)
+    ce = routed.sum(2).float().mean(dim=(0, 1))                    # fraction
+    load_balance = E * torch.sum(me * ce / K)
+    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    aux = {"load_balance": load_balance, "router_z": z_loss}
+
+    if m.dense_residual:
+        y = y + gated_ffn(cfg, x, p["residual"])
+    return y, aux

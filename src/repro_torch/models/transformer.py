@@ -1,16 +1,19 @@
-"""The model for the dense text family (PyTorch port).
+"""The model for the dense and MoE text families (PyTorch port).
 
-Port of the dense branch of ``repro.models.transformer``. Params are a
-plain nested dict of tensors in the reference's layout: per-layer weights
-stacked on a leading ``L`` axis, ``(L, in, out)``, applied as ``x @ W`` —
-so :mod:`repro_torch.bridge` copies the reference's params without a
-transpose. The layer stack is a Python loop in place of ``lax.scan``, and
-decode caches are updated in place (see :mod:`repro_torch.models.attention`).
+Port of the attention-stack branch of ``repro.models.transformer``. Params
+are a plain nested dict of tensors in the reference's layout: per-layer
+weights stacked on a leading ``L`` axis, ``(L, in, out)``, applied as
+``x @ W`` — so :mod:`repro_torch.bridge` copies the reference's params
+without a transpose. The layer stack is a Python loop in place of
+``lax.scan``, and decode caches are updated in place (see
+:mod:`repro_torch.models.attention`).
 The training forward (no cache, autograd on) recomputes each block in the
 backward when ``cfg.remat != "none"`` (``torch.utils.checkpoint``).
 
-Other families (MoE, SSM, hybrid, VLM, audio) are later slices of the port
-and raise ``NotImplementedError``; see ``ROADMAP.md``.
+MoE layers (mixtral, arctic) replace the FFN with
+:func:`repro_torch.models.moe.moe_ffn` and sum its aux losses over the
+layers. Other families (SSM, hybrid, VLM, audio) are later slices of the
+port and raise ``NotImplementedError``; see ``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from repro_torch.models.layers import (
     gated_ffn,
     maybe_bf16_grads,
 )
+from repro_torch.models.moe import moe_ffn
 
 # a cursor is a host int here and an int32 scalar in the reference; cache
 # byte counts charge it at the reference's width so the two engines report
@@ -54,11 +58,11 @@ _CURSOR_BYTES = 4
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is in this slice of the port: dense text."""
-    if cfg.family != "dense" or cfg.modality != "text":
+    """Raise unless ``cfg`` is in the port so far: dense or MoE text."""
+    if cfg.family not in ("dense", "moe") or cfg.modality != "text":
         raise NotImplementedError(
-            f"repro_torch supports the dense text family so far, got "
-            f"family={cfg.family!r} modality={cfg.modality!r}; the other "
+            f"repro_torch supports the dense and MoE text families so far, "
+            f"got family={cfg.family!r} modality={cfg.modality!r}; the other "
             f"families are later slices (ROADMAP.md Queue 1)")
 
 
@@ -102,6 +106,24 @@ def _ffn_params(cfg: ModelConfig, gen, dims, dtype, device):
     return p
 
 
+def _moe_params(cfg: ModelConfig, gen, dims, dtype, device):
+    m = cfg.moe
+    d, ff, e = cfg.d_model, cfg.d_ff, m.num_experts
+    p = {
+        # the router stays float32 whatever param_dtype is, as there
+        "router": dense_init(gen, dims + (d, e), dtype=torch.float32,
+                             device=device),
+        "w_gate": dense_init(gen, dims + (e, d, ff), dtype=dtype,
+                             device=device),
+        "w_up": dense_init(gen, dims + (e, d, ff), dtype=dtype, device=device),
+        "w_down": dense_init(gen, dims + (e, ff, d), dtype=dtype,
+                             device=device),
+    }
+    if m.dense_residual:
+        p["residual"] = _ffn_params(cfg, gen, dims, dtype, device)
+    return p
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device=None) -> Dict[str, Any]:
     """Random params from ``seed`` (a ``torch.Generator`` on ``device``), in
@@ -118,8 +140,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     params: Dict[str, Any] = {"embed": {"tok": embed_init(
         gen, (cfg.vocab_size, cfg.d_model), dtype, dev)}}
     layer = {"attn": _attn_params(cfg, gen, dims, dtype, dev),
-             "norm1": _norm_params(cfg, dims, dev),
-             "ffn": _ffn_params(cfg, gen, dims, dtype, dev)}
+             "norm1": _norm_params(cfg, dims, dev)}
+    if cfg.moe is not None:
+        layer["moe"] = _moe_params(cfg, gen, dims, dtype, dev)
+    else:
+        layer["ffn"] = _ffn_params(cfg, gen, dims, dtype, dev)
     if not cfg.parallel_block:
         layer["norm2"] = _norm_params(cfg, dims, dev)
     params["layers"] = {k: v for k, v in layer.items() if v is not None}
@@ -273,21 +298,40 @@ def _prefill_cache(kv: KVCache, k, v) -> KVCache:
     return KVCache(kv.k, kv.v, kv.length + s)
 
 
+def _ffn_apply(cfg: ModelConfig, h, p, inference: bool):
+    """The block's FFN: dense, or MoE with its aux losses. (out, aux)."""
+    if cfg.moe is not None:
+        return moe_ffn(cfg, h, p["moe"], inference=inference)
+    return gated_ffn(cfg, h, p["ffn"]), {}
+
+
 def _dense_block(cfg: ModelConfig, x, p, positions, kv=None, decode=False,
                  start=None):
-    """Standard (or parallel) transformer block. Returns (x, new_kv)."""
+    """Standard (or parallel) transformer block. Returns (x, new_kv, aux);
+    ``aux`` holds the MoE router losses (empty for a dense FFN)."""
+    inference = decode or kv is not None
     h = apply_norm(cfg, x, p.get("norm1"))
     h = maybe_bf16_grads(cfg, h)  # opt bf16_grads: bf16 cotangents
     attn_out, new_kv = _attn_apply(cfg, h, p["attn"], positions, kv=kv,
                                    decode=decode, start=start)
     if cfg.parallel_block:
-        x = x + attn_out + gated_ffn(cfg, h, p["ffn"])
+        ffn_out, aux = _ffn_apply(cfg, h, p, inference)
+        x = x + attn_out + ffn_out
     else:
         x = x + attn_out
         h2 = apply_norm(cfg, x, p.get("norm2"))
         h2 = maybe_bf16_grads(cfg, h2)
-        x = x + gated_ffn(cfg, h2, p["ffn"])
-    return x, new_kv
+        ffn_out, aux = _ffn_apply(cfg, h2, p, inference)
+        x = x + ffn_out
+    return x, new_kv, aux
+
+
+def _sum_aux(auxes) -> Dict[str, torch.Tensor]:
+    """Per-layer aux dicts -> each key summed over the layers (the
+    reference's ``aux_v[:, i].sum()``); empty when no layer has any."""
+    if not auxes or not auxes[0]:
+        return {}
+    return {k: torch.stack([a[k] for a in auxes]).sum() for k in auxes[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -319,8 +363,9 @@ class Model:
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                            Optional[DecodeCache]]:
         """Returns (logits, aux, new_cache). ``cache`` non-None => prefill
-        (the cache is written in place). ``aux`` is empty: the dense family
-        has no router losses.
+        (the cache is written in place). ``aux`` holds the MoE router losses
+        ``load_balance``/``router_z`` summed over the layers; it is empty
+        for the dense family.
 
         ``start`` — (B,) int left-pad lengths for mixed-length prefill:
         row ``b``'s real tokens occupy positions ``[start[b], S)``; pad
@@ -336,25 +381,30 @@ class Model:
         # "dots" recomputes the whole block here too, not only the matmuls)
         remat = (cache is None and self.cfg.remat != "none"
                  and torch.is_grad_enabled())
+        auxes = []
         for l in range(self.cfg.num_layers):
             if remat:
-                x = checkpoint(functools.partial(
+                x, aux = checkpoint(functools.partial(
                     self._train_block, params, positions, start, l), x,
                     use_reentrant=False)
-                continue
-            kv = None if cache is None else _layer_kv(cache.kv, l)
-            x, _ = _dense_block(self.cfg, x, layer_params(params, l),
-                                positions, kv=kv, decode=False, start=start)
+            else:
+                kv = None if cache is None else _layer_kv(cache.kv, l)
+                x, _, aux = _dense_block(self.cfg, x, layer_params(params, l),
+                                         positions, kv=kv, decode=False,
+                                         start=start)
+            auxes.append(aux)
         new_cache = None
         if cache is not None:
             s = x.shape[1]
             new_cache = DecodeCache(_advanced(cache.kv, s), cache.length + s)
-        return self.unembed(params, x), {}, new_cache
+        return self.unembed(params, x), _sum_aux(auxes), new_cache
 
     def _train_block(self, params, positions, start, l: int, x):
-        """Layer ``l`` without a cache (the unit that remat recomputes)."""
-        return _dense_block(self.cfg, x, layer_params(params, l), positions,
-                            start=start)[0]
+        """Layer ``l`` without a cache (the unit that remat recomputes):
+        (x, aux)."""
+        x, _, aux = _dense_block(self.cfg, x, layer_params(params, l),
+                                 positions, start=start)
+        return x, aux
 
     # -- one-token decode --------------------------------------------------
     def decode_step(self, params, tokens, cache: DecodeCache,
@@ -374,9 +424,9 @@ class Model:
         else:
             positions = torch.full((x.shape[0], 1), cache.length,
                                    device=x.device)
-        for l in range(self.cfg.num_layers):
-            x, _ = _dense_block(self.cfg, x, layer_params(params, l),
-                                positions, kv=_layer_kv(cache.kv, l),
-                                decode=True, start=start)
+        for l in range(self.cfg.num_layers):  # aux dropped, as there
+            x, _, _ = _dense_block(self.cfg, x, layer_params(params, l),
+                                   positions, kv=_layer_kv(cache.kv, l),
+                                   decode=True, start=start)
         new_cache = DecodeCache(_advanced(cache.kv, 1), cache.length + 1)
         return self.unembed(params, x), new_cache

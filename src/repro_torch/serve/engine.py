@@ -1,7 +1,7 @@
 """Serving: prefill + batched decode with contiguous or paged KV caches.
 
-Port of ``repro.serve.engine`` for dense text archs on one device. The
-``ServeEngine`` is the same host-side continuous-batching loop:
+Port of ``repro.serve.engine`` for dense and MoE text archs on one
+device. The ``ServeEngine`` is the same host-side continuous-batching loop:
 
 * mixed-length prompts are LEFT-padded to a common width and prefilled with
   per-row pad masks + shifted RoPE positions, so a request's tokens are

@@ -1,6 +1,6 @@
 """Loss functions: masked next-token cross-entropy (port of
-``repro.train.losses`` for the families this port runs: no MoE aux terms,
-but the same fixed metric keys)."""
+``repro.train.losses`` for the families this port trains: no MoE aux
+terms, but the same fixed metric keys)."""
 
 from __future__ import annotations
 
@@ -29,8 +29,9 @@ def total_loss(cfg: ModelConfig, logits, labels, aux: Dict[str, torch.Tensor]
     """Mean CE over the unmasked tokens, plus the reference's fixed metric
     structure (``load_balance``/``router_z`` are zero for dense archs)."""
     if cfg.moe is not None:
-        raise NotImplementedError("MoE aux losses come with the MoE slice "
-                                  "(ROADMAP.md Queue 1 item 9)")
+        raise NotImplementedError("MoE training losses come with the MoE "
+                                  "training slice (ROADMAP.md Queue 1 item "
+                                  "15)")
     ce_sum, n = cross_entropy(logits, labels)
     ce = ce_sum / torch.clamp(n, min=1)
     zero = torch.zeros((), device=ce.device)

@@ -18,7 +18,8 @@ reading metrics, which the caller does.
 
 Later slices, each raising ``NotImplementedError``: ``optimizer="zero1"``
 (ROADMAP.md Queue 1 item 7), ``schedule="overlap"`` (item 8),
-``comm="gspmd"`` (item 14), and families other than dense text.
+``comm="gspmd"`` (item 14), and families other than dense text (MoE
+training is item 15).
 """
 
 from __future__ import annotations
@@ -127,6 +128,11 @@ def make_train_step(
     The state's params and moments are updated in place.
     """
     check_supported(cfg)
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            "MoE training is a later slice (ROADMAP.md Queue 1 item 15: "
+            "the row gather's backward); the train step runs the dense "
+            "text family so far")
     if optimizer == "zero1" or zero1_wire_dtype is not None:
         raise _zero1_later()
     if optimizer != "replicated":

@@ -13,11 +13,11 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import bucket_pack, paged_kv
+from repro_torch.kernels import bucket_pack, moe_gather, paged_kv
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models.transformer import Model, init_params
+from repro_torch.models.transformer import Model, init_cache, init_params
 from repro_torch.serve.engine import Request, ServeEngine
-from repro_torch.tree import tree_flatten, tree_unflatten
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 pytestmark = pytest.mark.cuda
 
@@ -284,3 +284,129 @@ def test_model_runs_flash_once_a_layer_and_twice_under_remat(cuda_device):
     assert (lc - lg).abs().max().item() <= 1e-4
     for a, b in zip(gc, gg):
         assert (a - b).abs().max().item() <= 1e-4 * max(1.0, a.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the MoE row gather
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("t,m,d", [(4, 32, 6144), (64, 256, 6144),
+                                   (7, 3, 8), (300, 1000, 256)])
+def test_row_gather_kernel_matches_plain(cuda_device, dtype, t, m, d):
+    """Bit-equal to the plain version, incl. empty rows and ids past T-1
+    (clamped to the last row), and one launch counted per call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(t + m)
+    src = torch.randn((t, d), generator=gen, device=cuda_device).to(dtype)
+    idx = torch.randint(-2, t + 2, (m,), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    n0 = moe_gather.row_gather.launches
+    got = moe_gather.row_gather(src, idx)
+    torch.cuda.synchronize()
+    assert moe_gather.row_gather.launches == n0 + 1
+    want = moe_gather.row_gather_plain(src, idx)
+    assert got.shape == want.shape == (m, d)
+    assert torch.equal(_bits(got), _bits(want))
+    none = moe_gather.row_gather(src, torch.full((m,), -1, dtype=torch.int32,
+                                                 device=cuda_device))
+    assert torch.equal(_bits(none), torch.zeros_like(_bits(none)))
+
+
+def test_row_gather_kernel_rejects_what_it_cannot_take(cuda_device):
+    src = torch.zeros((4, 8), device=cuda_device)
+    idx = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError, match="int32"):
+        moe_gather.row_gather(src, idx.long())
+    with pytest.raises(TypeError, match="takes"):
+        moe_gather.row_gather(src.double(), idx)
+    with pytest.raises(ValueError, match="CUDA device"):
+        moe_gather.row_gather(src, idx.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_gather.row_gather(torch.zeros((8, 4), device=cuda_device).T, idx)
+    with pytest.raises(ValueError, match="16 bytes"):
+        moe_gather.row_gather(torch.zeros((4, 3), device=cuda_device), idx)
+    with pytest.raises(NotImplementedError, match="MoE training"):
+        moe_gather.row_gather(src.requires_grad_(), idx)
+
+
+def _moe_smoke():
+    return get_config("mixtral-8x22b-smoke")
+
+
+def test_moe_forward_launches_row_gather_twice_a_layer(cuda_device):
+    """mixtral-8x22b-smoke f32: a forward (prefill into a cache) launches
+    the kernel twice a layer (dispatch and combine), a decode step too;
+    logits and aux equal the CPU's within 1e-4."""
+    cfg = _moe_smoke()
+    params = init_params(cfg, 0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (3, 12)).astype(np.int32))
+    start = torch.tensor([0, 4, 11], dtype=torch.int32)
+    out = {}
+    with torch.inference_mode():
+        for dev in ("cpu", cuda_device):
+            p = tree_map(lambda t: t.to(dev), params)
+            cache = init_cache(cfg, 3, 32, dtype=torch.float32, device=dev)
+            n0 = moe_gather.row_gather.launches
+            logits, aux, cache = Model(cfg).forward(
+                p, {"tokens": tokens.to(dev)}, cache=cache,
+                start=start.to(dev))
+            nxt = logits[:, -1:].argmax(-1).to(torch.int32)
+            step, cache = Model(cfg).decode_step(p, nxt, cache,
+                                                 start=start.to(dev))
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                assert moe_gather.row_gather.launches - n0 == \
+                    2 * 2 * cfg.num_layers
+            out[str(dev)] = (logits.cpu(), step.cpu(),
+                             {k: v.cpu() for k, v in aux.items()})
+    (lc, sc, ac), (lg, sg, ag) = out["cpu"], out[str(cuda_device)]
+    assert (lc - lg).abs().max().item() <= 1e-4
+    assert (sc - sg).abs().max().item() <= 1e-4
+    for k in ac:
+        assert abs(float(ac[k]) - float(ag[k])) <= 1e-5 * abs(float(ac[k]))
+
+
+def test_moe_engine_paged_equals_contiguous_on_card(cuda_device):
+    """mixtral-8x22b-smoke on the card: paged tokens equal contiguous
+    tokens (slots recycled), every forward call through the kernel."""
+    cfg = _moe_smoke()
+    params = init_params(cfg, 0, device=cuda_device)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
+               for n in (5, 9, 4, 7, 6)]
+    toks = {}
+    for paged in (True, False):
+        eng = ServeEngine(cfg, params, batch_size=2, max_len=64,
+                          device=cuda_device, paged=paged, page_size=8,
+                          num_pages=13)
+        moe_gather.row_gather.launches = 0
+        reqs = eng.generate([Request(prompt=p, max_new_tokens=6)
+                             for p in prompts])
+        assert moe_gather.row_gather.launches > 2 * cfg.num_layers * \
+            eng.decode_steps
+        toks[paged] = [r.generated.tolist() for r in reqs]
+    assert toks[True] == toks[False]
+
+
+def test_moe_layer_issues_no_host_sync(cuda_device):
+    """The routing tables are built on the card: ``moe_ffn`` at decode and
+    prefill shapes never waits for the device (torch's sync debug mode
+    raises on any op that would)."""
+    from repro_torch.models.moe import moe_ffn
+    cfg = _moe_smoke()
+    params = init_params(cfg, 0, device=cuda_device)
+    p = tree_map(lambda t: t[0], params["layers"]["moe"])
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    xs = [torch.randn((4, s, cfg.d_model), generator=gen, device=cuda_device)
+          for s in (1, 20)]
+    with torch.inference_mode():
+        moe_ffn(cfg, xs[0], p, inference=True)   # builds and loads the kernel
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for x in xs:
+                moe_ffn(cfg, x, p, inference=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)

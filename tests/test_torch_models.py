@@ -205,7 +205,7 @@ def test_unported_cache_layouts_raise():
         ttf.init_cache(get_config("gemma-2b-swa8-smoke"), 1, 128,
                        device="cpu")  # smoke windows are 64 < 128
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.Model(get_config("mixtral-8x22b-smoke"))
+        ttf.Model(get_config("mamba2-780m-smoke"))
 
 
 # ---------------------------------------------------------------------------
@@ -220,9 +220,23 @@ def _bridged(arch):
     return get_config(arch), jcfg, tparams, jparams
 
 
+def _close_aux(got, want):
+    """MoE router losses summed over the layers (rtol 1e-5); the dense port
+    returns none where the reference returns zeros."""
+    if not got:
+        assert all(float(v) == 0.0 for v in want.values())
+        return
+    assert set(got) == set(want) == {"load_balance", "router_z"}
+    for k in want:
+        _close(got[k].detach(), want[k], atol=0, rtol=1e-5)
+
+
 @pytest.mark.parametrize("paged", [False, True])
-@pytest.mark.parametrize("arch", ["olmo-1b-smoke", "gemma-2b-smoke"])
+@pytest.mark.parametrize("arch", ["olmo-1b-smoke", "gemma-2b-smoke",
+                                  "mixtral-8x22b-smoke", "arctic-480b-smoke"])
 def test_model_prefill_and_decode_logits_match(arch, paged):
+    """MoE archs route the pad rows of the ragged prefill like real rows,
+    and the training forward (no cache) uses the training capacity."""
     cfg, jcfg, tparams, jparams = _bridged(arch)
     rng = np.random.default_rng(7)
     b, s, max_len, ps = 3, 9, 16, 4
@@ -230,9 +244,11 @@ def test_model_prefill_and_decode_logits_match(arch, paged):
     start = np.asarray([0, 3, 5], np.int32)
     tmodel, jmodel = ttf.Model(cfg), jtf.Model(jcfg)
 
-    logits_t, _, _ = tmodel.forward(tparams, {"tokens": _t(tokens)})
-    logits_j, _, _ = jmodel.forward(jparams, {"tokens": jnp.asarray(tokens)})
-    _close(logits_t, logits_j, atol=1e-4, rtol=1e-4)
+    logits_t, aux_t, _ = tmodel.forward(tparams, {"tokens": _t(tokens)})
+    logits_j, aux_j, _ = jmodel.forward(jparams,
+                                        {"tokens": jnp.asarray(tokens)})
+    _close(logits_t.detach(), logits_j, atol=1e-4, rtol=1e-4)
+    _close_aux(aux_t, aux_j)
 
     if paged:
         table = np.arange(1, 1 + b * (max_len // ps), dtype=np.int32
@@ -251,11 +267,13 @@ def test_model_prefill_and_decode_logits_match(arch, paged):
         tcache = ttf.init_cache(cfg, b, max_len, dtype=torch.float32,
                                 device="cpu")
         jcache = jtf.init_cache(jcfg, b, max_len, dtype=jnp.float32)
-    lt, _, tcache = tmodel.forward(tparams, {"tokens": _t(tokens)},
-                                   cache=tcache, start=_t(start))
-    lj, _, jcache = jmodel.forward(jparams, {"tokens": jnp.asarray(tokens)},
-                                   cache=jcache, start=jnp.asarray(start))
+    lt, aux_t, tcache = tmodel.forward(tparams, {"tokens": _t(tokens)},
+                                       cache=tcache, start=_t(start))
+    lj, aux_j, jcache = jmodel.forward(jparams,
+                                       {"tokens": jnp.asarray(tokens)},
+                                       cache=jcache, start=jnp.asarray(start))
     _close(lt, lj, atol=1e-4, rtol=1e-4)
+    _close_aux(aux_t, aux_j)
     nxt = rng.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32)
     for _ in range(3):
         lt, tcache = tmodel.decode_step(tparams, _t(nxt), tcache,

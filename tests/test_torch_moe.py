@@ -1,0 +1,341 @@
+"""The port's MoE serve slice against the JAX reference, on the CPU.
+
+Inputs are made with numpy from a seed and fed to both sides; params come
+from the reference's ``init_params`` through ``repro_torch.bridge``.
+
+* ``row_gather_plain`` (the CPU path of the row-gather kernel) must equal
+  ``row_gather_ref`` and ``row_gather_pallas`` in interpret mode exactly:
+  the op is a copy.
+* ``moe_ffn`` on mixtral-8x22b-smoke and on arctic-480b-smoke (a dense
+  residual FFN beside the experts), with and without ``inference``, at a
+  drop-free and at a dropping capacity: ``y`` within 1e-5 (the same f32
+  math, summed in another order), both aux losses within rtol 1e-5, and the
+  kept assignments identical.
+* The serve engine's greedy tokens must equal the JAX engine's exactly.
+
+The CUDA kernel is held against the plain version on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.kernels.moe_gather import row_gather_pallas, row_gather_ref
+from repro.models import moe as jmoe
+from repro.models import transformer as jtf
+from repro.serve import engine as jengine
+from repro_torch.bridge import params_from_numpy, tensor_from_numpy
+from repro_torch.configs import get_config
+from repro_torch.kernels import moe_gather
+from repro_torch.models import moe as tmoe
+from repro_torch.models import transformer as ttf
+from repro_torch.serve import engine as tengine
+from repro_torch.train.trainer import make_train_step
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ATOL = 1e-5    # one MoE layer in f32
+RTOL_AUX = 1e-5
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    return a.view(np.int16 if a.dtype.itemsize == 2 else np.int32)
+
+
+# ---------------------------------------------------------------------------
+# the row gather
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,m,d,lo,hi", [
+    (16, 32, 64, -1, 16),      # some empty rows, M > T
+    (8, 24, 700, -2, 8),       # d not a multiple of block_d=512, M > T
+    (40, 16, 1024, -1, 40),    # two d tiles, M < T
+    (4, 8, 128, -5, 0),        # every row empty
+    (6, 12, 32, -1, 9),        # ids past T-1 clamp to the last row
+])
+def test_row_gather_plain_matches_reference(t, m, d, lo, hi, dtype):
+    rng = np.random.default_rng(t * 1000 + d)
+    np_dt = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
+    src = rng.normal(size=(t, d)).astype(np_dt)
+    idx = rng.integers(lo, hi, (m,)).astype(np.int32)
+    want_r = np.asarray(row_gather_ref(jnp.asarray(src), jnp.asarray(idx)))
+    want_k = np.asarray(row_gather_pallas(jnp.asarray(src), jnp.asarray(idx),
+                                          interpret=True))
+    before = moe_gather.row_gather.launches
+    got = moe_gather.row_gather(tensor_from_numpy(src, "cpu"),
+                                torch.from_numpy(idx))
+    assert moe_gather.row_gather.launches == before  # CPU: no kernel
+    got = got.view(torch.int16 if dtype == "bfloat16" else torch.int32)
+    assert got.shape == (m, d)
+    np.testing.assert_array_equal(got.numpy(), _bits(want_r))
+    np.testing.assert_array_equal(got.numpy(), _bits(want_k))
+
+
+def test_row_gather_plain_keeps_autograd():
+    src = torch.randn(5, 8, requires_grad=True)
+    idx = torch.tensor([4, -1, 0, 4], dtype=torch.int32)
+    moe_gather.row_gather(src, idx).sum().backward()
+    want = torch.zeros(5, 8)
+    want[4], want[0] = 2.0, 1.0
+    assert torch.equal(src.grad, want)
+
+
+@pytest.mark.parametrize("case", ["dtype", "idx_dtype", "rank", "strided",
+                                  "row_bytes", "requires_grad", "device"])
+def test_row_gather_kernel_refusals(case):
+    """What the CUDA kernel cannot take is refused before a launch (checked
+    here on CPU tensors; a CPU tensor itself never reaches the kernel)."""
+    src = torch.zeros(4, 8)
+    idx = torch.zeros(3, dtype=torch.int32)
+    err, match = ValueError, None
+    if case == "dtype":
+        src, err, match = src.double(), TypeError, "takes"
+    elif case == "idx_dtype":
+        idx, err, match = idx.long(), TypeError, "int32"
+    elif case == "rank":
+        src, match = src[None], "T>=1"
+    elif case == "strided":
+        src, match = torch.zeros(8, 4).T, "contiguous"
+    elif case == "row_bytes":
+        src, match = torch.zeros(4, 3), "16 bytes"
+    elif case == "requires_grad":
+        src, err, match = src.requires_grad_(), NotImplementedError, "item 15"
+    else:
+        match = "CUDA device"
+    with pytest.raises(err, match=match):
+        moe_gather._check_cuda_args(src, idx)
+
+
+def test_row_gather_refuses_other_devices():
+    with pytest.raises(ValueError, match="unsupported device"):
+        moe_gather.row_gather(torch.zeros(4, 8, device="meta"),
+                              torch.zeros(2, dtype=torch.int32,
+                                          device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# capacity, routing tables, moe_ffn
+# ---------------------------------------------------------------------------
+
+def test_capacity_matches_reference():
+    for tokens in (1, 7, 20, 64, 1024):
+        for experts in (4, 8, 128):
+            for cf in (0.5, 1.25, 2.0, 8.0):
+                for k in (1, 2):
+                    assert tmoe.capacity(tokens, experts, cf, k) == \
+                        jmoe.capacity(tokens, experts, cf, k)
+
+
+def _jax_keep(jcfg, x, router, inference):
+    """The reference's kept-assignment mask in token order, (B, S*K):
+    ``repro/models/moe.py:44-58`` step by step (``moe_ffn`` does not
+    return it)."""
+    m = jcfg.moe
+    B, S, _ = x.shape
+    E, K = m.num_experts, m.top_k
+    cf = m.capacity_factor_eval if inference else m.capacity_factor
+    C = min(jmoe.capacity(S, E, cf, K), S)
+    logits = (x @ router.astype(x.dtype)).astype(jnp.float32)
+    _, eidx = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), K)
+    eid = eidx.reshape(B, S * K)
+    order = jnp.argsort(eid, axis=1, stable=True)
+    eids = jnp.take_along_axis(eid, order, axis=1)
+    onehot = jax.nn.one_hot(eids, E, dtype=jnp.int32)
+    rank = jnp.take_along_axis(jnp.cumsum(onehot, axis=1) - 1,
+                               eids[..., None], axis=-1)[..., 0]
+    keep = np.zeros((B, S * K), bool)
+    np.put_along_axis(keep, np.asarray(order), np.asarray(rank < C), axis=1)
+    return keep, np.asarray(eidx)
+
+
+def _layer0(tree):
+    return {k: _layer0(v) if isinstance(v, dict) else v[0]
+            for k, v in tree.items()}
+
+
+@pytest.fixture(scope="module", params=["mixtral-8x22b-smoke",
+                                        "arctic-480b-smoke"])
+def moe_layer(request):
+    """(cfg, jcfg, port layer params, JAX layer params) of layer 0."""
+    arch = request.param
+    jcfg = jax_get_config(arch)
+    jparams = jtf.init_params(jcfg, jax.random.PRNGKey(0))
+    jp = _layer0(jparams["layers"]["moe"])
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    return get_config(arch), jcfg, tp, jp
+
+
+@pytest.mark.parametrize("capacity", ["drop_free", "dropping"])
+@pytest.mark.parametrize("inference", [False, True])
+def test_moe_ffn_matches_reference(moe_layer, inference, capacity):
+    cfg, jcfg, tp, jp = moe_layer
+    assert cfg.moe.dense_residual == ("residual" in tp)
+    cf = float(cfg.moe.num_experts) if capacity == "drop_free" else 0.5
+    moe = dataclasses.replace(cfg.moe, capacity_factor=cf,
+                              capacity_factor_eval=cf)
+    cfg = dataclasses.replace(cfg, moe=moe)
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+        jcfg.moe, capacity_factor=cf, capacity_factor_eval=cf))
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(3, 16, cfg.d_model)).astype(np.float32)
+
+    y_j, aux_j = jmoe.moe_ffn(jcfg, jnp.asarray(x), jp, None,
+                              inference=inference)
+    y_t, aux_t = tmoe.moe_ffn(cfg, _t(x), tp, inference=inference)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=ATOL,
+                               rtol=0)
+    assert set(aux_t) == set(aux_j) == {"load_balance", "router_z"}
+    for k in aux_j:
+        np.testing.assert_allclose(float(aux_t[k]), float(aux_j[k]),
+                                   rtol=RTOL_AUX)
+
+    keep_j, eidx_j = _jax_keep(jcfg, jnp.asarray(x), jp["router"], inference)
+    logits = _t(x) @ tp["router"]
+    eidx_t = torch.sort(torch.softmax(logits, -1), dim=-1, descending=True,
+                        stable=True)[1][..., :cfg.moe.top_k]
+    np.testing.assert_array_equal(eidx_t.numpy(), eidx_j)
+    C = min(tmoe.capacity(16, cfg.moe.num_experts, cf, cfg.moe.top_k), 16)
+    disp, comb = tmoe.dispatch_tables(eidx_t, cfg.moe.num_experts, C)
+    keep_t = (comb >= 0).reshape(3, -1).numpy()
+    np.testing.assert_array_equal(keep_t, keep_j)
+    assert keep_t.all() == (capacity == "drop_free")
+    assert int((disp >= 0).sum()) == int(keep_t.sum())
+
+
+def test_dispatch_tables_round_trip():
+    """Every kept assignment's slot holds its own token row; every filled
+    slot is read back by exactly one assignment."""
+    rng = np.random.default_rng(5)
+    B, S, K, E, C = 3, 10, 2, 4, 4
+    eidx = torch.from_numpy(np.stack([np.stack([rng.choice(E, K, replace=False)
+                                                for _ in range(S)])
+                                      for _ in range(B)]))
+    disp, comb = tmoe.dispatch_tables(eidx, E, C)
+    assert disp.shape == (E * B * C,) and comb.shape == (B * S * K,)
+    assert disp.dtype == comb.dtype == torch.int32
+    for a, slot in enumerate(comb.tolist()):
+        b, s, k = a // (S * K), (a // K) % S, a % K
+        if slot >= 0:
+            assert disp[slot] == b * S + s
+            e, bc = divmod(slot, B * C)
+            assert e == int(eidx[b, s, k]) and bc // C == b
+    filled = disp[disp >= 0].numel()
+    assert filled == int((comb >= 0).sum())
+    assert sorted(comb[comb >= 0].tolist()) == \
+        sorted((disp >= 0).nonzero()[:, 0].tolist())
+
+
+def test_moe_ffn_refuses_shard_and_comm(moe_layer):
+    cfg, _, tp, _ = moe_layer
+    x = torch.zeros(1, 2, cfg.d_model)
+    for kw in ({"shard": object()}, {"comm": object()}):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            tmoe.moe_ffn(cfg, x, tp, **kw)
+
+
+def test_moe_params_match_reference_layout():
+    """The port's MoE param tree has the reference's keys, shapes and
+    dtypes; the router stays float32 under bf16 params."""
+    for arch in ("mixtral-8x22b-smoke", "arctic-480b-smoke"):
+        cfg = dataclasses.replace(get_config(arch), param_dtype="bfloat16")
+        jcfg = dataclasses.replace(jax_get_config(arch),
+                                   param_dtype="bfloat16")
+        want = jax.eval_shape(lambda: jtf.init_params(
+            jcfg, jax.random.PRNGKey(0)))
+        got = ttf.init_params(cfg, 0, device="cpu")
+        flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
+        flat_g = jax.tree_util.tree_flatten_with_path(got)[0]
+        assert [p for p, _ in flat_w] == [p for p, _ in flat_g]
+        for (path, w), (_, g) in zip(flat_w, flat_g):
+            assert tuple(g.shape) == w.shape, path
+            assert str(g.dtype).replace("torch.", "") == str(w.dtype), path
+        assert got["layers"]["moe"]["router"].dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+ARCH = "mixtral-8x22b-smoke"   # sliding_window=64: max_len 64 needs no ring
+
+
+@pytest.fixture(scope="module")
+def mixtral():
+    jcfg = jax_get_config(ARCH)
+    jparams = jtf.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                "cpu")
+    return get_config(ARCH), jcfg, tparams, jparams
+
+
+def _requests(kind):
+    """Mixed prompt lengths in one batch, or 5 requests on 2 slots (slots
+    recycled: mid-stream admission)."""
+    if kind in ("mixed", "dropping"):
+        rng = np.random.default_rng(3)
+        spec, batch = [(3, 6), (11, 6), (7, 6)], 3
+    else:
+        rng = np.random.default_rng(11)
+        spec, batch = [(5, 3), (9, 6), (4, 8), (7, 2), (6, 5)], 2
+    reqs = [dict(prompt=rng.integers(0, 512, (p,), dtype=np.int32),
+                 max_new_tokens=n) for p, n in spec]
+    return reqs, batch
+
+
+@pytest.mark.parametrize("paged", [True, False])
+@pytest.mark.parametrize("kind", ["mixed", "recycling", "dropping"])
+def test_moe_engine_tokens_match_reference(mixtral, kind, paged):
+    """``dropping``: capacity_factor_eval 0.5, so the 11-wide prefill has
+    C = 4 slots an expert for 22 assignments of each row (pad rows
+    included) over 4 experts: some are dropped in every row."""
+    cfg, jcfg, tparams, jparams = mixtral
+    if kind == "dropping":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor_eval=0.5))
+        jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+            jcfg.moe, capacity_factor_eval=0.5))
+    reqs, batch = _requests(kind)
+    kw = dict(batch_size=batch, max_len=64, paged=paged, page_size=8,
+              num_pages=13)
+    jeng = jengine.ServeEngine(jcfg, jparams, **kw)
+    want = [r.generated for r in jeng.generate(
+        [jengine.Request(**r) for r in reqs])]
+    teng = tengine.ServeEngine(cfg, tparams, device="cpu", **kw)
+    done = teng.generate([tengine.Request(**r) for r in reqs])
+    for i, (r, w) in enumerate(zip(done, want)):
+        np.testing.assert_array_equal(r.generated, w,
+                                      err_msg=f"request {i} ({kind})")
+    assert teng.cache_bytes_resident == jeng.cache_bytes_resident
+
+
+def test_moe_training_is_refused():
+    with pytest.raises(NotImplementedError, match="item 15"):
+        make_train_step(get_config(ARCH), comm="vci")
+
+
+def test_cli_serves_moe_on_cpu():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep + \
+        env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        "--device", "cpu", "--arch", ARCH, "--max-len", "64",
+                        "--paged", "--vary-prompts"],
+                       capture_output=True, text=True, cwd=REPO, env=env,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "arch=mixtral-8x22b-smoke" in r.stdout
+    assert "8 requests, 256 new tokens" in r.stdout
