@@ -48,6 +48,25 @@ Phases, each a check that exits non-zero when it fails:
    dropping one (capacity_factor_eval 0.5): identical routing tables
    (experts and kept slots of every assignment), logits within 1e-4,
    identical greedy tokens, the row gather launched 2 x L a call;
+6d. SSD kernel: the Mamba2 intra-chunk kernel against its plain version
+   (TF32 off, both in f32 on the same inputs), max |diff| <= 2e-5 x
+   max(1, max |plain|) for y and for the states, at the mamba2-780m serve
+   prefill (b 4, s 1,024, h 48, p 64, g 1, n 128, chunk 256; x/B/C bf16,
+   dt/cum f32) and in f32 with g 2, 3 heads a group and s = 2 chunks; a
+   second launch gives equal bits; kernel, plain and bound times at the
+   serve shape (no single PyTorch call computes it: library "none");
+6e. SSM serve: mamba2-780m at full width and depth (48 layers, d 1,536,
+   48 heads of 64, d_state 128, chunk 256, vocab 50,280, tied; 780 M bf16
+   params from a seed) through ``ServeEngine``'s grouped equal-length path
+   on 4 slots: 4 prompts of 1,000 tokens (padded to 1,024 inside the scan:
+   4 chunks) and 4 of 64, 32 new tokens each, max_len 1,056 — 2 groups, 2
+   prefill calls, 62 decode steps; the launch count zeroed just before and
+   read just after: 48 SSD launches a prefill call; then a profile;
+6f. SSM reference: mamba2-780m-smoke in float32 (TF32 off), prefill of 50
+   tokens (padded, 2 chunks) + 4 greedy decode steps on the card and on
+   the CPU: logits within 1e-4, identical greedy tokens, the kernel run
+   once a layer a prefill; and the grouped engine's tokens on mixed
+   prompt lengths identical on card and CPU;
 7. bucket kernels: the tile-gather pack/unpack kernel against its plain
    version, bit for bit, on the tables of the full-width olmo-1b plan
    (``get_comm_plan(params, num_streams=8, pack="pallas")``): every
@@ -96,6 +115,13 @@ BATCH, MAX_LEN, PAGE_SIZE = 4, 256, 16
 N_REQUESTS, PROMPT_LO, PROMPT_HI, MAX_NEW = 8, 16, 64, 32
 COLD_POOLS = 16                  # 16 pools of 8.5 (f32) / 4.3 MB > 50 MB L2
 MOE_ARCH, MOE_LAYERS = "mixtral-8x22b", 4
+SSM_ARCH, SSM_MAX_LEN = "mamba2-780m", 1056
+SSM_PROMPTS = (1000,) * 4 + (64,) * 4
+# name, x/B/C dtype, (b, s, h, p, g, n, chunk), timed
+SSD_CASES = (
+    ("serve", "bfloat16", (4, 1024, 48, 64, 1, 128, 256), True),
+    ("f32 g2", "float32", (2, 512, 6, 64, 2, 128, 256), False),
+)
 TRAIN_ARCH = "olmo-1b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
 TRAIN_KNOBS = dict(comm="vci", pack="pallas", num_streams=8, num_vcis=8,
@@ -538,24 +564,29 @@ def phase_serve(cfg) -> dict:
     return runs
 
 
-def profile_decode(cfg, params) -> None:
-    """Where a paged serve run's time goes on the card: ``torch.profiler``
-    over a short run (4 requests, 16 new tokens each) — device busy time,
-    the device's idle share of the same run's wall time without the
-    profiler, and the kernels by time. Measures only; the checks are
+def profile_decode(cfg, params, eng=None, make_requests=None) -> None:
+    """Where a serve run's time goes on the card: ``torch.profiler`` over a
+    short run (by default paged, 4 requests, 16 new tokens each) — device
+    busy time, the device's idle share of the same run's wall time without
+    the profiler, and the kernels by time. Measures only; the checks are
     done."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.engine import ServeEngine
 
-    eng = ServeEngine(cfg, params, batch_size=BATCH, max_len=MAX_LEN,
-                      device="cuda", paged=True, page_size=PAGE_SIZE)
+    if eng is None:
+        eng = ServeEngine(cfg, params, batch_size=BATCH, max_len=MAX_LEN,
+                          device="cuda", paged=True, page_size=PAGE_SIZE)
+    if make_requests is None:
+        def make_requests():
+            reqs = _requests(cfg.vocab_size)[:BATCH]
+            for r in reqs:
+                r.max_new_tokens = 16
+            return reqs
 
     def run() -> float:
-        reqs = _requests(cfg.vocab_size)[:BATCH]
-        for r in reqs:
-            r.max_new_tokens = 16
+        reqs = make_requests()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         eng.generate(reqs)
@@ -574,8 +605,10 @@ def profile_decode(cfg, params) -> None:
               flush=True)
         return
     steps = eng.decode_steps
-    print(f"profile: paged {cfg.name}, {BATCH} requests x 16 tokens, "
-          f"{steps} decode steps: wall {wall_ms:.2f} ms ({prof_wall_ms:.2f} "
+    probe = make_requests()
+    layout = "paged" if eng._paged else "contiguous"
+    print(f"profile: {layout} {cfg.name}, {len(probe)} requests x "
+          f"{probe[0].max_new_tokens} tokens, {steps} decode steps: wall {wall_ms:.2f} ms ({prof_wall_ms:.2f} "
           f"under the profiler), device busy {busy_ms:.2f} ms, device idle "
           f"share {1 - busy_ms / wall_ms:.4f}; {sum(e.count for e in kern)} "
           f"kernel launches", flush=True)
@@ -583,7 +616,8 @@ def profile_decode(cfg, params) -> None:
                       if sym in e.key) / 1e3)
            for name, sym in (("paged_gather", "paged_gather_kernel"),
                              ("flash_attention", "flash_fwd_kernel"),
-                             ("row_gather", "row_gather_kernel"))]
+                             ("row_gather", "row_gather_kernel"),
+                             ("ssd_chunk", "ssd_chunk_kernel"))]
     print("profile: the port's kernels: " + ", ".join(
         f"{name} {ms:.3f} ms = {ms / busy_ms:.4f} of device time"
         for name, ms in own), flush=True)
@@ -748,6 +782,230 @@ def phase_moe_reference() -> None:
               f"diff| = {worst:.3e} (tol 1e-4); row_gather launched "
               f"{2 * cfg.num_layers * (1 + steps)} times on the card",
               flush=True)
+
+
+def ssd_work(x, B, chunk) -> tuple:
+    """(FLOPs, bytes) the intra-chunk step needs: per (batch, head, chunk)
+    of c rows, the c(c+1)/2 causal (i, j) pairs at 2n FLOPs for C B^T and
+    2p for W x, and 2 c n p for the state; x, dt, cum, B, C read once, y
+    and the states written once (f32)."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    nc = s // chunk
+    pairs = chunk * (chunk + 1) // 2
+    flops = b * h * nc * (pairs * 2 * (n + p) + 2 * chunk * n * p)
+    nbytes = (x.numel() + 2 * B.numel()) * x.element_size() + \
+        2 * b * s * h * 4 + b * s * h * p * 4 + b * nc * h * n * p * 4
+    return flops, nbytes
+
+
+def _ssd_inputs(dtype, b, s, h, p, g, n, chunk, gen):
+    """x/B/C ~ N(0,1) in ``dtype``; dt in softplus(dt_bias)'s range
+    [1e-3, 0.1]; cum the per-chunk cumsum of dt * A, A in [-16, -1]."""
+    import torch
+    x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+    dt = 1e-3 + 0.099 * torch.rand((b, s, h), generator=gen, device="cuda")
+    A = -1.0 - 15.0 * torch.rand((h,), generator=gen, device="cuda")
+    cum = (dt * A).reshape(b, s // chunk, chunk, h).cumsum(2).reshape(b, s, h)
+    B = torch.randn((b, s, g, n), generator=gen, device="cuda").to(dtype)
+    C = torch.randn((b, s, g, n), generator=gen, device="cuda").to(dtype)
+    return x, dt, cum, B, C
+
+
+def phase_ssd() -> dict:
+    """The SSD intra-chunk kernel against its plain version (see 6d)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    res = {"max_abs_err": 0.0}
+    for name, dt_name, (b, s, h, p, g, n, chunk), timed in SSD_CASES:
+        args = _ssd_inputs(getattr(torch, dt_name), b, s, h, p, g, n, chunk,
+                           gen)
+        n0 = ssd_chunk.launches
+        y, st = ssd_chunk(*args, chunk)
+        y2, st2 = ssd_chunk(*args, chunk)
+        torch.cuda.synchronize()
+        what = (f"ssd_chunk ({name}) x/B/C {dt_name} (b,s,h,p)=({b},{s},{h},"
+                f"{p}) g={g} n={n} chunk={chunk}")
+        check(ssd_chunk.launches == n0 + 2,
+              f"{what}: 2 calls counted {ssd_chunk.launches - n0}")
+        check(torch.equal(_bits(y), _bits(y2)) and
+              torch.equal(_bits(st), _bits(st2)),
+              f"{what}: a second launch gave other bits")
+        check(bool(torch.isfinite(y).all() and torch.isfinite(st).all()),
+              f"{what}: non-finite output")
+        wy, wst = ssd_chunk_plain(*args, chunk)
+        errs = []
+        for out, want, label in ((y, wy, "y"), (st, wst, "states")):
+            tol = 2e-5 * max(1.0, want.abs().max().item())
+            err = (out - want).abs().max().item()
+            check(err <= tol, f"{what}: {label} err {err:.3e} > tol "
+                  f"{tol:.3e} (2e-5 x max(1, max|plain|))")
+            errs.append(f"{label} err {err:.3e} (tol {tol:.3e})")
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+        print(f"kernel {what}: {', '.join(errs)} [vs plain f32, TF32 off]; "
+              f"second launch bit-equal", flush=True)
+        del wy, wst, y2, st2
+        if timed:
+            kernel_ms = time_ms(lambda i: ssd_chunk(*args, chunk), n_iter=20,
+                                reps=3)
+            plain_ms = time_ms(lambda i: ssd_chunk_plain(*args, chunk),
+                               n_iter=3, reps=2)
+            host_ms = eager_ms(lambda i: ssd_chunk(*args, chunk), n_iter=50)
+            flops, nbytes = ssd_work(args[0], args[3], chunk)
+            flop_ms = flops / BF16_FLOPS_PER_S * 1e3
+            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ms = max(flop_ms, byte_ms)
+            bound_by = "operations" if flop_ms > byte_ms else "bytes"
+            res.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
+            print(f"kernel ssd_chunk ({name}) times: kernel_ms="
+                  f"{kernel_ms:.5f} plain_ms={plain_ms:.5f} library_ms=none "
+                  f"bound_ms={bound_ms:.5f} ({bound_by}: {nbytes} B -> "
+                  f"{byte_ms:.5f} ms, {flops} causal FLOPs -> {flop_ms:.5f} "
+                  f"ms at 989 TFLOP/s; {bound_ms / kernel_ms:.4f} of the "
+                  f"bound, {flops / kernel_ms / 1e9:.2f} TFLOP/s); eager "
+                  f"call incl. host {host_ms:.5f} ms", flush=True)
+        del args, y, st
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_ssm_serve() -> int:
+    """Full-width mamba2-780m through the grouped engine (see 6e); returns
+    the run's SSD kernel launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config(SSM_ARCH)
+    t0 = time.time()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    c = cfg.ssm
+    print(f"SSM serve: {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
+          f"d_inner={c.d_inner(cfg.d_model)} heads={c.num_heads(cfg.d_model)}"
+          f"x{c.head_dim} d_state={c.d_state} chunk={c.chunk_size} "
+          f"vocab={cfg.vocab_size} tied={cfg.tie_embeddings} "
+          f"params={cfg.param_count() / 1e9:.3f}B {cfg.param_dtype} (init "
+          f"{time.time() - t0:.1f}s, {torch.cuda.memory_allocated()} B on "
+          f"the card)", flush=True)
+    rng = np.random.default_rng(8)
+
+    def make_requests(max_new=MAX_NEW):
+        return [Request(prompt=rng.integers(0, cfg.vocab_size, (n,),
+                                            dtype=np.int32),
+                        max_new_tokens=max_new) for n in SSM_PROMPTS]
+
+    eng = ServeEngine(cfg, params, batch_size=BATCH, max_len=SSM_MAX_LEN,
+                      device="cuda", paged=True)
+    check(not eng._paged, "the SSM engine took the paged path")
+    eng.generate([Request(prompt=r.prompt[:64], max_new_tokens=2)
+                  for r in make_requests()[:2]])            # warm-up
+    reqs = make_requests()
+    eng._prefill, eng._step = _Timed(eng._prefill), _Timed(eng._step)
+    torch.cuda.synchronize()
+    ssd_chunk.launches = flash_attention.launches = 0
+    t0 = time.perf_counter()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, flash = ssd_chunk.launches, flash_attention.launches
+    n_tok = sum(len(r.generated) for r in reqs)
+    for i, r in enumerate(reqs):
+        g = r.generated
+        check(len(g) == MAX_NEW, f"SSM request {i} made {len(g)} tokens, "
+              f"want {MAX_NEW}")
+        check(bool(((g >= 0) & (g < cfg.vocab_size)).all()),
+              f"SSM request {i} has out-of-range ids")
+    steps, calls = eng.decode_steps, eng._prefill.calls
+    check(calls == 2 and steps == 2 * (MAX_NEW - 1),
+          f"SSM run: {calls} prefill calls and {steps} decode steps, want 2 "
+          f"and {2 * (MAX_NEW - 1)}")
+    want = cfg.num_layers * calls
+    check(launches == want, f"SSM run launched ssd_chunk {launches} times, "
+          f"want {cfg.num_layers} x {calls} prefill calls = {want}")
+    check(flash == 0, f"the SSM run launched flash_attention {flash} times")
+    step_ms = eng._step.seconds / steps * 1e3
+    print(f"SSM serve {cfg.name}: {len(reqs)} requests (prompts "
+          f"{list(SSM_PROMPTS)}), {n_tok} new tokens in {dt:.3f}s "
+          f"({n_tok / dt:.1f} tok/s) decode_steps={steps} decode_s="
+          f"{eng._step.seconds:.3f} ({step_ms:.3f} ms/step) prefill_s="
+          f"{eng._prefill.seconds:.3f} ({calls} prefill calls) "
+          f"ssd_chunk.launches={launches} "
+          f"cache_bytes_resident={eng.cache_bytes_resident}", flush=True)
+    profile_decode(cfg, params, eng=ServeEngine(
+        cfg, params, batch_size=BATCH, max_len=SSM_MAX_LEN, device="cuda"),
+        make_requests=lambda: make_requests(max_new=8))
+    del params, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ssm_reference() -> None:
+    """mamba2-780m-smoke f32 on the card against the CPU (see 6f)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+    from repro_torch.models.transformer import Model, init_cache, init_params
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config("mamba2-780m-smoke")
+    params = init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(9)
+    b, s, steps = 4, 50, 4
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32))
+    prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
+               for n in (9, 50, 9, 9, 33)]
+    model = Model(cfg)
+    runs = []
+    with torch.inference_mode():
+        for dev in ("cpu", "cuda"):
+            p = _to(params, dev)
+            cache = init_cache(cfg, b, 64, dtype=torch.float32, device=dev)
+            ssd_chunk.launches = 0
+            out, _, cache = model.forward(p, {"tokens": tokens.to(dev)},
+                                          cache=cache)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                check(ssd_chunk.launches == cfg.num_layers,
+                      f"the card's SSM prefill launched ssd_chunk "
+                      f"{ssd_chunk.launches} times, want {cfg.num_layers}")
+            seq, toks = [out[:, -1:].cpu()], []
+            for _ in range(steps):
+                toks.append(seq[-1].argmax(-1).to(torch.int32))
+                out, cache = model.decode_step(p, toks[-1].to(dev), cache)
+                seq.append(out.cpu())
+            eng = ServeEngine(cfg, p, batch_size=2, max_len=64, device=dev)
+            done = eng.generate([Request(prompt=q, max_new_tokens=8)
+                                 for q in prompts])
+            runs.append((seq, toks, [r.generated.tolist() for r in done]))
+    (sc, tc, ec), (sg, tg, eg) = runs
+    worst = 0.0
+    for a, c in zip(sc, sg):
+        check(bool(torch.isfinite(c).all()), "non-finite SSM logits on the "
+              "card")
+        worst = max(worst, (a - c).abs().max().item())
+        check(torch.allclose(c, a, atol=1e-4, rtol=1e-4),
+              f"card SSM logits differ from the CPU's by {worst:.3e}")
+    check(all(torch.equal(a, c) for a, c in zip(tc, tg)),
+          "SSM greedy tokens differ between the card and the CPU")
+    check(ec == eg, f"SSM engine tokens differ: card {eg} vs CPU {ec}")
+    print(f"SSM reference: mamba2-780m-smoke f32 prefill of {b} x {s} "
+          f"tokens (padded to 64: 2 chunks; ssd_chunk launched "
+          f"{cfg.num_layers} times on the card) + {steps} greedy decode "
+          f"steps, card vs CPU: greedy tokens identical, max |logit diff| = "
+          f"{worst:.3e} (tol 1e-4); grouped engine on prompts "
+          f"{[len(q) for q in prompts]} (3 groups, one split): tokens "
+          f"identical", flush=True)
 
 
 def _bits(t):
@@ -1083,6 +1341,9 @@ def main() -> None:
     moe_runs = phase_serve(dataclasses.replace(get_config(MOE_ARCH),
                                                num_layers=MOE_LAYERS))
     phase_moe_reference()
+    ssd = phase_ssd()
+    ssm_launches = phase_ssm_serve()
+    phase_ssm_reference()
     import torch.distributed as dist
     tmp = init_data_group()
     try:
@@ -1145,6 +1406,18 @@ def main() -> None:
         "bound_ms": rows["8x1024 dispatch"]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": rows["8x1024 dispatch"]["library_ms"],
+    }, {
+        "name": "ssd_chunk",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:56",
+        "launches": ssm_launches,
+        "max_abs_err": ssd["max_abs_err"],
+        "ms": ssd["ms"],
+        "plain_ms": ssd["plain_ms"],
+        "bound_ms": ssd["bound_ms"],
+        "bound_by": ssd["bound_by"],
+        "library_ms": None,
     }]}
     print(f"chip_smoke: all phases passed in {time.time() - t_all:.1f}s",
           flush=True)

@@ -15,6 +15,13 @@ cover ``--max-len``: the ring cache is not ported):
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch mixtral-8x22b-smoke --max-len 64 --paged
 
+An SSM arch (mamba2) on the CPU, through the grouped equal-length path
+(requests grouped by prompt length; the SSD intra-chunk step is the CUDA
+kernel on the card):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch mamba2-780m-smoke --vary-prompts
+
 The flags are those of ``repro.launch.serve`` plus ``--device``: the card
 by default, ``--device cpu`` for the plain CPU path. ``--tp`` > 1 (the
 tensor-parallel decode on VCI streams) is not ported yet and raises.
@@ -82,9 +89,12 @@ def main(argv=None) -> None:
                          temperature=args.temperature, seed=args.seed,
                          paged=args.paged, page_size=args.page_size,
                          num_pages=args.pages)
-    if args.paged:
+    if args.paged and engine._paged:
         print(f"paged cache: page_size={args.page_size} "
               f"num_pages={engine._num_pages} (admit_under_mesh=True)")
+    elif args.paged:
+        print(f"paged cache: not used for family={cfg.family!r}; the "
+              f"grouped equal-length contiguous path serves it")
 
     rng = np.random.default_rng(args.seed)
     reqs = []

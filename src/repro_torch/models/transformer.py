@@ -12,13 +12,16 @@ backward when ``cfg.remat != "none"`` (``torch.utils.checkpoint``).
 
 MoE layers (mixtral, arctic) replace the FFN with
 :func:`repro_torch.models.moe.moe_ffn` and sum its aux losses over the
-layers. Other families (SSM, hybrid, VLM, audio) are later slices of the
+layers. The SSM family (mamba2) stacks Mamba2 blocks
+(:mod:`repro_torch.models.ssm`) with an :class:`SSMState` per layer in the
+decode cache. Other families (hybrid, VLM, audio) are later slices of the
 port and raise ``NotImplementedError``; see ``ROADMAP.md``.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -50,6 +53,7 @@ from repro_torch.models.layers import (
     maybe_bf16_grads,
 )
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.ssm import SSMState, mamba2_decode, mamba2_forward
 
 # a cursor is a host int here and an int32 scalar in the reference; cache
 # byte counts charge it at the reference's width so the two engines report
@@ -58,12 +62,13 @@ _CURSOR_BYTES = 4
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is in the port so far: dense or MoE text."""
-    if cfg.family not in ("dense", "moe") or cfg.modality != "text":
+    """Raise unless ``cfg`` is in the port so far: dense, MoE or SSM text."""
+    if cfg.family not in ("dense", "moe", "ssm") or cfg.modality != "text":
         raise NotImplementedError(
-            f"repro_torch supports the dense and MoE text families so far, "
-            f"got family={cfg.family!r} modality={cfg.modality!r}; the other "
-            f"families are later slices (ROADMAP.md Queue 1)")
+            f"repro_torch supports the dense, MoE and SSM text families so "
+            f"far, got family={cfg.family!r} modality={cfg.modality!r}; the "
+            f"hybrid, VLM and audio families are later slices (ROADMAP.md "
+            f"Queue 1 items 12 and 13)")
 
 
 # ---------------------------------------------------------------------------
@@ -124,6 +129,34 @@ def _moe_params(cfg: ModelConfig, gen, dims, dtype, device):
     return p
 
 
+def _ssm_params(cfg: ModelConfig, gen, dims, dtype, device):
+    c = cfg.ssm
+    d = cfg.d_model
+    d_in = c.d_inner(d)
+    nh = c.num_heads(d)
+    d_bc = 2 * c.ngroups * c.d_state
+    proj_out = 2 * d_in + d_bc + nh
+    f32 = torch.float32
+    # dt bias initialized so softplus(dt_bias) spans [1e-3, 1e-1] (mamba2 init)
+    u = torch.rand(dims + (nh,), generator=gen, device=device)
+    dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    dt_bias = dt + torch.log(-torch.expm1(-dt))
+    a_init = torch.log(torch.linspace(1.0, 16.0, nh, device=device))
+    conv_w = 0.1 * torch.randn(dims + (c.conv_width, d_in + d_bc),
+                               generator=gen, device=device)
+    return {
+        "in_proj": dense_init(gen, dims + (d, proj_out), dtype=dtype,
+                              device=device),
+        "conv_w": conv_w.to(dtype),
+        "A_log": a_init.expand(dims + (nh,)).contiguous(),
+        "D": torch.ones(dims + (nh,), dtype=f32, device=device),
+        "dt_bias": dt_bias,
+        "gate_norm": torch.ones(dims + (d_in,), dtype=f32, device=device),
+        "out_proj": dense_init(gen, dims + (d_in, d), dtype=dtype,
+                               device=device),
+    }
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device=None) -> Dict[str, Any]:
     """Random params from ``seed`` (a ``torch.Generator`` on ``device``), in
@@ -139,14 +172,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     dims = (cfg.num_layers,)
     params: Dict[str, Any] = {"embed": {"tok": embed_init(
         gen, (cfg.vocab_size, cfg.d_model), dtype, dev)}}
-    layer = {"attn": _attn_params(cfg, gen, dims, dtype, dev),
-             "norm1": _norm_params(cfg, dims, dev)}
-    if cfg.moe is not None:
-        layer["moe"] = _moe_params(cfg, gen, dims, dtype, dev)
+    if cfg.family == "ssm":
+        layer = {"ssm": _ssm_params(cfg, gen, dims, dtype, dev),
+                 "norm1": _norm_params(cfg, dims, dev)}
     else:
-        layer["ffn"] = _ffn_params(cfg, gen, dims, dtype, dev)
-    if not cfg.parallel_block:
-        layer["norm2"] = _norm_params(cfg, dims, dev)
+        layer = {"attn": _attn_params(cfg, gen, dims, dtype, dev),
+                 "norm1": _norm_params(cfg, dims, dev)}
+        if cfg.moe is not None:
+            layer["moe"] = _moe_params(cfg, gen, dims, dtype, dev)
+        else:
+            layer["ffn"] = _ffn_params(cfg, gen, dims, dtype, dev)
+        if not cfg.parallel_block:
+            layer["norm2"] = _norm_params(cfg, dims, dev)
     params["layers"] = {k: v for k, v in layer.items() if v is not None}
     fn = _norm_params(cfg, (), dev)
     if fn is not None:
@@ -171,27 +208,44 @@ def layer_params(params: Dict[str, Any], l: int) -> Dict[str, Any]:
 
 @dataclass
 class DecodeCache:
-    """Decode state: a layer-stacked contiguous or paged KV cache and the
-    absolute token cursor. Updated in place; the model returns a new
-    ``DecodeCache`` holding the same tensors and the advanced cursor."""
+    """Decode state: a layer-stacked contiguous or paged KV cache (attention
+    archs; ``None`` for SSM), the absolute token cursor, and the
+    layer-stacked SSM state (SSM archs). Updated in place; the model
+    returns a new ``DecodeCache`` holding the same tensors and the advanced
+    cursor."""
 
-    kv: Union[KVCache, PagedKVCache]
+    kv: Optional[Union[KVCache, PagedKVCache]]
     length: int
+    ssm: Optional[SSMState] = None
 
     def nbytes(self) -> int:
         """Resident bytes, counted as the reference counts its pytree."""
+        n = _CURSOR_BYTES
         kv = self.kv
-        n = kv.k.nbytes + kv.v.nbytes + 2 * _CURSOR_BYTES
-        if isinstance(kv, PagedKVCache):
-            n += kv.table.nbytes
+        if kv is not None:
+            n += kv.k.nbytes + kv.v.nbytes + _CURSOR_BYTES
+            if isinstance(kv, PagedKVCache):
+                n += kv.table.nbytes
+        if self.ssm is not None:
+            n += self.ssm.conv.nbytes + self.ssm.ssd.nbytes
         return n
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> DecodeCache:
     """Contiguous cache ``(L, B, max_len, KV, hd)`` of zeros on ``device``
-    (CUDA unless ``"cpu"`` is asked for)."""
+    (CUDA unless ``"cpu"`` is asked for). SSM archs: an :class:`SSMState`
+    stacked on ``L`` instead (conv tail in ``dtype``, SSD state in f32; no
+    per-position storage, so ``max_len`` does not size it). The conv tail
+    stays in ``dtype`` when written in place; the reference's prefill
+    re-types it to the activations' dtype, which agrees whenever ``dtype``
+    holds the activations exactly (an f32 cache, the engine's default)."""
     check_supported(cfg)
+    if cfg.family == "ssm":
+        st = SSMState.init(cfg, batch, dtype=dtype,
+                           device=resolve_device(device))
+        return DecodeCache(None, 0, SSMState(*(
+            t.expand((cfg.num_layers,) + t.shape).clone() for t in st)))
     if "kv_fp8" in cfg.opts:
         raise NotImplementedError("kv_fp8 cache storage is not ported yet "
                                   "(ROADMAP.md Queue 1)")
@@ -207,8 +261,13 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                      device=None) -> DecodeCache:
     """Paged decode cache: a fixed pool of ``num_pages`` pages of
     ``page_size`` tokens (page 0 reserved as trash) + an all-unmapped
-    per-slot page table covering virtual positions ``[0, max_len)``."""
+    per-slot page table covering virtual positions ``[0, max_len)``.
+    Attention archs only: SSM state has no per-position pages."""
     check_supported(cfg)
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"paged KV cache needs a text attention arch, got "
+            f"family={cfg.family!r}")
     if cfg.sliding_window is not None and cfg.sliding_window < max_len:
         raise NotImplementedError(
             "paged KV cache does not support ring (sliding-window) caches; "
@@ -326,6 +385,28 @@ def _dense_block(cfg: ModelConfig, x, p, positions, kv=None, decode=False,
     return x, new_kv, aux
 
 
+def _ssm_block(cfg: ModelConfig, x, p, state: Optional[SSMState] = None,
+               decode: bool = False):
+    """Pre-norm Mamba2 block with a residual: (x, new_state)."""
+    h = apply_norm(cfg, x, p.get("norm1"))
+    if decode:
+        out, new_state = mamba2_decode(cfg, h, p["ssm"], state)
+    else:
+        out, new_state = mamba2_forward(cfg, h, p["ssm"], initial=state)
+    return x + out, new_state
+
+
+def _ssm_layer(ssm: SSMState, l: int) -> SSMState:
+    """Layer ``l``'s view of the stacked SSM state."""
+    return SSMState(ssm.conv[l], ssm.ssd[l])
+
+
+def _write_ssm(ssm: SSMState, l: int, new: SSMState) -> None:
+    """Write layer ``l``'s new state into the stacked cache, in place."""
+    ssm.conv[l].copy_(new.conv)
+    ssm.ssd[l].copy_(new.ssd)
+
+
 def _sum_aux(auxes) -> Dict[str, torch.Tensor]:
     """Per-layer aux dicts -> each key summed over the layers (the
     reference's ``aux_v[:, i].sum()``); empty when no layer has any."""
@@ -370,9 +451,17 @@ class Model:
         ``start`` — (B,) int left-pad lengths for mixed-length prefill:
         row ``b``'s real tokens occupy positions ``[start[b], S)``; pad
         positions are masked out of attention and RoPE positions are shifted
-        so each row computes exactly what it would alone.
+        so each row computes exactly what it would alone (attention archs
+        only — SSM state offers no per-row pad mask).
         """
         x, positions = self.embed(params, batch)
+        if self.cfg.family == "ssm":
+            if start is not None:
+                raise NotImplementedError(
+                    "left-padded prefill needs attention masking; SSM "
+                    "recurrent state has no per-row pad mask")
+            x, new_cache = self._ssm_stack(params, x, cache)
+            return self.unembed(params, x), {}, new_cache
         if start is not None:
             # per-row RoPE positions: the first real token sits at 0
             positions = torch.clamp(positions[None, :] - start[:, None], min=0)
@@ -399,6 +488,21 @@ class Model:
             new_cache = DecodeCache(_advanced(cache.kv, s), cache.length + s)
         return self.unembed(params, x), _sum_aux(auxes), new_cache
 
+    def _ssm_stack(self, params, x, cache: Optional[DecodeCache]):
+        """The Mamba2 layers over a full sequence; with a cache (prefill)
+        each layer starts from its cached SSD state and its final state is
+        written back in place."""
+        for l in range(self.cfg.num_layers):
+            st = None if cache is None else _ssm_layer(cache.ssm, l)
+            x, new_st = _ssm_block(self.cfg, x, layer_params(params, l),
+                                   state=st)
+            if cache is not None:
+                _write_ssm(cache.ssm, l, new_st)
+        if cache is None:
+            return x, None
+        s = x.shape[1]
+        return x, DecodeCache(None, cache.length + s, cache.ssm)
+
     def _train_block(self, params, positions, start, l: int, x):
         """Layer ``l`` without a cache (the unit that remat recomputes):
         (x, aux)."""
@@ -419,6 +523,17 @@ class Model:
         """
         emb = params["embed"]["tok"].to(torch_dtype(self.cfg.dtype))
         x = emb[tokens.long()]
+        if self.cfg.family == "ssm":
+            if start is not None:
+                raise NotImplementedError(
+                    "per-row start offsets need attention masking")
+            for l in range(self.cfg.num_layers):
+                x, new_st = _ssm_block(self.cfg, x, layer_params(params, l),
+                                       state=_ssm_layer(cache.ssm, l),
+                                       decode=True)
+                _write_ssm(cache.ssm, l, new_st)
+            return self.unembed(params, x), DecodeCache(
+                None, cache.length + 1, cache.ssm)
         if start is not None:
             positions = (cache.length - start)[:, None]
         else:

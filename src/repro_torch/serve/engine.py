@@ -1,7 +1,8 @@
 """Serving: prefill + batched decode with contiguous or paged KV caches.
 
-Port of ``repro.serve.engine`` for dense and MoE text archs on one
-device. The ``ServeEngine`` is the same host-side continuous-batching loop:
+Port of ``repro.serve.engine`` for dense, MoE and SSM text archs on one
+device. The ``ServeEngine`` is the same host-side continuous-batching loop
+for the attention archs:
 
 * mixed-length prompts are LEFT-padded to a common width and prefilled with
   per-row pad masks + shifted RoPE positions, so a request's tokens are
@@ -15,11 +16,17 @@ device. The ``ServeEngine`` is the same host-side continuous-batching loop:
   pool + per-slot page table, allocation in :mod:`repro_torch.serve.
   paging`): a finished slot's pages return to the pool immediately.
 
+SSM archs have no per-row pad mask, so they take the reference's grouped
+equal-length fallback instead: requests are grouped by prompt length, each
+group of up to ``batch_size`` is prefilled together into a fresh
+contiguous SSM cache and decoded until every row stops (``paged=True`` is
+turned off for them, as in the reference).
+
 PyTorch runs eagerly, so the reference's ``jax.jit`` wrappers (and their
 per-width trace caches) have no counterpart; caches are written in place
 instead of being donated. Not in this slice (``NotImplementedError``): the
 tensor-parallel decode on VCI streams (``mesh``/``comm_plan``/``num_vcis``)
-and the grouped equal-length fallback for archs without per-row pad masks.
+and the ring cache of sliding-window archs.
 """
 
 from __future__ import annotations
@@ -179,10 +186,13 @@ class ServeEngine:
         ring = cfg.sliding_window is not None and cfg.sliding_window < max_len
         if ring:
             raise NotImplementedError(
-                "sliding-window archs decode through the ring cache and the "
-                "grouped equal-length fallback, which are not ported yet "
-                "(ROADMAP.md Queue 1)")
-        self._paged = bool(paged)
+                "sliding-window archs decode through the ring cache, which "
+                "is not ported yet (ROADMAP.md Queue 1 item 13)")
+        # left-padded mixed-length batching needs per-row attention masks;
+        # SSM state can't provide them -> equal-length grouped batches
+        self._padded_ok = cfg.family in ("dense", "moe")
+        # paged cache: attention archs on the continuous path only
+        self._paged = bool(paged) and self._padded_ok
         self._page_size = int(page_size)
         self._max_pages = -(-max_len // self._page_size)
         self._num_pages = (1 + batch_size * self._max_pages
@@ -236,10 +246,19 @@ class ServeEngine:
         self.cache_bytes_resident = 0
         self.decode_steps = 0
         with torch.inference_mode():
-            pending = list(requests)
-            while pending:
-                batch = self._take_batch(pending)
-                self._run_continuous(batch, pending)
+            if self._padded_ok:
+                pending = list(requests)
+                while pending:
+                    batch = self._take_batch(pending)
+                    self._run_continuous(batch, pending)
+            else:
+                # grouped fallback: equal prompt lengths per batch
+                groups: Dict[int, List[Request]] = {}
+                for r in requests:
+                    groups.setdefault(int(r.prompt.shape[-1]), []).append(r)
+                for _, rs in sorted(groups.items()):
+                    for i in range(0, len(rs), self.batch_size):
+                        self._run_grouped(rs[i: i + self.batch_size])
         return requests
 
     # -- batch formation -------------------------------------------------
@@ -386,6 +405,48 @@ class ServeEngine:
                                     self._dev(temps), self._gen)
             self.decode_steps += 1
             cur += 1
+
+    # -- grouped (equal prompt length) fallback ---------------------------
+    def _run_grouped(self, reqs: List[Request]) -> None:
+        """Prefill ``reqs`` (one prompt length) together, then decode until
+        every row has stopped or made its ``max_new_tokens``; each row's
+        tokens are cut at its first stop token."""
+        cfg = self.cfg
+        b = len(reqs)
+        prompts = np.stack([r.prompt for r in reqs])
+        cache = init_cache(cfg, b, self.max_len, dtype=self._cache_dtype,
+                           device=self.device)
+        self._note_cache(cache)
+        temps = self._dev(np.asarray([self._temp_of(r) for r in reqs],
+                                     np.float32))
+        nxt, cache = self._prefill(self.params,
+                                   {"tokens": self._dev(prompts)}, cache,
+                                   None, temps, self._gen)
+        gen = [nxt.cpu().numpy()]
+        stopped = [False] * b
+
+        def update_stops():
+            for i, r in enumerate(reqs):
+                if r.stop_token is not None and \
+                        int(gen[-1][i, 0]) == r.stop_token:
+                    stopped[i] = True
+
+        update_stops()
+        while any(not stopped[i] and len(gen) < r.max_new_tokens
+                  for i, r in enumerate(reqs)):
+            nxt, cache = self._step(self.params, nxt, cache, None, temps,
+                                    self._gen)
+            self.decode_steps += 1
+            gen.append(nxt.cpu().numpy())
+            update_stops()
+        toks = np.concatenate(gen, axis=-1)  # (B, steps)
+        for i, r in enumerate(reqs):
+            seq = toks[i][: r.max_new_tokens]
+            if r.stop_token is not None:
+                hits = np.nonzero(seq == r.stop_token)[0]
+                if hits.size:
+                    seq = seq[: int(hits[0])]
+            r.generated = seq
 
     def _admittable(self, pending: List[Request], cur: int,
                     reserved: Dict[int, int]) -> Optional[int]:

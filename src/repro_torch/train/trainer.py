@@ -128,6 +128,10 @@ def make_train_step(
     The state's params and moments are updated in place.
     """
     check_supported(cfg)
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            "SSM training is a later slice (ROADMAP.md Queue 1 item 12: the "
+            "SSD kernel has no backward); the SSM family serves only")
     if cfg.moe is not None:
         raise NotImplementedError(
             "MoE training is a later slice (ROADMAP.md Queue 1 item 15: "

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import bucket_pack, moe_gather, paged_kv
+from repro_torch.kernels import bucket_pack, moe_gather, paged_kv, ssd_scan
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.transformer import Model, init_cache, init_params
 from repro_torch.serve.engine import Request, ServeEngine
@@ -410,3 +410,147 @@ def test_moe_layer_issues_no_host_sync(cuda_device):
                 moe_ffn(cfg, x, p, inference=True)
         finally:
             torch.cuda.set_sync_debug_mode(0)
+
+
+# ---------------------------------------------------------------------------
+# the SSD intra-chunk kernel (mamba2)
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(dev, dtype, b, s, h, p, g, n, chunk, seed=0):
+    """x/B/C ~ N(0,1) in ``dtype``; dt in the softplus range; cum the
+    per-chunk cumsum of dt*A with A in [-16, -1] (f32)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+    dt = 1e-3 + 0.099 * torch.rand((b, s, h), generator=gen, device=dev)
+    A = -1.0 - 15.0 * torch.rand((h,), generator=gen, device=dev)
+    cum = (dt * A).reshape(b, s // chunk, chunk, h).cumsum(2).reshape(b, s, h)
+    B = torch.randn((b, s, g, n), generator=gen, device=dev).to(dtype)
+    C = torch.randn((b, s, g, n), generator=gen, device=dev).to(dtype)
+    return x, dt, cum, B, C
+
+
+def _ssd_close(got, want):
+    """max |got - want| <= 2e-5 * max(1, max |want|): the same f32
+    products, summed in another order (TF32 off)."""
+    tol = 2e-5 * max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+# b, s, h, p, g, n, chunk
+_SSD_CASES = [
+    (2, 512, 4, 64, 1, 128, 256),   # the mamba2-780m widths, 2 chunks
+    (1, 64, 6, 32, 2, 16, 32),      # smoke widths, 3 heads a group
+    (1, 200, 3, 24, 3, 40, 100),    # ragged: chunk, p and n off the tiles
+    (1, 128, 2, 128, 1, 256, 128),  # the largest p and n it takes
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _SSD_CASES, ids=str)
+def test_ssd_kernel_matches_plain(cuda_device, dtype, case):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, h, p, g, n, chunk = case
+    args = _ssd_inputs(cuda_device, dtype, b, s, h, p, g, n, chunk)
+    n0 = ssd_scan.ssd_chunk.launches
+    y, st = ssd_scan.ssd_chunk(*args, chunk)
+    y2, st2 = ssd_scan.ssd_chunk(*args, chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.ssd_chunk.launches == n0 + 2
+    assert torch.equal(_bits(y), _bits(y2)) and torch.equal(_bits(st),
+                                                            _bits(st2))
+    wy, wst = ssd_scan.ssd_chunk_plain(*args, chunk)
+    assert y.shape == wy.shape and st.shape == wst.shape
+    assert bool(torch.isfinite(y).all() and torch.isfinite(st).all())
+    _ssd_close(y, wy)
+    _ssd_close(st, wst)
+
+
+def test_ssd_kernel_takes_strided_views(cuda_device):
+    """x, B and C as views of one (b, s, channels) tensor, as the model
+    passes them (no copy); dt and cum transposed views."""
+    b, s, h, p, g, n, chunk = 2, 128, 4, 32, 2, 16, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    xbc = torch.randn((b, s, h * p + 2 * g * n), generator=gen,
+                      device=cuda_device)
+    x = xbc[..., : h * p].reshape(b, s, h, p)
+    B = xbc[..., h * p: h * p + g * n].reshape(b, s, g, n)
+    C = xbc[..., h * p + g * n:].reshape(b, s, g, n)
+    dt = (1e-3 + 0.099 * torch.rand((b, h, s), generator=gen,
+                                    device=cuda_device)).transpose(1, 2)
+    cum = (-dt).reshape(b, s // chunk, chunk, h).cumsum(2).reshape(b, s, h)
+    cum = cum.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not (x.is_contiguous() or dt.is_contiguous()
+                or cum.is_contiguous())
+    y, st = ssd_scan.ssd_chunk(x, dt, cum, B, C, chunk)
+    wy, wst = ssd_scan.ssd_chunk_plain(x, dt, cum, B, C, chunk)
+    _ssd_close(y, wy)
+    _ssd_close(st, wst)
+
+
+def test_ssd_kernel_rejects_what_it_cannot_take(cuda_device):
+    x, dt, cum, B, C = _ssd_inputs(cuda_device, torch.float32, 1, 64, 2, 8,
+                                   1, 8, 32)
+    with pytest.raises(ValueError, match="must be on"):
+        ssd_scan.ssd_chunk(x, dt.cpu(), cum, B, C, 32)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ssd_scan.ssd_chunk(x.clone().requires_grad_(), dt, cum, B, C, 32)
+    with pytest.raises(TypeError, match="one dtype"):
+        ssd_scan.ssd_chunk(x.half(), dt, cum, B.half(), C.half(), 32)
+    with pytest.raises(TypeError, match="one dtype"):
+        ssd_scan.ssd_chunk(x, dt, cum, B.bfloat16(), C, 32)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd_scan.ssd_chunk(x, dt, cum, B, C, 48)
+
+
+def test_ssm_model_runs_the_kernel_once_a_layer(cuda_device):
+    """mamba2-780m-smoke f32: a prefill into a cache (40 tokens: padded,
+    two chunks) launches the kernel once a layer, a decode step not at all;
+    logits equal the CPU's within 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("mamba2-780m-smoke")
+    params = init_params(cfg, 0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (3, 40)).astype(np.int32))
+    out = {}
+    with torch.inference_mode():
+        for dev in ("cpu", cuda_device):
+            p = tree_map(lambda t: t.to(dev), params)
+            cache = init_cache(cfg, 3, 64, dtype=torch.float32, device=dev)
+            n0 = ssd_scan.ssd_chunk.launches
+            logits, _, cache = Model(cfg).forward(
+                p, {"tokens": tokens.to(dev)}, cache=cache)
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                assert ssd_scan.ssd_chunk.launches - n0 == cfg.num_layers
+            nxt = logits[:, -1:].argmax(-1).to(torch.int32)
+            n0 = ssd_scan.ssd_chunk.launches
+            step, cache = Model(cfg).decode_step(p, nxt, cache)
+            assert ssd_scan.ssd_chunk.launches == n0
+            out[str(dev)] = (logits.cpu(), step.cpu())
+    (lc, sc), (lg, sg) = out["cpu"], out[str(cuda_device)]
+    assert (lc - lg).abs().max().item() <= 1e-4
+    assert (sc - sg).abs().max().item() <= 1e-4
+
+
+def test_ssm_engine_on_card_equals_cpu(cuda_device):
+    """mamba2-780m-smoke f32 through the grouped engine on the card and on
+    the CPU: identical greedy tokens; one kernel launch a layer a group."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("mamba2-780m-smoke")
+    params = init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
+               for n in (5, 40, 5, 9)]
+    toks = {}
+    for dev in ("cpu", cuda_device):
+        eng = ServeEngine(cfg, tree_map(lambda t: t.to(dev), params),
+                          batch_size=2, max_len=64, device=dev, paged=True)
+        assert not eng._paged
+        n0 = ssd_scan.ssd_chunk.launches
+        reqs = eng.generate([Request(prompt=p, max_new_tokens=6)
+                             for p in prompts])
+        if dev != "cpu":
+            assert ssd_scan.ssd_chunk.launches - n0 == 3 * cfg.num_layers
+        toks[str(dev)] = [r.generated.tolist() for r in reqs]
+    assert toks["cpu"] == toks[str(cuda_device)]

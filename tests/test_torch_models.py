@@ -205,7 +205,7 @@ def test_unported_cache_layouts_raise():
         ttf.init_cache(get_config("gemma-2b-swa8-smoke"), 1, 128,
                        device="cpu")  # smoke windows are 64 < 128
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.Model(get_config("mamba2-780m-smoke"))
+        ttf.Model(get_config("zamba2-7b-smoke"))
 
 
 # ---------------------------------------------------------------------------
