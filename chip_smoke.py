@@ -17,15 +17,21 @@ Phases, each a check that exits non-zero when it fails:
    dispatch (4 tokens into 4 x 8 x 1 slots), a 64-token prefill group
    (into 8 x 32 slots), 8 groups of 1,024 tokens at capacity factor 1.25
    (8,192 rows into 20,480 slots, timed) and its combine — plus an f32
-   case at d = 256 and a table with every row empty;
+   case at d = 256 and a table with every row empty. Wherever a kernel is
+   timed beside a library call (here and in phases 4 and 7), the two are
+   timed as ten alternating pairs and each is reported as its median;
 4. flash attention: the kernel's (o, lse) against the plain version at (a)
    the olmo-1b training shape (8,1024,16,128) bf16 causal, (b) an olmo-1b
    prefill (4,64,16,128) bf16 with pad rows, (c) gemma-2b (2,1024,8,256)
    with one KV head, (d) f32 hd 64, ragged 100, window 32, GQA 4/2, with
-   pad rows, (e) non-causal with Sq != Skv. f32 within 2e-5; bf16 within
-   1.25 x the plain bf16 version's error (+1e-3), both measured against the
-   plain version run in f32 on the upcast inputs. A second launch gives
-   equal bits; one launch counted a call. At (a) and (b): kernel, plain,
+   pad rows, (e) non-causal with Sq != Skv, (f) phi-3-vision's prefill
+   (2,1024,32,96) bf16 causal, (g) zamba2-7b's attention (2,1024,32,112)
+   bf16 causal, (h) an olmo-1b prefill of 4,096 tokens (2,4096,16,128)
+   bf16 causal, where the tile loop dominates the blocks' start-up. f32
+   within 2e-5; bf16 within 1.25 x the plain bf16 version's error
+   (+1e-3), both measured against the plain version run in f32 on the
+   upcast inputs. A second launch gives equal bits; one launch counted a
+   call. At (a), (b), (f), (g) and (h): kernel, plain,
    ``scaled_dot_product_attention`` and bound times;
 5. serve: full-width olmo-1b (16 layers, bf16 params from a seed) through
    ``ServeEngine`` with the paged cache — 8 requests on 4 slots, so slots
@@ -134,7 +140,11 @@ FLASH_CASES = (
     ("c", "bfloat16", (2, 1024, 1024, 8, 1, 256), True, None, None, False),
     ("d", "float32", (2, 100, 100, 4, 2, 64), True, 32, (0, 37), False),
     ("e", "bfloat16", (2, 96, 160, 8, 2, 128), False, None, None, False),
+    ("f", "bfloat16", (2, 1024, 1024, 32, 32, 96), True, None, None, True),
+    ("g", "bfloat16", (2, 1024, 1024, 32, 32, 112), True, None, None, True),
+    ("h", "bfloat16", (2, 4096, 4096, 16, 16, 128), True, None, None, True),
 )
+PAIRS = 10                       # alternating kernel / library timings
 
 
 def fail(msg: str) -> None:
@@ -173,6 +183,19 @@ def time_ms(fn, n_iter: int = 100, reps: int = 5) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / (reps * n_iter)
+
+
+def paired_ms(fn, lib, pairs: int = PAIRS, **kw) -> tuple:
+    """Medians of ``pairs`` alternating ``time_ms`` readings of ``fn`` and
+    ``lib`` (fn, lib, lib, fn, ...: neither always goes first), and the
+    number of pairs in which ``fn`` was the faster."""
+    a, b = [], []
+    for i in range(pairs):
+        order = ((fn, a), (lib, b)) if i % 2 == 0 else ((lib, b), (fn, a))
+        for f, out in order:
+            out.append(time_ms(f, **kw))
+    med = lambda x: sorted(x)[len(x) // 2]  # noqa: E731
+    return med(a), med(b), sum(x < y for x, y in zip(a, b))
 
 
 def eager_ms(fn, n_iter: int = 200) -> float:
@@ -234,12 +257,11 @@ def phase_kernels() -> dict:
         check(torch.equal(got.view(ib), want.view(ib)),
               f"paged_gather kernel != plain version ({dtype})")
         err = (got.float() - want.float()).abs().max().item()
-        kernel_ms = time_ms(lambda i: paged_gather(pools[i % COLD_POOLS],
-                                                   table))
+        kernel_ms, library_ms, wins = paired_ms(
+            lambda i: paged_gather(pools[i % COLD_POOLS], table),
+            lambda i: pools[i % COLD_POOLS].index_select(0, ids))
         plain_ms = time_ms(lambda i: paged_gather_plain(pools[i % COLD_POOLS],
                                                         table))
-        library_ms = time_ms(lambda i: pools[i % COLD_POOLS].index_select(
-            0, ids))
         host_ms = eager_ms(lambda i: paged_gather(pools[i % COLD_POOLS],
                                                   table))
         page_bytes = pools[0, 0].numel() * pools.element_size()
@@ -252,7 +274,8 @@ def phase_kernels() -> dict:
               f"table {tuple(table.shape)} ({int((table < 0).sum())} "
               f"unmapped) bitwise equal to plain, max_abs_err={err}; "
               f"kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} "
-              f"library_ms(index_select)={library_ms:.5f} "
+              f"library_ms(index_select)={library_ms:.5f} (medians of "
+              f"{PAIRS} alternating pairs, the kernel faster in {wins}) "
               f"bound_ms={bound_ms:.5f} ({nbytes} B); eager call incl. "
               f"host {host_ms:.5f} ms", flush=True)
         del pools
@@ -311,11 +334,11 @@ def phase_row_gather() -> dict:
         if not timed:
             continue
         ids = idx.long().clamp(0, t - 1)
-        kernel_ms = time_ms(lambda i: row_gather(src, idx), n_iter=20, reps=3)
+        kernel_ms, library_ms, wins = paired_ms(
+            lambda i: row_gather(src, idx),
+            lambda i: src.index_select(0, ids), n_iter=20, reps=3)
         plain_ms = time_ms(lambda i: row_gather_plain(src, idx), n_iter=20,
                            reps=3)
-        library_ms = time_ms(lambda i: src.index_select(0, ids), n_iter=20,
-                             reps=3)
         host_ms = eager_ms(lambda i: row_gather(src, idx))
         # each distinct source row read once, every output row written
         # once, the table read once
@@ -327,7 +350,9 @@ def phase_row_gather() -> dict:
                          library_ms=library_ms, bound_ms=bound_ms)
         print(f"kernel row_gather {name} times: kernel_ms={kernel_ms:.5f} "
               f"plain_ms={plain_ms:.5f} library_ms(index_select)="
-              f"{library_ms:.5f} bound_ms={bound_ms:.5f} ({nbytes} B: "
+              f"{library_ms:.5f} (medians of {PAIRS} alternating pairs, "
+              f"the kernel faster in {wins}) "
+              f"bound_ms={bound_ms:.5f} ({nbytes} B: "
               f"{distinct} distinct rows read for {valid} valid, "
               f"{idx.numel()} written; {bound_ms / kernel_ms:.3f} of the "
               f"bound, {nbytes / kernel_ms / 1e9:.3f} TB/s of them); eager "
@@ -412,13 +437,12 @@ def phase_flash() -> dict:
         del po, plse
         if timed:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            kernel_ms = time_ms(lambda i: fa.flash_attention_fwd(q, k, v,
-                                                                 **kw),
-                                n_iter=20, reps=3)
+            kernel_ms, library_ms, wins = paired_ms(
+                lambda i: fa.flash_attention_fwd(q, k, v, **kw),
+                lambda i: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True), n_iter=20, reps=3)
             plain_ms = time_ms(lambda i: fa.flash_attention_fwd_plain(
                 q, k, v, **kw), n_iter=3, reps=2)
-            library_ms = time_ms(lambda i: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), n_iter=20, reps=3)
             flops, nbytes = flash_work(q, k, kw)
             flop_ms = flops / BF16_FLOPS_PER_S * 1e3
             byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -429,7 +453,9 @@ def phase_flash() -> dict:
                              bound_by=bound_by)
             print(f"kernel flash ({name}) times: kernel_ms={kernel_ms:.5f} "
                   f"plain_ms={plain_ms:.5f} library_ms(sdpa is_causal)="
-                  f"{library_ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}: "
+                  f"{library_ms:.5f} (medians of {PAIRS} alternating pairs, "
+                  f"the kernel faster in {wins}) "
+                  f"bound_ms={bound_ms:.5f} ({bound_by}: "
                   f"{flops} FLOPs -> {flop_ms:.5f} ms, {nbytes} B -> "
                   f"{byte_ms:.5f} ms; {bound_ms / kernel_ms:.3f} of the "
                   f"bound, {flops / kernel_ms / 1e9:.1f} TFLOP/s)",
@@ -615,7 +641,7 @@ def profile_decode(cfg, params, eng=None, make_requests=None) -> None:
     own = [(name, sum(e.self_device_time_total for e in kern
                       if sym in e.key) / 1e3)
            for name, sym in (("paged_gather", "paged_gather_kernel"),
-                             ("flash_attention", "flash_fwd_kernel"),
+                             ("flash_attention", "flash_fwd_"),
                              ("row_gather", "row_gather_kernel"),
                              ("ssd_chunk", "ssd_chunk_kernel"))]
     print("profile: the port's kernels: " + ", ".join(
@@ -1083,12 +1109,12 @@ def phase_bucket_kernels(params) -> dict:
         fn = bucket_pack if name == "bucket_pack" else bucket_unpack
         out = torch.empty(n_out, device=dev)
         ids = blk.long()
-        kernel_ms = time_ms(lambda i: fn(src, blk, val, n_out, out=out),
-                            n_iter=10, reps=3)
+        kernel_ms, library_ms, wins = paired_ms(
+            lambda i: fn(src, blk, val, n_out, out=out),
+            lambda i: src.view(-1, tile).index_select(0, ids), n_iter=10,
+            reps=3)
         plain_ms = time_ms(lambda i: bucket_pack_plain(src, blk, val, n_out),
                            n_iter=10, reps=3)
-        library_ms = time_ms(lambda i: src.view(-1, tile).index_select(
-            0, ids), n_iter=10, reps=3)
         # valid source bytes read once + the output written once + tables
         nbytes = int(val.sum()) * 4 + n_out * 4 + 8 * val.numel()
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1097,7 +1123,8 @@ def phase_bucket_kernels(params) -> dict:
         print(f"kernel {name} f32 ({'largest bucket, ' if name == 'bucket_pack' else ''}"
               f"{n_out} elements, {val.numel()} tiles): kernel_ms="
               f"{kernel_ms:.5f} plain_ms={plain_ms:.5f} "
-              f"library_ms(index_select)={library_ms:.5f} "
+              f"library_ms(index_select)={library_ms:.5f} (medians of "
+              f"{PAIRS} alternating pairs, the kernel faster in {wins}) "
               f"bound_ms={bound_ms:.5f} ({nbytes} B, "
               f"{bound_ms / kernel_ms:.3f} of the bound)", flush=True)
         del out
@@ -1243,7 +1270,7 @@ def profile_train(step, state, batches) -> None:
     pack_ms = sum(e.self_device_time_total for e in kern
                   if "bucket_pack_kernel" in e.key) / 1e3
     flash_ms = sum(e.self_device_time_total for e in kern
-                   if "flash_fwd_kernel" in e.key) / 1e3
+                   if "flash_fwd_" in e.key) / 1e3
     print(f"profile train: {len(batches)} steps: wall {wall_ms:.2f} ms "
           f"({prof_wall_ms:.2f} under the profiler), device busy "
           f"{busy_ms:.2f} ms, device idle share {1 - busy_ms / wall_ms:.4f};"

@@ -17,7 +17,8 @@ uniform softmax: the mean of V over all ``Skv`` keys.
 * :func:`flash_attention` — the entry point the model calls, a
   ``torch.autograd.Function``. On a CUDA tensor its forward launches the
   ``sm_90a`` kernel of ``csrc/flash_attention.cu`` (which replaces
-  ``flash_attention_pallas``) and adds one to ``flash_attention.launches``;
+  ``flash_attention_pallas``; f32 or bf16, head_dim in
+  ``_KERNEL_HEAD_DIMS``) and adds one to ``flash_attention.launches``;
   on a CPU tensor it runs :func:`flash_attention_fwd_plain`. There is no
   fallback: a CUDA call launches the kernel or raises. The backward is
   :func:`flash_attention_bwd_plain` on both devices (the TPU kernel has no
@@ -38,7 +39,7 @@ import torch
 
 NEG_INF = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = (64, 128, 256)
+_KERNEL_HEAD_DIMS = (64, 96, 112, 128, 256)
 
 
 def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:

@@ -236,10 +236,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Contiguous cache ``(L, B, max_len, KV, hd)`` of zeros on ``device``
     (CUDA unless ``"cpu"`` is asked for). SSM archs: an :class:`SSMState`
     stacked on ``L`` instead (conv tail in ``dtype``, SSD state in f32; no
-    per-position storage, so ``max_len`` does not size it). The conv tail
-    stays in ``dtype`` when written in place; the reference's prefill
-    re-types it to the activations' dtype, which agrees whenever ``dtype``
-    holds the activations exactly (an f32 cache, the engine's default)."""
+    per-position storage, so ``max_len`` does not size it). A prefill
+    re-types the conv tail to the activations' dtype, as the reference's
+    does (:meth:`Model.forward`)."""
     check_supported(cfg)
     if cfg.family == "ssm":
         st = SSMState.init(cfg, batch, dtype=dtype,
@@ -491,17 +490,22 @@ class Model:
     def _ssm_stack(self, params, x, cache: Optional[DecodeCache]):
         """The Mamba2 layers over a full sequence; with a cache (prefill)
         each layer starts from its cached SSD state and its final state is
-        written back in place."""
+        written back in place. The conv tail comes out in the activations'
+        dtype, as the reference's prefill returns it: a cache of another
+        dtype gets a new conv stack rather than a rounded copy."""
+        ssm = None if cache is None else cache.ssm
+        if ssm is not None and ssm.conv.dtype != x.dtype:
+            ssm = SSMState(torch.empty_like(ssm.conv, dtype=x.dtype), ssm.ssd)
         for l in range(self.cfg.num_layers):
-            st = None if cache is None else _ssm_layer(cache.ssm, l)
+            st = None if ssm is None else _ssm_layer(ssm, l)
             x, new_st = _ssm_block(self.cfg, x, layer_params(params, l),
                                    state=st)
-            if cache is not None:
-                _write_ssm(cache.ssm, l, new_st)
+            if ssm is not None:
+                _write_ssm(ssm, l, new_st)
         if cache is None:
             return x, None
         s = x.shape[1]
-        return x, DecodeCache(None, cache.length + s, cache.ssm)
+        return x, DecodeCache(None, cache.length + s, ssm)
 
     def _train_block(self, params, positions, start, l: int, x):
         """Layer ``l`` without a cache (the unit that remat recomputes):

@@ -184,6 +184,16 @@ _FLASH_CASES = [  # hd, b, sq, skv, h, kv, causal, window, start
     (64, 1, 40, 72, 2, 1, False, None, None),     # Sq != Skv
     (128, 1, 130, 130, 2, 2, True, 16, [129]),    # all but one pad row
     (64, 1, 80, 24, 2, 2, False, 8, None),        # rows with no valid key
+    (96, 2, 130, 130, 32, 32, True, None, [0, 17]),  # phi-3-vision's hd
+    (112, 1, 200, 200, 32, 32, True, None, None),    # zamba2-7b's hd
+    (128, 2, 64, 64, 4, 2, True, None, None),     # the 64-row variant
+    (128, 2, 65, 65, 4, 2, True, None, [3, 0]),   # the 128-row variant
+    (64, 2, 150, 300, 4, 4, False, None, None),   # Skv not a multiple of 128
+    (128, 1, 384, 384, 2, 2, True, None, None),   # full tiles, then diagonal
+    (256, 1, 400, 400, 2, 1, True, 200, None),    # full tiles inside a window
+    # at least 132 units (one an SM of an H100 SXM): pairs of query blocks
+    (64, 1, 384, 384, 66, 66, True, None, None),  # odd count: one alone
+    (128, 2, 512, 512, 34, 17, True, 100, [0, 130]),
 ]
 
 
@@ -211,10 +221,12 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, case):
     assert el <= tol_l, (el, tol_l)
 
 
-def test_flash_kernel_takes_strided_heads(cuda_device):
+@pytest.mark.parametrize("s,hd", [(48, 64), (48, 128), (200, 128)])
+def test_flash_kernel_takes_strided_heads(cuda_device, s, hd):
     """q/k/v as slices of one fused projection (strided over S and H, the
-    last dim contiguous) give the same bits as contiguous copies."""
-    b, s, h, hd = 2, 48, 4, 64
+    last dim contiguous) give the same bits as contiguous copies, on both
+    the 64-row (s <= 64) and the 128-row variant."""
+    b, h = 2, 4
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     qkv = torch.randn((b, s, 3 * h, hd), generator=gen,
                       device=cuda_device).to(torch.bfloat16)

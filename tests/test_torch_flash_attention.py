@@ -105,6 +105,14 @@ def test_plain_matches_pallas_head_dim_256():
     _pallas_case(5, 1, 4, 1, 64, 64, 256)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [96, 112])
+def test_plain_matches_pallas_head_dims_96_112(hd, dtype):
+    """phi-3-vision's and zamba2-7b's head widths, which the kernel takes
+    as two 64-column boxes with the columns past hd zero-filled."""
+    _pallas_case(6, 1, 4, 2, 100, 100, hd, dtype=dtype)
+
+
 # ---------------------------------------------------------------------------
 # (2) start: the model's attention with pad rows, and the Function on CPU
 # ---------------------------------------------------------------------------
@@ -249,6 +257,18 @@ def test_kernel_argument_checks():
         fa._check_cuda_args(q, k, v, torch.zeros(2, dtype=torch.int32), None)
     with pytest.raises(ValueError, match="fit"):
         fa._check_cuda_args(torch.zeros(1, 8, 3, 64), k, v, None, None)
+
+
+def test_kernel_argument_checks_take_every_kernel_head_dim():
+    """96 and 112 (phi-3-vision, zamba2-7b) pass the check beside 64, 128
+    and 256; 32 is still refused."""
+    for hd in (64, 96, 112, 128, 256):
+        q, k, v = (_model_layout(x) for x in _qkv(12, 1, 4, 2, 8, 8, hd))
+        fa._check_cuda_args(q.bfloat16(), k.bfloat16(), v.bfloat16(), None,
+                            None)
+    q, k, v = (_model_layout(x) for x in _qkv(12, 1, 4, 2, 8, 8, 32))
+    with pytest.raises(ValueError, match="head_dim"):
+        fa._check_cuda_args(q, k, v, None, None)
 
 
 def test_non_cpu_tensor_never_reaches_the_plain_forward():

@@ -378,6 +378,39 @@ def test_cache_bytes_match_reference(mamba):
         assert mine.ssm.ssd.dtype == torch.float32
 
 
+def test_bf16_cache_conv_tail_and_tokens_match_reference(mamba):
+    """f32 params with a bf16 cache: after prefill the conv tail is in the
+    activations' dtype (f32) and equals the reference's, as the reference
+    re-types it (``repro/models/ssm.py:205-210``); the grouped engine's
+    greedy tokens and ``cache_bytes_resident`` equal the JAX engine's."""
+    cfg, jcfg, tparams, jparams = mamba
+    rng = np.random.default_rng(16)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 7), dtype=np.int32)
+    cache = ttf.init_cache(cfg, 2, 32, dtype=torch.bfloat16, device="cpu")
+    jcache = jtf.init_cache(jcfg, 2, 32, dtype=jnp.bfloat16)
+    with torch.inference_mode():
+        _, _, cache = ttf.Model(cfg).forward(tparams, {"tokens": _t(tokens)},
+                                             cache=cache)
+    _, _, jcache = jtf.Model(jcfg).forward(
+        jparams, {"tokens": jnp.asarray(tokens)}, cache=jcache)
+    assert jcache.ssm.conv.dtype == jnp.float32
+    assert cache.ssm.conv.dtype == torch.float32
+    _close(cache.ssm.conv, jcache.ssm.conv)
+
+    reqs = [dict(prompt=rng.integers(0, 512, (p,), dtype=np.int32),
+                 max_new_tokens=n) for p, n in ((6, 8), (6, 5), (3, 6))]
+    kw = dict(batch_size=2, max_len=32)
+    jeng = jengine.ServeEngine(jcfg, jparams, cache_dtype=jnp.bfloat16, **kw)
+    want = [r.generated for r in jeng.generate(
+        [jengine.Request(**r) for r in reqs])]
+    teng = tengine.ServeEngine(cfg, tparams, device="cpu",
+                               cache_dtype=torch.bfloat16, **kw)
+    done = teng.generate([tengine.Request(**r) for r in reqs])
+    for i, (r, w) in enumerate(zip(done, want)):
+        np.testing.assert_array_equal(r.generated, w, err_msg=f"request {i}")
+    assert teng.cache_bytes_resident == jeng.cache_bytes_resident
+
+
 def test_start_offsets_are_refused(mamba):
     cfg, _, tparams, _ = mamba
     tokens = torch.zeros((2, 4), dtype=torch.int32)
