@@ -17,9 +17,16 @@ Phases, each a check that exits non-zero when it fails:
    dispatch (4 tokens into 4 x 8 x 1 slots), a 64-token prefill group
    (into 8 x 32 slots), 8 groups of 1,024 tokens at capacity factor 1.25
    (8,192 rows into 20,480 slots, timed) and its combine — plus an f32
-   case at d = 256 and a table with every row empty. Wherever a kernel is
-   timed beside a library call (here and in phases 4 and 7), the two are
-   timed as ten alternating pairs and each is reported as its median;
+   case at d = 256 and a table with every row empty. Each dispatch runs
+   both routes, checked bitwise: the gather (no ``inv``) and the read-once
+   route with ``inv`` = the tables' ``comb`` (forced at every size); the
+   timed dispatches print both routes' times, the gather's first, and keep
+   the times of the route ``moe_ffn``'s call takes (read-once where it
+   spares >= ``_READ_ONCE_MIN_BYTES`` of reads: the 8 x 1,024 dispatch),
+   which the ``kernels`` line reports. Wherever a
+   kernel is timed beside a library call (here and in phases 4 and 7), the
+   two are timed as ten alternating pairs and each is reported as its
+   median;
 4. flash attention: the kernel's (o, lse) against the plain version at (a)
    the olmo-1b training shape (8,1024,16,128) bf16 causal, (b) an olmo-1b
    prefill (4,64,16,128) bf16 with pad rows, (c) gemma-2b (2,1024,8,256)
@@ -48,7 +55,13 @@ Phases, each a check that exits non-zero when it fails:
    requests as phase 5, paged and contiguous: every forward call (prefill
    or decode step) must launch the row gather 2 x 4 times (dispatch and
    combine), the page gather and flash kernel as in phase 5, and the two
-   layouts must give the same tokens; then a profile of a short run;
+   layouts must give the same tokens; then 8 prompts of 1,024 tokens in
+   one prefill call (contiguous, 8 slots, 4 new tokens each; after a
+   warm-up), with the counts zeroed just before and read just after: 2 x 4 row-gather
+   launches a forward call, the prefill's dispatch (8,192 token rows) on
+   the read-once route (4 launches) and nothing else on it, and the same
+   tokens as a second run with the read-once route switched off; then a
+   profile of a short run;
 6c. MoE reference: mixtral-8x22b-smoke in float32, paged prefill + greedy
    decode on the card and on the CPU, at its own capacity and at a
    dropping one (capacity_factor_eval 0.5): identical routing tables
@@ -58,16 +71,20 @@ Phases, each a check that exits non-zero when it fails:
    (TF32 off, both in f32 on the same inputs), max |diff| <= 2e-5 x
    max(1, max |plain|) for y and for the states, at the mamba2-780m serve
    prefill (b 4, s 1,024, h 48, p 64, g 1, n 128, chunk 256; x/B/C bf16,
-   dt/cum f32) and in f32 with g 2, 3 heads a group and s = 2 chunks; a
-   second launch gives equal bits; kernel, plain and bound times at the
-   serve shape (no single PyTorch call computes it: library "none");
+   dt/cum f32; the tensor-core path), at the second serve call's shape
+   (b 4, s 256: one chunk) and in f32 with g 2, 3 heads a group and s = 2
+   chunks (the FFMA path); a second launch gives equal bits; kernel, plain
+   and bound times at both serve shapes (no single PyTorch call computes
+   it: library "none");
 6e. SSM serve: mamba2-780m at full width and depth (48 layers, d 1,536,
    48 heads of 64, d_state 128, chunk 256, vocab 50,280, tied; 780 M bf16
    params from a seed) through ``ServeEngine``'s grouped equal-length path
    on 4 slots: 4 prompts of 1,000 tokens (padded to 1,024 inside the scan:
    4 chunks) and 4 of 64, 32 new tokens each, max_len 1,056 — 2 groups, 2
    prefill calls, 62 decode steps; the launch count zeroed just before and
-   read just after: 48 SSD launches a prefill call; then a profile;
+   read just after: 48 SSD launches a prefill call; then a profile, and
+   a line with the prefill seconds and the SSD kernel's share of the
+   profiled run's device time;
 6f. SSM reference: mamba2-780m-smoke in float32 (TF32 off), prefill of 50
    tokens (padded, 2 chunks) + 4 greedy decode steps on the card and on
    the CPU: logits within 1e-4, identical greedy tokens, the kernel run
@@ -121,11 +138,15 @@ BATCH, MAX_LEN, PAGE_SIZE = 4, 256, 16
 N_REQUESTS, PROMPT_LO, PROMPT_HI, MAX_NEW = 8, 16, 64, 32
 COLD_POOLS = 16                  # 16 pools of 8.5 (f32) / 4.3 MB > 50 MB L2
 MOE_ARCH, MOE_LAYERS = "mixtral-8x22b", 4
+# one prefill call of 8 x 1,024 tokens: the dispatch's 8,192 token rows
+# take the row gather's read-once route
+MOE_LONG_GROUP, MOE_LONG_PROMPT, MOE_LONG_NEW = 8, 1024, 4
 SSM_ARCH, SSM_MAX_LEN = "mamba2-780m", 1056
 SSM_PROMPTS = (1000,) * 4 + (64,) * 4
 # name, x/B/C dtype, (b, s, h, p, g, n, chunk), timed
 SSD_CASES = (
     ("serve", "bfloat16", (4, 1024, 48, 64, 1, 128, 256), True),
+    ("second call", "bfloat16", (4, 256, 48, 64, 1, 128, 256), True),
     ("f32 g2", "float32", (2, 512, 6, 64, 2, 128, 256), False),
 )
 TRAIN_ARCH = "olmo-1b"
@@ -294,69 +315,99 @@ def _routed(groups, tokens, experts, top_k, cf, gen):
     return dispatch_tables(eidx, experts, cap)
 
 
+def _read_once_forced(src, idx, inv):
+    """``row_gather`` on the read-once route whatever the size (the wrapper
+    takes it only where it spares >= ``_READ_ONCE_MIN_BYTES`` of reads)."""
+    from repro_torch.kernels import moe_gather
+    floor = moe_gather._READ_ONCE_MIN_BYTES
+    moe_gather._READ_ONCE_MIN_BYTES = 0
+    try:
+        return moe_gather.row_gather(src, idx, inv)
+    finally:
+        moe_gather._READ_ONCE_MIN_BYTES = floor
+
+
 def phase_row_gather() -> dict:
     """row_gather vs row_gather_plain, bit for bit, at the MoE serve
     path's shapes (see the docstring); times at the bandwidth-sized case."""
     import torch
-    from repro_torch.kernels.moe_gather import row_gather, row_gather_plain
+    from repro_torch.kernels.moe_gather import (_read_once, row_gather,
+                                                row_gather_plain)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     d = 6144
-    dec, _ = _routed(4, 1, 8, 2, 2.0, gen)          # decode: C = 1
-    pre, _ = _routed(1, 64, 8, 2, 2.0, gen)         # prefill: C = 32
-    big, comb = _routed(8, 1024, 8, 2, 1.25, gen)   # C = 320
-    smoke, _ = _routed(4, 20, 4, 2, 2.0, gen)       # mixtral-smoke, f32
-    # name, dtype, source rows, table, timed
-    cases = (("decode dispatch", torch.bfloat16, 4, dec, True),
-             ("prefill dispatch", torch.bfloat16, 64, pre, True),
-             ("8x1024 dispatch", torch.bfloat16, 8192, big, True),
-             ("8x1024 combine", torch.bfloat16, big.numel(), comb, False),
-             ("smoke dispatch f32 d=256", torch.float32, 80, smoke, False),
+    dec, dec_inv = _routed(4, 1, 8, 2, 2.0, gen)      # decode: C = 1
+    pre, pre_inv = _routed(1, 64, 8, 2, 2.0, gen)     # prefill: C = 32
+    big, comb = _routed(8, 1024, 8, 2, 1.25, gen)     # C = 320
+    smoke, smoke_inv = _routed(4, 20, 4, 2, 2.0, gen)  # mixtral-smoke, f32
+    # name, dtype, source rows, table, its inverse (the dispatch's comb,
+    # as moe_ffn passes it), timed
+    cases = (("decode dispatch", torch.bfloat16, 4, dec, dec_inv, True),
+             ("prefill dispatch", torch.bfloat16, 64, pre, pre_inv, True),
+             ("8x1024 dispatch", torch.bfloat16, 8192, big, comb, True),
+             ("8x1024 combine", torch.bfloat16, big.numel(), comb, None,
+              False),
+             ("smoke dispatch f32 d=256", torch.float32, 80, smoke,
+              smoke_inv, False),
              ("every row empty", torch.bfloat16, 4,
-              torch.full((32,), -1, dtype=torch.int32, device=dev), False))
+              torch.full((32,), -1, dtype=torch.int32, device=dev),
+              torch.full((8,), -1, dtype=torch.int32, device=dev), False))
     res = {"max_abs_err": 0.0}
-    for name, dtype, t, idx, timed in cases:
+    for name, dtype, t, idx, inv, timed in cases:
         width = 256 if dtype == torch.float32 else d
         src = torch.randn((t, width), generator=gen, device=dev).to(dtype)
-        got = row_gather(src, idx)
         want = row_gather_plain(src, idx)
-        torch.cuda.synchronize()
         valid = int((idx >= 0).sum())
         what = (f"row_gather {name}: src {tuple(src.shape)} {dtype}, idx "
                 f"{tuple(idx.shape)} ({valid} valid)")
-        check(torch.equal(_bits(got), _bits(want)),
-              f"{what}: kernel != plain version")
-        err = (got.float() - want.float()).abs().max().item()
-        res["max_abs_err"] = max(res["max_abs_err"], err)
-        print(f"kernel {what}: bitwise equal to plain, max_abs_err={err}",
-              flush=True)
+        routes = (("gather", lambda: row_gather(src, idx)),)
+        if inv is not None:
+            routes += (("read-once",
+                        lambda: _read_once_forced(src, idx, inv)),)
+        for route, call in routes:
+            got = call()
+            torch.cuda.synchronize()
+            check(torch.equal(_bits(got), _bits(want)),
+                  f"{what}, {route} route: kernel != plain version")
+            err = (got.float() - want.float()).abs().max().item()
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            print(f"kernel {what}, {route} route: bitwise equal to plain, "
+                  f"max_abs_err={err}", flush=True)
         if not timed:
             continue
         ids = idx.long().clamp(0, t - 1)
-        kernel_ms, library_ms, wins = paired_ms(
-            lambda i: row_gather(src, idx),
-            lambda i: src.index_select(0, ids), n_iter=20, reps=3)
         plain_ms = time_ms(lambda i: row_gather_plain(src, idx), n_iter=20,
                            reps=3)
-        host_ms = eager_ms(lambda i: row_gather(src, idx))
         # each distinct source row read once, every output row written
         # once, the table read once
         row = width * src.element_size()
         distinct = int(idx[idx >= 0].unique().numel())
         nbytes = distinct * row + got.nbytes + idx.nbytes
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        res[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=bound_ms)
-        print(f"kernel row_gather {name} times: kernel_ms={kernel_ms:.5f} "
-              f"plain_ms={plain_ms:.5f} library_ms(index_select)="
-              f"{library_ms:.5f} (medians of {PAIRS} alternating pairs, "
-              f"the kernel faster in {wins}) "
-              f"bound_ms={bound_ms:.5f} ({nbytes} B: "
-              f"{distinct} distinct rows read for {valid} valid, "
-              f"{idx.numel()} written; {bound_ms / kernel_ms:.3f} of the "
-              f"bound, {nbytes / kernel_ms / 1e9:.3f} TB/s of them); eager "
-              f"call incl. host {host_ms:.5f} ms", flush=True)
+        # both routes; moe_ffn's call (row_gather(x, disp, comb)) takes the
+        # read-once route where it spares >= _READ_ONCE_MIN_BYTES of reads,
+        # and its times are the ones kept
+        taken = ("read-once" if inv is not None and
+                 _read_once(src, inv.numel() // t) else "gather")
+        for route, call in routes:
+            kernel_ms, library_ms, wins = paired_ms(
+                lambda i: call(), lambda i: src.index_select(0, ids),
+                n_iter=20, reps=3)
+            host_ms = eager_ms(lambda i: call())
+            if route == taken:
+                res[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                                 library_ms=library_ms, bound_ms=bound_ms)
+            print(f"kernel row_gather {name} times, {route} route"
+                  f"{' (the one moe_ffn takes)' if route == taken else ''}: "
+                  f"kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} "
+                  f"library_ms(index_select)={library_ms:.5f} (medians of "
+                  f"{PAIRS} alternating pairs, the kernel faster in {wins}) "
+                  f"bound_ms={bound_ms:.5f} ({nbytes} B: "
+                  f"{distinct} distinct rows read for {valid} valid, "
+                  f"{idx.numel()} written; {bound_ms / kernel_ms:.3f} of the "
+                  f"bound, {nbytes / kernel_ms / 1e9:.3f} TB/s of them); "
+                  f"eager call incl. host {host_ms:.5f} ms", flush=True)
         del src, got, want
     torch.cuda.empty_cache()
     return res
@@ -584,18 +635,86 @@ def phase_serve(cfg) -> dict:
           f"paged/contiguous = "
           f"{runs['paged']['bytes']}/{runs['contiguous']['bytes']}",
           flush=True)
+    if moe:
+        runs["long"] = serve_moe_long(cfg, params)
     profile_decode(cfg, params)
     del params
     torch.cuda.empty_cache()
     return runs
 
 
-def profile_decode(cfg, params, eng=None, make_requests=None) -> None:
+def serve_moe_long(cfg, params) -> dict:
+    """Phase 6b's long prompts (see the docstring): the row gather's
+    read-once route on the serve path. Returns the first run's counts."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import moe_gather
+    from repro_torch.kernels.moe_gather import row_gather
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, (MOE_LONG_PROMPT,),
+                            dtype=np.int32) for _ in range(MOE_LONG_GROUP)]
+    eng = ServeEngine(cfg, params, batch_size=MOE_LONG_GROUP,
+                      max_len=MOE_LONG_PROMPT + MOE_LONG_NEW, device="cuda",
+                      paged=False)
+    # warm-up: the first call at these shapes sets up what the two timed
+    # runs then share
+    eng.generate([Request(prompt=p, max_new_tokens=1) for p in prompts])
+    eng._prefill = _Timed(eng._prefill)
+    got = {}
+    floor = moe_gather._READ_ONCE_MIN_BYTES
+    for route in ("read-once", "gather only"):
+        reqs = [Request(prompt=p, max_new_tokens=MOE_LONG_NEW)
+                for p in prompts]
+        eng._prefill.seconds = eng._prefill.calls = 0
+        if route == "gather only":
+            moe_gather._READ_ONCE_MIN_BYTES = 1 << 62
+        torch.cuda.synchronize()
+        row_gather.launches = row_gather.read_once_launches = 0
+        try:
+            eng.generate(reqs)
+            torch.cuda.synchronize()
+        finally:
+            moe_gather._READ_ONCE_MIN_BYTES = floor
+        rows, once = row_gather.launches, row_gather.read_once_launches
+        calls = eng._prefill.calls + eng.decode_steps
+        for i, r in enumerate(reqs):
+            g = r.generated
+            check(len(g) == MOE_LONG_NEW and bool(
+                ((g >= 0) & (g < cfg.vocab_size)).all()),
+                f"long prompts, {route}: request {i} made {g.tolist()}")
+        check(rows == 2 * cfg.num_layers * calls,
+              f"long prompts, {route}: row_gather launched {rows} times, "
+              f"want 2 x {cfg.num_layers} x {calls} forward calls")
+        want = cfg.num_layers * eng._prefill.calls \
+            if route == "read-once" else 0
+        check(eng._prefill.calls == 1 and once == want,
+              f"long prompts, {route}: {eng._prefill.calls} prefill calls, "
+              f"{once} read-once launches, want 1 and {want}")
+        got[route] = dict(tokens=[r.generated.tolist() for r in reqs],
+                          rows=rows, read_once=once)
+        print(f"serve {cfg.name} long prompts, {route}: {MOE_LONG_GROUP} x "
+              f"{MOE_LONG_PROMPT} tokens in {eng._prefill.calls} prefill "
+              f"call ({eng._prefill.seconds:.3f}s) + {eng.decode_steps} "
+              f"decode steps: row_gather.launches={rows}, "
+              f"{once} of them on the read-once route", flush=True)
+    check(got["read-once"]["tokens"] == got["gather only"]["tokens"],
+          "long prompts: the read-once route changed the tokens")
+    print(f"serve {cfg.name} long prompts: tokens identical with and "
+          f"without the read-once route", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return got["read-once"]
+
+
+def profile_decode(cfg, params, eng=None, make_requests=None) -> dict:
     """Where a serve run's time goes on the card: ``torch.profiler`` over a
     short run (by default paged, 4 requests, 16 new tokens each) — device
     busy time, the device's idle share of the same run's wall time without
     the profiler, and the kernels by time. Measures only; the checks are
-    done."""
+    done. Returns the port's kernels' device ms and ``busy_ms`` ({} when
+    the profiler saw no device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -629,7 +748,7 @@ def profile_decode(cfg, params, eng=None, make_requests=None) -> None:
     if busy_ms <= 0:
         print("profile: the profiler recorded no device time (not measured)",
               flush=True)
-        return
+        return {}
     steps = eng.decode_steps
     probe = make_requests()
     layout = "paged" if eng._paged else "contiguous"
@@ -651,6 +770,7 @@ def profile_decode(cfg, params, eng=None, make_requests=None) -> None:
         print(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d} x {e.self_device_time_total / max(e.count, 1):8.2f}"
               f" us  {e.key[:90]}", flush=True)
+    return dict(own, busy_ms=busy_ms)
 
 
 def _to(tree, dev):
@@ -884,8 +1004,8 @@ def phase_ssd() -> dict:
             byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
             bound_ms = max(flop_ms, byte_ms)
             bound_by = "operations" if flop_ms > byte_ms else "bytes"
-            res.update(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by)
+            res[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
             print(f"kernel ssd_chunk ({name}) times: kernel_ms="
                   f"{kernel_ms:.5f} plain_ms={plain_ms:.5f} library_ms=none "
                   f"bound_ms={bound_ms:.5f} ({bound_by}: {nbytes} B -> "
@@ -966,9 +1086,15 @@ def phase_ssm_serve() -> int:
           f"{eng._prefill.seconds:.3f} ({calls} prefill calls) "
           f"ssd_chunk.launches={launches} "
           f"cache_bytes_resident={eng.cache_bytes_resident}", flush=True)
-    profile_decode(cfg, params, eng=ServeEngine(
+    prof = profile_decode(cfg, params, eng=ServeEngine(
         cfg, params, batch_size=BATCH, max_len=SSM_MAX_LEN, device="cuda"),
         make_requests=lambda: make_requests(max_new=8))
+    share = (f"{prof['ssd_chunk'] / prof['busy_ms']:.4f} of the profiled "
+             f"run's device time ({prof['ssd_chunk']:.3f} of "
+             f"{prof['busy_ms']:.3f} ms)") if prof else "not measured"
+    print(f"SSM serve {cfg.name}: prefill_s={eng._prefill.seconds:.3f} "
+          f"({calls} prefill calls, {launches} SSD launches); the SSD "
+          f"kernel's share: {share}", flush=True)
     del params, eng
     torch.cuda.empty_cache()
     return launches
@@ -1426,7 +1552,8 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/row_gather.cu",
         "replaces": "src/repro/kernels/moe_gather.py:29",
-        "launches": moe_runs["paged"]["rows"] + moe_runs["contiguous"]["rows"],
+        "launches": sum(moe_runs[k]["rows"]
+                        for k in ("paged", "contiguous", "long")),
         "max_abs_err": rows["max_abs_err"],
         "ms": rows["8x1024 dispatch"]["ms"],
         "plain_ms": rows["8x1024 dispatch"]["plain_ms"],
@@ -1440,12 +1567,16 @@ def main() -> None:
         "replaces": "src/repro/kernels/ssd_scan.py:56",
         "launches": ssm_launches,
         "max_abs_err": ssd["max_abs_err"],
-        "ms": ssd["ms"],
-        "plain_ms": ssd["plain_ms"],
-        "bound_ms": ssd["bound_ms"],
-        "bound_by": ssd["bound_by"],
+        "ms": ssd["serve"]["ms"],
+        "plain_ms": ssd["serve"]["plain_ms"],
+        "bound_ms": ssd["serve"]["bound_ms"],
+        "bound_by": ssd["serve"]["bound_by"],
         "library_ms": None,
     }]}
+    print(f"row_gather on the main path: {line['kernels'][4]['launches']} "
+          f"launches, {moe_runs['long']['read_once']} of them on the "
+          f"read-once route that its ms measures (the 8 x 1,024 dispatch)",
+          flush=True)
     print(f"chip_smoke: all phases passed in {time.time() - t_all:.1f}s",
           flush=True)
     print(json.dumps(line), flush=True)

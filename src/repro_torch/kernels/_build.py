@@ -33,7 +33,8 @@ KERNELS: Dict[str, tuple] = {
                     [_P, _P, _P, _P, _LL, _LL, _LL, _I, _P]),
     "flash_attention": ("flash_attention_fwd_launch",
                         [_P] * 6 + [_LL] * 9 + [_I] * 9 + [_P]),
-    "row_gather": ("row_gather_launch", [_P, _P, _P, _LL, _LL, _LL, _P]),
+    "row_gather": ("row_gather_launch",
+                   [_P, _P, _P, _P, _LL, _LL, _I, _LL, _P]),
     "ssd_chunk": ("ssd_chunk_launch", [_P] * 7 + [_LL] * 15 + [_I] * 8 + [_P]),
 }
 

@@ -9,7 +9,9 @@ intra-chunk part, in the model's layout rather than the Pallas kernel's
 * :func:`ssd_chunk` — the entry point the model calls. A CUDA tensor goes
   to the ``sm_90a`` kernel in ``csrc/ssd_chunk.cu`` (which replaces
   ``ssd_chunk_pallas``); a CPU tensor goes to :func:`ssd_chunk_plain`.
-  There is no fallback: a CUDA call launches the kernel or raises.
+  There is no fallback: a CUDA call launches the kernel or raises. bf16
+  inputs with ``chunk <= 256`` run on the tensor cores (one ``C B^T`` for
+  many heads of a group); f32 inputs, and longer chunks, on FFMA.
 * :func:`ssd_chunk_plain` — plain f32 einsums (``ssd_chunk_batched_ref``
   in the reference); the CPU path, and what the kernel is held against on
   the card.

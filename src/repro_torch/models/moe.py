@@ -8,7 +8,9 @@ capacity ``C`` (GShard/Switch dropping). The row moves are two launches of
 
 * *dispatch* — token rows into the capacity buffer ``(E, B*C, d)``, empty
   slots zero (the reference's ``take_along_axis`` of the tokens and its
-  scatter into the ``(E*C+1, d)`` buffer, ``moe.py:62,66``, in one gather);
+  scatter into the ``(E*C+1, d)`` buffer, ``moe.py:62,66``, in one gather;
+  given ``comb`` as the inverse table, a large dispatch reads each token
+  row once for its K slots);
 * *combine* — expert outputs back to ``(B, S, K)`` token order, dropped
   assignments zero (``moe.py:135,140``); the gate-weighted sum over ``K``
   replaces the reference's scatter-add.
@@ -90,7 +92,8 @@ def moe_ffn(cfg: ModelConfig, x, p, shard=None, *, inference: bool = False,
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
     disp, comb = dispatch_tables(eidx, E, C)
-    buf = row_gather(x.reshape(B * S, d), disp).view(E, B * C, d)
+    # comb is disp's inverse: a large dispatch reads each token row once
+    buf = row_gather(x.reshape(B * S, d), disp, comb).view(E, B * C, d)
     a = act_fn(cfg.hidden_act)
     h = a(torch.bmm(buf, p["w_gate"].to(buf.dtype))) \
         * torch.bmm(buf, p["w_up"].to(buf.dtype))                  # (E,BC,ff)

@@ -325,6 +325,76 @@ def test_row_gather_kernel_matches_plain(cuda_device, dtype, t, m, d):
     assert torch.equal(_bits(none), torch.zeros_like(_bits(none)))
 
 
+def _routing(dev, groups, tokens, experts, top_k, cf, seed, crowd=False):
+    """``dispatch_tables`` of random top-k routing (``crowd``: every token
+    to the same experts, so most of them are dropped)."""
+    from repro_torch.models.moe import capacity, dispatch_tables
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    eidx = torch.rand((groups, tokens, experts), generator=gen,
+                      device=dev).argsort(-1)[..., :top_k]
+    if crowd:
+        eidx = torch.arange(top_k, device=dev).expand(groups, tokens, top_k)
+    cap = min(capacity(tokens, experts, cf, top_k), tokens)
+    return dispatch_tables(eidx, experts, cap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_row_gather_inv_matches_plain(cuda_device, monkeypatch, dtype, cf,
+                                      top_k):
+    """The read-once route (``inv`` = ``comb``; forced: the wrapper takes it
+    only for large tables) at a dropping capacity is bit-equal to the plain
+    gather, one launch a call."""
+    monkeypatch.setattr(moe_gather, "_READ_ONCE_MIN_BYTES", 0)
+    d = 6144 if dtype == torch.bfloat16 else 256
+    groups, tokens = 4, 96
+    disp, comb = _routing(cuda_device, groups, tokens, 8, top_k, cf, 7)
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    src = torch.randn((groups * tokens, d), generator=gen,
+                      device=cuda_device).to(dtype)
+    n0 = moe_gather.row_gather.launches
+    r0 = moe_gather.row_gather.read_once_launches
+    got = moe_gather.row_gather(src, disp, comb)
+    torch.cuda.synchronize()
+    assert moe_gather.row_gather.launches == n0 + 1
+    assert moe_gather.row_gather.read_once_launches == r0 + 1
+    assert cf > 1 or int((comb < 0).sum()) > 0
+    want = moe_gather.row_gather_plain(src, disp)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_row_gather_inv_fully_dropped_and_empty(cuda_device, monkeypatch):
+    """Tokens whose every assignment was dropped are never read; a table
+    with every slot empty gives zeros (the read-once route, forced)."""
+    monkeypatch.setattr(moe_gather, "_READ_ONCE_MIN_BYTES", 0)
+    disp, comb = _routing(cuda_device, 2, 64, 8, 2, 0.5, 9, crowd=True)
+    dropped = (comb.view(-1, 2) < 0).all(1)
+    assert int(dropped.sum()) > 0
+    src = torch.randn((128, 512), device=cuda_device).to(torch.bfloat16)
+    got = moe_gather.row_gather(src, disp, comb)
+    assert torch.equal(_bits(got),
+                       _bits(moe_gather.row_gather_plain(src, disp)))
+    empty = torch.full_like(disp, -1)
+    none = moe_gather.row_gather(src, empty, torch.full_like(comb, -1))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(none), torch.zeros_like(_bits(none)))
+
+
+def test_row_gather_inv_rejects_a_bad_table(cuda_device):
+    src = torch.zeros((4, 8), device=cuda_device)
+    idx = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    inv = torch.full((8,), -1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError, match="inv must be int32"):
+        moe_gather.row_gather(src, idx, inv.long())
+    with pytest.raises(ValueError, match="length"):
+        moe_gather.row_gather(src, idx, inv[:6])
+    with pytest.raises(ValueError, match="inv must be on"):
+        moe_gather.row_gather(src, idx, inv.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_gather.row_gather(src, idx, inv.repeat(2)[::2])
+
+
 def test_row_gather_kernel_rejects_what_it_cannot_take(cuda_device):
     src = torch.zeros((4, 8), device=cuda_device)
     idx = torch.zeros(3, dtype=torch.int32, device=cuda_device)
@@ -455,6 +525,16 @@ _SSD_CASES = [
     (1, 64, 6, 32, 2, 16, 32),      # smoke widths, 3 heads a group
     (1, 200, 3, 24, 3, 40, 100),    # ragged: chunk, p and n off the tiles
     (1, 128, 2, 128, 1, 256, 128),  # the largest p and n it takes
+    (1, 512, 48, 64, 1, 128, 256),  # mamba2-780m: 48 heads share C B^T
+    # the bf16 path's rule takes heads that do not divide a group (on a
+    # 132-SM H100): zamba2's n = 64 with g 2, sets of 2 and 1 of 3 heads;
+    # 5 heads a group, sets of 4 and 1
+    (2, 4096, 6, 64, 2, 64, 256),
+    (4, 4096, 5, 64, 1, 128, 256),
+    (4, 256, 48, 64, 1, 128, 256),  # one chunk (the second serve call)
+    # C and the three B key tiles outgrow an x stage (n well above p)
+    (1, 256, 2, 64, 1, 256, 256),
+    (1, 256, 2, 32, 1, 128, 256),
 ]
 
 
@@ -495,6 +575,34 @@ def test_ssd_kernel_takes_strided_views(cuda_device):
     assert not (x.is_contiguous() or dt.is_contiguous()
                 or cum.is_contiguous())
     y, st = ssd_scan.ssd_chunk(x, dt, cum, B, C, chunk)
+    wy, wst = ssd_scan.ssd_chunk_plain(x, dt, cum, B, C, chunk)
+    _ssd_close(y, wy)
+    _ssd_close(st, wst)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_takes_unaligned_views(cuda_device, dtype):
+    """x, B and C as views at an odd element offset of one (b, s, channels)
+    tensor with an odd channel count: no base or row is 16-byte aligned, so
+    the tensor-core path loads them a scalar at a time."""
+    b, s, h, p, g, n, chunk = 2, 320, 4, 40, 2, 24, 160
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    width = 1 + h * p + 2 * g * n + 1
+    xbc = torch.randn((b, s, width), generator=gen,
+                      device=cuda_device).to(dtype)
+    x = xbc[..., 1: 1 + h * p].reshape(b, s, h, p)
+    B = xbc[..., 1 + h * p: 1 + h * p + g * n].reshape(b, s, g, n)
+    C = xbc[..., 1 + h * p + g * n: -1].reshape(b, s, g, n)
+    dt = 1e-3 + 0.099 * torch.rand((b, s, h), generator=gen,
+                                   device=cuda_device)
+    A = -1.0 - 15.0 * torch.rand((h,), generator=gen, device=cuda_device)
+    cum = (dt * A).reshape(b, s // chunk, chunk, h).cumsum(2).reshape(b, s, h)
+    assert x.data_ptr() % 16 and x.stride(1) % 8
+    y, st = ssd_scan.ssd_chunk(x, dt, cum, B, C, chunk)
+    y2, st2 = ssd_scan.ssd_chunk(x, dt, cum, B, C, chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(y), _bits(y2)) and torch.equal(_bits(st),
+                                                            _bits(st2))
     wy, wst = ssd_scan.ssd_chunk_plain(x, dt, cum, B, C, chunk)
     _ssd_close(y, wy)
     _ssd_close(st, wst)

@@ -239,6 +239,108 @@ def test_dispatch_tables_round_trip():
         sorted((disp >= 0).nonzero()[:, 0].tolist())
 
 
+# B, S, E, K, capacity factor: decode (S = 1), top-1 to top-4, drop-free
+# and dropping capacities, mixtral-smoke's widths
+_TABLE_CASES = [
+    (1, 1, 8, 2, 2.0),
+    (4, 1, 8, 2, 2.0),
+    (2, 16, 4, 1, 1.0),
+    (3, 10, 4, 2, 1.25),
+    (2, 64, 8, 2, 0.5),
+    (1, 33, 6, 3, 0.75),
+    (2, 20, 16, 4, 1.0),
+    (4, 20, 4, 2, 2.0),
+]
+
+
+def _tables(B, S, E, K, cf, seed=0):
+    """Random top-K routing (K distinct experts a token) and its tables at
+    the capacity ``moe_ffn`` gives a group of S tokens."""
+    rng = np.random.default_rng(seed)
+    eidx = torch.from_numpy(np.stack([np.stack([rng.choice(E, K, replace=False)
+                                                for _ in range(S)])
+                                      for _ in range(B)]))
+    cap = min(tmoe.capacity(S, E, cf, K), S)
+    disp, comb = tmoe.dispatch_tables(eidx, E, cap)
+    return cap, disp, comb
+
+
+@pytest.mark.parametrize("B,S,E,K,cf", _TABLE_CASES)
+def test_comb_is_the_inverse_of_disp(B, S, E, K, cf):
+    """``comb`` is exactly ``disp``'s inverse, as the row gather's ``inv``
+    must be: every kept slot's token row maps back to it, every dropped
+    assignment is -1, no slot is named twice, every filled slot is named."""
+    cap, disp, comb = _tables(B, S, E, K, cf)
+    kept = comb >= 0
+    tok = torch.arange(B * S).repeat_interleave(K)
+    assert torch.equal(disp[comb[kept].long()], tok[kept].to(torch.int32))
+    assert bool((comb[~kept] == -1).all())
+    slots = comb[kept].long()
+    assert slots.unique().numel() == slots.numel()
+    assert bool(((slots >= 0) & (slots < E * B * cap)).all())
+    assert torch.equal(slots.sort().values, (disp >= 0).nonzero()[:, 0])
+    if cf < 1:
+        assert int((~kept).sum()) > 0
+    src = torch.zeros(B * S, 8)
+    assert moe_gather._check_inv(src, comb) == K
+
+
+@pytest.mark.parametrize("B,S,E,K,cf", _TABLE_CASES)
+def test_read_once_dispatch_equals_the_gather(B, S, E, K, cf):
+    """The dispatch as the kernel's read-once route does it — each token
+    row read once and stored to the slots ``comb`` names for it, the other
+    slots zero — equals ``row_gather_plain(x, disp)`` bit for bit; the CPU
+    route ignores ``inv``."""
+    _, disp, comb = _tables(B, S, E, K, cf, seed=1)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(B * S, 24)).astype(np.float32))
+    out = torch.zeros((disp.numel(), 24))
+    for t in range(B * S):
+        row = x[t].clone()
+        for slot in comb[t * K:(t + 1) * K].tolist():
+            if slot >= 0:
+                out[slot] = row
+    want = moe_gather.row_gather_plain(x, disp)
+    assert torch.equal(out, want)
+    assert torch.equal(moe_gather.row_gather(x, disp, comb), want)
+
+
+@pytest.mark.parametrize("t,d,dtype,k,want", [
+    (4, 6144, torch.bfloat16, 2, False),      # mixtral decode dispatch
+    (64, 6144, torch.bfloat16, 2, False),     # a 64-token prefill
+    (8192, 6144, torch.bfloat16, 2, True),    # 8 groups of 1,024 tokens
+    (8192, 6144, torch.bfloat16, 1, False),   # top-1: nothing is read twice
+    (2048, 4096, torch.float32, 2, True),
+])
+def test_read_once_route_rule(t, d, dtype, k, want):
+    """The read-once route is taken where it spares at least
+    ``_READ_ONCE_MIN_BYTES`` of reads (shapes only: a meta tensor)."""
+    src = torch.empty((t, d), dtype=dtype, device="meta")
+    assert moe_gather._read_once(src, k) is want
+
+
+@pytest.mark.parametrize("case", ["dtype", "length", "rank", "strided",
+                                  "device"])
+def test_row_gather_inv_refusals(case):
+    """What the kernel cannot take as ``inv`` is refused before a launch
+    (checked here on CPU tensors)."""
+    src = torch.zeros(4, 8)
+    inv = torch.full((8,), -1, dtype=torch.int32)
+    err, match = ValueError, None
+    if case == "dtype":
+        inv, err, match = inv.long(), TypeError, "int32"
+    elif case == "length":
+        inv, match = inv[:6], "length"
+    elif case == "rank":
+        inv, match = inv.view(4, 2), "length"
+    elif case == "strided":
+        inv, match = inv.repeat(2)[::2], "contiguous"
+    else:
+        inv, match = inv.to("meta"), "must be on"
+    with pytest.raises(err, match=match):
+        moe_gather._check_inv(src, inv)
+
+
 def test_moe_ffn_refuses_shard_and_comm(moe_layer):
     cfg, _, tp, _ = moe_layer
     x = torch.zeros(1, 2, cfg.d_model)
