@@ -34,12 +34,17 @@ Phases, each a check that exits non-zero when it fails:
    pad rows, (e) non-causal with Sq != Skv, (f) phi-3-vision's prefill
    (2,1024,32,96) bf16 causal, (g) zamba2-7b's attention (2,1024,32,112)
    bf16 causal, (h) an olmo-1b prefill of 4,096 tokens (2,4096,16,128)
-   bf16 causal, where the tile loop dominates the blocks' start-up. f32
+   bf16 causal, where the tile loop dominates the blocks' start-up, (i)
+   mixtral-8x22b's windowed prefill (2,6000,48 / 8 KV,128) bf16 causal
+   with a window of 4,096 (phase 6g's shape). f32
    within 2e-5; bf16 within 1.25 x the plain bf16 version's error
    (+1e-3), both measured against the plain version run in f32 on the
    upcast inputs. A second launch gives equal bits; one launch counted a
-   call. At (a), (b), (f), (g) and (h): kernel, plain,
-   ``scaled_dot_product_attention`` and bound times;
+   call. At (a), (b), (f), (g), (h) and (i): kernel, plain,
+   ``scaled_dot_product_attention`` and bound times (at (i) SDPA takes
+   the window as an explicit boolean mask and K/V repeated to the 48
+   query heads; the plain version runs one batch row at a time where its
+   f32 logits would pass 8 GB);
 5. serve: full-width olmo-1b (16 layers, bf16 params from a seed) through
    ``ServeEngine`` with the paged cache — 8 requests on 4 slots, so slots
    are recycled — with the launch counts zeroed just before and read just
@@ -61,7 +66,7 @@ Phases, each a check that exits non-zero when it fails:
    launches a forward call, the prefill's dispatch (8,192 token rows) on
    the read-once route (4 launches) and nothing else on it, and the same
    tokens as a second run with the read-once route switched off; then a
-   profile of a short run;
+   profile of a short run; then phase 6g on the same params;
 6c. MoE reference: mixtral-8x22b-smoke in float32, paged prefill + greedy
    decode on the card and on the CPU, at its own capacity and at a
    dropping one (capacity_factor_eval 0.5): identical routing tables
@@ -73,9 +78,11 @@ Phases, each a check that exits non-zero when it fails:
    prefill (b 4, s 1,024, h 48, p 64, g 1, n 128, chunk 256; x/B/C bf16,
    dt/cum f32; the tensor-core path), at the second serve call's shape
    (b 4, s 256: one chunk) and in f32 with g 2, 3 heads a group and s = 2
-   chunks (the FFMA path); a second launch gives equal bits; kernel, plain
-   and bound times at both serve shapes (no single PyTorch call computes
-   it: library "none");
+   chunks (the FFMA path), and at zamba2-7b's serve prefill ("hybrid": b
+   4, s 1,024, h 112, p 64, g 1, n 64, chunk 256; 112 heads on one
+   group); a second launch gives equal bits; kernel, plain and bound
+   times at the three serve shapes (no single PyTorch call computes it:
+   library "none");
 6e. SSM serve: mamba2-780m at full width and depth (48 layers, d 1,536,
    48 heads of 64, d_state 128, chunk 256, vocab 50,280, tied; 780 M bf16
    params from a seed) through ``ServeEngine``'s grouped equal-length path
@@ -90,6 +97,39 @@ Phases, each a check that exits non-zero when it fails:
    the CPU: logits within 1e-4, identical greedy tokens, the kernel run
    once a layer a prefill; and the grouped engine's tokens on mixed
    prompt lengths identical on card and CPU;
+6g. windowed MoE serve: phase 6b's mixtral-8x22b params (4 layers) past
+   the 4,096-token window, through ``ServeEngine`` at max_len 6,144: a
+   ring cache of 4,096 slots, batch 2, the grouped path. 2 prompts of
+   6,000 tokens (the prefill keeps the last 4,096 and rolls them by
+   6,000 % 4,096 = 1,904) and 2 of 4,080 (decode fills the ring after 16
+   steps, then wraps it), 32 new tokens each, after a warm-up; the counts
+   zeroed just before and read just after: 4 flash launches a prefill
+   call, 2 x 4 row-gather launches a forward call, the prefill
+   dispatches (12,000 and 8,160 token rows) on the read-once route as
+   ``moe_gather``'s rule picks it, no page gather;
+   ``cache_bytes_resident`` equal to the ring's shapes (268,435,464 B at
+   an f32 cache, beside 402,653,192 B for a contiguous 6,144); the
+   4,080-token group's first 16 tokens equal to a contiguous run at
+   max_len 4,096 (the same cache shape, no ring) with 16 new tokens; ms a
+   decode step, tok/s, prefill s and a profile's idle share; then one
+   layer's wrapped ring cache split into 4 shards, ``partial_attention``
+   on each and ``combine_partials`` over them within 2e-5 of
+   ``decode_attention`` (f32);
+6h. hybrid serve: zamba2-7b at full width and depth (81 layers, d 3,584,
+   112 SSM heads of 64, d_state 64, 13 shared-attention sites of 32
+   heads at head_dim 112; 6.75 B bf16 params from a seed) through the
+   grouped engine on 4 slots, max_len 1,056: 4 prompts of 1,000 tokens
+   and 4 of 64, 32 new tokens each (2 prefill calls, 62 decode steps);
+   the counts zeroed just before and read just after: 81 SSD and 13 flash
+   launches a prefill call, no row or page gather; ``cache_bytes_resident``
+   equal to the shapes' count (KV 1,574,436,864 B, SSD state 594,542,592
+   B, conv tails); ms a decode step, tok/s, prefill s, a profile's idle
+   share and the SSD and flash shares of its device time;
+6i. ring and hybrid references: mixtral-8x22b-smoke (window 64) with a
+   prompt of 80 and zamba2-7b-smoke at 5 layers (two groups and a
+   remainder), f32 with TF32 off: prefill + 8 greedy decode steps on the
+   card and on the CPU, logits within 1e-4 and identical tokens; the
+   grouped engine's tokens identical on card and CPU;
 7. bucket kernels: the tile-gather pack/unpack kernel against its plain
    version, bit for bit, on the tables of the full-width olmo-1b plan
    (``get_comm_plan(params, num_streams=8, pack="pallas")``): every
@@ -143,11 +183,17 @@ MOE_ARCH, MOE_LAYERS = "mixtral-8x22b", 4
 MOE_LONG_GROUP, MOE_LONG_PROMPT, MOE_LONG_NEW = 8, 1024, 4
 SSM_ARCH, SSM_MAX_LEN = "mamba2-780m", 1056
 SSM_PROMPTS = (1000,) * 4 + (64,) * 4
+# phase 6g: the MoE past its window, a ring of 4,096 slots
+WIN_MAX_LEN, WIN_BATCH, WIN_NEW = 6144, 2, 32
+WIN_PROMPTS = (6000, 4080)       # 2 prompts of each length
+WIN_EXACT_LEN, WIN_EXACT_NEW = 4096, 16
+HYB_ARCH, HYB_MAX_LEN = "zamba2-7b", 1056
 # name, x/B/C dtype, (b, s, h, p, g, n, chunk), timed
 SSD_CASES = (
     ("serve", "bfloat16", (4, 1024, 48, 64, 1, 128, 256), True),
     ("second call", "bfloat16", (4, 256, 48, 64, 1, 128, 256), True),
     ("f32 g2", "float32", (2, 512, 6, 64, 2, 128, 256), False),
+    ("hybrid", "bfloat16", (4, 1024, 112, 64, 1, 64, 256), True),
 )
 TRAIN_ARCH = "olmo-1b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
@@ -164,6 +210,7 @@ FLASH_CASES = (
     ("f", "bfloat16", (2, 1024, 1024, 32, 32, 96), True, None, None, True),
     ("g", "bfloat16", (2, 1024, 1024, 32, 32, 112), True, None, None, True),
     ("h", "bfloat16", (2, 4096, 4096, 16, 16, 128), True, None, None, True),
+    ("i", "bfloat16", (2, 6000, 6000, 48, 8, 128), True, 4096, None, True),
 )
 PAIRS = 10                       # alternating kernel / library timings
 
@@ -428,8 +475,24 @@ def flash_work(q, k, kw) -> tuple:
     return 4 * hd * pairs, nbytes
 
 
+def _flash_plain(q, k, v, kw) -> tuple:
+    """``flash_attention_fwd_plain``, one batch row at a time where its
+    (B,H,Sq,Skv) f32 logits would pass 8 GB (the same math per row)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_fwd_plain
+    b, sq, h, _ = q.shape
+    if b == 1 or b * h * sq * k.shape[1] * 4 <= 8e9:
+        return flash_attention_fwd_plain(q, k, v, **kw)
+    st = kw["start"]
+    rows = [flash_attention_fwd_plain(
+        q[i:i + 1], k[i:i + 1], v[i:i + 1],
+        **dict(kw, start=None if st is None else st[i:i + 1]))
+        for i in range(b)]
+    return torch.cat([o for o, _ in rows]), torch.cat([l for _, l in rows])
+
+
 def phase_flash() -> dict:
-    """The flash-attention kernel against its plain version at (a)-(e)."""
+    """The flash-attention kernel against its plain version at (a)-(i)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -460,15 +523,14 @@ def phase_flash() -> dict:
         check(bool(torch.isfinite(o).all() and torch.isfinite(lse).all()),
               f"{what}: non-finite output")
         if dtype == torch.float32:
-            po, plse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            po, plse = _flash_plain(q, k, v, kw)
             eo = (o - po).abs().max().item()
             el = (lse - plse).abs().max().item()
             tol_o = tol_l = 2e-5
             rule = "vs plain f32, tol 2e-5"
         else:
-            ro, rlse = fa.flash_attention_fwd_plain(q.float(), k.float(),
-                                                    v.float(), **kw)
-            po, plse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            ro, rlse = _flash_plain(q.float(), k.float(), v.float(), kw)
+            po, plse = _flash_plain(q, k, v, kw)
             eo = (o.float() - ro).abs().max().item()
             el = (lse - rlse).abs().max().item()
             po_err = (po.float() - ro).abs().max().item()
@@ -487,13 +549,23 @@ def phase_flash() -> dict:
               f"second launch bit-equal", flush=True)
         del po, plse
         if timed:
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            # SDPA: is_causal, or the window as an explicit boolean mask;
+            # K/V repeated to the query heads where they are fewer
+            qt, kt, vt = (fa.repeat_kv(t, h // t.shape[2]).transpose(
+                1, 2).contiguous() for t in (q, k, v))
+            lib_kw, lib = dict(is_causal=True), "sdpa is_causal"
+            if window is not None:
+                lib_kw = dict(attn_mask=fa.attention_mask(
+                    sq, skv, causal=causal, window=window, device=dev)[0])
+                lib = "sdpa bool mask"
+            if kvh != h:
+                lib += f", K/V repeated {kvh}->{h} heads"
             kernel_ms, library_ms, wins = paired_ms(
                 lambda i: fa.flash_attention_fwd(q, k, v, **kw),
                 lambda i: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True), n_iter=20, reps=3)
-            plain_ms = time_ms(lambda i: fa.flash_attention_fwd_plain(
-                q, k, v, **kw), n_iter=3, reps=2)
+                    qt, kt, vt, **lib_kw), n_iter=20, reps=3)
+            plain_ms = time_ms(lambda i: _flash_plain(q, k, v, kw),
+                               n_iter=3, reps=2)
             flops, nbytes = flash_work(q, k, kw)
             flop_ms = flops / BF16_FLOPS_PER_S * 1e3
             byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -503,7 +575,7 @@ def phase_flash() -> dict:
                              library_ms=library_ms, bound_ms=bound_ms,
                              bound_by=bound_by)
             print(f"kernel flash ({name}) times: kernel_ms={kernel_ms:.5f} "
-                  f"plain_ms={plain_ms:.5f} library_ms(sdpa is_causal)="
+                  f"plain_ms={plain_ms:.5f} library_ms({lib})="
                   f"{library_ms:.5f} (medians of {PAIRS} alternating pairs, "
                   f"the kernel faster in {wins}) "
                   f"bound_ms={bound_ms:.5f} ({bound_by}: "
@@ -511,7 +583,7 @@ def phase_flash() -> dict:
                   f"{byte_ms:.5f} ms; {bound_ms / kernel_ms:.3f} of the "
                   f"bound, {flops / kernel_ms / 1e9:.1f} TFLOP/s)",
                   flush=True)
-            del qt, kt, vt
+            del qt, kt, vt, lib_kw
         del q, k, v, o, lse, o2, lse2
     torch.cuda.empty_cache()
     return res
@@ -527,10 +599,11 @@ def _requests(vocab: int):
 
 
 class _Timed:
-    """Wraps an engine's prefill/step callable: host time to completion."""
+    """Wraps an engine's prefill/step callable: host time to completion;
+    ``last`` is the last call's output."""
 
     def __init__(self, fn):
-        self.fn, self.seconds, self.calls = fn, 0.0, 0
+        self.fn, self.seconds, self.calls, self.last = fn, 0.0, 0, None
 
     def __call__(self, *a, **kw):
         import torch
@@ -539,6 +612,7 @@ class _Timed:
         torch.cuda.synchronize()
         self.seconds += time.perf_counter() - t0
         self.calls += 1
+        self.last = out
         return out
 
 
@@ -638,6 +712,8 @@ def phase_serve(cfg) -> dict:
     if moe:
         runs["long"] = serve_moe_long(cfg, params)
     profile_decode(cfg, params)
+    if moe:
+        runs["window"] = serve_moe_window(cfg, params)
     del params
     torch.cuda.empty_cache()
     return runs
@@ -708,13 +784,151 @@ def serve_moe_long(cfg, params) -> dict:
     return got["read-once"]
 
 
+def serve_moe_window(cfg, params) -> dict:
+    """Phase 6g (see the docstring): ``cfg`` past its sliding window
+    through the ring cache. Returns the run's counts."""
+    import numpy as np
+    import torch
+    from repro_torch.device import torch_dtype
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gather import _read_once, row_gather
+    from repro_torch.kernels.paged_kv import paged_gather
+    from repro_torch.models.attention import (KVCache, combine_partials,
+                                              decode_attention,
+                                              partial_attention)
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    w, layers = cfg.sliding_window, cfg.num_layers
+    rng = np.random.default_rng(10)
+    prompts = {n: [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
+                   for _ in range(WIN_BATCH)] for n in WIN_PROMPTS}
+
+    def make_requests(new=WIN_NEW, lens=WIN_PROMPTS):
+        return [Request(prompt=p, max_new_tokens=new) for n in lens
+                for p in prompts[n]]
+
+    eng = ServeEngine(cfg, params, batch_size=WIN_BATCH,
+                      max_len=WIN_MAX_LEN, device="cuda", paged=True)
+    check(eng._ring and not eng._paged,
+          f"window {w} < max_len {WIN_MAX_LEN}: want the grouped ring path")
+    eng.generate(make_requests(new=2))      # warm-up: both prefill shapes
+    eng._prefill, eng._step = _Timed(eng._prefill), _Timed(eng._step)
+    reqs = make_requests()
+    torch.cuda.synchronize()
+    flash_attention.launches = paged_gather.launches = 0
+    row_gather.launches = row_gather.read_once_launches = 0
+    t0 = time.perf_counter()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    flash, pages = flash_attention.launches, paged_gather.launches
+    rows, once = row_gather.launches, row_gather.read_once_launches
+    calls, steps = eng._prefill.calls, eng.decode_steps
+    for i, r in enumerate(reqs):
+        g = r.generated
+        check(len(g) == WIN_NEW and bool(
+            ((g >= 0) & (g < cfg.vocab_size)).all()),
+            f"window run: request {i} made {g.tolist()}")
+    check(calls == len(WIN_PROMPTS) and steps == calls * (WIN_NEW - 1),
+          f"window run: {calls} prefill calls and {steps} decode steps")
+    check(flash == layers * calls, f"window run launched flash_attention "
+          f"{flash} times, want {layers} x {calls} prefill calls")
+    check(rows == 2 * layers * (calls + steps),
+          f"window run launched row_gather {rows} times, want 2 x {layers} "
+          f"x {calls + steps} forward calls")
+    check(pages == 0, f"window run launched paged_gather {pages} times")
+    # each prefill's dispatch goes the way moe_gather's rule sends it (a
+    # decode step's 2 token rows take the gather route)
+    routes = {n: _read_once(torch.empty(
+        (WIN_BATCH * n, cfg.d_model), dtype=torch_dtype(cfg.dtype),
+        device="meta"), cfg.moe.top_k) for n in WIN_PROMPTS}
+    want = layers * sum(routes.values())
+    check(once == want, f"window run: {once} read-once launches, want {want}")
+    # K and V of every layer in f32, and the two int32 cursors
+    ring_b, full_b = (layers * 2 * WIN_BATCH * n * cfg.num_kv_heads
+                      * cfg.head_dim * 4 + 8 for n in (w, WIN_MAX_LEN))
+    check(eng.cache_bytes_resident == ring_b,
+          f"window run: cache_bytes_resident {eng.cache_bytes_resident}, "
+          f"the ring's shapes give {ring_b}")
+    step_ms = eng._step.seconds / steps * 1e3
+    prefill_s = eng._prefill.seconds
+    n_tok = sum(len(r.generated) for r in reqs)
+    print(f"serve {cfg.name} window: {len(reqs)} requests (prompts "
+          f"{[len(r.prompt) for r in reqs]}), max_len {WIN_MAX_LEN}, ring "
+          f"of {w} slots, {n_tok} new tokens in {dt:.3f}s "
+          f"({n_tok / dt:.1f} tok/s) decode_steps={steps} decode_s="
+          f"{eng._step.seconds:.3f} ({step_ms:.3f} ms/step) prefill_s="
+          f"{prefill_s:.3f} ({calls} prefill calls) "
+          f"flash_attention.launches={flash} row_gather.launches={rows} "
+          f"({once} read-once) paged_gather.launches={pages} "
+          f"cache_bytes_resident={eng.cache_bytes_resident} (the ring's "
+          f"shapes; a contiguous {WIN_MAX_LEN} would hold {full_b})",
+          flush=True)
+    print("serve " + cfg.name + " window: prefill dispatch routes: " + ", ".join(
+        f"{WIN_BATCH * n} token rows -> "
+        f"{'read-once' if routes[n] else 'gather'}" for n in WIN_PROMPTS),
+        flush=True)
+
+    # the sequence-sharded combine over layer 0's wrapped ring (the last
+    # step's cache: the 6,000-token group, 6,031 positions in 4,096 slots)
+    kv = eng._step.last[1].kv
+    k, v = kv.k[0], kv.v[0]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q = torch.randn((WIN_BATCH, 1, cfg.num_heads, cfg.head_dim),
+                    generator=gen, device="cuda")
+    want_o = decode_attention(cfg, q, KVCache(k, v, kv.length, ring=True))
+    valid = torch.arange(w, device="cuda") < min(kv.length, w)
+    ws = w // 4
+    parts = [partial_attention(q, k[:, i * ws:(i + 1) * ws],
+                               v[:, i * ws:(i + 1) * ws],
+                               valid[i * ws:(i + 1) * ws]) for i in range(4)]
+    got = combine_partials(*(torch.stack(t) for t in zip(*parts)))
+    err = (got - want_o).abs().max().item()
+    check(bool(torch.allclose(got, want_o, atol=2e-5, rtol=2e-5)),
+          f"sharded combine differs from decode_attention by {err:.3e}")
+    print(f"serve {cfg.name} window: layer 0's ring ({kv.length} positions "
+          f"in {w} slots, {k.dtype}) in 4 shards, partial_attention + "
+          f"combine_partials vs decode_attention: max |diff| = {err:.3e} "
+          f"(tol 2e-5)", flush=True)
+    del kv, k, v, eng
+
+    # exactness: until the ring wraps it computes what a contiguous cache
+    # of the same shape does
+    ref = ServeEngine(cfg, params, batch_size=WIN_BATCH,
+                      max_len=WIN_EXACT_LEN, device="cuda")
+    check(not ref._ring, "the contiguous reference took the ring")
+    exact = ref.generate(make_requests(new=WIN_EXACT_NEW,
+                                       lens=(WIN_PROMPTS[1],)))
+    ring_toks = [r.generated[:WIN_EXACT_NEW].tolist() for r in reqs
+                 if len(r.prompt) == WIN_PROMPTS[1]]
+    check(ring_toks == [r.generated.tolist() for r in exact],
+          f"the ring's first {WIN_EXACT_NEW} tokens {ring_toks} != the "
+          f"contiguous {WIN_EXACT_LEN} run's "
+          f"{[r.generated.tolist() for r in exact]}")
+    print(f"serve {cfg.name} window: the {WIN_PROMPTS[1]}-token group's "
+          f"first {WIN_EXACT_NEW} tokens equal a contiguous max_len "
+          f"{WIN_EXACT_LEN} run's", flush=True)
+    del ref
+    prof = profile_decode(cfg, params, eng=ServeEngine(
+        cfg, params, batch_size=WIN_BATCH, max_len=WIN_MAX_LEN,
+        device="cuda"), make_requests=lambda: make_requests(
+            new=20, lens=(WIN_PROMPTS[1],)))
+    idle = f"{prof['idle']:.4f}" if prof else "not measured"
+    print(f"serve {cfg.name} window: {step_ms:.3f} ms/decode step, "
+          f"{n_tok / dt:.1f} tok/s, prefill_s={prefill_s:.3f}, idle share "
+          f"{idle} (profile of 2 x {WIN_PROMPTS[1]} tokens, 20 new: the "
+          f"ring wraps)", flush=True)
+    torch.cuda.empty_cache()
+    return dict(flash=flash, rows=rows, read_once=once)
+
+
 def profile_decode(cfg, params, eng=None, make_requests=None) -> dict:
     """Where a serve run's time goes on the card: ``torch.profiler`` over a
     short run (by default paged, 4 requests, 16 new tokens each) — device
     busy time, the device's idle share of the same run's wall time without
     the profiler, and the kernels by time. Measures only; the checks are
-    done. Returns the port's kernels' device ms and ``busy_ms`` ({} when
-    the profiler saw no device time)."""
+    done. Returns the port's kernels' device ms, ``busy_ms`` and the idle
+    share ``idle`` ({} when the profiler saw no device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -770,7 +984,7 @@ def profile_decode(cfg, params, eng=None, make_requests=None) -> dict:
         print(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d} x {e.self_device_time_total / max(e.count, 1):8.2f}"
               f" us  {e.key[:90]}", flush=True)
-    return dict(own, busy_ms=busy_ms)
+    return dict(own, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms)
 
 
 def _to(tree, dev):
@@ -1160,6 +1374,191 @@ def phase_ssm_reference() -> None:
           f"identical", flush=True)
 
 
+def phase_hybrid_serve() -> dict:
+    """Full-width zamba2-7b through the grouped engine (see 6h); returns
+    the run's SSD and flash launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gather import row_gather
+    from repro_torch.kernels.paged_kv import paged_gather
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config(HYB_ARCH)
+    t0 = time.time()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    c, L = cfg.ssm, cfg.num_layers
+    sites = L // cfg.hybrid_attn_every
+    d_in, h = c.d_inner(cfg.d_model), c.num_heads(cfg.d_model)
+    print(f"hybrid serve: {cfg.name} L={L} d={cfg.d_model} d_inner={d_in} "
+          f"heads={h}x{c.head_dim} d_state={c.d_state} g={c.ngroups} "
+          f"chunk={c.chunk_size}; {sites} shared-attention sites (every "
+          f"{cfg.hybrid_attn_every} layers, {L % cfg.hybrid_attn_every} "
+          f"remainder) of {cfg.num_heads} heads x {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}; vocab={cfg.vocab_size} params="
+          f"{cfg.param_count() / 1e9:.3f}B {cfg.param_dtype} (init "
+          f"{time.time() - t0:.1f}s, {torch.cuda.memory_allocated()} B on "
+          f"the card)", flush=True)
+    rng = np.random.default_rng(11)
+
+    def make_requests(max_new=MAX_NEW):
+        return [Request(prompt=rng.integers(0, cfg.vocab_size, (n,),
+                                            dtype=np.int32),
+                        max_new_tokens=max_new) for n in SSM_PROMPTS]
+
+    eng = ServeEngine(cfg, params, batch_size=BATCH, max_len=HYB_MAX_LEN,
+                      device="cuda", paged=True)
+    check(not eng._paged and not eng._ring,
+          "the hybrid engine took the paged path or a ring")
+    eng.generate([Request(prompt=r.prompt[:64], max_new_tokens=2)
+                  for r in make_requests()[:2]])            # warm-up
+    reqs = make_requests()
+    eng._prefill, eng._step = _Timed(eng._prefill), _Timed(eng._step)
+    torch.cuda.synchronize()
+    ssd_chunk.launches = flash_attention.launches = 0
+    row_gather.launches = paged_gather.launches = 0
+    t0 = time.perf_counter()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, flash = ssd_chunk.launches, flash_attention.launches
+    others = row_gather.launches + paged_gather.launches
+    n_tok = sum(len(r.generated) for r in reqs)
+    for i, r in enumerate(reqs):
+        g = r.generated
+        check(len(g) == MAX_NEW and bool(
+            ((g >= 0) & (g < cfg.vocab_size)).all()),
+            f"hybrid request {i} made {g.tolist()}")
+    steps, calls = eng.decode_steps, eng._prefill.calls
+    check(calls == 2 and steps == 2 * (MAX_NEW - 1),
+          f"hybrid run: {calls} prefill calls and {steps} decode steps, "
+          f"want 2 and {2 * (MAX_NEW - 1)}")
+    check(launches == L * calls, f"hybrid run launched ssd_chunk "
+          f"{launches} times, want {L} x {calls} prefill calls")
+    check(flash == sites * calls, f"hybrid run launched flash_attention "
+          f"{flash} times, want {sites} x {calls} prefill calls")
+    check(others == 0, f"hybrid run launched a row or page gather "
+          f"{others} times")
+    # f32 cache: K and V of every site, the SSD state and conv tail of
+    # every layer, the two int32 cursors
+    kv_b = sites * 2 * BATCH * HYB_MAX_LEN * cfg.num_kv_heads * \
+        cfg.head_dim * 4
+    ssd_b = L * BATCH * h * c.d_state * c.head_dim * 4
+    conv_b = L * BATCH * (c.conv_width - 1) * (
+        d_in + 2 * c.ngroups * c.d_state) * 4
+    want_b = kv_b + ssd_b + conv_b + 8
+    check(eng.cache_bytes_resident == want_b,
+          f"hybrid run: cache_bytes_resident {eng.cache_bytes_resident}, "
+          f"the shapes give {want_b}")
+    step_ms = eng._step.seconds / steps * 1e3
+    prefill_s = eng._prefill.seconds
+    print(f"hybrid serve {cfg.name}: {len(reqs)} requests (prompts "
+          f"{list(SSM_PROMPTS)}), {n_tok} new tokens in {dt:.3f}s "
+          f"({n_tok / dt:.1f} tok/s) decode_steps={steps} decode_s="
+          f"{eng._step.seconds:.3f} ({step_ms:.3f} ms/step) prefill_s="
+          f"{prefill_s:.3f} ({calls} prefill calls) ssd_chunk.launches="
+          f"{launches} flash_attention.launches={flash} "
+          f"cache_bytes_resident={eng.cache_bytes_resident} (KV {kv_b} + "
+          f"SSD state {ssd_b} + conv {conv_b} + 8)", flush=True)
+    prof = profile_decode(cfg, params, eng=ServeEngine(
+        cfg, params, batch_size=BATCH, max_len=HYB_MAX_LEN, device="cuda"),
+        make_requests=lambda: make_requests(max_new=8))
+    share = (f"idle share {prof['idle']:.4f}; SSD "
+             f"{prof['ssd_chunk'] / prof['busy_ms']:.4f} and flash "
+             f"{prof['flash_attention'] / prof['busy_ms']:.4f} of the "
+             f"profiled run's device time ({prof['ssd_chunk']:.3f} and "
+             f"{prof['flash_attention']:.3f} of {prof['busy_ms']:.3f} ms)"
+             ) if prof else "not measured"
+    print(f"hybrid serve {cfg.name}: {step_ms:.3f} ms/decode step, "
+          f"{n_tok / dt:.1f} tok/s, prefill_s={prefill_s:.3f}; {share}",
+          flush=True)
+    del params, eng
+    torch.cuda.empty_cache()
+    return dict(ssd=launches, flash=flash)
+
+
+def phase_window_hybrid_reference() -> None:
+    """mixtral-8x22b-smoke past its window of 64 and zamba2-7b-smoke at 5
+    layers, f32, on the card against the CPU (see 6i)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+    from repro_torch.models.transformer import Model, init_cache, init_params
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    hyb = get_config("zamba2-7b-smoke")
+    b, steps = 2, 8
+    # name, config, prompt, max_len, the engine's prompt lengths, new tokens
+    cases = (("ring", get_config("mixtral-8x22b-smoke"), 80, 160,
+              (80, 40, 80), 32),
+             ("hybrid", dataclasses.replace(hyb, num_layers=5), 40, 96,
+              (40, 9, 40, 5), 16))
+    for name, cfg, s, max_len, lens, new in cases:
+        params = init_params(cfg, 0, device="cpu")
+        rng = np.random.default_rng(12)
+        tokens = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32))
+        prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
+                   for n in lens]
+        sites = (cfg.num_layers // cfg.hybrid_attn_every
+                 if cfg.family == "hybrid" else cfg.num_layers)
+        model = Model(cfg)
+        runs = []
+        for dev in ("cpu", "cuda"):
+            p = _to(params, dev)
+            cache = init_cache(cfg, b, max_len, dtype=torch.float32,
+                               device=dev)
+            flash_attention.launches = ssd_chunk.launches = 0
+            with torch.inference_mode():
+                out, _, cache = model.forward(p, {"tokens": tokens.to(dev)},
+                                              cache=cache)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    want = (sites, cfg.num_layers if name == "hybrid" else 0)
+                    got = (flash_attention.launches, ssd_chunk.launches)
+                    check(got == want, f"{name} reference: the card's "
+                          f"prefill launched (flash, ssd) {got}, want {want}")
+                seq, toks = [out[:, -1:].cpu()], []
+                for _ in range(steps):
+                    toks.append(seq[-1].argmax(-1).to(torch.int32))
+                    out, cache = model.decode_step(p, toks[-1].to(dev), cache)
+                    seq.append(out.cpu())
+            check(cache.kv.ring == (name == "ring"),
+                  f"{name} reference: ring={cache.kv.ring}")
+            eng = ServeEngine(cfg, p, batch_size=2, max_len=max_len,
+                              device=dev)
+            done = eng.generate([Request(prompt=q, max_new_tokens=new)
+                                 for q in prompts])
+            runs.append((seq, toks, [r.generated.tolist() for r in done],
+                         eng.cache_bytes_resident))
+        (sc, tc, ec, bc), (sg, tg, eg, bg) = runs
+        worst = 0.0
+        for a, c in zip(sc, sg):
+            check(bool(torch.isfinite(c).all()),
+                  f"non-finite {name} logits on the card")
+            worst = max(worst, (a - c).abs().max().item())
+            check(torch.allclose(c, a, atol=1e-4, rtol=1e-4),
+                  f"card {name} logits differ from the CPU's by {worst:.3e}")
+        check(all(torch.equal(a, c) for a, c in zip(tc, tg)),
+              f"{name} greedy tokens differ between the card and the CPU")
+        check(ec == eg, f"{name} engine tokens differ: card {eg} vs CPU {ec}")
+        check(bc == bg, f"{name} engine cache bytes: card {bg} vs CPU {bc}")
+        print(f"{name} reference: {cfg.name} L={cfg.num_layers} f32 prefill "
+              f"of {b} x {s} tokens (window {cfg.sliding_window}, max_len "
+              f"{max_len}) + {steps} greedy decode steps, card vs CPU: "
+              f"greedy tokens identical, max |logit diff| = {worst:.3e} "
+              f"(tol 1e-4); grouped engine on prompts {list(lens)}, {new} "
+              f"new tokens: tokens identical, cache_bytes_resident {bg}",
+              flush=True)
+
+
 def _bits(t):
     import torch
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
@@ -1497,6 +1896,8 @@ def main() -> None:
     ssd = phase_ssd()
     ssm_launches = phase_ssm_serve()
     phase_ssm_reference()
+    hyb = phase_hybrid_serve()
+    phase_window_hybrid_reference()
     import torch.distributed as dist
     tmp = init_data_group()
     try:
@@ -1540,7 +1941,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:95",
         "launches": sum(r[layout]["flash"] for r in (runs, moe_runs)
                         for layout in ("paged", "contiguous"))
-        + train["flash"],
+        + moe_runs["window"]["flash"] + hyb["flash"] + train["flash"],
         "max_abs_err": flash["max_abs_err"],
         "ms": flash["a"]["ms"],
         "plain_ms": flash["a"]["plain_ms"],
@@ -1553,7 +1954,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/row_gather.cu",
         "replaces": "src/repro/kernels/moe_gather.py:29",
         "launches": sum(moe_runs[k]["rows"]
-                        for k in ("paged", "contiguous", "long")),
+                        for k in ("paged", "contiguous", "long", "window")),
         "max_abs_err": rows["max_abs_err"],
         "ms": rows["8x1024 dispatch"]["ms"],
         "plain_ms": rows["8x1024 dispatch"]["plain_ms"],
@@ -1565,7 +1966,7 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:56",
-        "launches": ssm_launches,
+        "launches": ssm_launches + hyb["ssd"],
         "max_abs_err": ssd["max_abs_err"],
         "ms": ssd["serve"]["ms"],
         "plain_ms": ssd["serve"]["plain_ms"],
@@ -1574,9 +1975,10 @@ def main() -> None:
         "library_ms": None,
     }]}
     print(f"row_gather on the main path: {line['kernels'][4]['launches']} "
-          f"launches, {moe_runs['long']['read_once']} of them on the "
-          f"read-once route that its ms measures (the 8 x 1,024 dispatch)",
-          flush=True)
+          f"launches, {moe_runs['long']['read_once']} (long prompts) + "
+          f"{moe_runs['window']['read_once']} (past the window) of them on "
+          f"the read-once route that its ms measures (the 8 x 1,024 "
+          f"dispatch)", flush=True)
     print(f"chip_smoke: all phases passed in {time.time() - t_all:.1f}s",
           flush=True)
     print(json.dumps(line), flush=True)

@@ -37,7 +37,7 @@ def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, *,
     if cfg.modality != "text":
         raise NotImplementedError(
             f"synthetic {cfg.modality} batches come with the VLM/audio "
-            f"families (ROADMAP.md Queue 1 item 13)")
+            f"families (ROADMAP.md Queue 1 item 13b)")
     rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
     toks = _succ_tokens(rng, (batch, seq + 1), cfg.vocab_size)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -24,8 +24,8 @@ Per (batch, head, chunk), with ``i, j`` rows of the chunk::
 
 The heads of a group read the group's ``B``/``C`` (head ``hh`` reads group
 ``hh // (h // g)``); nothing is repeated over heads. The kernel has no
-backward: a CUDA tensor that requires grad is refused (SSM training is a
-later slice, ROADMAP.md Queue 1 item 12).
+backward: a CUDA tensor that requires grad is refused (SSM and hybrid
+training are a later slice, ROADMAP.md Queue 1 item 12b).
 """
 
 from __future__ import annotations
@@ -116,7 +116,7 @@ def _check_cuda_args(x, dt, cum, B, C, chunk: int):
         raise NotImplementedError(
             "ssd_chunk's CUDA kernel has no backward (the TPU kernel has "
             "none); SSM training is a later slice (ROADMAP.md Queue 1 item "
-            "12)")
+            "12b)")
     return b, s, h, p, g, n, nc
 
 

@@ -9,18 +9,34 @@ gathers pages with the CUDA kernel on the card):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
         --vary-prompts --paged --page-size 16
 
-An MoE arch on the CPU (its sliding window, 64 in the smoke config, must
-cover ``--max-len``: the ring cache is not ported):
+An MoE arch on the CPU, paged while its sliding window (64 in the smoke
+config) covers ``--max-len``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch mixtral-8x22b-smoke --max-len 64 --paged
 
-An SSM arch (mamba2) on the CPU, through the grouped equal-length path
-(requests grouped by prompt length; the SSD intra-chunk step is the CUDA
-kernel on the card):
+Past the window the cache is a ring of ``W`` slots and requests go through
+the grouped equal-length path (``--paged`` is not used then):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch mixtral-8x22b-smoke --max-len 160 --prompt-len 80
+
+``--arch mixtral-8x22b --max-len 6144`` takes the same path on the card,
+given the memory for its 141 B parameters (``chip_smoke.py`` serves it
+cut to 4 layers). zamba2-7b at full size fits one card:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --prompt-len 1000 --max-len 1056
+
+An SSM arch (mamba2) or a hybrid (zamba2: Mamba2 groups with a shared
+attention block) on the CPU, through the grouped equal-length path
+(requests grouped by prompt length; the SSD intra-chunk step and the
+hybrid's prefill attention are CUDA kernels on the card):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch mamba2-780m-smoke --vary-prompts
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch zamba2-7b-smoke
 
 The flags are those of ``repro.launch.serve`` plus ``--device``: the card
 by default, ``--device cpu`` for the plain CPU path. ``--tp`` > 1 (the
@@ -93,8 +109,11 @@ def main(argv=None) -> None:
         print(f"paged cache: page_size={args.page_size} "
               f"num_pages={engine._num_pages} (admit_under_mesh=True)")
     elif args.paged:
-        print(f"paged cache: not used for family={cfg.family!r}; the "
-              f"grouped equal-length contiguous path serves it")
+        why = (f"family={cfg.family!r}" if cfg.family not in ("dense", "moe")
+               else f"the ring cache (sliding window {cfg.sliding_window} "
+                    f"< max_len {args.max_len})")
+        print(f"paged cache: not used for {why}; the grouped equal-length "
+              f"contiguous path serves it")
 
     rng = np.random.default_rng(args.seed)
     reqs = []

@@ -1,9 +1,20 @@
 """Attention: GQA/MQA, causal + sliding-window masks, KV-cache decode.
 
-Port of ``repro.models.attention`` for the dense archs: full
-(prefill/train) attention with the per-row ``start`` pad mask through the
-flash-attention kernel, the contiguous decode cache and the paged decode
-cache.
+Port of ``repro.models.attention``: full (prefill/train) attention with
+the per-row ``start`` pad mask through the flash-attention kernel, and
+three decode cache layouts:
+
+* the contiguous cache ``(B, S_max, KV, hd)`` with a write cursor;
+* the ring cache ``(B, W, KV, hd)`` of a sliding-window arch whose window
+  ``W`` is shorter than ``max_len``: slot ``i`` holds the newest position
+  congruent to ``i`` modulo ``W``, so decode runs in O(W) memory at any
+  context length;
+* the paged cache (page pool + per-slot page table).
+
+:func:`partial_attention` and :func:`combine_partials` are the
+flash-decode combine over a sequence-sharded cache (the long-context
+layout): each shard returns ``(out, max, sum-exp)`` and the shards combine
+exactly.
 
 Caches are updated IN PLACE (``index_put_`` / slice assignment into the
 cache tensors) where the reference returns new arrays from donated inputs;
@@ -11,14 +22,14 @@ each update function still returns a cache object carrying the advanced
 write cursor, so call sites read like the reference's. The cursor
 (``length``) is a host ``int``: the engine drives it from the host anyway.
 
-Not in this slice (they raise ``NotImplementedError``): the ring cache for
-sliding-window decode and ``decode_kv_expand > 1`` head expansion.
+Not in this slice (it raises ``NotImplementedError``): ``decode_kv_expand
+> 1`` head expansion.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,23 +59,29 @@ def attention(cfg: ModelConfig, q, k, v, *,
 # ---------------------------------------------------------------------------
 
 class KVCache:
-    """Contiguous KV cache ``(B, S_max, KV, hd)`` (or layer-stacked
-    ``(L, B, S_max, KV, hd)``) with a host write cursor."""
+    """KV cache ``(B, S_cache, KV, hd)`` (or layer-stacked ``(L, B,
+    S_cache, KV, hd)``) with a host write cursor. ``S_cache`` is
+    ``max_len``, or the window ``W`` of a ``ring`` cache."""
 
-    def __init__(self, k, v, length: int):
+    def __init__(self, k, v, length: int, ring: bool = False):
         self.k = k
         self.v = v
         self.length = int(length)   # tokens written so far (absolute)
+        self.ring = bool(ring)
+
+
+def is_ring(cfg: ModelConfig, max_len: int) -> bool:
+    """Whether ``cfg`` decodes through a ring cache at ``max_len``: its
+    sliding window is shorter than the cache would be."""
+    w = cfg.sliding_window
+    return w is not None and w < max_len
 
 
 def kv_cache_shape(cfg: ModelConfig, batch: int, max_len: int):
-    """``(B, max_len, KV, hd)`` of a contiguous (non-ring) cache."""
-    w = cfg.sliding_window
-    if w is not None and w < max_len:
-        raise NotImplementedError(
-            "the ring KV cache (sliding-window decode) is not ported yet; "
-            "see ROADMAP.md Queue 1")
-    return (batch, max_len, _stored_kv_heads(cfg), cfg.head_dim)
+    """``(B, S_cache, KV, hd)``: ``S_cache`` is the window for a ring
+    cache (:func:`is_ring`), else ``max_len``."""
+    s = cfg.sliding_window if is_ring(cfg, max_len) else max_len
+    return (batch, s, _stored_kv_heads(cfg), cfg.head_dim)
 
 
 def _stored_kv_heads(cfg: ModelConfig) -> int:
@@ -86,13 +103,16 @@ def _expand_heads(k_new, kv_stored: int):
 
 
 def cache_update_decode(cache: KVCache, k_new, v_new) -> KVCache:
-    """Append ONE token (k_new/v_new: (B,1,KV,hd)) in place."""
+    """Append ONE token (k_new/v_new: (B,1,KV,hd)) in place: at ``length
+    % W`` in a ring cache, else at ``min(length, S - 1)``."""
     k_new = _expand_heads(k_new, cache.k.shape[2])
     v_new = _expand_heads(v_new, cache.v.shape[2])
-    pos = min(cache.length, cache.k.shape[1] - 1)
+    s_cache = cache.k.shape[1]
+    pos = (cache.length % s_cache if cache.ring
+           else min(cache.length, s_cache - 1))
     cache.k[:, pos] = k_new[:, 0].to(cache.k.dtype)
     cache.v[:, pos] = v_new[:, 0].to(cache.v.dtype)
-    return KVCache(cache.k, cache.v, cache.length + 1)
+    return KVCache(cache.k, cache.v, cache.length + 1, cache.ring)
 
 
 def decode_attention(cfg: ModelConfig, q, cache: KVCache,
@@ -104,7 +124,16 @@ def decode_attention(cfg: ModelConfig, q, cache: KVCache,
     each row's first valid cache slot (left pad / late admission); slots
     outside ``[start, length)`` are masked with ``NEG_INF``, so a row with
     no valid slot gets the reference's uniform softmax, not NaN.
+
+    A ring cache's valid slots are ``[0, min(length, W))``: every written
+    slot holds one of the last ``W`` positions. It takes no ``start`` (its
+    slots are reused, so a per-row offset means nothing there; the engine
+    serves ring archs by equal prompt length) — the reference ignores one,
+    the port raises.
     """
+    if cache.ring and start is not None:
+        raise ValueError("a ring cache takes no start offsets: its slots "
+                         "are reused modulo the window")
     b, _, h, hd = q.shape
     s_cache = cache.k.shape[1]
     n_rep = h // cache.k.shape[2]
@@ -113,7 +142,8 @@ def decode_attention(cfg: ModelConfig, q, cache: KVCache,
     scale = 1.0 / math.sqrt(hd)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     idx = torch.arange(s_cache, device=q.device)
-    valid = (idx < cache.length).expand(b, s_cache)
+    valid = (idx < min(cache.length, s_cache) if cache.ring
+             else idx < cache.length).expand(b, s_cache)
     if start is not None:
         valid = valid & (idx[None, :] >= start[:, None])
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
@@ -236,3 +266,40 @@ def paged_decode_attention(cfg: ModelConfig, q, layer: PagedKVLayer,
     v_view = paged_gather(layer.v, layer.table)
     return decode_attention(cfg, q, KVCache(k_view, v_view, layer.length),
                             start=start)
+
+
+# ---------------------------------------------------------------------------
+# flash-decode partial-softmax combine (a sequence-sharded cache: the
+# long-context layout)
+# ---------------------------------------------------------------------------
+
+def partial_attention(q, k, v, valid
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention of q ``(B,Q,H,hd)`` over one sequence SHARD k/v ``(B,S,KV,
+    hd)`` whose key ``j`` counts where ``valid[j]`` (``(S,)`` bool).
+    Returns ``(out, m, l)``: the unnormalised ``out`` ``(B,Q,H,hd)`` in q's
+    dtype, the f32 row max ``m`` and sum of exponentials ``l``, both
+    ``(B,H,Q,1)``, so that shards combine exactly
+    (:func:`combine_partials`)."""
+    hd = q.shape[-1]
+    n_rep = q.shape[2] // k.shape[2]
+    k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(hd)
+    logits = torch.where(valid[None, None, None, :], logits, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)                     # (B,H,Q,1)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), v)
+    return out, m, l
+
+
+def combine_partials(outs, ms, ls) -> torch.Tensor:
+    """Combine per-shard ``(out, m, l)`` stacked on a new leading axis —
+    outs ``(N,B,Q,H,hd)``, ms/ls ``(N,B,H,Q,1)`` — into the attention over
+    the whole sequence, in outs' dtype."""
+    m_glob = ms.amax(dim=0)                                   # (B,H,Q,1)
+    alpha = torch.exp(ms - m_glob)                            # (N,B,H,Q,1)
+    l_glob = (ls * alpha).sum(dim=0)
+    out = (outs.float() * alpha.transpose(2, 3)).sum(dim=0)   # (B,Q,H,hd)
+    l_o = l_glob.transpose(1, 2)                              # (B,Q,H,1)
+    return (out / l_o.clamp(min=1e-30)).to(outs.dtype)

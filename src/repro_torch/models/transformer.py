@@ -1,4 +1,4 @@
-"""The model for the dense and MoE text families (PyTorch port).
+"""The model for the dense, MoE, SSM and hybrid text families (PyTorch port).
 
 Port of the attention-stack branch of ``repro.models.transformer``. Params
 are a plain nested dict of tensors in the reference's layout: per-layer
@@ -14,8 +14,14 @@ MoE layers (mixtral, arctic) replace the FFN with
 :func:`repro_torch.models.moe.moe_ffn` and sum its aux losses over the
 layers. The SSM family (mamba2) stacks Mamba2 blocks
 (:mod:`repro_torch.models.ssm`) with an :class:`SSMState` per layer in the
-decode cache. Other families (hybrid, VLM, audio) are later slices of the
-port and raise ``NotImplementedError``; see ``ROADMAP.md``.
+decode cache. The hybrid family (zamba2) runs groups of
+``hybrid_attn_every`` Mamba2 blocks, each group followed by one
+shared-weight attention block (``params["shared_attn"]``) whose KV cache
+is the site's slice of a stack of ``L // hybrid_attn_every``; the
+``L % hybrid_attn_every`` remainder blocks come last. A sliding-window
+arch whose window is shorter than the cache decodes through the ring
+cache (:mod:`repro_torch.models.attention`). The VLM and audio families
+are a later slice and raise ``NotImplementedError``; see ``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from repro_torch.models.attention import (
     attention,
     cache_update_decode,
     decode_attention,
+    is_ring,
     kv_cache_shape,
     paged_decode_attention,
     paged_prefill_update,
@@ -62,13 +69,14 @@ _CURSOR_BYTES = 4
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is in the port so far: dense, MoE or SSM text."""
-    if cfg.family not in ("dense", "moe", "ssm") or cfg.modality != "text":
+    """Raise unless ``cfg`` is in the port so far: dense, MoE, SSM or
+    hybrid text."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or \
+            cfg.modality != "text":
         raise NotImplementedError(
-            f"repro_torch supports the dense, MoE and SSM text families so "
-            f"far, got family={cfg.family!r} modality={cfg.modality!r}; the "
-            f"hybrid, VLM and audio families are later slices (ROADMAP.md "
-            f"Queue 1 items 12 and 13)")
+            f"repro_torch supports the text families so far, got "
+            f"family={cfg.family!r} modality={cfg.modality!r}; the VLM and "
+            f"audio families are a later slice (ROADMAP.md Queue 1 item 13b)")
 
 
 # ---------------------------------------------------------------------------
@@ -172,9 +180,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     dims = (cfg.num_layers,)
     params: Dict[str, Any] = {"embed": {"tok": embed_init(
         gen, (cfg.vocab_size, cfg.d_model), dtype, dev)}}
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         layer = {"ssm": _ssm_params(cfg, gen, dims, dtype, dev),
                  "norm1": _norm_params(cfg, dims, dev)}
+        if cfg.family == "hybrid":   # one block, shared by every site
+            params["shared_attn"] = {k: v for k, v in {
+                "attn": _attn_params(cfg, gen, (), dtype, dev),
+                "ffn": _ffn_params(cfg, gen, (), dtype, dev),
+                "norm1": _norm_params(cfg, (), dev),
+                "norm2": _norm_params(cfg, (), dev)}.items()
+                if v is not None}
     else:
         layer = {"attn": _attn_params(cfg, gen, dims, dtype, dev),
                  "norm1": _norm_params(cfg, dims, dev)}
@@ -208,11 +223,11 @@ def layer_params(params: Dict[str, Any], l: int) -> Dict[str, Any]:
 
 @dataclass
 class DecodeCache:
-    """Decode state: a layer-stacked contiguous or paged KV cache (attention
-    archs; ``None`` for SSM), the absolute token cursor, and the
-    layer-stacked SSM state (SSM archs). Updated in place; the model
-    returns a new ``DecodeCache`` holding the same tensors and the advanced
-    cursor."""
+    """Decode state: a stacked contiguous, ring or paged KV cache
+    (attention archs: one a layer; hybrid: one a shared-attention site;
+    ``None`` for SSM), the absolute token cursor, and the layer-stacked
+    SSM state (SSM and hybrid archs). Updated in place; the model returns a
+    new ``DecodeCache`` holding the same tensors and the advanced cursor."""
 
     kv: Optional[Union[KVCache, PagedKVCache]]
     length: int
@@ -233,26 +248,33 @@ class DecodeCache:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> DecodeCache:
-    """Contiguous cache ``(L, B, max_len, KV, hd)`` of zeros on ``device``
-    (CUDA unless ``"cpu"`` is asked for). SSM archs: an :class:`SSMState`
-    stacked on ``L`` instead (conv tail in ``dtype``, SSD state in f32; no
-    per-position storage, so ``max_len`` does not size it). A prefill
+    """KV cache ``(L, B, S, KV, hd)`` of zeros on ``device`` (CUDA unless
+    ``"cpu"`` is asked for): ``S = max_len``, or the window for a ring
+    cache. SSM archs: an :class:`SSMState` stacked on ``L`` instead (conv
+    tail in ``dtype``, SSD state in f32; no per-position storage, so
+    ``max_len`` does not size it). Hybrid archs: both, the KV cache stacked
+    on the ``L // hybrid_attn_every`` shared-attention sites. A prefill
     re-types the conv tail to the activations' dtype, as the reference's
     does (:meth:`Model.forward`)."""
     check_supported(cfg)
-    if cfg.family == "ssm":
-        st = SSMState.init(cfg, batch, dtype=dtype,
-                           device=resolve_device(device))
-        return DecodeCache(None, 0, SSMState(*(
-            t.expand((cfg.num_layers,) + t.shape).clone() for t in st)))
-    if "kv_fp8" in cfg.opts:
-        raise NotImplementedError("kv_fp8 cache storage is not ported yet "
-                                  "(ROADMAP.md Queue 1)")
-    shape = (cfg.num_layers,) + kv_cache_shape(cfg, batch, max_len)
     dev = resolve_device(device)
-    kv = KVCache(torch.zeros(shape, dtype=dtype, device=dev),
-                 torch.zeros(shape, dtype=dtype, device=dev), 0)
-    return DecodeCache(kv, 0)
+    kv = ssm = None
+    n_kv = cfg.num_layers
+    if cfg.family in ("ssm", "hybrid"):
+        st = SSMState.init(cfg, batch, dtype=dtype, device=dev)
+        ssm = SSMState(*(t.expand((cfg.num_layers,) + t.shape).clone()
+                         for t in st))
+        n_kv = (cfg.num_layers // cfg.hybrid_attn_every
+                if cfg.family == "hybrid" else 0)
+    if n_kv:
+        if "kv_fp8" in cfg.opts:
+            raise NotImplementedError("kv_fp8 cache storage is not ported "
+                                      "yet (ROADMAP.md Queue 1)")
+        shape = (n_kv,) + kv_cache_shape(cfg, batch, max_len)
+        kv = KVCache(torch.zeros(shape, dtype=dtype, device=dev),
+                     torch.zeros(shape, dtype=dtype, device=dev), 0,
+                     ring=is_ring(cfg, max_len))
+    return DecodeCache(kv, 0, ssm)
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -267,7 +289,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         raise NotImplementedError(
             f"paged KV cache needs a text attention arch, got "
             f"family={cfg.family!r}")
-    if cfg.sliding_window is not None and cfg.sliding_window < max_len:
+    if is_ring(cfg, max_len):
         raise NotImplementedError(
             "paged KV cache does not support ring (sliding-window) caches; "
             "use the contiguous cache")
@@ -291,18 +313,19 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def _layer_kv(kv, l: int):
-    """Layer ``l``'s view of a stacked (contiguous or paged) KV cache."""
+    """Layer (or site) ``l``'s view of a stacked contiguous, ring or paged
+    KV cache."""
     if isinstance(kv, PagedKVCache):
         return PagedKVLayer(kv.k[l], kv.v[l], kv.table, kv.length,
                             kv.page_size)
-    return KVCache(kv.k[l], kv.v[l], kv.length)
+    return KVCache(kv.k[l], kv.v[l], kv.length, kv.ring)
 
 
 def _advanced(kv, n: int):
     """The stacked cache with its cursor moved by ``n`` (same tensors)."""
     if isinstance(kv, PagedKVCache):
         return PagedKVCache(kv.k, kv.v, kv.table, kv.length + n, kv.page_size)
-    return KVCache(kv.k, kv.v, kv.length + n)
+    return KVCache(kv.k, kv.v, kv.length + n, kv.ring)
 
 
 # ---------------------------------------------------------------------------
@@ -346,14 +369,23 @@ def _attn_apply(cfg: ModelConfig, x, p, positions, kv=None,
 
 
 def _prefill_cache(kv: KVCache, k, v) -> KVCache:
-    """Write a prefill's K/V at positions ``[0, S)`` of a contiguous cache."""
+    """Write a prefill's K/V at positions ``[0, S)`` of a contiguous cache.
+    A ring cache shorter than the prompt keeps its last ``W`` positions,
+    rolled by ``S % W`` so that slot ``i`` holds the newest position
+    congruent to ``i`` modulo ``W``."""
     k = _expand_heads(k, kv.k.shape[2])
     v = _expand_heads(v, kv.v.shape[2])
     s = k.shape[1]
-    n = min(s, kv.k.shape[1])
+    s_cache = kv.k.shape[1]
+    if kv.ring and s > s_cache:
+        k, v = k[:, -s_cache:], v[:, -s_cache:]
+        shift = s % s_cache
+        if shift:
+            k, v = torch.roll(k, shift, 1), torch.roll(v, shift, 1)
+    n = min(s, s_cache)
     kv.k[:, :n] = k[:, :n].to(kv.k.dtype)
     kv.v[:, :n] = v[:, :n].to(kv.v.dtype)
-    return KVCache(kv.k, kv.v, kv.length + s)
+    return KVCache(kv.k, kv.v, kv.length + s, kv.ring)
 
 
 def _ffn_apply(cfg: ModelConfig, h, p, inference: bool):
@@ -382,6 +414,18 @@ def _dense_block(cfg: ModelConfig, x, p, positions, kv=None, decode=False,
         ffn_out, aux = _ffn_apply(cfg, h2, p, inference)
         x = x + ffn_out
     return x, new_kv, aux
+
+
+def _shared_attn_block(cfg: ModelConfig, x, p, positions, kv=None,
+                       decode: bool = False):
+    """A hybrid's shared-weight attention block (norm1, attention, norm2,
+    gated FFN, each with a residual): (x, new_kv)."""
+    h = apply_norm(cfg, x, p.get("norm1"))
+    o, new_kv = _attn_apply(cfg, h, p["attn"], positions, kv=kv,
+                            decode=decode)
+    x = x + o
+    h2 = apply_norm(cfg, x, p.get("norm2"))
+    return x + gated_ffn(cfg, h2, p["ffn"]), new_kv
 
 
 def _ssm_block(cfg: ModelConfig, x, p, state: Optional[SSMState] = None,
@@ -454,12 +498,12 @@ class Model:
         only — SSM state offers no per-row pad mask).
         """
         x, positions = self.embed(params, batch)
-        if self.cfg.family == "ssm":
+        if self.cfg.family in ("ssm", "hybrid"):
             if start is not None:
                 raise NotImplementedError(
                     "left-padded prefill needs attention masking; SSM "
                     "recurrent state has no per-row pad mask")
-            x, new_cache = self._ssm_stack(params, x, cache)
+            x, new_cache = self._ssm_stack(params, x, positions, cache)
             return self.unembed(params, x), {}, new_cache
         if start is not None:
             # per-row RoPE positions: the first real token sits at 0
@@ -487,10 +531,12 @@ class Model:
             new_cache = DecodeCache(_advanced(cache.kv, s), cache.length + s)
         return self.unembed(params, x), _sum_aux(auxes), new_cache
 
-    def _ssm_stack(self, params, x, cache: Optional[DecodeCache]):
-        """The Mamba2 layers over a full sequence; with a cache (prefill)
-        each layer starts from its cached SSD state and its final state is
-        written back in place. The conv tail comes out in the activations'
+    def _ssm_stack(self, params, x, positions, cache: Optional[DecodeCache]):
+        """The Mamba2 layers over a full sequence (a hybrid's shared
+        attention block after every ``hybrid_attn_every``-th); with a cache
+        (prefill) each layer starts from its cached SSD state and its final
+        state is written back in place, and each attention site writes its
+        slice of the KV stack. The conv tail comes out in the activations'
         dtype, as the reference's prefill returns it: a cache of another
         dtype gets a new conv stack rather than a rounded copy."""
         ssm = None if cache is None else cache.ssm
@@ -502,10 +548,25 @@ class Model:
                                    state=st)
             if ssm is not None:
                 _write_ssm(ssm, l, new_st)
+            site = self._site_after(l)
+            if site is not None:
+                kv = None if cache is None else _layer_kv(cache.kv, site)
+                x, _ = _shared_attn_block(self.cfg, x, params["shared_attn"],
+                                          positions, kv=kv)
         if cache is None:
             return x, None
         s = x.shape[1]
-        return x, DecodeCache(None, cache.length + s, ssm)
+        kv = None if cache.kv is None else _advanced(cache.kv, s)
+        return x, DecodeCache(kv, cache.length + s, ssm)
+
+    def _site_after(self, l: int) -> Optional[int]:
+        """The hybrid's shared-attention site that follows layer ``l``
+        (every ``hybrid_attn_every``-th layer closes a group), else
+        ``None``."""
+        k = self.cfg.hybrid_attn_every
+        if self.cfg.family != "hybrid" or (l + 1) % k:
+            return None
+        return l // k
 
     def _train_block(self, params, positions, start, l: int, x):
         """Layer ``l`` without a cache (the unit that remat recomputes):
@@ -527,17 +588,25 @@ class Model:
         """
         emb = params["embed"]["tok"].to(torch_dtype(self.cfg.dtype))
         x = emb[tokens.long()]
-        if self.cfg.family == "ssm":
+        if self.cfg.family in ("ssm", "hybrid"):
             if start is not None:
                 raise NotImplementedError(
                     "per-row start offsets need attention masking")
+            positions = torch.full((x.shape[0], 1), cache.length,
+                                   device=x.device)
             for l in range(self.cfg.num_layers):
                 x, new_st = _ssm_block(self.cfg, x, layer_params(params, l),
                                        state=_ssm_layer(cache.ssm, l),
                                        decode=True)
                 _write_ssm(cache.ssm, l, new_st)
+                site = self._site_after(l)
+                if site is not None:
+                    x, _ = _shared_attn_block(
+                        self.cfg, x, params["shared_attn"], positions,
+                        kv=_layer_kv(cache.kv, site), decode=True)
+            kv = None if cache.kv is None else _advanced(cache.kv, 1)
             return self.unembed(params, x), DecodeCache(
-                None, cache.length + 1, cache.ssm)
+                kv, cache.length + 1, cache.ssm)
         if start is not None:
             positions = (cache.length - start)[:, None]
         else:

@@ -16,17 +16,18 @@ for the attention archs:
   pool + per-slot page table, allocation in :mod:`repro_torch.serve.
   paging`): a finished slot's pages return to the pool immediately.
 
-SSM archs have no per-row pad mask, so they take the reference's grouped
-equal-length fallback instead: requests are grouped by prompt length, each
-group of up to ``batch_size`` is prefilled together into a fresh
-contiguous SSM cache and decoded until every row stops (``paged=True`` is
-turned off for them, as in the reference).
+SSM and hybrid archs have no per-row pad mask, and a ring cache (a
+sliding-window arch whose window is shorter than ``max_len``) reuses its
+slots modulo the window, so none of them can left-pad a batch. They take
+the reference's grouped equal-length fallback instead: requests are
+grouped by prompt length, each group of up to ``batch_size`` is prefilled
+together into a fresh cache and decoded until every row stops
+(``paged=True`` is turned off for them, as in the reference).
 
 PyTorch runs eagerly, so the reference's ``jax.jit`` wrappers (and their
 per-width trace caches) have no counterpart; caches are written in place
 instead of being donated. Not in this slice (``NotImplementedError``): the
-tensor-parallel decode on VCI streams (``mesh``/``comm_plan``/``num_vcis``)
-and the ring cache of sliding-window archs.
+tensor-parallel decode on VCI streams (``mesh``/``comm_plan``/``num_vcis``).
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import paged_splice
+from repro_torch.models.attention import is_ring, paged_splice
 from repro_torch.models.transformer import (
     DecodeCache,
     Model,
@@ -183,14 +184,11 @@ class ServeEngine:
         self._cache_dtype = cache_dtype
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
-        ring = cfg.sliding_window is not None and cfg.sliding_window < max_len
-        if ring:
-            raise NotImplementedError(
-                "sliding-window archs decode through the ring cache, which "
-                "is not ported yet (ROADMAP.md Queue 1 item 13)")
+        self._ring = is_ring(cfg, max_len)
         # left-padded mixed-length batching needs per-row attention masks;
-        # SSM state can't provide them -> equal-length grouped batches
-        self._padded_ok = cfg.family in ("dense", "moe")
+        # SSM/hybrid state and ring caches can't provide them ->
+        # equal-length grouped batches for those
+        self._padded_ok = cfg.family in ("dense", "moe") and not self._ring
         # paged cache: attention archs on the continuous path only
         self._paged = bool(paged) and self._padded_ok
         self._page_size = int(page_size)

@@ -18,8 +18,8 @@ reading metrics, which the caller does.
 
 Later slices, each raising ``NotImplementedError``: ``optimizer="zero1"``
 (ROADMAP.md Queue 1 item 7), ``schedule="overlap"`` (item 8),
-``comm="gspmd"`` (item 14), and families other than dense text (MoE
-training is item 15).
+``comm="gspmd"`` (item 14), and families other than dense text (SSM and
+hybrid training are item 12b, MoE training is item 15).
 """
 
 from __future__ import annotations
@@ -128,10 +128,11 @@ def make_train_step(
     The state's params and moments are updated in place.
     """
     check_supported(cfg)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
-            "SSM training is a later slice (ROADMAP.md Queue 1 item 12: the "
-            "SSD kernel has no backward); the SSM family serves only")
+            f"{'SSM' if cfg.family == 'ssm' else 'hybrid'} training is a "
+            f"later slice (ROADMAP.md Queue 1 item 12b: the SSD kernel has "
+            f"no backward); the {cfg.family} family serves only")
     if cfg.moe is not None:
         raise NotImplementedError(
             "MoE training is a later slice (ROADMAP.md Queue 1 item 15: "

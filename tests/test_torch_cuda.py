@@ -194,6 +194,9 @@ _FLASH_CASES = [  # hd, b, sq, skv, h, kv, causal, window, start
     # at least 132 units (one an SM of an H100 SXM): pairs of query blocks
     (64, 1, 384, 384, 66, 66, True, None, None),  # odd count: one alone
     (128, 2, 512, 512, 34, 17, True, 100, [0, 130]),
+    # mixtral's GQA 48/8 at hd 128 with a window shorter than the sequence
+    # (whole KV blocks below the window's edge skipped)
+    (128, 1, 700, 700, 48, 8, True, 256, None),
 ]
 
 
@@ -535,6 +538,10 @@ _SSD_CASES = [
     # C and the three B key tiles outgrow an x stage (n well above p)
     (1, 256, 2, 64, 1, 256, 256),
     (1, 256, 2, 32, 1, 128, 256),
+    # zamba2-7b: 112 heads on one group at n 64 (its serve prefill, and a
+    # one-chunk batch of one)
+    (4, 1024, 112, 64, 1, 64, 256),
+    (1, 256, 112, 64, 1, 64, 256),
 ]
 
 
@@ -674,3 +681,45 @@ def test_ssm_engine_on_card_equals_cpu(cuda_device):
             assert ssd_scan.ssd_chunk.launches - n0 == 3 * cfg.num_layers
         toks[str(dev)] = [r.generated.tolist() for r in reqs]
     assert toks["cpu"] == toks[str(cuda_device)]
+
+
+@pytest.mark.parametrize("arch,layers,max_len,lens,new", [
+    ("mixtral-8x22b-smoke", None, 160, (80, 40, 80), 32),   # ring of 64
+    ("zamba2-7b-smoke", 5, 96, (40, 9, 40, 5), 16),          # hybrid
+])
+def test_ring_and_hybrid_engines_on_card_equal_cpu(cuda_device, arch, layers,
+                                                   max_len, lens, new):
+    """f32 through the grouped engine on the card and on the CPU: identical
+    greedy tokens and cache bytes; the ring's 80-token prompts roll at
+    prefill and every group decodes past the window; the hybrid at 5
+    layers runs two groups, their shared attention sites and a remainder
+    layer (one SSD launch a layer and one flash launch a site a group)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    params = init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
+               for n in lens]
+    sites = (cfg.num_layers // cfg.hybrid_attn_every
+             if cfg.family == "hybrid" else cfg.num_layers)
+    groups = sum(-(-lens.count(n) // 2) for n in set(lens))   # batch 2
+    out = {}
+    for dev in ("cpu", cuda_device):
+        eng = ServeEngine(cfg, tree_map(lambda t: t.to(dev), params),
+                          batch_size=2, max_len=max_len, device=dev,
+                          paged=True)
+        assert not eng._paged
+        n0 = (fa.flash_attention.launches, ssd_scan.ssd_chunk.launches)
+        reqs = eng.generate([Request(prompt=p, max_new_tokens=new)
+                             for p in prompts])
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            ssd = cfg.num_layers * groups if cfg.family == "hybrid" else 0
+            assert (fa.flash_attention.launches - n0[0],
+                    ssd_scan.ssd_chunk.launches - n0[1]) == (
+                sites * groups, ssd)
+        out[str(dev)] = ([r.generated.tolist() for r in reqs],
+                         eng.cache_bytes_resident)
+    assert out["cpu"] == out[str(cuda_device)]

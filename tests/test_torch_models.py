@@ -201,11 +201,18 @@ def test_paged_splice_and_decode_attention_match():
 
 
 def test_unported_cache_layouts_raise():
-    with pytest.raises(NotImplementedError, match="ring"):
-        ttf.init_cache(get_config("gemma-2b-swa8-smoke"), 1, 128,
-                       device="cpu")  # smoke windows are 64 < 128
+    """The ring cache and the hybrid family are ported
+    (``tests/test_torch_ring.py``, ``tests/test_torch_hybrid.py``); fp8
+    cache storage, KV heads stored per TP rank and the VLM family are
+    not."""
+    cfg = get_config("gemma-2b-smoke")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.Model(get_config("zamba2-7b-smoke"))
+        ttf.init_cache(cfg.with_opts("kv_fp8"), 1, 128, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttf.init_cache(dataclasses.replace(cfg, decode_kv_expand=2), 1, 128,
+                       device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttf.Model(get_config("phi-3-vision-4.2b-smoke"))
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,11 @@ the script that runs the ranks:
 of ``check_bucket_fastpath_matches_pmean``); ``train`` runs one port train
 step per progress mode from the params and batch in ``<dir>/in.npz`` and
 writes rank 0's results to ``<dir>/out_<progress>.npz``, which
-``tests/test_torch_train.py`` holds against the reference.
+``tests/test_torch_train.py`` holds against the reference; ``seqshard``
+holds the flash-decode combine over a sequence-sharded KV cache against
+``decode_attention`` (the analogue of
+``check_flash_decode_sequence_sharded``) and writes rank 0's error to
+``<dir>/out_seqshard.npz`` (``tests/test_torch_ring.py``).
 """
 
 import os
@@ -102,7 +106,50 @@ def check_train(rank: int, n: int, out_dir: str) -> None:
                      **{f"p{i}": l.numpy() for i, l in enumerate(leaves)})
 
 
-CHECKS = {"reduce": check_reduce, "train": check_train}
+def check_seqshard(rank: int, n: int, out_dir: str) -> None:
+    """Each rank holds a ``1/n`` sequence shard of one KV cache (a ring
+    that has wrapped, and a full cache with its last slots unwritten),
+    attends to it with ``partial_attention``, gathers every shard's
+    ``(out, m, l)`` with ``CommRuntime.all_gather`` on a VCI context and
+    combines them: within 2e-5 of ``decode_attention`` over the whole
+    cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.collectives import CommRuntime
+    from repro_torch.core.comm import CommWorld
+    from repro_torch.models.attention import (KVCache, combine_partials,
+                                              decode_attention,
+                                              partial_attention)
+    cfg = get_config("yi-9b-smoke")
+    b, s, kv, hd, h = 2, 64, cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.normal(size=(b, 1, h, hd)).astype(np.float32))
+    kc, vc = (torch.from_numpy(rng.normal(size=(b, s, kv, hd)).astype(
+        np.float32)) for _ in range(2))
+    world = CommWorld(num_vcis=4)
+    rt = CommRuntime(world)
+    ctx = world.create("seqshard")
+    w = s // n
+    errs = []
+    for length, ring in ((50, False), (150, True)):
+        want = decode_attention(cfg, q, KVCache(kc, vc, length, ring))
+        idx = rank * w + torch.arange(w)
+        valid = idx < (min(length, s) if ring else length)
+        parts = partial_attention(q, kc[:, rank * w:(rank + 1) * w],
+                                  vc[:, rank * w:(rank + 1) * w], valid)
+        reqs = [rt.all_gather(t.contiguous(), ctx) for t in parts]
+        outs, ms, ls = (rt.wait(r).reshape((n,) + t.shape)
+                        for r, t in zip(reqs, parts))
+        got = combine_partials(outs, ms, ls)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-5,
+                                   atol=2e-5, err_msg=f"ring={ring}")
+        errs.append(float((got - want).abs().max()))
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "out_seqshard.npz"),
+                 err=np.asarray(errs), vci=ctx.vci.index)
+
+
+CHECKS = {"reduce": check_reduce, "train": check_train,
+          "seqshard": check_seqshard}
 
 
 def _rank_main(rank: int, check: str, n: int, out_dir: str) -> None:

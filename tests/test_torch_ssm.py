@@ -462,8 +462,7 @@ def test_ssm_engine_tokens_match_reference(mamba, kind):
 def test_ssm_training_and_other_families_are_refused():
     with pytest.raises(NotImplementedError, match="SSM training"):
         make_train_step(get_config(ARCH), comm="vci")
-    for arch in ("zamba2-7b-smoke", "phi-3-vision-4.2b-smoke",
-                 "musicgen-large-smoke"):
+    for arch in ("phi-3-vision-4.2b-smoke", "musicgen-large-smoke"):
         with pytest.raises(NotImplementedError, match="item"):
             ttf.Model(get_config(arch))
 
