@@ -36,11 +36,16 @@ Phases, each a check that exits non-zero when it fails:
    bf16 causal, (h) an olmo-1b prefill of 4,096 tokens (2,4096,16,128)
    bf16 causal, where the tile loop dominates the blocks' start-up, (i)
    mixtral-8x22b's windowed prefill (2,6000,48 / 8 KV,128) bf16 causal
-   with a window of 4,096 (phase 6g's shape). f32
-   within 2e-5; bf16 within 1.25 x the plain bf16 version's error
+   with a window of 4,096 (phase 6g's shape), (j) phi-3-vision-4.2b's
+   prefill of 576 patches + 448 text tokens (4,1024,32,96) bf16 causal
+   (phase 6j's shape), (k) musicgen-large's prefill of 1,000 frames
+   (4,1000,32,64) bf16 causal (phase 6k's; Sq not a multiple of the
+   tile), (l) musicgen-large's prefill of 64 frames (4,64,32,64) bf16
+   causal (phase 6k's second group, on the kernel's variant for Sq <= 64).
+   f32 within 2e-5; bf16 within 1.25 x the plain bf16 version's error
    (+1e-3), both measured against the plain version run in f32 on the
    upcast inputs. A second launch gives equal bits; one launch counted a
-   call. At (a), (b), (f), (g), (h) and (i): kernel, plain,
+   call. At (a), (b), (f), (g), (h), (i), (j), (k) and (l): kernel, plain,
    ``scaled_dot_product_attention`` and bound times (at (i) SDPA takes
    the window as an explicit boolean mask and K/V repeated to the 48
    query heads; the plain version runs one batch row at a time where its
@@ -125,11 +130,37 @@ Phases, each a check that exits non-zero when it fails:
    equal to the shapes' count (KV 1,574,436,864 B, SSD state 594,542,592
    B, conv tails); ms a decode step, tok/s, prefill s, a profile's idle
    share and the SSD and flash shares of its device time;
-6i. ring and hybrid references: mixtral-8x22b-smoke (window 64) with a
-   prompt of 80 and zamba2-7b-smoke at 5 layers (two groups and a
-   remainder), f32 with TF32 off: prefill + 8 greedy decode steps on the
-   card and on the CPU, logits within 1e-4 and identical tokens; the
-   grouped engine's tokens identical on card and CPU;
+6i. ring, hybrid, VLM and audio references: mixtral-8x22b-smoke (window
+   64) with a prompt of 80, zamba2-7b-smoke at 5 layers (two groups and a
+   remainder), phi-3-vision-4.2b-smoke (16 patches + 24 text tokens) and
+   musicgen-large-smoke (40 frames of 4 codebooks), f32 with TF32 off,
+   from the same params: prefill + 8 greedy decode steps on the card and
+   on the CPU, logits within 1e-4, identical tokens, the flash kernel
+   launched once an attention layer (and the SSD kernel once a hybrid
+   layer) in the card's prefill; the grouped engine's tokens and
+   ``cache_bytes_resident`` identical on card and CPU on mixed prompt
+   lengths (every arch but the VLM, which the engine refuses);
+6j. VLM serve: phi-3-vision-4.2b at full width and depth (32 layers, d
+   3,072, 32 heads of 96, d_ff 8,192, vocab 32,064, 576 patches of 1,024;
+   3.82 B bf16 params + ``img_proj`` from a seed) through the reference's
+   VLM serving path, ``make_prefill`` on a batch holding ``image_embeds``
+   then ``make_serve_step`` (the engine refuses a VLM, as the reference's
+   cannot serve one): 4 rows of 576 patch embeddings (standard normal,
+   numpy seed) + 448 text tokens into an f32 contiguous cache of 1,056,
+   then 32 greedy decode steps, after a warm-up; the counts zeroed just
+   before and read just after: 32 flash launches in the prefill call,
+   none in a decode step, no page, row or SSD launch; the cache's length
+   1,024 after the prefill and its bytes the shapes' count; prefill s, ms
+   a decode step, tok/s and a profile's idle and flash shares;
+6k. audio serve: musicgen-large at full width and depth (48 layers, d
+   2,048, 32 heads of 64, d_ff 8,192, layernorm with biases, gelu, 4
+   codebooks of 2,048; 3.25 B bf16 params from a seed) through the grouped
+   engine on 4 slots, max_len 1,056: 4 prompts of (4, 1,000) codebook
+   frames and 4 of (4, 64), 32 new frames each (2 prefill calls, 62 decode
+   steps), after a warm-up; the counts zeroed just before and read just
+   after: 48 flash launches a prefill call, no page, row or SSD launch;
+   (4, 32) tokens a request; ``cache_bytes_resident`` the shapes' count;
+   ms a decode step, tok/s, prefill s, a profile's idle and flash shares;
 7. bucket kernels: the tile-gather pack/unpack kernel against its plain
    version, bit for bit, on the tables of the full-width olmo-1b plan
    (``get_comm_plan(params, num_streams=8, pack="pallas")``): every
@@ -188,6 +219,10 @@ WIN_MAX_LEN, WIN_BATCH, WIN_NEW = 6144, 2, 32
 WIN_PROMPTS = (6000, 4080)       # 2 prompts of each length
 WIN_EXACT_LEN, WIN_EXACT_NEW = 4096, 16
 HYB_ARCH, HYB_MAX_LEN = "zamba2-7b", 1056
+# phases 6j and 6k: 4 rows of 576 patches + 448 text tokens; 4 prompts of
+# 1,000 frames and 4 of 64 (20 s and 1.3 s of 50 Hz EnCodec frames)
+VLM_ARCH, VLM_TEXT, VLM_STEPS, MM_MAX_LEN = "phi-3-vision-4.2b", 448, 32, 1056
+AUDIO_ARCH, AUDIO_PROMPTS = "musicgen-large", (1000,) * 4 + (64,) * 4
 # name, x/B/C dtype, (b, s, h, p, g, n, chunk), timed
 SSD_CASES = (
     ("serve", "bfloat16", (4, 1024, 48, 64, 1, 128, 256), True),
@@ -211,6 +246,9 @@ FLASH_CASES = (
     ("g", "bfloat16", (2, 1024, 1024, 32, 32, 112), True, None, None, True),
     ("h", "bfloat16", (2, 4096, 4096, 16, 16, 128), True, None, None, True),
     ("i", "bfloat16", (2, 6000, 6000, 48, 8, 128), True, 4096, None, True),
+    ("j", "bfloat16", (4, 1024, 1024, 32, 32, 96), True, None, None, True),
+    ("k", "bfloat16", (4, 1000, 1000, 32, 32, 64), True, None, None, True),
+    ("l", "bfloat16", (4, 64, 64, 32, 32, 64), True, None, None, True),
 )
 PAIRS = 10                       # alternating kernel / library timings
 
@@ -492,7 +530,7 @@ def _flash_plain(q, k, v, kw) -> tuple:
 
 
 def phase_flash() -> dict:
-    """The flash-attention kernel against its plain version at (a)-(i)."""
+    """The flash-attention kernel against its plain version at (a)-(l)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -922,40 +960,28 @@ def serve_moe_window(cfg, params) -> dict:
     return dict(flash=flash, rows=rows, read_once=once)
 
 
-def profile_decode(cfg, params, eng=None, make_requests=None) -> dict:
-    """Where a serve run's time goes on the card: ``torch.profiler`` over a
-    short run (by default paged, 4 requests, 16 new tokens each) — device
-    busy time, the device's idle share of the same run's wall time without
-    the profiler, and the kernels by time. Measures only; the checks are
-    done. Returns the port's kernels' device ms, ``busy_ms`` and the idle
-    share ``idle`` ({} when the profiler saw no device time)."""
+def profile_run(what, run) -> dict:
+    """Where ``run()``'s time goes on the card: ``torch.profiler`` over one
+    call — device busy time, the device's idle share of the same call's
+    wall time without the profiler, and the kernels by time. Measures only;
+    the checks are done. ``what()`` names the run once it has run. Returns
+    the port's kernels' device ms, ``busy_ms`` and the idle share ``idle``
+    ({} when the profiler saw no device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serve.engine import ServeEngine
 
-    if eng is None:
-        eng = ServeEngine(cfg, params, batch_size=BATCH, max_len=MAX_LEN,
-                          device="cuda", paged=True, page_size=PAGE_SIZE)
-    if make_requests is None:
-        def make_requests():
-            reqs = _requests(cfg.vocab_size)[:BATCH]
-            for r in reqs:
-                r.max_new_tokens = 16
-            return reqs
-
-    def run() -> float:
-        reqs = make_requests()
+    def wall() -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.generate(reqs)
+        run()
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    wall_ms = run()
+    wall_ms = wall()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        prof_wall_ms = run()
+        prof_wall_ms = wall()
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
@@ -963,11 +989,7 @@ def profile_decode(cfg, params, eng=None, make_requests=None) -> dict:
         print("profile: the profiler recorded no device time (not measured)",
               flush=True)
         return {}
-    steps = eng.decode_steps
-    probe = make_requests()
-    layout = "paged" if eng._paged else "contiguous"
-    print(f"profile: {layout} {cfg.name}, {len(probe)} requests x "
-          f"{probe[0].max_new_tokens} tokens, {steps} decode steps: wall {wall_ms:.2f} ms ({prof_wall_ms:.2f} "
+    print(f"profile: {what()}: wall {wall_ms:.2f} ms ({prof_wall_ms:.2f} "
           f"under the profiler), device busy {busy_ms:.2f} ms, device idle "
           f"share {1 - busy_ms / wall_ms:.4f}; {sum(e.count for e in kern)} "
           f"kernel launches", flush=True)
@@ -985,6 +1007,28 @@ def profile_decode(cfg, params, eng=None, make_requests=None) -> dict:
               f"{e.count:6d} x {e.self_device_time_total / max(e.count, 1):8.2f}"
               f" us  {e.key[:90]}", flush=True)
     return dict(own, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms)
+
+
+def profile_decode(cfg, params, eng=None, make_requests=None) -> dict:
+    """:func:`profile_run` over a short serve run (by default paged, 4
+    requests, 16 new tokens each)."""
+    from repro_torch.serve.engine import ServeEngine
+
+    if eng is None:
+        eng = ServeEngine(cfg, params, batch_size=BATCH, max_len=MAX_LEN,
+                          device="cuda", paged=True, page_size=PAGE_SIZE)
+    if make_requests is None:
+        def make_requests():
+            reqs = _requests(cfg.vocab_size)[:BATCH]
+            for r in reqs:
+                r.max_new_tokens = 16
+            return reqs
+    probe = make_requests()
+    layout = "paged" if eng._paged else "contiguous"
+    return profile_run(
+        lambda: f"{layout} {cfg.name}, {len(probe)} requests x "
+                f"{probe[0].max_new_tokens} tokens, {eng.decode_steps} "
+                f"decode steps", lambda: eng.generate(make_requests()))
 
 
 def _to(tree, dev):
@@ -1482,12 +1526,14 @@ def phase_hybrid_serve() -> dict:
     return dict(ssd=launches, flash=flash)
 
 
-def phase_window_hybrid_reference() -> None:
-    """mixtral-8x22b-smoke past its window of 64 and zamba2-7b-smoke at 5
-    layers, f32, on the card against the CPU (see 6i)."""
+def phase_family_references() -> None:
+    """mixtral-8x22b-smoke past its window of 64, zamba2-7b-smoke at 5
+    layers, phi-3-vision-4.2b-smoke and musicgen-large-smoke, f32, on the
+    card against the CPU (see 6i)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_chunk
     from repro_torch.models.transformer import Model, init_cache, init_params
@@ -1495,18 +1541,23 @@ def phase_window_hybrid_reference() -> None:
 
     hyb = get_config("zamba2-7b-smoke")
     b, steps = 2, 8
-    # name, config, prompt, max_len, the engine's prompt lengths, new tokens
+    # name, config, prefill positions, max_len, the engine's prompt lengths
+    # (none: the engine refuses a VLM), new tokens
     cases = (("ring", get_config("mixtral-8x22b-smoke"), 80, 160,
               (80, 40, 80), 32),
              ("hybrid", dataclasses.replace(hyb, num_layers=5), 40, 96,
-              (40, 9, 40, 5), 16))
+              (40, 9, 40, 5), 16),
+             ("VLM", get_config("phi-3-vision-4.2b-smoke"), 40, 64, (), 0),
+             ("audio", get_config("musicgen-large-smoke"), 40, 64,
+              (24, 9, 24, 5), 6))
     for name, cfg, s, max_len, lens, new in cases:
         params = init_params(cfg, 0, device="cpu")
+        batch = {k: torch.from_numpy(v) for k, v in synthetic_batch(
+            cfg, b, s, seed=15).items() if k != "labels"}
         rng = np.random.default_rng(12)
-        tokens = torch.from_numpy(
-            rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32))
-        prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
-                   for n in lens]
+        lead = (cfg.num_codebooks,) if cfg.modality == "audio" else ()
+        prompts = [rng.integers(0, cfg.vocab_size, lead + (n,),
+                                dtype=np.int32) for n in lens]
         sites = (cfg.num_layers // cfg.hybrid_attn_every
                  if cfg.family == "hybrid" else cfg.num_layers)
         model = Model(cfg)
@@ -1517,27 +1568,30 @@ def phase_window_hybrid_reference() -> None:
                                device=dev)
             flash_attention.launches = ssd_chunk.launches = 0
             with torch.inference_mode():
-                out, _, cache = model.forward(p, {"tokens": tokens.to(dev)},
-                                              cache=cache)
+                out, _, cache = model.forward(p, _to(batch, dev), cache=cache)
                 if dev == "cuda":
                     torch.cuda.synchronize()
                     want = (sites, cfg.num_layers if name == "hybrid" else 0)
                     got = (flash_attention.launches, ssd_chunk.launches)
                     check(got == want, f"{name} reference: the card's "
                           f"prefill launched (flash, ssd) {got}, want {want}")
-                seq, toks = [out[:, -1:].cpu()], []
+                seq, toks = [out[..., -1:, :].cpu()], []
                 for _ in range(steps):
                     toks.append(seq[-1].argmax(-1).to(torch.int32))
                     out, cache = model.decode_step(p, toks[-1].to(dev), cache)
                     seq.append(out.cpu())
-            check(cache.kv.ring == (name == "ring"),
-                  f"{name} reference: ring={cache.kv.ring}")
-            eng = ServeEngine(cfg, p, batch_size=2, max_len=max_len,
-                              device=dev)
-            done = eng.generate([Request(prompt=q, max_new_tokens=new)
-                                 for q in prompts])
-            runs.append((seq, toks, [r.generated.tolist() for r in done],
-                         eng.cache_bytes_resident))
+            check(cache.kv.ring == (name == "ring") and
+                  cache.length == s + steps,
+                  f"{name} reference: ring={cache.kv.ring}, length "
+                  f"{cache.length}")
+            done, nbytes = [], None
+            if prompts:
+                eng = ServeEngine(cfg, p, batch_size=2, max_len=max_len,
+                                  device=dev)
+                done = [r.generated.tolist() for r in eng.generate(
+                    [Request(prompt=q, max_new_tokens=new) for q in prompts])]
+                nbytes = eng.cache_bytes_resident
+            runs.append((seq, toks, done, nbytes))
         (sc, tc, ec, bc), (sg, tg, eg, bg) = runs
         worst = 0.0
         for a, c in zip(sc, sg):
@@ -1550,13 +1604,235 @@ def phase_window_hybrid_reference() -> None:
               f"{name} greedy tokens differ between the card and the CPU")
         check(ec == eg, f"{name} engine tokens differ: card {eg} vs CPU {ec}")
         check(bc == bg, f"{name} engine cache bytes: card {bg} vs CPU {bc}")
+        what = {"vlm": f"({cfg.num_patches} patches + "
+                       f"{s - cfg.num_patches} text tokens)",
+                "audio": f"({s} frames of {cfg.num_codebooks} codebooks)"
+                }.get(cfg.modality, f"{s} tokens")
+        engine = (f"grouped engine on prompts {list(lens)}, {new} new tokens:"
+                  f" tokens identical, cache_bytes_resident {bg}" if prompts
+                  else "no engine run (the engine refuses a VLM)")
         print(f"{name} reference: {cfg.name} L={cfg.num_layers} f32 prefill "
-              f"of {b} x {s} tokens (window {cfg.sliding_window}, max_len "
+              f"of {b} x {what} (window {cfg.sliding_window}, max_len "
               f"{max_len}) + {steps} greedy decode steps, card vs CPU: "
               f"greedy tokens identical, max |logit diff| = {worst:.3e} "
-              f"(tol 1e-4); grouped engine on prompts {list(lens)}, {new} "
-              f"new tokens: tokens identical, cache_bytes_resident {bg}",
-              flush=True)
+              f"(tol 1e-4); {engine}", flush=True)
+
+
+def _mm_header(cfg, t0) -> str:
+    import torch
+    extra = (f"{cfg.num_patches} patches of 1,024, "
+             if cfg.modality == "vlm" else
+             f"{cfg.num_codebooks} codebooks, {cfg.norm}, {cfg.hidden_act}, "
+             f"bias={cfg.use_bias}, ")
+    return (f"{cfg.name} L={cfg.num_layers} d={cfg.d_model} "
+            f"H={cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.head_dim} "
+            f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} {extra}params="
+            f"{cfg.param_count() / 1e9:.3f}B {cfg.param_dtype} (init "
+            f"{time.time() - t0:.1f}s, {torch.cuda.memory_allocated()} B on "
+            f"the card)")
+
+
+def _kv_bytes(cfg, batch: int, max_len: int) -> int:
+    """An f32 contiguous cache's K and V, every layer."""
+    return 2 * cfg.num_layers * batch * max_len * cfg.num_kv_heads * \
+        cfg.head_dim * 4
+
+
+def phase_vlm_serve() -> int:
+    """Full-width phi-3-vision-4.2b through ``make_prefill`` +
+    ``make_serve_step`` (see 6j); returns the run's flash launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gather import row_gather
+    from repro_torch.kernels.paged_kv import paged_gather
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+    from repro_torch.models.transformer import (IMG_EMBED_DIM, init_cache,
+                                                init_params)
+    from repro_torch.serve.engine import make_prefill, make_serve_step
+
+    cfg = get_config(VLM_ARCH)
+    t0 = time.time()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"VLM serve: {_mm_header(cfg, t0)}", flush=True)
+    rng = np.random.default_rng(13)
+    b, p = BATCH, cfg.num_patches
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (b, VLM_TEXT), dtype=np.int32)).cuda(),
+        "image_embeds": torch.from_numpy(rng.standard_normal(
+            (b, p, IMG_EMBED_DIM)).astype(np.float32)).cuda()}
+    prefill = _Timed(make_prefill(cfg))
+    step = _Timed(make_serve_step(cfg))
+
+    def run(rows: int, steps: int):
+        part = {k: v[:rows] for k, v in batch.items()}
+        cache = init_cache(cfg, rows, MM_MAX_LEN, dtype=torch.float32,
+                           device="cuda")
+        nxt, cache = prefill(params, part, cache)
+        toks = [nxt]
+        for _ in range(steps):
+            nxt, cache = step(params, nxt, cache)
+            toks.append(nxt)
+        return torch.cat(toks, 1).cpu().numpy(), cache
+
+    with torch.inference_mode():
+        run(1, 2)                                           # warm-up
+        prefill.seconds = step.seconds = 0.0
+        torch.cuda.synchronize()
+        flash_attention.launches = row_gather.launches = 0
+        paged_gather.launches = ssd_chunk.launches = 0
+        t0 = time.perf_counter()
+        cache = init_cache(cfg, b, MM_MAX_LEN, dtype=torch.float32,
+                           device="cuda")
+        nxt, cache = prefill(params, batch, cache)
+        flash = flash_attention.launches
+        others = row_gather.launches + paged_gather.launches + \
+            ssd_chunk.launches
+        check(flash == cfg.num_layers and others == 0,
+              f"VLM prefill launched flash {flash} times and a row, page or "
+              f"SSD kernel {others} times, want {cfg.num_layers} and 0")
+        check(cache.length == cache.kv.length == p + VLM_TEXT,
+              f"VLM cache length {cache.length} after the prefill, want "
+              f"{p + VLM_TEXT}")
+        kv_b = _kv_bytes(cfg, b, MM_MAX_LEN)
+        check(cache.nbytes() == kv_b + 8, f"VLM cache bytes "
+              f"{cache.nbytes()}, the shapes give {kv_b} + 8")
+        toks = [nxt]
+        for _ in range(VLM_STEPS):
+            nxt, cache = step(params, nxt, cache)
+            toks.append(nxt)
+        toks = torch.cat(toks, 1).cpu().numpy()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    decode_flash = flash_attention.launches
+    others = row_gather.launches + paged_gather.launches + ssd_chunk.launches
+    check(decode_flash == flash and others == 0,
+          f"VLM decode steps launched flash {decode_flash - flash} times and "
+          f"a row, page or SSD kernel {others} times, want 0 and 0")
+    check(toks.shape == (b, VLM_STEPS + 1) and bool(
+        ((toks >= 0) & (toks < cfg.vocab_size)).all()),
+        f"VLM tokens {toks.shape}: {toks[:, :8].tolist()}")
+    check(cache.length == p + VLM_TEXT + VLM_STEPS,
+          f"VLM cache length {cache.length} after the steps")
+    n_tok = toks.size
+    step_ms = step.seconds / VLM_STEPS * 1e3
+    prefill_s = prefill.seconds
+    print(f"VLM serve {cfg.name}: {b} rows of {p} patches + {VLM_TEXT} text "
+          f"tokens, prefill + {VLM_STEPS} greedy decode steps, {n_tok} "
+          f"tokens in {dt:.3f}s ({n_tok / dt:.1f} tok/s) prefill_s="
+          f"{prefill_s:.3f} decode_s={step.seconds:.3f} "
+          f"({step_ms:.3f} ms/step) flash_attention.launches={flash} (all "
+          f"in the prefill call) cache bytes {cache.nbytes()} (KV {kv_b} + "
+          f"8); first tokens {toks[0, :8].tolist()}", flush=True)
+    del cache
+    with torch.inference_mode():
+        prof = profile_run(
+            lambda: f"VLM {cfg.name}, {b} rows, prefill of "
+                    f"{p + VLM_TEXT} positions + 8 decode steps",
+            lambda: run(b, 8))
+    print(f"VLM serve {cfg.name}: {step_ms:.3f} ms/decode step, "
+          f"{n_tok / dt:.1f} tok/s, prefill_s={prefill_s:.3f}; "
+          + _shares(prof), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return flash
+
+
+def _shares(prof) -> str:
+    if not prof:
+        return "idle share not measured"
+    return (f"idle share {prof['idle']:.4f}; flash "
+            f"{prof['flash_attention'] / prof['busy_ms']:.4f} of the profiled "
+            f"run's device time ({prof['flash_attention']:.3f} of "
+            f"{prof['busy_ms']:.3f} ms)")
+
+
+def phase_audio_serve() -> int:
+    """Full-width musicgen-large through the grouped engine (see 6k);
+    returns the run's flash launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gather import row_gather
+    from repro_torch.kernels.paged_kv import paged_gather
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config(AUDIO_ARCH)
+    t0 = time.time()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"audio serve: {_mm_header(cfg, t0)}", flush=True)
+    rng = np.random.default_rng(14)
+    k = cfg.num_codebooks
+
+    def make_requests(max_new=MAX_NEW):
+        return [Request(prompt=rng.integers(0, cfg.vocab_size, (k, n),
+                                            dtype=np.int32),
+                        max_new_tokens=max_new) for n in AUDIO_PROMPTS]
+
+    eng = ServeEngine(cfg, params, batch_size=BATCH, max_len=MM_MAX_LEN,
+                      device="cuda", paged=True)
+    check(not eng._paged and not eng._ring,
+          "the audio engine took the paged path or a ring")
+    eng.generate([Request(prompt=r.prompt[:, :64], max_new_tokens=2)
+                  for r in make_requests()[:2]])            # warm-up
+    reqs = make_requests()
+    eng._prefill, eng._step = _Timed(eng._prefill), _Timed(eng._step)
+    torch.cuda.synchronize()
+    flash_attention.launches = row_gather.launches = 0
+    paged_gather.launches = ssd_chunk.launches = 0
+    t0 = time.perf_counter()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    flash = flash_attention.launches
+    others = row_gather.launches + paged_gather.launches + ssd_chunk.launches
+    for i, r in enumerate(reqs):
+        g = r.generated
+        check(g.shape == (k, MAX_NEW) and bool(
+            ((g >= 0) & (g < cfg.vocab_size)).all()),
+            f"audio request {i} made {g.shape}: {g[:, :8].tolist()}")
+    steps, calls = eng.decode_steps, eng._prefill.calls
+    check(calls == 2 and steps == 2 * (MAX_NEW - 1),
+          f"audio run: {calls} prefill calls and {steps} decode steps, "
+          f"want 2 and {2 * (MAX_NEW - 1)}")
+    check(flash == cfg.num_layers * calls, f"audio run launched "
+          f"flash_attention {flash} times, want {cfg.num_layers} x {calls} "
+          f"prefill calls")
+    check(others == 0, f"audio run launched a row, page or SSD kernel "
+          f"{others} times")
+    kv_b = _kv_bytes(cfg, BATCH, MM_MAX_LEN)
+    check(eng.cache_bytes_resident == kv_b + 8,
+          f"audio run: cache_bytes_resident {eng.cache_bytes_resident}, "
+          f"the shapes give {kv_b} + 8")
+    n_tok = sum(r.generated.size for r in reqs)
+    frames = sum(r.generated.shape[-1] for r in reqs)
+    step_ms = eng._step.seconds / steps * 1e3
+    prefill_s = eng._prefill.seconds
+    print(f"audio serve {cfg.name}: {len(reqs)} requests (prompts of {k} x "
+          f"{list(AUDIO_PROMPTS)} frames), {frames} new frames = {n_tok} "
+          f"tokens in {dt:.3f}s ({n_tok / dt:.1f} tok/s, {frames / dt:.1f} "
+          f"frames/s) decode_steps={steps} decode_s={eng._step.seconds:.3f} "
+          f"({step_ms:.3f} ms/step) prefill_s={prefill_s:.3f} ({calls} "
+          f"prefill calls) flash_attention.launches={flash} "
+          f"cache_bytes_resident={eng.cache_bytes_resident} (KV {kv_b} + 8)",
+          flush=True)
+    prof = profile_decode(cfg, params, eng=ServeEngine(
+        cfg, params, batch_size=BATCH, max_len=MM_MAX_LEN, device="cuda"),
+        make_requests=lambda: make_requests(max_new=8))
+    print(f"audio serve {cfg.name}: {step_ms:.3f} ms/decode step, "
+          f"{n_tok / dt:.1f} tok/s, prefill_s={prefill_s:.3f}; "
+          + _shares(prof), flush=True)
+    del params, eng
+    torch.cuda.empty_cache()
+    return flash
 
 
 def _bits(t):
@@ -1897,7 +2173,9 @@ def main() -> None:
     ssm_launches = phase_ssm_serve()
     phase_ssm_reference()
     hyb = phase_hybrid_serve()
-    phase_window_hybrid_reference()
+    phase_family_references()
+    vlm_flash = phase_vlm_serve()
+    audio_flash = phase_audio_serve()
     import torch.distributed as dist
     tmp = init_data_group()
     try:
@@ -1941,7 +2219,8 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:95",
         "launches": sum(r[layout]["flash"] for r in (runs, moe_runs)
                         for layout in ("paged", "contiguous"))
-        + moe_runs["window"]["flash"] + hyb["flash"] + train["flash"],
+        + moe_runs["window"]["flash"] + hyb["flash"] + vlm_flash
+        + audio_flash + train["flash"],
         "max_abs_err": flash["max_abs_err"],
         "ms": flash["a"]["ms"],
         "plain_ms": flash["a"]["plain_ms"],

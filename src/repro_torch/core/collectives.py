@@ -26,6 +26,7 @@ mesh come with the tensor-parallel slices.
 
 from __future__ import annotations
 
+import atexit
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
@@ -55,6 +56,20 @@ _all_gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
 # groups are process-wide in torch.distributed, so this registry is too; it
 # is rebuilt when the default group changes (destroy + init).
 _GROUPS: Dict[str, Any] = {"world": None, "groups": []}
+
+
+def release_groups() -> None:
+    """Drop the registry's process groups, so that the last reference goes
+    now and their destructors join the groups' worker threads (the
+    destructors run without the GIL). Run at exit, before the interpreter
+    finalizes: a gloo worker that releases a finished collective's tensors
+    takes the GIL, and one that asks for it once the interpreter is
+    finalizing is ended by ``pthread_exit``, whose unwind through a
+    ``noexcept`` frame calls ``std::terminate``."""
+    _GROUPS["world"], _GROUPS["groups"] = None, []
+
+
+atexit.register(release_groups)
 
 
 def vci_group(index: int, num_vcis: int):

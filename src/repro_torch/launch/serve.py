@@ -38,6 +38,16 @@ hybrid's prefill attention are CUDA kernels on the card):
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch zamba2-7b-smoke
 
+An audio arch (musicgen: prompts of ``(num_codebooks, prompt-len)``
+codebook tokens, one head a codebook) takes the grouped path too:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch musicgen-large-smoke --requests 4 --max-new 8
+
+A VLM arch (phi-3-vision) is refused, as the reference's engine cannot
+serve one either: serve it with ``make_prefill`` on a batch holding
+``image_embeds``, then ``make_serve_step`` (``repro_torch.serve.engine``).
+
 The flags are those of ``repro.launch.serve`` plus ``--device``: the card
 by default, ``--device cpu`` for the plain CPU path. ``--tp`` > 1 (the
 tensor-parallel decode on VCI streams) is not ported yet and raises.
@@ -54,7 +64,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import init_params
-from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.engine import Request, ServeEngine, check_servable
 
 
 def main(argv=None) -> None:
@@ -97,6 +107,7 @@ def main(argv=None) -> None:
             "yet; see ROADMAP.md Queue 1")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    check_servable(cfg)
     print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M")
     params = init_params(cfg, args.seed, device=device)
 
@@ -112,8 +123,9 @@ def main(argv=None) -> None:
         why = (f"family={cfg.family!r}" if cfg.family not in ("dense", "moe")
                else f"the ring cache (sliding window {cfg.sliding_window} "
                     f"< max_len {args.max_len})")
-        print(f"paged cache: not used for {why}; the grouped equal-length "
-              f"contiguous path serves it")
+        print(f"paged cache: not used for {why} (ring, SSM, hybrid and "
+              f"audio caches have no paged layout); the grouped "
+              f"equal-length contiguous path serves it")
 
     rng = np.random.default_rng(args.seed)
     reqs = []
@@ -121,8 +133,10 @@ def main(argv=None) -> None:
         plen = (int(rng.integers(max(1, args.prompt_len // 2),
                                  args.prompt_len + 1))
                 if args.vary_prompts else args.prompt_len)
+        shape = ((cfg.num_codebooks, plen)
+                 if cfg.modality == "audio" else (plen,))
         reqs.append(Request(
-            prompt=rng.integers(0, cfg.vocab_size, (plen,), dtype=np.int32),
+            prompt=rng.integers(0, cfg.vocab_size, shape, dtype=np.int32),
             max_new_tokens=args.max_new, stop_token=args.stop))
 
     t0 = time.time()
@@ -135,7 +149,7 @@ def main(argv=None) -> None:
           f"({n_tok/dt:.1f} tok/s) "
           f"cache_bytes_resident={engine.cache_bytes_resident}")
     for i, r in enumerate(done[:4]):
-        print(f"  req{i}: first tokens {r.generated[:8].tolist()}")
+        print(f"  req{i}: first tokens {r.generated[..., :8].tolist()}")
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""The model for the dense, MoE, SSM and hybrid text families (PyTorch port).
+"""The model for the dense, MoE, SSM, hybrid, VLM and audio families
+(PyTorch port).
 
 Port of the attention-stack branch of ``repro.models.transformer``. Params
 are a plain nested dict of tensors in the reference's layout: per-layer
@@ -20,8 +21,13 @@ shared-weight attention block (``params["shared_attn"]``) whose KV cache
 is the site's slice of a stack of ``L // hybrid_attn_every``; the
 ``L % hybrid_attn_every`` remainder blocks come last. A sliding-window
 arch whose window is shorter than the cache decodes through the ring
-cache (:mod:`repro_torch.models.attention`). The VLM and audio families
-are a later slice and raise ``NotImplementedError``; see ``ROADMAP.md``.
+cache (:mod:`repro_torch.models.attention`). The VLM family (phi-3-vision)
+projects precomputed image patch embeddings (``batch["image_embeds"]``,
+``(B, P, IMG_EMBED_DIM)``) with ``img_proj`` and puts them before the text
+embeddings; its decode is text-only after that prefix. The audio family
+(musicgen) sums ``num_codebooks`` token embeddings a position and has one
+LM head a codebook: tokens ``(B, K, S)``, logits ``(B, K, S, V)``. Both
+run the dense attention layers.
 """
 
 from __future__ import annotations
@@ -62,21 +68,12 @@ from repro_torch.models.layers import (
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import SSMState, mamba2_decode, mamba2_forward
 
+IMG_EMBED_DIM = 1024  # stubbed CLIP patch-embedding width (phi-3-vision)
+
 # a cursor is a host int here and an int32 scalar in the reference; cache
 # byte counts charge it at the reference's width so the two engines report
 # the same ``cache_bytes_resident``.
 _CURSOR_BYTES = 4
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is in the port so far: dense, MoE, SSM or
-    hybrid text."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or \
-            cfg.modality != "text":
-        raise NotImplementedError(
-            f"repro_torch supports the text families so far, got "
-            f"family={cfg.family!r} modality={cfg.modality!r}; the VLM and "
-            f"audio families are a later slice (ROADMAP.md Queue 1 item 13b)")
 
 
 # ---------------------------------------------------------------------------
@@ -172,14 +169,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     reference's ``init_params`` (norm params in float32); the numbers differ
     from JAX's — the conformance tests carry JAX's params over with
     :func:`repro_torch.bridge.params_from_numpy` instead."""
-    check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     dims = (cfg.num_layers,)
+    # audio: one table and one head a codebook
+    books = (cfg.num_codebooks,) if cfg.modality == "audio" else ()
     params: Dict[str, Any] = {"embed": {"tok": embed_init(
-        gen, (cfg.vocab_size, cfg.d_model), dtype, dev)}}
+        gen, books + (cfg.vocab_size, cfg.d_model), dtype, dev)}}
+    if cfg.modality == "vlm":
+        params["img_proj"] = {"w": dense_init(
+            gen, (IMG_EMBED_DIM, cfg.d_model), dtype=dtype, device=dev)}
     if cfg.family in ("ssm", "hybrid"):
         layer = {"ssm": _ssm_params(cfg, gen, dims, dtype, dev),
                  "norm1": _norm_params(cfg, dims, dev)}
@@ -205,7 +206,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
         params["final_norm"] = fn
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": dense_init(
-            gen, (cfg.d_model, cfg.vocab_size), dtype=dtype, device=dev)}
+            gen, books + (cfg.d_model, cfg.vocab_size), dtype=dtype,
+            device=dev)}
     return params
 
 
@@ -256,7 +258,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     on the ``L // hybrid_attn_every`` shared-attention sites. A prefill
     re-types the conv tail to the activations' dtype, as the reference's
     does (:meth:`Model.forward`)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     kv = ssm = None
     n_kv = cfg.num_layers
@@ -283,12 +284,12 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     """Paged decode cache: a fixed pool of ``num_pages`` pages of
     ``page_size`` tokens (page 0 reserved as trash) + an all-unmapped
     per-slot page table covering virtual positions ``[0, max_len)``.
-    Attention archs only: SSM state has no per-position pages."""
-    check_supported(cfg)
-    if cfg.family not in ("dense", "moe"):
+    Text attention archs only: SSM state has no per-position pages, and
+    the VLM and audio families keep the reference's contiguous layout."""
+    if cfg.family not in ("dense", "moe") or cfg.modality != "text":
         raise NotImplementedError(
             f"paged KV cache needs a text attention arch, got "
-            f"family={cfg.family!r}")
+            f"family={cfg.family!r} modality={cfg.modality!r}")
     if is_ring(cfg, max_len):
         raise NotImplementedError(
             "paged KV cache does not support ring (sliding-window) caches; "
@@ -464,19 +465,34 @@ def _sum_aux(auxes) -> Dict[str, torch.Tensor]:
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        check_supported(cfg)
         self.cfg = cfg
 
     # -- embeddings ------------------------------------------------------
-    def embed(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (x: (B,S,d), positions: (S,))."""
-        tok = batch["tokens"]
+    def _tok_embed(self, params, tok) -> torch.Tensor:
+        """Token lookup in the activations' dtype: (B,S) -> (B,S,d); audio
+        sums the K codebook embeddings, (B,K,S) -> (B,S,d)."""
         emb = params["embed"]["tok"].to(torch_dtype(self.cfg.dtype))
-        x = emb[tok.long()]
-        return x, torch.arange(tok.shape[-1], device=tok.device)
+        if self.cfg.modality == "audio":               # emb: (K,V,d)
+            books = torch.arange(emb.shape[0], device=tok.device)
+            return emb[books[:, None], tok.long()].sum(1)
+        return emb[tok.long()]
+
+    def embed(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Returns (x: (B,S,d), positions: (S,)). VLM: the projected image
+        patches come first, so ``S = P + S_txt``."""
+        tok = batch["tokens"]
+        x = self._tok_embed(params, tok)
+        if self.cfg.modality == "vlm":
+            img = batch["image_embeds"].to(x.dtype)            # (B,P,1024)
+            x = torch.cat([img @ params["img_proj"]["w"].to(x.dtype), x], 1)
+        return x, torch.arange(x.shape[1], device=tok.device)
 
     def unembed(self, params, x) -> torch.Tensor:
+        """Logits (B,S,V); audio (B,K,S,V), one head a codebook."""
         x = apply_norm(self.cfg, x, params.get("final_norm"))
+        if self.cfg.modality == "audio":
+            return torch.einsum("bsd,kdv->bksv", x,
+                                params["lm_head"]["w"].to(x.dtype))
         if self.cfg.tie_embeddings:
             return x @ params["embed"]["tok"].to(x.dtype).T
         return x @ params["lm_head"]["w"].to(x.dtype)
@@ -579,15 +595,15 @@ class Model:
     def decode_step(self, params, tokens, cache: DecodeCache,
                     start: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, DecodeCache]:
-        """tokens: (B,1). Returns (logits, new_cache); the cache is written
-        in place at the shared cursor.
+        """tokens: (B,1) (audio: (B,K,1)). Returns (logits, new_cache); the
+        cache is written in place at the shared cursor (a VLM's cursor
+        already counts its image positions).
 
         ``start`` — (B,) int per-row first-valid cache slot (the serve
         engine's left-pad/late-admission offset): cache reads mask slots
         below it and RoPE positions count from it.
         """
-        emb = params["embed"]["tok"].to(torch_dtype(self.cfg.dtype))
-        x = emb[tokens.long()]
+        x = self._tok_embed(params, tokens)
         if self.cfg.family in ("ssm", "hybrid"):
             if start is not None:
                 raise NotImplementedError(

@@ -1,8 +1,7 @@
 """Serving: prefill + batched decode with contiguous or paged KV caches.
 
-Port of ``repro.serve.engine`` for dense, MoE and SSM text archs on one
-device. The ``ServeEngine`` is the same host-side continuous-batching loop
-for the attention archs:
+Port of ``repro.serve.engine`` on one device. The ``ServeEngine`` is the
+same host-side continuous-batching loop for the text attention archs:
 
 * mixed-length prompts are LEFT-padded to a common width and prefilled with
   per-row pad masks + shifted RoPE positions, so a request's tokens are
@@ -16,13 +15,20 @@ for the attention archs:
   pool + per-slot page table, allocation in :mod:`repro_torch.serve.
   paging`): a finished slot's pages return to the pool immediately.
 
-SSM and hybrid archs have no per-row pad mask, and a ring cache (a
+SSM and hybrid archs have no per-row pad mask, a ring cache (a
 sliding-window arch whose window is shorter than ``max_len``) reuses its
-slots modulo the window, so none of them can left-pad a batch. They take
-the reference's grouped equal-length fallback instead: requests are
-grouped by prompt length, each group of up to ``batch_size`` is prefilled
-together into a fresh cache and decoded until every row stops
-(``paged=True`` is turned off for them, as in the reference).
+slots modulo the window, and the audio family's prompts are ``(K, S)``
+codebook frames, so none of them left-pads a batch. They take the
+reference's grouped equal-length fallback instead: requests are grouped by
+prompt length, each group of up to ``batch_size`` is prefilled together
+into a fresh cache and decoded until every row stops (``paged=True`` is
+turned off for them, as in the reference; audio ignores ``stop_token``, as
+there).
+
+The VLM family is not served by the engine: the reference's ``Request``
+carries no image, so its engine cannot serve one either. A VLM is served
+by :func:`make_prefill` on a batch with ``image_embeds``, then
+:func:`make_serve_step` (see :func:`check_servable`).
 
 PyTorch runs eagerly, so the reference's ``jax.jit`` wrappers (and their
 per-width trace caches) have no counterpart; caches are written in place
@@ -44,7 +50,6 @@ from repro_torch.models.attention import is_ring, paged_splice
 from repro_torch.models.transformer import (
     DecodeCache,
     Model,
-    check_supported,
     init_cache,
     init_paged_cache,
 )
@@ -58,7 +63,8 @@ from repro_torch.serve.paging import (
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
-    """logits: (B, 1, V) -> next token ids (B, 1) int32 (first max wins)."""
+    """logits: (B, 1, V) or (B, K, 1, V) -> next token ids (B, 1) or
+    (B, K, 1) int32 (first max wins)."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
@@ -69,7 +75,8 @@ def select_tokens(logits, temps=None, gen: Optional[torch.Generator] = None
     ``temps`` — (B,) float; rows with ``temp <= 0`` take the argmax, rows
     with ``temp > 0`` sample from the tempered categorical by Gumbel-max
     with noise drawn from ``gen`` (a ``torch.Generator`` on the logits'
-    device). ``temps=None`` is pure greedy. logits: (B, 1, V).
+    device). ``temps=None`` is pure greedy. logits: (B, 1, V) or
+    (B, K, 1, V).
     """
     greedy = greedy_sample(logits)
     if temps is None:
@@ -78,17 +85,19 @@ def select_tokens(logits, temps=None, gen: Optional[torch.Generator] = None
         raise ValueError("select_tokens: temps given without a generator — "
                          "pass gen=... or temps=None for greedy")
     b = logits.shape[0]
-    t = temps.float().clamp(min=1e-4).reshape(b, 1, 1)
+    t = temps.float().clamp(min=1e-4).reshape(
+        (b,) + (1,) * (logits.ndim - 1))
     u = torch.rand(logits.shape, generator=gen, device=logits.device)
     gumbel = -torch.log(-torch.log(u.clamp(min=1e-20)))
     sampled = torch.argmax(logits.float() / t + gumbel, dim=-1)
-    use = (temps > 0).reshape(b, 1)
+    use = (temps > 0).reshape((b,) + (1,) * (greedy.ndim - 1))
     return torch.where(use, sampled.to(torch.int32), greedy)
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable[..., Tuple]:
     """Returns ``serve_step(params, tokens, cache, start=None, temps=None,
-    gen=None) -> (next_tokens, cache)``; tokens: (B,1) int."""
+    gen=None) -> (next_tokens, cache)``; tokens: (B,1) int (audio:
+    (B,K,1))."""
     model = Model(cfg)
 
     def serve_step(params, tokens, cache: DecodeCache, start=None,
@@ -102,14 +111,16 @@ def make_serve_step(cfg: ModelConfig) -> Callable[..., Tuple]:
 
 def make_prefill(cfg: ModelConfig) -> Callable[..., Tuple]:
     """Returns ``prefill(params, batch, cache, start=None, temps=None,
-    gen=None) -> (next_tokens, cache)`` sampling the first new token."""
+    gen=None) -> (next_tokens, cache)`` sampling the first new token.
+    ``batch`` holds ``tokens`` (audio: (B,K,S)), and ``image_embeds``
+    (B,P,1024) for a VLM, whose cache then holds P + S_txt positions."""
     model = Model(cfg)
 
     def prefill(params, batch, cache: DecodeCache, start=None, temps=None,
                 gen=None):
         logits, _, new_cache = model.forward(params, batch, cache=cache,
                                              start=start)
-        return select_tokens(logits[:, -1:], temps, gen), new_cache
+        return select_tokens(logits[..., -1:, :], temps, gen), new_cache
 
     return prefill
 
@@ -120,7 +131,7 @@ def make_prefill(cfg: ModelConfig) -> Callable[..., Tuple]:
 
 @dataclasses.dataclass
 class Request:
-    prompt: np.ndarray                    # (S,) token ids
+    prompt: np.ndarray                    # (S,) or (K,S) token ids
     max_new_tokens: int = 32
     temperature: Optional[float] = None   # None -> engine default; 0 = greedy
     stop_token: Optional[int] = None      # finish early when sampled
@@ -140,6 +151,17 @@ class _Slot:
         self.done = True
         if self.req is not None:
             self.req.generated = np.asarray(self.tokens, np.int32)
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise for the VLM family, which :class:`ServeEngine` does not
+    serve."""
+    if cfg.modality == "vlm":
+        raise NotImplementedError(
+            f"{cfg.name}: ServeEngine does not serve a VLM, as the "
+            f"reference's does not: its Request carries no image. Serve it "
+            f"with make_prefill(cfg) on a batch holding 'image_embeds' "
+            f"(B, P, 1024), then make_serve_step(cfg)")
 
 
 # admission prompts pad to multiples of this — kept from the reference so
@@ -168,7 +190,7 @@ class ServeEngine:
                 "the tensor-parallel serve path on VCI streams (mesh / "
                 "comm_plan / num_vcis) is not ported yet; see ROADMAP.md "
                 "Queue 1 item 10")
-        check_supported(cfg)
+        check_servable(cfg)
         self.device = resolve_device(device)
         emb = params["embed"]["tok"]
         if emb.device.type != self.device.type:
@@ -186,9 +208,10 @@ class ServeEngine:
         self._gen.manual_seed(seed)
         self._ring = is_ring(cfg, max_len)
         # left-padded mixed-length batching needs per-row attention masks;
-        # SSM/hybrid state and ring caches can't provide them ->
-        # equal-length grouped batches for those
-        self._padded_ok = cfg.family in ("dense", "moe") and not self._ring
+        # SSM/hybrid state, ring caches and non-text frontends can't
+        # provide them -> equal-length grouped batches for those
+        self._padded_ok = (cfg.family in ("dense", "moe")
+                           and cfg.modality == "text" and not self._ring)
         # paged cache: attention archs on the continuous path only
         self._paged = bool(paged) and self._padded_ok
         self._page_size = int(page_size)
@@ -212,7 +235,13 @@ class ServeEngine:
     def _validate(self, requests: List[Request]) -> None:
         for i, r in enumerate(requests):
             plen = int(r.prompt.shape[-1])
-            if r.prompt.ndim != 1:
+            if self.cfg.modality == "audio":
+                k = self.cfg.num_codebooks
+                if r.prompt.ndim != 2 or r.prompt.shape[0] != k:
+                    raise ValueError(f"request {i}: an audio prompt is "
+                                     f"({k}, S) codebook tokens, got "
+                                     f"{r.prompt.shape}")
+            elif r.prompt.ndim != 1:
                 raise ValueError(f"request {i}: prompt must be 1-D token ids")
             if plen < 1:
                 raise ValueError(f"request {i}: empty prompt")
@@ -408,7 +437,8 @@ class ServeEngine:
     def _run_grouped(self, reqs: List[Request]) -> None:
         """Prefill ``reqs`` (one prompt length) together, then decode until
         every row has stopped or made its ``max_new_tokens``; each row's
-        tokens are cut at its first stop token."""
+        tokens are cut at its first stop token. Audio rows make ``(K,
+        steps)`` tokens and have no stop token, as in the reference."""
         cfg = self.cfg
         b = len(reqs)
         prompts = np.stack([r.prompt for r in reqs])
@@ -420,10 +450,13 @@ class ServeEngine:
         nxt, cache = self._prefill(self.params,
                                    {"tokens": self._dev(prompts)}, cache,
                                    None, temps, self._gen)
+        text = cfg.modality == "text"
         gen = [nxt.cpu().numpy()]
         stopped = [False] * b
 
         def update_stops():
+            if not text:
+                return
             for i, r in enumerate(reqs):
                 if r.stop_token is not None and \
                         int(gen[-1][i, 0]) == r.stop_token:
@@ -437,10 +470,10 @@ class ServeEngine:
             self.decode_steps += 1
             gen.append(nxt.cpu().numpy())
             update_stops()
-        toks = np.concatenate(gen, axis=-1)  # (B, steps)
+        toks = np.concatenate(gen, axis=-1)  # (B,steps) or (B,K,steps)
         for i, r in enumerate(reqs):
-            seq = toks[i][: r.max_new_tokens]
-            if r.stop_token is not None:
+            seq = toks[i][..., : r.max_new_tokens]
+            if text and r.stop_token is not None:
                 hits = np.nonzero(seq == r.stop_token)[0]
                 if hits.size:
                     seq = seq[: int(hits[0])]

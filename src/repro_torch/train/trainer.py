@@ -32,7 +32,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import get_comm_plan, reduce_gradients
 from repro_torch.device import torch_dtype
-from repro_torch.models.transformer import Model, check_supported, init_params
+from repro_torch.models.transformer import Model, init_params
 from repro_torch.optim.adamw import adamw_init, adamw_update
 from repro_torch.train.losses import total_loss
 from repro_torch.tree import tree_flatten, tree_unflatten
@@ -127,7 +127,11 @@ def make_train_step(
     averaged over the data group, with the keys of :data:`METRIC_KEYS`.
     The state's params and moments are updated in place.
     """
-    check_supported(cfg)
+    if cfg.modality != "text":
+        raise NotImplementedError(
+            f"{cfg.modality} training is a later slice (ROADMAP.md Queue 1 "
+            f"item 13c: the (B,K,S,V) and image-masked losses); the "
+            f"{cfg.family} family serves only")
     if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"{'SSM' if cfg.family == 'ssm' else 'hybrid'} training is a "

@@ -197,6 +197,12 @@ _FLASH_CASES = [  # hd, b, sq, skv, h, kv, causal, window, start
     # mixtral's GQA 48/8 at hd 128 with a window shorter than the sequence
     # (whole KV blocks below the window's edge skipped)
     (128, 1, 700, 700, 48, 8, True, 256, None),
+    # phi-3-vision's prefill of 576 patches + 448 text tokens, and
+    # musicgen-large's of 1,000 frames (Sq not a multiple of the tile) and
+    # of 64 frames (the variant for Sq <= 64)
+    (96, 1, 1024, 1024, 32, 32, True, None, None),
+    (64, 1, 1000, 1000, 32, 32, True, None, None),
+    (64, 2, 64, 64, 32, 32, True, None, None),
 ]
 
 
@@ -683,43 +689,74 @@ def test_ssm_engine_on_card_equals_cpu(cuda_device):
     assert toks["cpu"] == toks[str(cuda_device)]
 
 
-@pytest.mark.parametrize("arch,layers,max_len,lens,new", [
-    ("mixtral-8x22b-smoke", None, 160, (80, 40, 80), 32),   # ring of 64
-    ("zamba2-7b-smoke", 5, 96, (40, 9, 40, 5), 16),          # hybrid
+@pytest.mark.parametrize("arch,layers,s,max_len,lens,new", [
+    ("mixtral-8x22b-smoke", None, 80, 160, (80, 40, 80), 32),  # ring of 64
+    ("zamba2-7b-smoke", 5, 40, 96, (40, 9, 40, 5), 16),        # hybrid
+    ("phi-3-vision-4.2b-smoke", None, 40, 64, (), 0),          # no engine
+    ("musicgen-large-smoke", None, 40, 64, (24, 9, 24, 5), 6),
 ])
 def test_ring_and_hybrid_engines_on_card_equal_cpu(cuda_device, arch, layers,
-                                                   max_len, lens, new):
-    """f32 through the grouped engine on the card and on the CPU: identical
-    greedy tokens and cache bytes; the ring's 80-token prompts roll at
-    prefill and every group decodes past the window; the hybrid at 5
-    layers runs two groups, their shared attention sites and a remainder
-    layer (one SSD launch a layer and one flash launch a site a group)."""
+                                                   s, max_len, lens, new):
+    """f32 on the card and on the CPU: a prefill of ``s`` positions (the
+    VLM's 16 patches + 24 text tokens, the audio's 40 frames of 4
+    codebooks) + 8 greedy decode steps, logits within 1e-4 and identical
+    tokens, one flash launch a site (and one SSD launch a hybrid layer) in
+    the card's prefill; then the grouped engine (which refuses a VLM):
+    identical greedy tokens and cache bytes; the ring's 80-token prompts
+    roll at prefill and every group decodes past the window; the hybrid at
+    5 layers runs two groups, their shared attention sites and a remainder
+    layer."""
+    from repro_torch.data.pipeline import synthetic_batch
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     params = init_params(cfg, 0, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in synthetic_batch(
+        cfg, 2, s, seed=9).items() if k != "labels"}
     rng = np.random.default_rng(8)
-    prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
+    lead = (cfg.num_codebooks,) if cfg.modality == "audio" else ()
+    prompts = [rng.integers(0, cfg.vocab_size, lead + (n,), dtype=np.int32)
                for n in lens]
     sites = (cfg.num_layers // cfg.hybrid_attn_every
              if cfg.family == "hybrid" else cfg.num_layers)
+    ssd = cfg.num_layers if cfg.family == "hybrid" else 0
     groups = sum(-(-lens.count(n) // 2) for n in set(lens))   # batch 2
     out = {}
     for dev in ("cpu", cuda_device):
-        eng = ServeEngine(cfg, tree_map(lambda t: t.to(dev), params),
-                          batch_size=2, max_len=max_len, device=dev,
-                          paged=True)
-        assert not eng._paged
+        p = tree_map(lambda t: t.to(dev), params)
+        cache = init_cache(cfg, 2, max_len, dtype=torch.float32, device=dev)
         n0 = (fa.flash_attention.launches, ssd_scan.ssd_chunk.launches)
-        reqs = eng.generate([Request(prompt=p, max_new_tokens=new)
-                             for p in prompts])
-        if dev != "cpu":
-            torch.cuda.synchronize()
-            ssd = cfg.num_layers * groups if cfg.family == "hybrid" else 0
-            assert (fa.flash_attention.launches - n0[0],
-                    ssd_scan.ssd_chunk.launches - n0[1]) == (
-                sites * groups, ssd)
-        out[str(dev)] = ([r.generated.tolist() for r in reqs],
-                         eng.cache_bytes_resident)
-    assert out["cpu"] == out[str(cuda_device)]
+        with torch.inference_mode():
+            lg, _, cache = Model(cfg).forward(
+                p, {k: v.to(dev) for k, v in batch.items()}, cache=cache)
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                assert (fa.flash_attention.launches - n0[0],
+                        ssd_scan.ssd_chunk.launches - n0[1]) == (sites, ssd)
+            logits, toks = [lg[..., -1:, :].cpu()], []
+            for _ in range(8):
+                toks.append(logits[-1].argmax(-1).to(torch.int32))
+                lg, cache = Model(cfg).decode_step(p, toks[-1].to(dev), cache)
+                logits.append(lg.cpu())
+        engine = None
+        if prompts:
+            eng = ServeEngine(cfg, p, batch_size=2, max_len=max_len,
+                              device=dev, paged=True)
+            assert not eng._paged
+            n0 = (fa.flash_attention.launches, ssd_scan.ssd_chunk.launches)
+            reqs = eng.generate([Request(prompt=q, max_new_tokens=new)
+                                 for q in prompts])
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                assert (fa.flash_attention.launches - n0[0],
+                        ssd_scan.ssd_chunk.launches - n0[1]) == (
+                    sites * groups, ssd * groups)
+            engine = ([r.generated.tolist() for r in reqs],
+                      eng.cache_bytes_resident)
+        out[str(dev)] = (logits, toks, engine)
+    (lc, tc, ec), (lg, tg, eg) = out["cpu"], out[str(cuda_device)]
+    for a, c in zip(lc, lg):
+        assert (a - c).abs().max().item() <= 1e-4
+    assert all(torch.equal(a, c) for a, c in zip(tc, tg))
+    assert ec == eg

@@ -186,8 +186,8 @@ def test_training_and_start_offsets_are_refused():
         ttf.init_paged_cache(cfg, 2, 8, page_size=4, num_pages=5,
                              device="cpu")
     for arch in ("phi-3-vision-4.2b-smoke", "musicgen-large-smoke"):
-        with pytest.raises(NotImplementedError, match="item 13b"):
-            ttf.Model(get_config(arch))
+        with pytest.raises(NotImplementedError, match="item 13c"):
+            make_train_step(get_config(arch), comm="vci")
 
 
 def test_cli_serves_hybrid_on_cpu(capsys):

@@ -18,6 +18,7 @@ holds the flash-decode combine over a sequence-sharded KV cache against
 ``<dir>/out_seqshard.npz`` (``tests/test_torch_ring.py``).
 """
 
+import faulthandler
 import os
 import subprocess
 import sys
@@ -153,12 +154,18 @@ CHECKS = {"reduce": check_reduce, "train": check_train,
 
 
 def _rank_main(rank: int, check: str, n: int, out_dir: str) -> None:
+    # a rank that dies of a signal prints its Python stack
+    faulthandler.enable(all_threads=True)
     torch.set_num_threads(1)
     dist.init_process_group(
         "gloo", store=dist.FileStore(os.path.join(out_dir, "store"), n),
         rank=rank, world_size=n)
     try:
         CHECKS[check](rank, n, out_dir)
+        # no rank tears its gloo pairs down while a peer is still in a
+        # collective; a check that raised skips this, so that its peers
+        # fail at once instead of waiting here
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 

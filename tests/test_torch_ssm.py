@@ -462,9 +462,12 @@ def test_ssm_engine_tokens_match_reference(mamba, kind):
 def test_ssm_training_and_other_families_are_refused():
     with pytest.raises(NotImplementedError, match="SSM training"):
         make_train_step(get_config(ARCH), comm="vci")
-    for arch in ("phi-3-vision-4.2b-smoke", "musicgen-large-smoke"):
-        with pytest.raises(NotImplementedError, match="item"):
-            ttf.Model(get_config(arch))
+    vlm = get_config("phi-3-vision-4.2b-smoke")
+    with pytest.raises(NotImplementedError, match="does not serve a VLM"):
+        tengine.ServeEngine(vlm, ttf.init_params(vlm, 0, device="cpu"),
+                            batch_size=2, max_len=64, device="cpu")
+    with pytest.raises(NotImplementedError, match="audio training"):
+        make_train_step(get_config("musicgen-large-smoke"), comm="vci")
 
 
 def test_cli_serves_ssm_on_cpu(capsys):
