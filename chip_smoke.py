@@ -12,12 +12,16 @@ Phases, each a check that exits non-zero when it fails:
    the shapes the serve path gives it, bit for bit (the gathers are
    copies), with its time, the plain version's, one PyTorch library call's
    and the bound (HBM bytes over 3.35 TB/s): the page gather at the olmo-1b
-   serve shape; the MoE row gather at mixtral-8x22b's d = 6,144 bf16 on
+   serve shape (and, untimed, phase 7's per-rank pool of 4 KV heads); the
+   MoE row gather at mixtral-8x22b's d = 6,144 bf16 on
    routing tables built by the port's ``dispatch_tables`` — a decode
    dispatch (4 tokens into 4 x 8 x 1 slots), a 64-token prefill group
    (into 8 x 32 slots), 8 groups of 1,024 tokens at capacity factor 1.25
    (8,192 rows into 20,480 slots, timed) and its combine — plus an f32
-   case at d = 256 and a table with every row empty. Each dispatch runs
+   case at d = 256, a table with every row empty and, untimed, phase 7's
+   expert-parallel dispatch (one rank's 2 of 8 experts: a contiguous
+   slot range of the 8 x 1,024 table, its inverse rebased). Each dispatch
+   runs
    both routes, checked bitwise: the gather (no ``inv``) and the read-once
    route with ``inv`` = the tables' ``comb`` (forced at every size); the
    timed dispatches print both routes' times, the gather's first, and keep
@@ -41,11 +45,16 @@ Phases, each a check that exits non-zero when it fails:
    (phase 6j's shape), (k) musicgen-large's prefill of 1,000 frames
    (4,1000,32,64) bf16 causal (phase 6k's; Sq not a multiple of the
    tile), (l) musicgen-large's prefill of 64 frames (4,64,32,64) bf16
-   causal (phase 6k's second group, on the kernel's variant for Sq <= 64).
+   causal (phase 6k's second group, on the kernel's variant for Sq <= 64),
+   (m) olmo-1b's per-rank prefill at tp 4 (4,64,4,128) bf16 causal with
+   pad rows, (n) mixtral-8x22b's per-rank prefill at tp 4 (8,1024,12 / 2
+   KV,128) bf16 causal (GQA 6:1), (o) mixtral-8x22b's per-rank serve
+   prefill at tp 4 (4,64,12 / 2 KV,128) bf16 causal with pad rows (GQA
+   6:1 on the variant for Sq <= 64; phase 7's shapes).
    f32 within 2e-5; bf16 within 1.25 x the plain bf16 version's error
    (+1e-3), both measured against the plain version run in f32 on the
    upcast inputs. A second launch gives equal bits; one launch counted a
-   call. At (a), (b), (f), (g), (h), (i), (j), (k) and (l): kernel, plain,
+   call. At (a), (b), (f)-(o): kernel, plain,
    ``scaled_dot_product_attention`` and bound times (at (i) SDPA takes
    the window as an explicit boolean mask and K/V repeated to the 48
    query heads; the plain version runs one batch row at a time where its
@@ -161,13 +170,39 @@ Phases, each a check that exits non-zero when it fails:
    after: 48 flash launches a prefill call, no page, row or SSD launch;
    (4, 32) tokens a request; ``cache_bytes_resident`` the shapes' count;
    ms a decode step, tok/s, prefill s, a profile's idle and flash shares;
-7. bucket kernels: the tile-gather pack/unpack kernel against its plain
+7. tensor-parallel serve: ``TP_WORLD`` = 4 ranks spawned once on the one
+   card (mesh data 1 x model 4), joined by gloo (NCCL refuses two ranks on
+   one device), with CUDA tensors in every collective
+   (``launch/serve.py::join_ranks``; a refusal raises); they build nothing (phase 2 built
+   the kernels). Each rank makes ``init_params``' leaves one at a time and
+   cuts each to its shard (the ranks take turns). olmo-1b at full width
+   and depth (phase 5's requests, f32 cache) paged and contiguous at
+   ``num_vcis`` 8 and 1; mixtral-8x22b at full width, 4 layers,
+   expert-parallel (2 experts a rank), paged at ``num_vcis`` 8, then phase
+   6b's 8 x 1,024-token prefill call. Held against tp 1 (phases 5 and 6b):
+   the first prefill's last-position logits within ``TP_LOGIT_TOL`` x max
+   |tp 1| (the share of equal greedy tokens printed); each rank's paged
+   pool exactly 1/4 of tp 1's; no page leaked; every forward call 2 x L +
+   2 collectives by purpose (``tp_attn`` and ``tp_mlp`` or ``moe`` a
+   layer, two on ``sample``); at ``num_vcis`` 1 every context on VCI 0
+   with 4 fallback hits, at 8 four distinct VCIs; the flash, page-gather
+   and row-gather launches per call as in phases 5 and 6b, on each rank
+   (the long prefill's dispatch on the read-once route). Then the smoke
+   archs olmo-1b-smoke and mixtral-8x22b-smoke in f32 on the same ranks
+   regrouped data 2 x model 2, contiguous (the tokens gathered over data,
+   counted apart) and paged (admission under the mesh): tokens equal to
+   the port's CPU engine's. Printed per case (rank 0): ms a decode step,
+   prefill s, tok/s, the rank's ``cache_bytes_resident``, the collectives'
+   share of the host clock, the launches. Four ranks time-share one card
+   and their collectives cross host memory: the times are not a TP
+   speed-up and not a wire measurement;
+8. bucket kernels: the tile-gather pack/unpack kernel against its plain
    version, bit for bit, on the tables of the full-width olmo-1b plan
    (``get_comm_plan(params, num_streams=8, pack="pallas")``): every
    bucket's pack and the step's unpack in f32, the largest bucket's pack
    in bf16; device times of the largest pack and of the unpack beside the
    plain version, one ``index_select`` and the HBM bound;
-8. train: full-width olmo-1b (16 layers, bf16 params from a seed,
+9. train: full-width olmo-1b (16 layers, bf16 params from a seed,
    ``remat="block"``) through ``make_train_step(comm="vci",
    pack="pallas", num_streams=8, num_vcis=8, progress="hybrid")`` on a
    one-rank NCCL group, batch 8 x seq 1024: a warm-up step, then 5 timed
@@ -175,8 +210,13 @@ Phases, each a check that exits non-zero when it fails:
    (pack once a bucket a step, unpack once a step, the flash kernel twice a
    layer a step: the forward and remat's recompute), finite loss and grad
    norm; ``reduce_gradients`` with ``pack="pallas"`` equal bit for bit to
-   ``pack="xla"`` on one real gradient tree; a profile of 2 steps;
-9. reference training: olmo-1b-smoke in float32 (TF32 off), 3 steps of the
+   ``pack="xla"`` on one real gradient tree; a profile of 2 steps; then
+   one step at ``remat="dots"`` (the matmul outputs kept for the
+   backward), its peak memory printed beside ``remat="block"``'s; the
+   bytes one forward keeps for its backward (saved-tensor hooks plus the
+   selective checkpoint's store) under "block", "dots" and "none", "dots"
+   strictly between the two;
+10. reference training: olmo-1b-smoke in float32 (TF32 off), 3 steps of the
    same train step on the card (attention through the flash kernel) and on
    the CPU from the same params and batches: loss and grad norm within rtol 1e-5, params within rtol 2e-5 /
    atol 1e-4 with at most 1 element in 10^4 outside atol 1e-6 (AdamW turns
@@ -191,6 +231,7 @@ result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -249,8 +290,26 @@ FLASH_CASES = (
     ("j", "bfloat16", (4, 1024, 1024, 32, 32, 96), True, None, None, True),
     ("k", "bfloat16", (4, 1000, 1000, 32, 32, 64), True, None, None, True),
     ("l", "bfloat16", (4, 64, 64, 32, 32, 64), True, None, None, True),
+    # phase 7's per-rank prefills at tp 4: olmo-1b's 4 of 16 heads, and
+    # mixtral-8x22b's 12 query heads on 2 KV heads (GQA 6:1) at 8 x 1,024
+    # and in the serve batch's prefill (the variant for Sq <= 64)
+    ("m", "bfloat16", (4, 64, 64, 4, 4, 128), True, None, (0, 9, 33, 63),
+     True),
+    ("n", "bfloat16", (8, 1024, 1024, 12, 2, 128), True, None, None, True),
+    ("o", "bfloat16", (4, 64, 64, 12, 2, 128), True, None, (0, 9, 33, 63),
+     True),
 )
 PAIRS = 10                       # alternating kernel / library timings
+# phase 7: TP ranks sharing the one card, spawned once
+TP_WORLD, TP_VCIS, TP_TIMEOUT_S = 4, (8, 1), 600
+TP_SMOKE = ("olmo-1b-smoke", "mixtral-8x22b-smoke")
+# tp 4's first-prefill logits against tp 1's, as a share of max |tp 1|:
+# bf16 weights and activations, and each layer's wo / w_down outputs
+# rounded to bf16 as 4 partial sums before their all-reduce (tp 1 rounds
+# one f32-accumulated sum), so every layer's two sums differ by a few bf16
+# ulps (2^-8 relative each) and 16 layers of residuals carry them on;
+# 0.05 leaves a margin of several times that drift
+TP_LOGIT_TOL = 0.05
 
 
 def fail(msg: str) -> None:
@@ -317,13 +376,14 @@ def eager_ms(fn, n_iter: int = 200) -> float:
     return (time.perf_counter() - t0) * 1e3 / n_iter
 
 
-def phase_device() -> None:
+def phase_device() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60)
     check(r.returncode == 0, f"nvidia-smi failed: {r.stderr.strip()}")
     line = r.stdout.strip().splitlines()[0]
     print(line, flush=True)
+    return line
 
 
 def phase_build() -> None:
@@ -385,6 +445,15 @@ def phase_kernels() -> dict:
               f"bound_ms={bound_ms:.5f} ({nbytes} B); eager call incl. "
               f"host {host_ms:.5f} ms", flush=True)
         del pools
+    # phase 7's per-rank pool at tp 4: 4 of olmo-1b's 16 KV heads, f32
+    pool = torch.randn((np_, PAGE_SIZE, 16 // TP_WORLD, 128), generator=gen,
+                       device=dev)
+    got, want = paged_gather(pool, table), paged_gather_plain(pool, table)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          "paged_gather kernel != plain version at the tp-rank pool")
+    print(f"kernel paged_gather float32 at phase 7's rank pool "
+          f"{tuple(pool.shape)}: bitwise equal to plain", flush=True)
     return res
 
 
@@ -426,6 +495,11 @@ def phase_row_gather() -> dict:
     pre, pre_inv = _routed(1, 64, 8, 2, 2.0, gen)     # prefill: C = 32
     big, comb = _routed(8, 1024, 8, 2, 1.25, gen)     # C = 320
     smoke, smoke_inv = _routed(4, 20, 4, 2, 2.0, gen)  # mixtral-smoke, f32
+    # phase 7's expert-parallel dispatch at tp 4: rank 1's 2 of 8 experts,
+    # one contiguous slot range of the table, its inverse rebased
+    lo, hi = 2 * 8 * 320, 4 * 8 * 320
+    rank_inv = torch.where((comb >= lo) & (comb < hi), comb - lo,
+                           -1).to(torch.int32)
     # name, dtype, source rows, table, its inverse (the dispatch's comb,
     # as moe_ffn passes it), timed
     cases = (("decode dispatch", torch.bfloat16, 4, dec, dec_inv, True),
@@ -435,6 +509,8 @@ def phase_row_gather() -> dict:
               False),
              ("smoke dispatch f32 d=256", torch.float32, 80, smoke,
               smoke_inv, False),
+             ("8x1024 tp-rank dispatch", torch.bfloat16, 8192, big[lo:hi],
+              rank_inv, False),
              ("every row empty", torch.bfloat16, 4,
               torch.full((32,), -1, dtype=torch.int32, device=dev),
               torch.full((8,), -1, dtype=torch.int32, device=dev), False))
@@ -530,7 +606,7 @@ def _flash_plain(q, k, v, kw) -> tuple:
 
 
 def phase_flash() -> dict:
-    """The flash-attention kernel against its plain version at (a)-(l)."""
+    """The flash-attention kernel against its plain version at (a)-(o)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -677,7 +753,8 @@ def phase_serve(cfg) -> dict:
           + f"params={cfg.param_count() / 1e9:.3f}B {cfg.param_dtype} "
           f"(init {time.time() - t0:.1f}s, "
           f"{torch.cuda.memory_allocated()} B on the card)", flush=True)
-    runs = {}
+    from repro_torch.models.transformer import Model
+    runs = {"first_logits": _first_logits(cfg, Model(cfg), params)}
     for layout in ("paged", "contiguous"):
         eng = ServeEngine(cfg, params, batch_size=BATCH, max_len=MAX_LEN,
                           device="cuda", paged=layout == "paged",
@@ -757,6 +834,43 @@ def phase_serve(cfg) -> dict:
     return runs
 
 
+def _long_prompts(vocab: int):
+    import numpy as np
+    rng = np.random.default_rng(1)
+    return [rng.integers(0, vocab, (MOE_LONG_PROMPT,), dtype=np.int32)
+            for _ in range(MOE_LONG_GROUP)]
+
+
+def _first_batch(vocab: int):
+    """The engine's first prefill batch of the serve requests: the first
+    ``BATCH`` prompts left-padded, and their pad offsets."""
+    import numpy as np
+    prompts = [r.prompt for r in _requests(vocab)[:BATCH]]
+    pad = max(len(p) for p in prompts)
+    tokens = np.zeros((BATCH, pad), np.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, pad - len(p):] = p
+    return tokens, np.asarray([pad - len(p) for p in prompts], np.int32)
+
+
+def _first_logits(cfg, model, params, kv_heads=None):
+    """Last-position logits (f32, on the host) of the first prefill batch
+    through ``model`` into a fresh f32 cache (``kv_heads``: a TP rank's)."""
+    import torch
+    from repro_torch.models.transformer import init_cache
+    tokens, start = _first_batch(cfg.vocab_size)
+    cache = init_cache(cfg, BATCH, tokens.shape[1], dtype=torch.float32,
+                       device="cuda", kv_heads=kv_heads)
+    with torch.inference_mode():
+        logits, _, _ = model.forward(
+            params, {"tokens": torch.as_tensor(tokens, device="cuda")},
+            cache=cache, start=torch.as_tensor(start, device="cuda"))
+    out = logits[:, -1].float().cpu().numpy()
+    del cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
 def serve_moe_long(cfg, params) -> dict:
     """Phase 6b's long prompts (see the docstring): the row gather's
     read-once route on the serve path. Returns the first run's counts."""
@@ -766,9 +880,7 @@ def serve_moe_long(cfg, params) -> dict:
     from repro_torch.kernels.moe_gather import row_gather
     from repro_torch.serve.engine import Request, ServeEngine
 
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.vocab_size, (MOE_LONG_PROMPT,),
-                            dtype=np.int32) for _ in range(MOE_LONG_GROUP)]
+    prompts = _long_prompts(cfg.vocab_size)
     eng = ServeEngine(cfg, params, batch_size=MOE_LONG_GROUP,
                       max_len=MOE_LONG_PROMPT + MOE_LONG_NEW, device="cuda",
                       paged=False)
@@ -1948,6 +2060,71 @@ def _grads(cfg, params, batch):
     return tree_unflatten(treedef, list(torch.autograd.grad(loss, leaves)))
 
 
+def _saved_bytes(cfg, params, batch) -> tuple:
+    """What one training forward of ``cfg`` keeps for its backward on the
+    card: the bytes that reach the autograd saved-tensor hooks plus, under
+    ``remat="dots"``, the selective checkpoint's own store (each storage
+    once, the params left out); the store's bytes by op; and the growth of
+    ``memory_allocated`` from before the forward to after the loss."""
+    import torch
+    import repro_torch.models.transformer as ttf
+    from repro_torch.train.losses import total_loss
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    stores, seen, by_op = [], {}, {}
+
+    def contexts():
+        ctx = ttf.create_selective_checkpoint_contexts(ttf._dots_policy)
+        stores.append(ctx[0].storage)
+        return ctx
+
+    def pack(t):
+        seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+        return t
+
+    def tensors(x):      # the store's (version-wrapped) outputs, any nesting
+        if isinstance(x, dict):
+            x = list(x.values())
+        if isinstance(x, (list, tuple)):
+            for v in x:
+                yield from tensors(v)
+            return
+        t = getattr(x, "val", x)
+        if isinstance(t, torch.Tensor):
+            yield t
+
+    leaves, treedef = tree_flatten(params)
+    leaves = [p.detach().requires_grad_() for p in leaves]
+    params_ptrs = {p.untyped_storage().data_ptr() for p in leaves}
+    b = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    real = ttf._dots_contexts
+    ttf._dots_contexts = contexts
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            logits, aux, _ = ttf.Model(cfg).forward(
+                tree_unflatten(treedef, leaves), b)
+            loss, _ = total_loss(cfg, logits, b["labels"], aux)
+    finally:
+        ttf._dots_contexts = real
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    for store in stores:
+        for op, outs in store.items():
+            for t in tensors(outs):
+                ptr = t.untyped_storage().data_ptr()
+                if ptr not in seen:
+                    name = str(op[0] if isinstance(op, tuple) else op)
+                    by_op[name] = by_op.get(name, 0) + \
+                        t.untyped_storage().nbytes()
+                seen[ptr] = t.untyped_storage().nbytes()
+    check((cfg.remat == "dots") == bool(stores),
+          f"remat={cfg.remat!r}: {len(stores)} selective checkpoint stores")
+    del logits, aux, loss, leaves, b
+    return (sum(n for p, n in seen.items() if p not in params_ptrs), by_op,
+            held)
+
+
 def phase_train() -> dict:
     """Full-width olmo-1b VCI training on the card (see the docstring)."""
     import torch
@@ -2037,6 +2214,36 @@ def phase_train() -> dict:
           flush=True)
     del grads, red
     profile_train(step, state, batches[-2:])
+    # remat="dots" (the matmul outputs kept for the backward, the rest
+    # recomputed): one step, its peak beside remat="block"'s on one state
+    dstep = make_train_step(dataclasses.replace(cfg, remat="dots"),
+                            **TRAIN_KNOBS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = dstep(state, batches[-1])
+    torch.cuda.synchronize()
+    dms = (time.perf_counter() - t0) * 1e3
+    dpeak = torch.cuda.max_memory_allocated()
+    check(math.isfinite(float(m["loss"])), f"remat='dots': loss {m['loss']}")
+    print(f"train: remat='dots' one step {dms:.3f} ms (its first), loss "
+          f"{float(m['loss']):.4f}, max_memory_allocated {dpeak} B beside "
+          f"remat='block''s {peak} B ({dpeak / peak:.3f}x)", flush=True)
+    # what each policy's forward keeps for the backward on this path (the
+    # CUDA flash kernel, bf16): "dots" must keep the matmul outputs, so
+    # strictly more than "block" and less than "none"
+    saved = {}
+    for remat in ("block", "dots", "none"):
+        saved[remat] = _saved_bytes(dataclasses.replace(cfg, remat=remat),
+                                    state.params, batches[-1])
+        torch.cuda.empty_cache()
+        print(f"train: remat={remat!r} forward keeps {saved[remat][0]} B for "
+              f"the backward (saved-tensor hooks + the checkpoint's store; "
+              f"the store by op {saved[remat][1]}); memory_allocated grew "
+              f"{saved[remat][2]} B over the forward and loss", flush=True)
+    check(saved["block"][0] < saved["dots"][0] < saved["none"][0],
+          f"remat='dots' keeps {saved['dots'][0]} B, not strictly between "
+          f"'block' {saved['block'][0]} and 'none' {saved['none'][0]}")
     del state
     torch.cuda.empty_cache()
     return dict(kern, launches=launches, flash=flash, step_ms=ms)
@@ -2140,6 +2347,332 @@ def phase_reference_train() -> None:
           f"elements beyond 1e-6 + 2e-5 rel", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: tensor-parallel serving on four ranks of the one card
+# ---------------------------------------------------------------------------
+
+def _smoke_requests(vocab: int):
+    """``tests/test_torch_serve_tp.py``'s requests: mixed prompt lengths,
+    5 new tokens each."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(7)
+    return [Request(prompt=rng.integers(0, vocab, (plen,), dtype=np.int32),
+                    max_new_tokens=5) for plen in (5, 9, 3, 7)]
+
+
+def _launch_counts(zero: bool = False) -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gather import row_gather
+    from repro_torch.kernels.paged_kv import paged_gather
+    if zero:
+        flash_attention.launches = paged_gather.launches = 0
+        row_gather.launches = row_gather.read_once_launches = 0
+    return dict(flash=flash_attention.launches, gather=paged_gather.launches,
+                rows=row_gather.launches,
+                read_once=row_gather.read_once_launches)
+
+
+def _tp_init(cfg, mesh, rank: int):
+    """This rank's shard of ``init_params(cfg, 0)`` on the card, each leaf
+    cut as it is made; the ranks take turns, so one full leaf (and its f32
+    temporaries) is on the card at a time."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.comm import param_sharder
+    params = None
+    for turn in range(mesh.size):
+        if turn == rank:
+            params = init_params(cfg, 0, device="cuda", shard=param_sharder(
+                cfg, mesh.model, mesh.coords(rank)[1]))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return params
+
+
+def _tp_run(eng, plan, reqs) -> dict:
+    """One measured ``generate`` of a TP engine: the kernel launches and
+    the collectives by purpose counted from zero, host clock around each
+    synchronised call, the collectives' host seconds (device synchronised
+    before each clock starts)."""
+    import torch
+    eng._prefill, eng._step = _Timed(eng._prefill), _Timed(eng._step)
+    plan.tally.reset()
+    plan.tally.timed = True
+    torch.cuda.synchronize()
+    _launch_counts(zero=True)
+    t0 = time.perf_counter()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out = _launch_counts()
+    steps = eng.decode_steps
+    n_tok = sum(len(r.generated) for r in reqs)
+    out.update(
+        tokens=[r.generated.tolist() for r in reqs], steps=steps,
+        prefills=eng._prefill.calls, wall_s=dt, tok_s=n_tok / dt,
+        step_ms=eng._step.seconds / max(steps, 1) * 1e3,
+        prefill_s=eng._prefill.seconds, comm_s=plan.tally.seconds,
+        counts=dict(plan.tally.counts), bytes=eng.cache_bytes_resident,
+        vcis=sorted(plan.vci_map().values()),
+        fallback_hits=plan.stats.fallback_hits,
+        leaked=(int((eng._pages.owner[1:] != -1).sum()) if eng._paged
+                else 0))
+    return out
+
+
+def _tp_serve(cfg, params, mesh, layout: str, num_vcis: int,
+              warm: bool) -> dict:
+    """The serve requests through a TP engine (phase 5's shapes)."""
+    from repro_torch.serve.comm import ServeCommPlan
+    from repro_torch.serve.engine import Request, ServeEngine
+    plan = ServeCommPlan(num_vcis=num_vcis)
+    eng = ServeEngine(cfg, params, batch_size=BATCH, max_len=MAX_LEN,
+                      device="cuda", mesh=mesh, comm_plan=plan,
+                      paged=layout == "paged", page_size=PAGE_SIZE)
+    if warm:
+        eng.generate([Request(prompt=r.prompt[:PROMPT_LO], max_new_tokens=2)
+                      for r in _requests(cfg.vocab_size)[:2]])
+    return _tp_run(eng, plan, _requests(cfg.vocab_size))
+
+
+def _tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One of phase 7's ranks: join the shared-card group, serve every
+    case, write what it saw to ``out_dir/rank<r>.json`` (rank 0 also the
+    first prefill's logits)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.collectives import RankMesh
+    from repro_torch.launch.serve import join_ranks
+    from repro_torch.models.transformer import Model, init_params
+    from repro_torch.serve.comm import ServeCommPlan, shard_params
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    # the ranks' caches hand freed blocks back between the cases
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device, backend, why = join_ranks(rank, world, "cuda", store)
+    out = dict(backend=backend, why=why, cases={})
+    try:
+        mesh = RankMesh(1, world)
+        for arch, layers in ((SERVE_ARCH, None), (MOE_ARCH, MOE_LAYERS)):
+            cfg = get_config(arch)
+            if layers:
+                cfg = dataclasses.replace(cfg, num_layers=layers)
+            t0 = time.time()
+            params = _tp_init(cfg, mesh, rank)
+            out[f"{arch} init_s"] = time.time() - t0
+            out[f"{arch} card_free"] = torch.cuda.mem_get_info()[0]
+            out[f"{arch} param_bytes"] = torch.cuda.memory_allocated()
+            plan = ServeCommPlan(num_vcis=8)
+            logits = _first_logits(
+                cfg, Model(cfg, comm=plan.comm(mesh=mesh)), params,
+                kv_heads=cfg.num_kv_heads // world)
+            if rank == 0:
+                np.save(os.path.join(out_dir, f"logits_{arch}.npy"), logits)
+            if layers is None:
+                for nv in TP_VCIS:
+                    for layout in ("paged", "contiguous"):
+                        out["cases"][f"{arch} {layout} num_vcis={nv}"] = \
+                            _tp_serve(cfg, params, mesh, layout, nv,
+                                      warm=nv == TP_VCIS[0])
+            else:
+                out["cases"][f"{arch} paged num_vcis=8"] = _tp_serve(
+                    cfg, params, mesh, "paged", 8, warm=True)
+                plan = ServeCommPlan(num_vcis=8)
+                eng = ServeEngine(cfg, params, batch_size=MOE_LONG_GROUP,
+                                  max_len=MOE_LONG_PROMPT + MOE_LONG_NEW,
+                                  device="cuda", mesh=mesh, comm_plan=plan)
+                out["cases"][f"{arch} long num_vcis=8"] = _tp_run(
+                    eng, plan, [Request(prompt=p, max_new_tokens=MOE_LONG_NEW)
+                                for p in _long_prompts(cfg.vocab_size)])
+                del eng
+            out[f"{arch} peak_bytes"] = torch.cuda.max_memory_allocated()
+            del params
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        # the smoke archs in f32 on the same ranks regrouped data 2 x model 2
+        mesh = RankMesh(2, world // 2)
+        for arch in TP_SMOKE:
+            cfg = get_config(arch)
+            full = init_params(cfg, 0, device="cpu")
+            params = _to(shard_params(cfg, full, mesh.model,
+                                      mesh.coords(rank)[1]), "cuda")
+            for layout, kw in (("contiguous", dict(batch_size=4)),
+                               ("paged", dict(batch_size=2, paged=True,
+                                              page_size=8, num_pages=11))):
+                plan = ServeCommPlan(num_vcis=8)
+                eng = ServeEngine(cfg, params, max_len=48, device="cuda",
+                                  mesh=mesh, comm_plan=plan, **kw)
+                out["cases"][f"{arch} {layout} data2xmodel2"] = _tp_run(
+                    eng, plan, _smoke_requests(cfg.vocab_size))
+        dist.barrier()
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+
+
+def _cpu_smoke_tokens() -> dict:
+    """The port's CPU engine (one rank) on the smoke archs: the tokens the
+    TP ranks must give, from the same ``init_params(cfg, 0)`` params."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import ServeEngine
+    got = {}
+    for arch in TP_SMOKE:
+        cfg = get_config(arch)
+        eng = ServeEngine(cfg, init_params(cfg, 0, device="cpu"),
+                          batch_size=4, max_len=48, device="cpu")
+        reqs = _smoke_requests(cfg.vocab_size)
+        eng.generate(reqs)
+        got[arch] = [r.generated.tolist() for r in reqs]
+    return got
+
+
+def phase_tp_serve(olmo_runs: dict, moe_runs: dict, card: str) -> dict:
+    """Phase 7 (see the docstring): ``TP_WORLD`` ranks on the one card
+    (``card``: its name and power limit), spawned once, every case inside
+    them; held against phases 5 and 6b (tp 1) and the CPU engine. Returns
+    the launches of the olmo-1b and mixtral-8x22b runs summed over ranks
+    (the smoke archs' cross-checks are not the main path)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+
+    smoke_ref = _cpu_smoke_tokens()
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"tp serve: before the ranks, this process holds "
+          f"{torch.cuda.memory_allocated()} B allocated, "
+          f"{torch.cuda.memory_reserved()} B reserved; the card has {free} "
+          f"of {total} B free", flush=True)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    t0 = time.time()
+    ctx = torch.multiprocessing.start_processes(
+        _tp_rank, args=(TP_WORLD, os.path.join(out_dir, "store"), out_dir),
+        nprocs=TP_WORLD, start_method="spawn", join=False)
+    try:
+        while not ctx.join(timeout=5):
+            if time.time() - t0 > TP_TIMEOUT_S:
+                for proc in ctx.processes:
+                    proc.kill()
+                fail(f"phase 7: the ranks ran past {TP_TIMEOUT_S} s")
+    except Exception as e:   # a rank raised: its traceback is in stderr
+        fail(f"phase 7: a rank failed: {e}")
+    ranks = []
+    for r in range(TP_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    print(f"tp serve: {TP_WORLD} ranks on one card ({card}) in "
+          f"{time.time() - t0:.1f}s (spawned once), backend="
+          f"{r0['backend']} ({r0['why']}), CUDA tensors", flush=True)
+    for arch, tp1 in ((SERVE_ARCH, olmo_runs), (MOE_ARCH, moe_runs)):
+        got = np.load(os.path.join(out_dir, f"logits_{arch}.npy"))
+        want = tp1["first_logits"]
+        err = float(np.abs(got - want).max())
+        tol = TP_LOGIT_TOL * float(np.abs(want).max())
+        agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+        print(f"tp serve {arch}: first prefill's last-position logits at tp "
+              f"{TP_WORLD} vs tp 1: max |diff| {err:.5f} (tol {tol:.5f} = "
+              f"{TP_LOGIT_TOL} x max |tp 1| {np.abs(want).max():.4f}), "
+              f"argmax equal in {agree:.2f} of rows; init "
+              f"{r0[f'{arch} init_s']:.1f}s, rank 0's params "
+              f"{r0[f'{arch} param_bytes']} B, peak "
+              f"{r0[f'{arch} peak_bytes']} B; the card had "
+              f"{r0[f'{arch} card_free']} B free with every rank's shard "
+              f"made", flush=True)
+        check(err <= tol, f"tp serve {arch}: first prefill's logits off by "
+              f"{err} > {tol}")
+    launches = dict(flash=0, gather=0, rows=0)
+    for name in r0["cases"]:
+        res = [rk["cases"][name] for rk in ranks]
+        c = res[0]
+        arch, layout = name.split()[:2]
+        cfg = get_config(arch)
+        if arch == MOE_ARCH:
+            cfg = dataclasses.replace(cfg, num_layers=MOE_LAYERS)
+        if not name.endswith("data2xmodel2"):  # the main path's runs
+            for k in ("flash", "gather", "rows"):
+                launches[k] += sum(x[k] for x in res)
+        for x in res[1:]:
+            check(x["tokens"] == c["tokens"],
+                  f"tp serve {name}: ranks disagree on the tokens")
+        calls = c["prefills"] + c["steps"]
+        ffn = "moe" if cfg.moe is not None else "tp_mlp"
+        want = {"tp_attn": cfg.num_layers * calls,
+                ffn: cfg.num_layers * calls, "sample": 2 * calls}
+        if name.endswith("data2xmodel2") and layout == "contiguous":
+            want["tokens"] = calls
+        check(c["counts"] == want, f"tp serve {name}: collectives "
+              f"{c['counts']}, want {want} (2 x {cfg.num_layers} + 2 a "
+              f"forward call, {calls} calls)")
+        vcis, hits = set(c["vcis"]), c["fallback_hits"]
+        check((vcis == {0} and hits == 4) if "num_vcis=1" in name
+              else (len(vcis) == 4 and hits == 0),
+              f"tp serve {name}: VCI map {c['vcis']}, fallback hits {hits}")
+        check(all(x["leaked"] == 0 for x in res),
+              f"tp serve {name}: pages leaked")
+        want_flash = cfg.num_layers * c["prefills"]
+        check(c["flash"] == want_flash, f"tp serve {name}: flash launched "
+              f"{c['flash']} times on rank 0, want {want_flash}")
+        want_gather = 2 * cfg.num_layers * c["steps"] \
+            if layout == "paged" else 0
+        check(c["gather"] == want_gather, f"tp serve {name}: paged gather "
+              f"launched {c['gather']} times on rank 0, want {want_gather}")
+        want_rows = 2 * cfg.num_layers * calls if cfg.moe is not None else 0
+        check(c["rows"] == want_rows, f"tp serve {name}: row gather "
+              f"launched {c['rows']} times on rank 0, want {want_rows}")
+        if name.endswith("data2xmodel2"):
+            check(c["tokens"] == smoke_ref[arch], f"tp serve {name}: tokens "
+                  f"{c['tokens']} != the CPU engine's {smoke_ref[arch]}")
+            same = "== the CPU engine's (one rank)"
+        else:
+            ref = (moe_runs if arch == MOE_ARCH else olmo_runs)
+            ref = ref["long"] if layout == "long" else ref[layout]
+            pairs = [(a, b) for x, y in zip(c["tokens"], ref["tokens"])
+                     for a, b in zip(x, y)]
+            share = sum(a == b for a, b in pairs) / len(pairs)
+            same = f"{share:.4f} of greedy tokens equal tp 1's"
+            if layout == "paged":
+                tp1_pool = ref["bytes"] - _table_bytes() - 8
+                pool = c["bytes"] - _table_bytes() - 8
+                check(pool * TP_WORLD == tp1_pool, f"tp serve {name}: rank "
+                      f"pool {pool} B x {TP_WORLD} != tp 1's {tp1_pool} B")
+        if layout == "long":
+            check(c["read_once"] == cfg.num_layers,
+                  f"tp serve {name}: {c['read_once']} read-once launches on "
+                  f"rank 0, want {cfg.num_layers} (its prefill's dispatch)")
+            same += f"; {c['read_once']} row-gather launches read-once"
+        print(f"tp serve {name}: {c['steps']} decode steps "
+              f"{c['step_ms']:.3f} ms/step, {c['prefills']} prefills "
+              f"{c['prefill_s']:.3f}s, {c['tok_s']:.1f} tok/s, "
+              f"cache_bytes_resident/rank={c['bytes']}, collectives "
+              f"{c['counts']} ({c['comm_s'] / c['wall_s']:.4f} of the "
+              f"run's host clock), VCIs {c['vcis']} fallback_hits="
+              f"{c['fallback_hits']}; rank 0 launched flash "
+              f"{c['flash']}, paged gather {c['gather']}, row gather "
+              f"{c['rows']}; {same}", flush=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return launches
+
+
+def _table_bytes() -> int:
+    """The page table of phase 5's paged cache: ``BATCH`` rows of
+    ``MAX_LEN / PAGE_SIZE`` int32 entries."""
+    return BATCH * (-(-MAX_LEN // PAGE_SIZE)) * 4
+
+
 def main() -> None:
     try:
         import torch
@@ -2158,7 +2691,7 @@ def main() -> None:
           f"allow_tf32=False", flush=True)
 
     t_all = time.time()
-    phase_device()
+    card = phase_device()
     phase_build()
     kern = phase_kernels()
     rows = phase_row_gather()
@@ -2176,6 +2709,7 @@ def main() -> None:
     phase_family_references()
     vlm_flash = phase_vlm_serve()
     audio_flash = phase_audio_serve()
+    tp = phase_tp_serve(runs, moe_runs, card)
     import torch.distributed as dist
     tmp = init_data_group()
     try:
@@ -2191,7 +2725,8 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_gather.cu",
         "replaces": "src/repro/kernels/paged_kv.py:42",
-        "launches": runs["paged"]["launches"] + moe_runs["paged"]["launches"],
+        "launches": runs["paged"]["launches"] + moe_runs["paged"]["launches"]
+        + tp["gather"],
         "max_abs_err": max(k["max_abs_err"] for k in kern.values()),
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -2220,7 +2755,7 @@ def main() -> None:
         "launches": sum(r[layout]["flash"] for r in (runs, moe_runs)
                         for layout in ("paged", "contiguous"))
         + moe_runs["window"]["flash"] + hyb["flash"] + vlm_flash
-        + audio_flash + train["flash"],
+        + audio_flash + train["flash"] + tp["flash"],
         "max_abs_err": flash["max_abs_err"],
         "ms": flash["a"]["ms"],
         "plain_ms": flash["a"]["plain_ms"],
@@ -2233,7 +2768,8 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/row_gather.cu",
         "replaces": "src/repro/kernels/moe_gather.py:29",
         "launches": sum(moe_runs[k]["rows"]
-                        for k in ("paged", "contiguous", "long", "window")),
+                        for k in ("paged", "contiguous", "long", "window"))
+        + tp["rows"],
         "max_abs_err": rows["max_abs_err"],
         "ms": rows["8x1024 dispatch"]["ms"],
         "plain_ms": rows["8x1024 dispatch"]["plain_ms"],

@@ -4,7 +4,8 @@ Port of ``repro.core``. Public API:
     VCIPool, VCI              — the interface pool (paper §4.2)
     CommWorld, CommContext    — communicator/window analogues (§2)
     CommRuntime, Request      — stream-tagged collectives (§4.3), one
-                                process group per VCI
+                                process group per VCI (per mesh line along
+                                an axis of a RankMesh)
     ProgressEngine            — global | per_vci | hybrid progress (§4.1/4.3)
                                 over ``Work`` handles
     plan_buckets, reduce_gradients — gradient→VCI bucketing (training)
@@ -34,7 +35,7 @@ from repro_torch.core.bucketing import (
     reduce_gradients,
     unpack_bucket,
 )
-from repro_torch.core.collectives import CommRuntime, Request
+from repro_torch.core.collectives import CommRuntime, RankMesh, Request
 from repro_torch.core.comm import CommContext, CommWorld
 from repro_torch.core.progress import PROGRESS_MODES, ProgressEngine
 from repro_torch.core.vci import POLICIES, VCI, VCIPool
@@ -45,6 +46,6 @@ __all__ = [
     "get_comm_plan", "overlap_boundaries",
     "pack_bucket", "plan_buckets", "plan_cache_clear",
     "plan_cache_stats", "reduce_gradients", "unpack_bucket", "CommRuntime",
-    "Request", "CommContext", "CommWorld", "PROGRESS_MODES", "ProgressEngine",
-    "POLICIES", "VCI", "VCIPool",
+    "RankMesh", "Request", "CommContext", "CommWorld", "PROGRESS_MODES",
+    "ProgressEngine", "POLICIES", "VCI", "VCIPool",
 ]

@@ -18,17 +18,27 @@ different VCIs may run concurrently. VCI 0, the fallback, is the default
 order, by every rank (``new_group`` is collective), the first time a
 runtime issues an operation.
 
+A runtime given a :class:`RankMesh` (the ranks as a row-major ``(data,
+model)`` grid, the reference's ``Mesh(devs.reshape(n // tp, tp), ("data",
+"model"))``) also issues over one axis of it (the reference's ``axis=``):
+for each VCI index there is one group per line of the grid along that
+axis, VCI 0 included, and each rank keeps the group of its own line.
+
 An operation returns a :class:`Request`; its value may be read only after
-:meth:`CommRuntime.wait`. The data group is ``torch.distributed``'s default
-group (the reference's ``axis``): collectives over a sub-axis of a larger
-mesh come with the tensor-parallel slices.
+:meth:`CommRuntime.wait`. Without ``axis`` the group is
+``torch.distributed``'s default group (the data group of the training
+path).
+
+Ranks that share a card (NCCL refuses two ranks on one device) issue
+these collectives on CUDA tensors through gloo; a collective gloo refuses
+raises.
 """
 
 from __future__ import annotations
 
 import atexit
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -40,11 +50,49 @@ from repro_torch.core.progress import Pending, ProgressEngine
 @dataclass(frozen=True)
 class Request:
     """Nonblocking-operation handle (MPI_Request analogue): the result
-    tensor, valid once ``op`` has been waited on."""
+    tensor, valid once ``op`` has been waited on and ``finish`` (a
+    re-layout) has run on it."""
 
     value: torch.Tensor
     ctx: CommContext
     op: Pending
+    finish: Optional[Callable[[], torch.Tensor]] = None
+
+
+@dataclass(frozen=True)
+class RankMesh:
+    """The ranks of the default group as a row-major ``(data, model)``
+    grid: rank ``r`` sits at ``(r // model, r % model)``."""
+
+    data: int
+    model: int
+
+    def __post_init__(self):
+        if self.data < 1 or self.model < 1:
+            raise ValueError(f"mesh axes must be >= 1, got data={self.data} "
+                             f"model={self.model}")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.data, "model": self.model}
+
+    @property
+    def size(self) -> int:
+        return self.data * self.model
+
+    def coords(self, rank: int) -> Tuple[int, int]:
+        return divmod(rank, self.model)
+
+    def lines(self, axis: str) -> List[List[int]]:
+        """Every line of the grid along ``axis``, as ascending rank lists
+        (group rank = index along the axis), in one order for all ranks."""
+        if axis == "model":
+            return [[d * self.model + m for m in range(self.model)]
+                    for d in range(self.data)]
+        if axis == "data":
+            return [[d * self.model + m for d in range(self.data)]
+                    for m in range(self.model)]
+        raise ValueError(f"axis {axis!r} not in ('data', 'model')")
 
 
 # the names of torch >= 2.13 where they exist, the older ones before
@@ -52,10 +100,12 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single",
                           dist.reduce_scatter_tensor)
 _all_gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
 
-# Process groups of VCIs 1..K-1 for the current default group. Process
-# groups are process-wide in torch.distributed, so this registry is too; it
-# is rebuilt when the default group changes (destroy + init).
-_GROUPS: Dict[str, Any] = {"world": None, "groups": []}
+# Process groups of VCIs 1..K-1 for the current default group, and of
+# VCIs 0..K-1 along each mesh axis ("axes": (data, model, axis) -> this
+# rank's group of each VCI). Process groups are process-wide in
+# torch.distributed, so this registry is too; it is rebuilt when the
+# default group changes (destroy + init).
+_GROUPS: Dict[str, Any] = {"world": None, "groups": [], "axes": {}}
 
 
 def release_groups() -> None:
@@ -66,43 +116,69 @@ def release_groups() -> None:
     takes the GIL, and one that asks for it once the interpreter is
     finalizing is ended by ``pthread_exit``, whose unwind through a
     ``noexcept`` frame calls ``std::terminate``."""
-    _GROUPS["world"], _GROUPS["groups"] = None, []
+    _GROUPS["world"], _GROUPS["groups"], _GROUPS["axes"] = None, [], {}
 
 
 atexit.register(release_groups)
 
 
-def vci_group(index: int, num_vcis: int):
-    """The process group of VCI ``index`` (``None`` = the default group for
-    the fallback VCI 0). Creates every missing group ``1..num_vcis-1``, in
-    index order, on first use."""
+def _registry() -> Dict[str, Any]:
     if not dist.is_initialized():
         raise RuntimeError("the VCI runtime needs torch.distributed "
                            "initialised (a data group of size >= 1)")
     world = dist.group.WORLD
     if _GROUPS["world"] is not world:
-        _GROUPS["world"], _GROUPS["groups"] = world, []
-    groups: List[Any] = _GROUPS["groups"]
-    ranks = list(range(dist.get_world_size()))
-    while len(groups) < num_vcis - 1:
-        groups.append(dist.new_group(ranks=ranks))
-    return None if index == 0 else groups[index - 1]
+        _GROUPS["world"], _GROUPS["groups"], _GROUPS["axes"] = world, [], {}
+    return _GROUPS
+
+
+def vci_group(index: int, num_vcis: int, axis: Optional[str] = None,
+              mesh: Optional[RankMesh] = None):
+    """The process group of VCI ``index``. Without ``axis``: over every
+    rank, ``None`` (the default group) for the fallback VCI 0; creates
+    every missing group ``1..num_vcis-1``, in index order, on first use.
+    With ``axis``: this rank's line of ``mesh`` along it; creates the
+    missing groups of VCIs ``0..index``, one a line, in VCI then line
+    order (every rank creates every line's group: ``new_group`` is
+    collective, so every rank must ask in the same order)."""
+    reg = _registry()
+    if axis is None:
+        groups: List[Any] = reg["groups"]
+        ranks = list(range(dist.get_world_size()))
+        while len(groups) < num_vcis - 1:
+            groups.append(dist.new_group(ranks=ranks))
+        return None if index == 0 else groups[index - 1]
+    if mesh is None or mesh.size != dist.get_world_size():
+        raise ValueError(f"axis {axis!r} needs a RankMesh over the "
+                         f"{dist.get_world_size()} ranks, got {mesh}")
+    mine = reg["axes"].setdefault((mesh.data, mesh.model, axis), [])
+    rank = dist.get_rank()
+    if not 0 <= index < num_vcis:
+        raise ValueError(f"VCI {index} outside a pool of {num_vcis}")
+    while len(mine) <= index:
+        for line in mesh.lines(axis):
+            g = dist.new_group(ranks=line)
+            if rank in line:
+                mine.append(g)
+    return mine[index]
 
 
 def _later(item: str) -> NotImplementedError:
     return NotImplementedError(
         f"CommRuntime.{item} is not ported yet: the paper benchmarks "
-        f"(sendrecv/get/put/accumulate) are ROADMAP.md Queue 1 item 6, "
-        f"all_to_all comes with MoE (item 9)")
+        f"(sendrecv/get/put/accumulate) are ROADMAP.md Queue 1 item 6")
 
 
 class CommRuntime:
-    """Eager communication runtime bound to a CommWorld's contexts."""
+    """Eager communication runtime bound to a CommWorld's contexts; with a
+    :class:`RankMesh`, collectives may also run over one of its axes."""
 
     def __init__(self, world: Optional[CommWorld] = None, *,
                  progress: str = "hybrid", join_every: int = 8,
-                 token_impl: str = "barrier"):
+                 token_impl: str = "barrier",
+                 mesh: Optional[RankMesh] = None):
         self.world = world or CommWorld()
+        self.mesh = mesh
         self.engine = ProgressEngine(mode=progress, join_every=join_every,
                                      token_impl=token_impl)
 
@@ -111,25 +187,31 @@ class CommRuntime:
         """Ranks in the data group."""
         return dist.get_world_size()
 
+    def axis_size(self, axis: Optional[str] = None) -> int:
+        """Ranks in a group along ``axis`` (``None``: the data group)."""
+        return self.size if axis is None else self.mesh.shape[axis]
+
     # -- plumbing ------------------------------------------------------
-    def _issue(self, ctx: CommContext, value: torch.Tensor, op) -> Request:
+    def _issue(self, ctx: CommContext, value: torch.Tensor, op,
+               axis: Optional[str] = None, finish=None) -> Request:
         vci = ctx.vci.index
-        group = vci_group(vci, self.world.pool.num_vcis)
+        group = vci_group(vci, self.world.pool.num_vcis, axis, self.mesh)
         self.engine.enter(vci)
         pending = Pending(op(group))
         self.engine.complete(vci, pending)
-        return Request(value, ctx, pending)
+        return Request(value, ctx, pending, finish)
 
     def wait(self, req: Request) -> torch.Tensor:
         """MPI_Wait: the operation's result, ordered after it completes."""
         req.op.wait()
-        return req.value
+        return req.value if req.finish is None else req.finish()
 
     # -- collectives -----------------------------------------------------
-    def all_reduce(self, x: torch.Tensor, ctx: CommContext) -> Request:
-        """Sum over the data group, IN PLACE on ``x``."""
+    def all_reduce(self, x: torch.Tensor, ctx: CommContext, *,
+                   axis: Optional[str] = None) -> Request:
+        """Sum over the group along ``axis``, IN PLACE on ``x``."""
         return self._issue(ctx, x, lambda g: dist.all_reduce(
-            x, group=g, async_op=True))
+            x, group=g, async_op=True), axis)
 
     def reduce_scatter(self, x: torch.Tensor, ctx: CommContext, *,
                        out: Optional[torch.Tensor] = None) -> Request:
@@ -146,23 +228,46 @@ class CommRuntime:
             out, x.reshape(-1), group=g, async_op=True))
 
     def all_gather(self, x: torch.Tensor, ctx: CommContext, *,
-                   out: Optional[torch.Tensor] = None) -> Request:
-        """Concatenate every rank's flat ``x`` in rank order (tiled), into
-        ``out`` when given."""
+                   out: Optional[torch.Tensor] = None,
+                   axis: Optional[str] = None) -> Request:
+        """Concatenate every rank's flat ``x`` in rank order along
+        ``axis`` (tiled), into ``out`` when given."""
         if out is None:
-            out = torch.empty(x.numel() * self.size, dtype=x.dtype,
-                              device=x.device)
+            out = torch.empty(x.numel() * self.axis_size(axis),
+                              dtype=x.dtype, device=x.device)
+        flat = x.reshape(-1)
         return self._issue(ctx, out, lambda g: _all_gather(
-            out, x.reshape(-1), group=g, async_op=True))
+            out, flat, group=g, async_op=True), axis)
+
+    def all_to_all(self, x: torch.Tensor, ctx: CommContext, *,
+                   split_axis: int, concat_axis: int,
+                   axis: Optional[str] = None) -> Request:
+        """``lax.all_to_all(tiled=True)``: ``x`` splits into ``n`` equal
+        blocks along ``split_axis``; block ``j`` goes to rank ``j`` of the
+        group along ``axis``, and the blocks received are concatenated in
+        source-rank order along ``concat_axis``."""
+        n = self.axis_size(axis)
+        split_axis %= x.dim()
+        concat_axis %= x.dim()
+        if x.shape[split_axis] % n:
+            raise ValueError(f"all_to_all splits dim {split_axis} of "
+                             f"{tuple(x.shape)} over {n} ranks")
+        send = x.movedim(split_axis, 0).contiguous()
+        recv = torch.empty_like(send)
+
+        def blocks():
+            parts = recv.view((n, -1) + tuple(send.shape[1:]))
+            return torch.cat([p.movedim(0, split_axis) for p in parts],
+                             dim=concat_axis)
+
+        return self._issue(ctx, recv, lambda g: dist.all_to_all_single(
+            recv, send, group=g, async_op=True), axis, blocks)
 
     def sendrecv(self, *a, **kw):
         raise _later("sendrecv")
 
     def isend_recv(self, *a, **kw):
         raise _later("isend_recv")
-
-    def all_to_all(self, *a, **kw):
-        raise _later("all_to_all")
 
     def get(self, *a, **kw):
         raise _later("get")

@@ -22,8 +22,9 @@ each update function still returns a cache object carrying the advanced
 write cursor, so call sites read like the reference's. The cursor
 (``length``) is a host ``int``: the engine drives it from the host anyway.
 
-Not in this slice (it raises ``NotImplementedError``): ``decode_kv_expand
-> 1`` head expansion.
+``decode_kv_expand = e > 1`` stores each KV head ``e`` times (so that the
+stored heads divide a TP degree): incoming K/V heads are repeated to the
+cache's count before every write, a pure layout change.
 """
 
 from __future__ import annotations
@@ -85,28 +86,31 @@ def kv_cache_shape(cfg: ModelConfig, batch: int, max_len: int):
 
 
 def _stored_kv_heads(cfg: ModelConfig) -> int:
-    if cfg.decode_kv_expand > 1:
-        raise NotImplementedError(
-            "decode_kv_expand > 1 (KV heads stored per TP rank) belongs to "
-            "the tensor-parallel serve path; see ROADMAP.md Queue 1")
-    return cfg.num_kv_heads
+    return cfg.num_kv_heads * max(1, cfg.decode_kv_expand)
 
 
 def _expand_heads(k_new, kv_stored: int):
-    """The reference may store each KV head ``e`` times; this slice stores
-    them once, so incoming heads must match the cache."""
-    if kv_stored != k_new.shape[2]:
-        raise NotImplementedError(
-            f"cache stores {kv_stored} KV heads, got {k_new.shape[2]}: "
-            f"decode_kv_expand is not ported yet (ROADMAP.md Queue 1)")
-    return k_new
+    """OPT(decode_cache): the cache may store each KV head ``e`` times (so
+    stored heads == TP degree and attention shards losslessly); expand the
+    incoming head dim (axis 2 of (B,S,KV,hd)) to match."""
+    kv_n = k_new.shape[2]
+    if kv_stored == kv_n:
+        return k_new
+    if kv_stored % kv_n:
+        raise ValueError(f"cache stores {kv_stored} KV heads, not a "
+                         f"multiple of the {kv_n} incoming")
+    return torch.repeat_interleave(k_new, kv_stored // kv_n, dim=2)
+
+
+def _expand_to_cache(cache, k_new):
+    return _expand_heads(k_new, cache.k.shape[-2])
 
 
 def cache_update_decode(cache: KVCache, k_new, v_new) -> KVCache:
     """Append ONE token (k_new/v_new: (B,1,KV,hd)) in place: at ``length
     % W`` in a ring cache, else at ``min(length, S - 1)``."""
-    k_new = _expand_heads(k_new, cache.k.shape[2])
-    v_new = _expand_heads(v_new, cache.v.shape[2])
+    k_new = _expand_to_cache(cache, k_new)
+    v_new = _expand_to_cache(cache, v_new)
     s_cache = cache.k.shape[1]
     pos = (cache.length % s_cache if cache.ring
            else min(cache.length, s_cache - 1))
@@ -203,8 +207,8 @@ def paged_update_decode(layer: PagedKVLayer, k_new, v_new) -> PagedKVLayer:
     ``cur % PS``. Distinct slots own distinct pages, so writes collide only
     in the trash page, whose content is never read."""
     ps = layer.page_size
-    k_new = _expand_heads(k_new, layer.k.shape[2])
-    v_new = _expand_heads(v_new, layer.v.shape[2])
+    k_new = _expand_to_cache(layer, k_new)
+    v_new = _expand_to_cache(layer, v_new)
     pos = layer.length
     ids = _paged_write_ids(layer.table, pos, ps)               # (B,)
     layer.k[ids, pos % ps] = k_new[:, 0].to(layer.k.dtype)
@@ -218,8 +222,8 @@ def paged_prefill_update(layer: PagedKVLayer, k_new, v_new) -> PagedKVLayer:
     whose pages are unmapped (each slot's left-pad prefix) go to the trash
     page."""
     ps = layer.page_size
-    k_new = _expand_heads(k_new, layer.k.shape[2])
-    v_new = _expand_heads(v_new, layer.v.shape[2])
+    k_new = _expand_to_cache(layer, k_new)
+    v_new = _expand_to_cache(layer, v_new)
     b, s = k_new.shape[:2]
     npg = -(-s // ps)
     pad = npg * ps - s

@@ -63,13 +63,23 @@ def act_fn(name: str):
     raise ValueError(name)
 
 
-def gated_ffn(cfg: ModelConfig, x, p):
-    """GeGLU/SwiGLU: act(x @ w_gate) * (x @ w_up) @ w_down."""
+def gated_ffn(cfg: ModelConfig, x, p, comm=None, purpose: str = "tp_mlp"):
+    """GeGLU/SwiGLU: act(x @ w_gate) * (x @ w_up) @ w_down.
+
+    Under the manual-TP serve path (``comm``, a
+    :class:`repro_torch.serve.comm.ServeComm`) w_gate/w_up arrive
+    column-sharded and w_down row-sharded, so ``h @ w_down`` is a partial
+    sum: it is all-reduced on the purpose's VCI stream, and the replicated
+    ``b_down`` is added AFTER the reduce (adding it to the partial would
+    count it tp times).
+    """
     a = act_fn(cfg.hidden_act)
     h = a(x @ p["w_gate"]) * (x @ p["w_up"])
     if "b_up" in p:
         h = h + p["b_up"]
     y = h @ p["w_down"]
+    if comm is not None:
+        y = comm.psum(y, purpose)
     if "b_down" in p:
         y = y + p["b_down"]
     return y
@@ -133,7 +143,7 @@ def _trunc_normal(gen: torch.Generator, shape: Sequence[int], std: float,
     t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                 generator=gen)
-    return (t * std).to(dtype)
+    return t.mul_(std).to(dtype)
 
 
 def dense_init(gen: torch.Generator, shape, in_axis: int = -2,

@@ -1,6 +1,7 @@
 """Mixture-of-Experts FFN: top-k router + sort-based capacity dispatch.
 
-Port of ``repro.models.moe`` for one device (``shard=None, comm=None``).
+Port of ``repro.models.moe``, on one device or under the manual-TP serve
+path (``comm``, see :func:`_moe_experts_comm`).
 Per batch row (group) the token->expert assignments are sorted by expert;
 each assignment's rank within its expert decides whether it fits the
 capacity ``C`` (GShard/Switch dropping). The row moves are two launches of
@@ -72,11 +73,18 @@ def dispatch_tables(eidx: torch.Tensor, num_experts: int, cap: int
 
 def moe_ffn(cfg: ModelConfig, x, p, shard=None, *, inference: bool = False,
             comm=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: (B, S, d) -> (y, aux). One group per batch row."""
-    if shard is not None or comm is not None:
+    """x: (B, S, d) -> (y, aux). One group per batch row.
+
+    ``comm`` (a :class:`repro_torch.serve.comm.ServeComm`) selects the
+    manual-TP serve path: activations are replicated over the TP axis,
+    expert tables arrive expert-parallel (E over the axis) or ff-TP
+    sharded, and the combine collective rides the ``moe`` VCI stream. The
+    reference's ``shard`` (a GSPMD ``Sharder``) is not ported."""
+    if shard is not None:
         raise NotImplementedError(
-            "the sharded and expert-parallel MoE paths (shard / comm) are "
-            "not ported yet; see ROADMAP.md Queue 1 item 10")
+            "the GSPMD-sharded MoE route (moe_ffn(shard=...)) is not ported "
+            "yet; see ROADMAP.md Queue 1 item 14 (tensor-parallel serving "
+            "takes comm=)")
     m = cfg.moe
     B, S, d = x.shape
     E, K = m.num_experts, m.top_k
@@ -92,12 +100,13 @@ def moe_ffn(cfg: ModelConfig, x, p, shard=None, *, inference: bool = False,
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
     disp, comb = dispatch_tables(eidx, E, C)
-    # comb is disp's inverse: a large dispatch reads each token row once
-    buf = row_gather(x.reshape(B * S, d), disp, comb).view(E, B * C, d)
-    a = act_fn(cfg.hidden_act)
-    h = a(torch.bmm(buf, p["w_gate"].to(buf.dtype))) \
-        * torch.bmm(buf, p["w_up"].to(buf.dtype))                  # (E,BC,ff)
-    out = torch.bmm(h, p["w_down"].to(h.dtype))                    # (E,BC,d)
+    if comm is not None:
+        out = _moe_experts_comm(cfg, x.reshape(B * S, d), disp, comb, p,
+                                comm)
+    else:
+        # comb is disp's inverse: a large dispatch reads each token row once
+        buf = row_gather(x.reshape(B * S, d), disp, comb).view(E, B * C, d)
+        out = _experts(cfg, buf, p)                                # (E,BC,d)
 
     # combine: gather each assignment's expert output (a zero row where it
     # was dropped) and sum over K. For top_k = 2 (every MoE config here)
@@ -115,5 +124,41 @@ def moe_ffn(cfg: ModelConfig, x, p, shard=None, *, inference: bool = False,
     aux = {"load_balance": load_balance, "router_z": z_loss}
 
     if m.dense_residual:
-        y = y + gated_ffn(cfg, x, p["residual"])
+        y = y + gated_ffn(cfg, x, p["residual"], comm=comm)
     return y, aux
+
+
+def _experts(cfg: ModelConfig, buf, p):
+    """The expert FFNs on an expert-major buffer ``(e, rows, d)``."""
+    a = act_fn(cfg.hidden_act)
+    h = a(torch.bmm(buf, p["w_gate"].to(buf.dtype))) \
+        * torch.bmm(buf, p["w_up"].to(buf.dtype))                  # (e,rows,ff)
+    return torch.bmm(h, p["w_down"].to(h.dtype))                   # (e,rows,d)
+
+
+def _moe_experts_comm(cfg: ModelConfig, xf, disp, comb, p, comm):
+    """Expert FFNs under the manual-TP serve path: ``(E, B*C, d)``.
+
+    The token rows ``xf`` are replicated over the TP axis, so the GShard
+    dispatch all_to_all degenerates to a local gather: expert-parallel
+    (``w_gate`` holds ``E/tp`` experts), the rank dispatches only the slots
+    of its own experts — one contiguous range of ``disp``, as the
+    reference's ``dynamic_slice`` takes it — computes them, and the
+    outputs of every rank are all-gathered on the ``moe`` VCI stream in
+    expert order. When the expert count does not divide the axis the
+    tables arrive ff-TP sharded instead, every rank runs every expert on a
+    slice of its hidden width, and the combine is the partial-sum
+    all-reduce, same stream."""
+    E = cfg.moe.num_experts
+    e_loc = p["w_gate"].shape[0]             # local expert count (E or E/tp)
+    rows = disp.shape[0] // E                # B*C slots an expert
+    if e_loc == E:
+        buf = row_gather(xf, disp, comb).view(E, rows, -1)
+        return comm.psum(_experts(cfg, buf, p), "moe")
+    lo = comm.rank() * e_loc * rows
+    hi = lo + e_loc * rows
+    # the local slots' inverse: this rank's part of comb, rebased
+    inv = torch.where((comb >= lo) & (comb < hi), comb - lo, -1).to(
+        torch.int32)
+    buf = row_gather(xf, disp[lo:hi], inv).view(e_loc, rows, -1)
+    return comm.all_gather(_experts(cfg, buf, p), "moe", gather_axis=0)

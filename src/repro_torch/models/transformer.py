@@ -9,7 +9,9 @@ without a transpose. The layer stack is a Python loop in place of
 ``lax.scan``, and decode caches are updated in place (see
 :mod:`repro_torch.models.attention`).
 The training forward (no cache, autograd on) recomputes each block in the
-backward when ``cfg.remat != "none"`` (``torch.utils.checkpoint``).
+backward when ``cfg.remat != "none"`` (``torch.utils.checkpoint``):
+``"block"`` keeps only each block's input, ``"dots"`` also the outputs of
+its matmuls (the reference's ``checkpoint_dots``, see :func:`_dots_policy`).
 
 MoE layers (mixtral, arctic) replace the FFN with
 :func:`repro_torch.models.moe.moe_ffn` and sum its aux losses over the
@@ -38,7 +40,11 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
@@ -46,7 +52,7 @@ from repro_torch.models.attention import (
     KVCache,
     PagedKVCache,
     PagedKVLayer,
-    _expand_heads,
+    _expand_to_cache,
     _stored_kv_heads,
     attention,
     cache_update_decode,
@@ -70,6 +76,26 @@ from repro_torch.models.ssm import SSMState, mamba2_decode, mamba2_forward
 
 IMG_EMBED_DIM = 1024  # stubbed CLIP patch-embedding width (phi-3-vision)
 
+# remat="dots": the ops whose outputs the backward keeps (``aten.matmul``
+# and ``einsum`` reach the dispatcher as these)
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective activation checkpoint for ``remat="dots"``, as
+    ``jax.checkpoint_policies.checkpoint_dots``: save the matmul outputs,
+    recompute everything else. The CUDA flash forward is a ``ctypes`` call
+    inside an ``autograd.Function``, which the dispatcher does not see, so
+    it is recomputed where the reference's XLA attention keeps its two
+    products (its CPU plain version's ``bmm`` outputs are kept)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
 # a cursor is a host int here and an int32 scalar in the reference; cache
 # byte counts charge it at the reference's width so the two engines report
 # the same ``cache_bytes_resident``.
@@ -80,57 +106,65 @@ _CURSOR_BYTES = 4
 # parameter initialization
 # ---------------------------------------------------------------------------
 
-def _norm_params(cfg: ModelConfig, dims, device):
+def _keep_all(path, t):
+    return t
+
+
+def _norm_params(cfg: ModelConfig, dims, device, keep=_keep_all, at=()):
     if cfg.norm == "nonparametric":
         return None
-    p = {"scale": torch.ones(dims + (cfg.d_model,), device=device)}
+    p = {"scale": keep(at + ("scale",),
+                       torch.ones(dims + (cfg.d_model,), device=device))}
     if cfg.norm == "layernorm":
-        p["bias"] = torch.zeros(dims + (cfg.d_model,), device=device)
+        p["bias"] = keep(at + ("bias",),
+                         torch.zeros(dims + (cfg.d_model,), device=device))
     return p
 
 
-def _attn_params(cfg: ModelConfig, gen, dims, dtype, device):
+def _attn_params(cfg: ModelConfig, gen, dims, dtype, device, keep=_keep_all,
+                 at=()):
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
-    p = {
-        "wq": dense_init(gen, dims + (d, qd), dtype=dtype, device=device),
-        "wk": dense_init(gen, dims + (d, kvd), dtype=dtype, device=device),
-        "wv": dense_init(gen, dims + (d, kvd), dtype=dtype, device=device),
-        "wo": dense_init(gen, dims + (qd, d), dtype=dtype, device=device),
-    }
+    p = {}
+    for name, shape in (("wq", (d, qd)), ("wk", (d, kvd)), ("wv", (d, kvd)),
+                        ("wo", (qd, d))):
+        p[name] = keep(at + (name,), dense_init(gen, dims + shape,
+                                                dtype=dtype, device=device))
     if cfg.use_bias:
         for name, n in (("bq", qd), ("bk", kvd), ("bv", kvd), ("bo", d)):
-            p[name] = torch.zeros(dims + (n,), dtype=dtype, device=device)
+            p[name] = keep(at + (name,), torch.zeros(
+                dims + (n,), dtype=dtype, device=device))
     return p
 
 
-def _ffn_params(cfg: ModelConfig, gen, dims, dtype, device):
+def _ffn_params(cfg: ModelConfig, gen, dims, dtype, device, keep=_keep_all,
+                at=()):
     d, dff = cfg.d_model, cfg.d_ff
-    p = {
-        "w_gate": dense_init(gen, dims + (d, dff), dtype=dtype, device=device),
-        "w_up": dense_init(gen, dims + (d, dff), dtype=dtype, device=device),
-        "w_down": dense_init(gen, dims + (dff, d), dtype=dtype, device=device),
-    }
+    p = {}
+    for name, shape in (("w_gate", (d, dff)), ("w_up", (d, dff)),
+                        ("w_down", (dff, d))):
+        p[name] = keep(at + (name,), dense_init(gen, dims + shape,
+                                                dtype=dtype, device=device))
     if cfg.use_bias:
-        p["b_up"] = torch.zeros(dims + (dff,), dtype=dtype, device=device)
-        p["b_down"] = torch.zeros(dims + (d,), dtype=dtype, device=device)
+        for name, n in (("b_up", dff), ("b_down", d)):
+            p[name] = keep(at + (name,), torch.zeros(
+                dims + (n,), dtype=dtype, device=device))
     return p
 
 
-def _moe_params(cfg: ModelConfig, gen, dims, dtype, device):
+def _moe_params(cfg: ModelConfig, gen, dims, dtype, device, keep=_keep_all,
+                at=()):
     m = cfg.moe
     d, ff, e = cfg.d_model, cfg.d_ff, m.num_experts
-    p = {
-        # the router stays float32 whatever param_dtype is, as there
-        "router": dense_init(gen, dims + (d, e), dtype=torch.float32,
-                             device=device),
-        "w_gate": dense_init(gen, dims + (e, d, ff), dtype=dtype,
-                             device=device),
-        "w_up": dense_init(gen, dims + (e, d, ff), dtype=dtype, device=device),
-        "w_down": dense_init(gen, dims + (e, ff, d), dtype=dtype,
-                             device=device),
-    }
+    # the router stays float32 whatever param_dtype is, as there
+    p = {"router": keep(at + ("router",), dense_init(
+        gen, dims + (d, e), dtype=torch.float32, device=device))}
+    for name, shape in (("w_gate", (e, d, ff)), ("w_up", (e, d, ff)),
+                        ("w_down", (e, ff, d))):
+        p[name] = keep(at + (name,), dense_init(gen, dims + shape,
+                                                dtype=dtype, device=device))
     if m.dense_residual:
-        p["residual"] = _ffn_params(cfg, gen, dims, dtype, device)
+        p["residual"] = _ffn_params(cfg, gen, dims, dtype, device, keep,
+                                    at + ("residual",))
     return p
 
 
@@ -162,13 +196,20 @@ def _ssm_params(cfg: ModelConfig, gen, dims, dtype, device):
     }
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, *,
-                device=None) -> Dict[str, Any]:
+def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
+                shard=None) -> Dict[str, Any]:
     """Random params from ``seed`` (a ``torch.Generator`` on ``device``), in
     ``cfg.param_dtype``, made directly on the device. The same tree as the
     reference's ``init_params`` (norm params in float32); the numbers differ
     from JAX's — the conformance tests carry JAX's params over with
-    :func:`repro_torch.bridge.params_from_numpy` instead."""
+    :func:`repro_torch.bridge.params_from_numpy` instead.
+
+    ``shard(path, leaf)`` — a tensor-parallel rank's cut (e.g.
+    :func:`repro_torch.serve.comm.param_sharder`) — is applied to each
+    leaf of the text attention archs as soon as it is made, in the
+    generator's order, so one rank holds one full leaf at a time and the
+    numbers equal a slice of the unsharded init's."""
+    keep = shard or _keep_all
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
     gen = torch.Generator(device=dev)
@@ -176,8 +217,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     dims = (cfg.num_layers,)
     # audio: one table and one head a codebook
     books = (cfg.num_codebooks,) if cfg.modality == "audio" else ()
-    params: Dict[str, Any] = {"embed": {"tok": embed_init(
-        gen, books + (cfg.vocab_size, cfg.d_model), dtype, dev)}}
+    params: Dict[str, Any] = {"embed": {"tok": keep(("embed", "tok"),
+                                                    embed_init(
+        gen, books + (cfg.vocab_size, cfg.d_model), dtype, dev))}}
     if cfg.modality == "vlm":
         params["img_proj"] = {"w": dense_init(
             gen, (IMG_EMBED_DIM, cfg.d_model), dtype=dtype, device=dev)}
@@ -192,22 +234,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                 "norm2": _norm_params(cfg, (), dev)}.items()
                 if v is not None}
     else:
-        layer = {"attn": _attn_params(cfg, gen, dims, dtype, dev),
-                 "norm1": _norm_params(cfg, dims, dev)}
+        ly = ("layers",)
+        layer = {"attn": _attn_params(cfg, gen, dims, dtype, dev, keep,
+                                      ly + ("attn",)),
+                 "norm1": _norm_params(cfg, dims, dev, keep, ly + ("norm1",))}
         if cfg.moe is not None:
-            layer["moe"] = _moe_params(cfg, gen, dims, dtype, dev)
+            layer["moe"] = _moe_params(cfg, gen, dims, dtype, dev, keep,
+                                       ly + ("moe",))
         else:
-            layer["ffn"] = _ffn_params(cfg, gen, dims, dtype, dev)
+            layer["ffn"] = _ffn_params(cfg, gen, dims, dtype, dev, keep,
+                                       ly + ("ffn",))
         if not cfg.parallel_block:
-            layer["norm2"] = _norm_params(cfg, dims, dev)
+            layer["norm2"] = _norm_params(cfg, dims, dev, keep,
+                                          ly + ("norm2",))
     params["layers"] = {k: v for k, v in layer.items() if v is not None}
-    fn = _norm_params(cfg, (), dev)
+    fn = _norm_params(cfg, (), dev, keep, ("final_norm",))
     if fn is not None:
         params["final_norm"] = fn
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": dense_init(
+        params["lm_head"] = {"w": keep(("lm_head", "w"), dense_init(
             gen, books + (cfg.d_model, cfg.vocab_size), dtype=dtype,
-            device=dev)}
+            device=dev))}
     return params
 
 
@@ -249,7 +296,8 @@ class DecodeCache:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> DecodeCache:
+               dtype=torch.bfloat16, device=None,
+               kv_heads: Optional[int] = None) -> DecodeCache:
     """KV cache ``(L, B, S, KV, hd)`` of zeros on ``device`` (CUDA unless
     ``"cpu"`` is asked for): ``S = max_len``, or the window for a ring
     cache. SSM archs: an :class:`SSMState` stacked on ``L`` instead (conv
@@ -257,7 +305,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     ``max_len`` does not size it). Hybrid archs: both, the KV cache stacked
     on the ``L // hybrid_attn_every`` shared-attention sites. A prefill
     re-types the conv tail to the activations' dtype, as the reference's
-    does (:meth:`Model.forward`)."""
+    does (:meth:`Model.forward`). ``kv_heads`` — a tensor-parallel rank's
+    local count — replaces the stored KV heads."""
     dev = resolve_device(device)
     kv = ssm = None
     n_kv = cfg.num_layers
@@ -272,6 +321,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             raise NotImplementedError("kv_fp8 cache storage is not ported "
                                       "yet (ROADMAP.md Queue 1)")
         shape = (n_kv,) + kv_cache_shape(cfg, batch, max_len)
+        if kv_heads is not None:
+            shape = shape[:3] + (kv_heads,) + shape[4:]
         kv = KVCache(torch.zeros(shape, dtype=dtype, device=dev),
                      torch.zeros(shape, dtype=dtype, device=dev), 0,
                      ring=is_ring(cfg, max_len))
@@ -280,12 +331,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                      page_size: int, num_pages: int, dtype=torch.bfloat16,
-                     device=None) -> DecodeCache:
+                     device=None, kv_heads: Optional[int] = None
+                     ) -> DecodeCache:
     """Paged decode cache: a fixed pool of ``num_pages`` pages of
     ``page_size`` tokens (page 0 reserved as trash) + an all-unmapped
     per-slot page table covering virtual positions ``[0, max_len)``.
     Text attention archs only: SSM state has no per-position pages, and
-    the VLM and audio families keep the reference's contiguous layout."""
+    the VLM and audio families keep the reference's contiguous layout.
+    ``kv_heads`` — a tensor-parallel rank's local count — replaces the
+    stored KV heads."""
     if cfg.family not in ("dense", "moe") or cfg.modality != "text":
         raise NotImplementedError(
             f"paged KV cache needs a text attention arch, got "
@@ -302,7 +356,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         raise NotImplementedError("kv_fp8 cache storage is not ported yet "
                                   "(ROADMAP.md Queue 1)")
     max_pages = -(-max_len // page_size)
-    shape = (cfg.num_layers, num_pages, page_size, _stored_kv_heads(cfg),
+    shape = (cfg.num_layers, num_pages, page_size,
+             _stored_kv_heads(cfg) if kv_heads is None else kv_heads,
              cfg.head_dim)
     dev = resolve_device(device)
     kv = PagedKVCache(torch.zeros(shape, dtype=dtype, device=dev),
@@ -334,9 +389,13 @@ def _advanced(kv, n: int):
 # ---------------------------------------------------------------------------
 
 def _attn_apply(cfg: ModelConfig, x, p, positions, kv=None,
-                decode: bool = False, start=None):
+                decode: bool = False, start=None, comm=None):
     """Attention sub-block. ``kv`` is a layer's contiguous or paged cache
-    view (written in place); ``start`` the per-row left-pad offset."""
+    view (written in place); ``start`` the per-row left-pad offset.
+    ``comm`` (:class:`repro_torch.serve.comm.ServeComm`) selects manual TP:
+    the weights arrive Megatron-sharded, the head counts below are LOCAL,
+    and the row-parallel ``wo`` partial sum is all-reduced on the
+    ``tp_attn`` VCI stream before the bias."""
     b, s, _ = x.shape
     q = x @ p["wq"].to(x.dtype)
     k = x @ p["wk"].to(x.dtype)
@@ -364,6 +423,8 @@ def _attn_apply(cfg: ModelConfig, x, p, positions, kv=None,
         elif kv is not None:              # prefill: write the cache
             new_kv = _prefill_cache(kv, k, v)
     o = o.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+    if comm is not None:
+        o = comm.psum(o, "tp_attn")
     if cfg.use_bias:
         o = o + p["bo"]
     return o, new_kv
@@ -374,8 +435,8 @@ def _prefill_cache(kv: KVCache, k, v) -> KVCache:
     A ring cache shorter than the prompt keeps its last ``W`` positions,
     rolled by ``S % W`` so that slot ``i`` holds the newest position
     congruent to ``i`` modulo ``W``."""
-    k = _expand_heads(k, kv.k.shape[2])
-    v = _expand_heads(v, kv.v.shape[2])
+    k = _expand_to_cache(kv, k)
+    v = _expand_to_cache(kv, v)
     s = k.shape[1]
     s_cache = kv.k.shape[1]
     if kv.ring and s > s_cache:
@@ -389,30 +450,30 @@ def _prefill_cache(kv: KVCache, k, v) -> KVCache:
     return KVCache(kv.k, kv.v, kv.length + s, kv.ring)
 
 
-def _ffn_apply(cfg: ModelConfig, h, p, inference: bool):
+def _ffn_apply(cfg: ModelConfig, h, p, inference: bool, comm=None):
     """The block's FFN: dense, or MoE with its aux losses. (out, aux)."""
     if cfg.moe is not None:
-        return moe_ffn(cfg, h, p["moe"], inference=inference)
-    return gated_ffn(cfg, h, p["ffn"]), {}
+        return moe_ffn(cfg, h, p["moe"], inference=inference, comm=comm)
+    return gated_ffn(cfg, h, p["ffn"], comm=comm), {}
 
 
 def _dense_block(cfg: ModelConfig, x, p, positions, kv=None, decode=False,
-                 start=None):
+                 start=None, comm=None):
     """Standard (or parallel) transformer block. Returns (x, new_kv, aux);
     ``aux`` holds the MoE router losses (empty for a dense FFN)."""
     inference = decode or kv is not None
     h = apply_norm(cfg, x, p.get("norm1"))
     h = maybe_bf16_grads(cfg, h)  # opt bf16_grads: bf16 cotangents
     attn_out, new_kv = _attn_apply(cfg, h, p["attn"], positions, kv=kv,
-                                   decode=decode, start=start)
+                                   decode=decode, start=start, comm=comm)
     if cfg.parallel_block:
-        ffn_out, aux = _ffn_apply(cfg, h, p, inference)
+        ffn_out, aux = _ffn_apply(cfg, h, p, inference, comm)
         x = x + attn_out + ffn_out
     else:
         x = x + attn_out
         h2 = apply_norm(cfg, x, p.get("norm2"))
         h2 = maybe_bf16_grads(cfg, h2)
-        ffn_out, aux = _ffn_apply(cfg, h2, p, inference)
+        ffn_out, aux = _ffn_apply(cfg, h2, p, inference, comm)
         x = x + ffn_out
     return x, new_kv, aux
 
@@ -464,17 +525,39 @@ def _sum_aux(auxes) -> Dict[str, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 class Model:
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, shard=None, comm=None):
+        """``comm`` — :class:`repro_torch.serve.comm.ServeComm` for the
+        manual-TP serve path: the params are this rank's Megatron shard
+        (:func:`repro_torch.serve.comm.serve_param_specs`) and every
+        cross-rank exchange is an explicit collective on a per-purpose
+        CommContext/VCI stream. ``shard`` (the reference's GSPMD
+        ``Sharder``) is not ported."""
+        if shard is not None:
+            raise NotImplementedError(
+                "the GSPMD Sharder route (Model(cfg, shard)) is not ported: "
+                "ROADMAP.md Queue 1 item 14; tensor-parallel serving runs "
+                "Model(cfg, comm=ServeComm)")
         self.cfg = cfg
+        self.comm = comm
 
     # -- embeddings ------------------------------------------------------
     def _tok_embed(self, params, tok) -> torch.Tensor:
         """Token lookup in the activations' dtype: (B,S) -> (B,S,d); audio
-        sums the K codebook embeddings, (B,K,S) -> (B,S,d)."""
+        sums the K codebook embeddings, (B,K,S) -> (B,S,d). Vocab-parallel
+        (a masked lookup + a psum on the ``sample`` stream) when the table
+        arrives row-sharded over TP."""
         emb = params["embed"]["tok"].to(torch_dtype(self.cfg.dtype))
         if self.cfg.modality == "audio":               # emb: (K,V,d)
             books = torch.arange(emb.shape[0], device=tok.device)
             return emb[books[:, None], tok.long()].sum(1)
+        if self.comm is not None and emb.shape[0] != self.cfg.vocab_size:
+            v_loc = emb.shape[0]
+            loc = tok.long() - self.comm.rank() * v_loc
+            ok = (loc >= 0) & (loc < v_loc)
+            x = torch.where(ok[..., None], emb[loc.clamp(0, v_loc - 1)],
+                            torch.zeros((), dtype=emb.dtype,
+                                        device=emb.device))
+            return self.comm.psum(x, "sample")
         return emb[tok.long()]
 
     def embed(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -494,8 +577,14 @@ class Model:
             return torch.einsum("bsd,kdv->bksv", x,
                                 params["lm_head"]["w"].to(x.dtype))
         if self.cfg.tie_embeddings:
-            return x @ params["embed"]["tok"].to(x.dtype).T
-        return x @ params["lm_head"]["w"].to(x.dtype)
+            logits = x @ params["embed"]["tok"].to(x.dtype).T
+        else:
+            logits = x @ params["lm_head"]["w"].to(x.dtype)
+        if self.comm is not None and logits.shape[-1] != self.cfg.vocab_size:
+            # vocab-parallel logits: gather shards on the sampling stream
+            logits = self.comm.all_gather(logits, "sample",
+                                          gather_axis=logits.dim() - 1)
+        return logits
 
     # -- full-sequence forward (prefill) ----------------------------------
     def forward(self, params, batch, *, cache: Optional[DecodeCache] = None,
@@ -525,21 +614,23 @@ class Model:
             # per-row RoPE positions: the first real token sits at 0
             positions = torch.clamp(positions[None, :] - start[:, None], min=0)
         # training forward: cfg.remat != "none" recomputes each block in the
-        # backward (the reference's jax.checkpoint around the scan body;
-        # "dots" recomputes the whole block here too, not only the matmuls)
+        # backward (the reference's jax.checkpoint around the scan body);
+        # "dots" keeps the block's matmul outputs (_dots_policy)
         remat = (cache is None and self.cfg.remat != "none"
                  and torch.is_grad_enabled())
+        kw = {"context_fn": _dots_contexts} if self.cfg.remat == "dots" \
+            else {}
         auxes = []
         for l in range(self.cfg.num_layers):
             if remat:
                 x, aux = checkpoint(functools.partial(
                     self._train_block, params, positions, start, l), x,
-                    use_reentrant=False)
+                    use_reentrant=False, **kw)
             else:
                 kv = None if cache is None else _layer_kv(cache.kv, l)
                 x, _, aux = _dense_block(self.cfg, x, layer_params(params, l),
                                          positions, kv=kv, decode=False,
-                                         start=start)
+                                         start=start, comm=self.comm)
             auxes.append(aux)
         new_cache = None
         if cache is not None:
@@ -631,6 +722,6 @@ class Model:
         for l in range(self.cfg.num_layers):  # aux dropped, as there
             x, _, _ = _dense_block(self.cfg, x, layer_params(params, l),
                                    positions, kv=_layer_kv(cache.kv, l),
-                                   decode=True, start=start)
+                                   decode=True, start=start, comm=self.comm)
         new_cache = DecodeCache(_advanced(cache.kv, 1), cache.length + 1)
         return self.unembed(params, x), new_cache

@@ -30,10 +30,22 @@ carries no image, so its engine cannot serve one either. A VLM is served
 by :func:`make_prefill` on a batch with ``image_embeds``, then
 :func:`make_serve_step` (see :func:`check_servable`).
 
+``mesh`` (a :class:`~repro_torch.core.collectives.RankMesh` of ``(data,
+model)`` ranks) with ``comm_plan`` (or ``num_vcis``) selects the manual-TP
+path of :mod:`repro_torch.serve.comm`: every rank runs this same host loop
+on its own Megatron shard of the params (``params`` is that shard), each
+step's collectives ride per-purpose VCI streams along ``model``, and a
+contiguous cache holds the rank's batch rows over ``data`` (the sampled
+tokens are gathered over ``data`` inside the step, so every rank's loop
+sees the whole batch); a paged pool replicates the batch over ``data``
+and shards only its KV heads, which is what lets mid-stream admission run
+under the mesh. ``cache_bytes_resident`` is then the rank's own cache
+(the reference counts its global arrays). The reference's GSPMD route
+(``mesh`` without a comm plan) is not ported (ROADMAP.md Queue 1 item 14).
+
 PyTorch runs eagerly, so the reference's ``jax.jit`` wrappers (and their
 per-width trace caches) have no counterpart; caches are written in place
-instead of being donated. Not in this slice (``NotImplementedError``): the
-tensor-parallel decode on VCI streams (``mesh``/``comm_plan``/``num_vcis``).
+instead of being donated.
 """
 
 from __future__ import annotations
@@ -44,14 +56,29 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.collectives import RankMesh
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import is_ring, paged_splice
+from repro_torch.models.attention import (
+    KVCache,
+    _stored_kv_heads,
+    is_ring,
+    paged_splice,
+)
 from repro_torch.models.transformer import (
     DecodeCache,
     Model,
     init_cache,
     init_paged_cache,
+)
+from repro_torch.serve.comm import (
+    TP_AXIS,
+    ServeCommPlan,
+    local_size,
+    serve_cache_specs,
+    serve_tp_validate,
 )
 from repro_torch.serve.paging import (
     alloc_slot_pages,
@@ -94,10 +121,23 @@ def select_tokens(logits, temps=None, gen: Optional[torch.Generator] = None
     return torch.where(use, sampled.to(torch.int32), greedy)
 
 
-def make_serve_step(cfg: ModelConfig) -> Callable[..., Tuple]:
+def _no_gspmd(mesh, comm_plan) -> None:
+    if mesh is not None and comm_plan is None:
+        raise NotImplementedError(
+            "a mesh without a comm plan is the reference's GSPMD Sharder "
+            "route, not ported (ROADMAP.md Queue 1 item 14); pass "
+            "comm_plan= or num_vcis= for the manual-TP path")
+
+
+def make_serve_step(cfg: ModelConfig, mesh=None, comm_plan=None,
+                    lane: int = 0) -> Callable[..., Tuple]:
     """Returns ``serve_step(params, tokens, cache, start=None, temps=None,
     gen=None) -> (next_tokens, cache)``; tokens: (B,1) int (audio:
-    (B,K,1))."""
+    (B,K,1)). ``comm_plan`` selects the manual-TP VCI-stream path (see
+    :mod:`repro_torch.serve.comm`)."""
+    _no_gspmd(mesh, comm_plan)
+    if comm_plan is not None:
+        return _make_comm_call(cfg, mesh, comm_plan, lane, prefill=False)
     model = Model(cfg)
 
     def serve_step(params, tokens, cache: DecodeCache, start=None,
@@ -109,11 +149,16 @@ def make_serve_step(cfg: ModelConfig) -> Callable[..., Tuple]:
     return serve_step
 
 
-def make_prefill(cfg: ModelConfig) -> Callable[..., Tuple]:
+def make_prefill(cfg: ModelConfig, mesh=None, comm_plan=None,
+                 lane: int = 0) -> Callable[..., Tuple]:
     """Returns ``prefill(params, batch, cache, start=None, temps=None,
     gen=None) -> (next_tokens, cache)`` sampling the first new token.
     ``batch`` holds ``tokens`` (audio: (B,K,S)), and ``image_embeds``
-    (B,P,1024) for a VLM, whose cache then holds P + S_txt positions."""
+    (B,P,1024) for a VLM, whose cache then holds P + S_txt positions.
+    ``comm_plan`` selects the manual-TP VCI-stream path."""
+    _no_gspmd(mesh, comm_plan)
+    if comm_plan is not None:
+        return _make_comm_call(cfg, mesh, comm_plan, lane, prefill=True)
     model = Model(cfg)
 
     def prefill(params, batch, cache: DecodeCache, start=None, temps=None,
@@ -123,6 +168,62 @@ def make_prefill(cfg: ModelConfig) -> Callable[..., Tuple]:
         return select_tokens(logits[..., -1:, :], temps, gen), new_cache
 
     return prefill
+
+
+# ---------------------------------------------------------------------------
+# the manual-TP (VCI stream) step builders
+# ---------------------------------------------------------------------------
+
+def _mesh_tp(mesh) -> int:
+    return mesh.shape.get(TP_AXIS, 1)
+
+
+def _data_rows(cache: DecodeCache, batch: int, mesh: RankMesh
+               ) -> Optional[slice]:
+    """This rank's rows of a ``batch`` whose contiguous cache shards its
+    rows over ``data`` (the cache holds fewer rows than the batch), else
+    ``None`` (a paged pool, or a batch replicated over data)."""
+    kv = cache.kv
+    if not isinstance(kv, KVCache) or kv.k.shape[1] == batch:
+        return None
+    b = kv.k.shape[1]
+    d = mesh.coords(dist.get_rank())[0]
+    return slice(d * b, (d + 1) * b)
+
+
+def _make_comm_call(cfg: ModelConfig, mesh, plan: ServeCommPlan, lane: int,
+                    prefill: bool):
+    """The manual-TP prefill (``prefill``) or decode step: this rank's
+    rows through ``Model(cfg, comm=...)``, the streams drained before
+    sampling, and rows sharded over ``data`` gathered back."""
+    if not isinstance(mesh, RankMesh):
+        raise ValueError(f"comm_plan needs a RankMesh with a 'model' axis, "
+                         f"got {mesh!r}")
+    serve_tp_validate(cfg, _mesh_tp(mesh))
+
+    def call(params, inp, cache: DecodeCache, start=None, temps=None,
+             gen=None):
+        tokens = inp["tokens"] if prefill else inp
+        rows = _data_rows(cache, tokens.shape[0], mesh)
+        if rows is not None:
+            tokens = tokens[rows]
+            start = None if start is None else start[rows]
+            temps = None if temps is None else temps[rows]
+        comm = plan.comm(lane, mesh=mesh)
+        model = Model(cfg, comm=comm)
+        if prefill:
+            logits, _, new_cache = model.forward(
+                params, {"tokens": tokens}, cache=cache, start=start)
+            logits = logits[..., -1:, :]
+        else:
+            logits, new_cache = model.decode_step(params, tokens, cache,
+                                                  start=start)
+        nxt = select_tokens(comm.drain(logits), temps, gen)
+        if rows is not None:
+            nxt = plan.gather_tokens(nxt, mesh)
+        return nxt, new_cache
+
+    return call
 
 
 # ---------------------------------------------------------------------------
@@ -170,26 +271,42 @@ _ADMIT_ALIGN = 8
 
 
 class ServeEngine:
-    """Continuous-batching serving loop on one device (see module doc).
+    """Continuous-batching serving loop (see module doc).
 
     ``device`` — ``None`` means CUDA (raises when it is absent); the CPU
     runs only when asked for with ``device="cpu"``. ``params`` must already
-    live on that device. ``cache_bytes_resident`` is the largest resident
-    decode-cache footprint of the last ``generate()``; ``decode_steps`` the
-    number of batched decode steps it ran.
+    live on that device (under a mesh: this rank's shard).
+    ``cache_bytes_resident`` is the largest resident decode-cache footprint
+    of the last ``generate()`` (this rank's); ``decode_steps`` the number
+    of batched decode steps it ran.
+
+    ``mesh`` + ``comm_plan`` (or ``num_vcis``) select the manual-TP decode
+    whose collectives ride per-purpose VCI streams; every rank of the mesh
+    must build its engine at the same point of its program (the streams'
+    process groups are created here) and run the same requests.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, batch_size: int,
                  max_len: int, device=None, mesh=None,
-                 cache_dtype=torch.float32, comm_plan=None,
-                 num_vcis: Optional[int] = None, temperature: float = 0.0,
-                 seed: int = 0, paged: bool = False, page_size: int = 16,
+                 cache_dtype=torch.float32,
+                 comm_plan: Optional[ServeCommPlan] = None,
+                 num_vcis: Optional[int] = None, vci_policy: str = "fcfs",
+                 progress: str = "hybrid", token_impl: str = "barrier",
+                 temperature: float = 0.0, seed: int = 0,
+                 paged: bool = False, page_size: int = 16,
                  num_pages: Optional[int] = None):
-        if mesh is not None or comm_plan is not None or num_vcis is not None:
-            raise NotImplementedError(
-                "the tensor-parallel serve path on VCI streams (mesh / "
-                "comm_plan / num_vcis) is not ported yet; see ROADMAP.md "
-                "Queue 1 item 10")
+        if comm_plan is None and num_vcis is not None:
+            if mesh is None or _mesh_tp(mesh) <= 1:
+                raise ValueError("num_vcis needs a mesh with a 'model' axis "
+                                 ">1 (the TP streams live there)")
+            comm_plan = ServeCommPlan(num_vcis=num_vcis,
+                                      vci_policy=vci_policy,
+                                      progress=progress,
+                                      token_impl=token_impl)
+        _no_gspmd(mesh, comm_plan)
+        if comm_plan is not None and not isinstance(mesh, RankMesh):
+            raise ValueError(f"comm_plan needs a RankMesh with a 'model' "
+                             f"axis, got {mesh!r}")
         check_servable(cfg)
         self.device = resolve_device(device)
         emb = params["embed"]["tok"]
@@ -200,9 +317,13 @@ class ServeEngine:
         self.params = params
         self.batch_size = batch_size
         self.max_len = max_len
+        self.mesh = mesh
+        self.comm_plan = comm_plan
         self.temperature = temperature
-        self._prefill = make_prefill(cfg)
-        self._step = make_serve_step(cfg)
+        self._prefill = make_prefill(cfg, mesh, comm_plan)
+        self._step = make_serve_step(cfg, mesh, comm_plan)
+        if comm_plan is not None:
+            comm_plan.create_groups(mesh)
         self._cache_dtype = cache_dtype
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
@@ -222,6 +343,11 @@ class ServeEngine:
             raise ValueError(f"num_pages must be >= 2 (page 0 is the trash "
                              f"page), got {self._num_pages}")
         self._pages = None        # PageState (host), paged mode
+        # mid-stream admission re-prefills single requests. The contiguous
+        # splice is single-rank only (B=1 doesn't shard over data); the
+        # PAGED admission prefill runs replicated over data under the
+        # running batch's TP shards, so it works on any mesh.
+        self._can_admit = mesh is None or self._paged
         self.cache_bytes_resident = 0
         self.decode_steps = 0
 
@@ -266,6 +392,24 @@ class ServeEngine:
     def _note_cache(self, cache: DecodeCache) -> None:
         self.cache_bytes_resident = max(self.cache_bytes_resident,
                                         cache.nbytes())
+
+    def _local_cache(self, paged: bool, batch: int) -> Tuple[int, int]:
+        """(rows, KV heads) of this rank's cache for a ``batch``: all of
+        both on one rank; under a mesh, as :func:`serve_cache_specs`
+        shards them."""
+        kvh = _stored_kv_heads(self.cfg)
+        if self.mesh is None:
+            return batch, kvh
+        spec = serve_cache_specs(paged, batch, kvh, _mesh_tp(self.mesh),
+                                 self.mesh.data)["kv"]
+        rows = batch if paged else local_size(batch, spec[1], self.mesh)
+        return rows, local_size(kvh, spec[3], self.mesh)
+
+    def _new_cache(self, batch: int, max_len: int) -> DecodeCache:
+        """A contiguous cache for ``batch`` rows (this rank's part)."""
+        rows, kvh = self._local_cache(False, batch)
+        return init_cache(self.cfg, rows, max_len, dtype=self._cache_dtype,
+                          device=self.device, kv_heads=kvh)
 
     # -- public API ------------------------------------------------------
     def generate(self, requests: List[Request]) -> List[Request]:
@@ -341,7 +485,8 @@ class ServeEngine:
             cache = init_paged_cache(cfg, B, self.max_len, page_size=PS,
                                      num_pages=self._num_pages,
                                      dtype=self._cache_dtype,
-                                     device=self.device)
+                                     device=self.device,
+                                     kv_heads=self._local_cache(True, B)[1])
             self._pages = page_state_init(self._num_pages, B,
                                           self._max_pages)
             for i, s in enumerate(slots):
@@ -351,8 +496,7 @@ class ServeEngine:
                 reserved[i] = pages_for_span(
                     int(start[i]), pad + s.req.max_new_tokens, PS)
         else:
-            cache = init_cache(cfg, B, self.max_len, dtype=self._cache_dtype,
-                               device=self.device)
+            cache = self._new_cache(B, self.max_len)
         self._note_cache(cache)
         nxt, cache = self._prefill(self.params, {"tokens": self._dev(tokens)},
                                    cache, self._dev(start), self._dev(temps),
@@ -386,7 +530,7 @@ class ServeEngine:
                     reclaim(i, s)
             # early slot recycling: prefill the next request into a finished
             # slot just below the shared cursor (start masks older rows)
-            if pending:
+            if self._can_admit and pending:
                 for i, s in enumerate(slots):
                     if not s.done or not pending:
                         continue
@@ -442,8 +586,7 @@ class ServeEngine:
         cfg = self.cfg
         b = len(reqs)
         prompts = np.stack([r.prompt for r in reqs])
-        cache = init_cache(cfg, b, self.max_len, dtype=self._cache_dtype,
-                           device=self.device)
+        cache = self._new_cache(b, self.max_len)
         self._note_cache(cache)
         temps = self._dev(np.asarray([self._temp_of(r) for r in reqs],
                                      np.float32))
@@ -518,15 +661,15 @@ class ServeEngine:
         virtual positions ``[cur - p_adm, cur)``, in place; returns the
         first token. Contiguous: a slice assignment into the slot's row.
         Paged: a page-table splice into the slot's freshly allocated
-        pages."""
-        cfg = self.cfg
+        pages; under a mesh the prefill runs replicated over data on the
+        running batch's TP shards (the rank's KV heads), the admission the
+        contiguous splice cannot do there."""
         plen = int(r.prompt.shape[-1])
         p_adm = min(-(-plen // _ADMIT_ALIGN) * _ADMIT_ALIGN, cur)
         tokens = np.zeros((1, p_adm), np.int32)
         tokens[0, p_adm - plen:] = r.prompt
         dest = cur - p_adm
-        tmp = init_cache(cfg, 1, p_adm, dtype=self._cache_dtype,
-                         device=self.device)
+        tmp = self._new_cache(1, p_adm)
         nxt, tmp = self._prefill(
             self.params, {"tokens": self._dev(tokens)}, tmp,
             self._dev(np.asarray([p_adm - plen], np.int32)),

@@ -64,3 +64,29 @@ def test_vci_groups_join_their_workers_before_the_interpreter_finalizes(
     # the registry holds the groups, and their workers, past the destroy
     assert int(counts["after destroy"]) > 0, r.stdout
     assert int(counts["at exit"]) == 0, r.stdout
+
+
+def test_mesh_axis_groups_join_their_workers_too(tmp_path):
+    """The groups made along a mesh axis (one a VCI a line, the serve
+    path's) sit in the same registry: ``release_groups`` drops them at
+    exit as well."""
+    script = _SCRIPT.replace(
+        "from repro_torch.core.comm import CommWorld",
+        "from repro_torch.core.comm import CommWorld\n"
+        "from repro_torch.core.collectives import RankMesh").replace(
+        "rt = CommRuntime(world)\n"
+        "out = rt.wait(rt.all_gather(torch.arange(8.0), ctx))",
+        "rt = CommRuntime(world, mesh=RankMesh(1, 1))\n"
+        "out = rt.wait(rt.all_gather(torch.arange(8.0), ctx, axis='model'))")
+    assert "axis='model'" in script
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep + \
+        env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", script,
+                        str(tmp_path / "store")], capture_output=True,
+                       text=True, timeout=240, env=env)
+    assert r.returncode == 0, r.stderr[-3000:]
+    counts = dict(line.rsplit(" ", 1) for line in r.stdout.splitlines()
+                  if line.startswith(("after destroy", "at exit")))
+    assert int(counts["after destroy"]) > 0, r.stdout
+    assert int(counts["at exit"]) == 0, r.stdout

@@ -203,6 +203,13 @@ _FLASH_CASES = [  # hd, b, sq, skv, h, kv, causal, window, start
     (96, 1, 1024, 1024, 32, 32, True, None, None),
     (64, 1, 1000, 1000, 32, 32, True, None, None),
     (64, 2, 64, 64, 32, 32, True, None, None),
+    # the tensor-parallel ranks' prefills at tp 4 (chip_smoke phase 7):
+    # olmo-1b's 4 of 16 heads with pad rows, and mixtral-8x22b's 12 query
+    # heads on 2 KV heads (GQA 6:1) at 8 x 1,024 (paired query blocks) and
+    # in the serve batch's prefill (the variant for Sq <= 64)
+    (128, 4, 64, 64, 4, 4, True, None, [0, 9, 33, 63]),
+    (128, 8, 1024, 1024, 12, 2, True, None, None),
+    (128, 4, 64, 64, 12, 2, True, None, [0, 9, 33, 63]),
 ]
 
 
@@ -760,3 +767,74 @@ def test_ring_and_hybrid_engines_on_card_equal_cpu(cuda_device, arch, layers,
         assert (a - c).abs().max().item() <= 1e-4
     assert all(torch.equal(a, c) for a, c in zip(tc, tg))
     assert ec == eg
+
+
+# two ranks sharing the one card (the layout of chip_smoke's phase 7):
+# the launcher's backend choice; gloo takes all_reduce,
+# all_gather_into_tensor and the list all_gather of CUDA tensors in every
+# dtype the serve path moves (a refusal raises and fails the test); then a
+# psum and a tiled all-gather of CUDA tensors on VCI streams along the
+# model axis
+_SHARED_CARD = r"""
+import os, sys, torch, torch.distributed as dist
+from repro_torch.core.collectives import RankMesh
+from repro_torch.launch.serve import join_ranks
+from repro_torch.serve.comm import ServeCommPlan
+
+def rank_main(rank, store, out):
+    dev, backend, why = join_ranks(rank, 2, "cuda", store)
+    n = 2
+    for dt in (torch.float32, torch.bfloat16, torch.int32):
+        x = torch.full((4,), rank + 1, dtype=dt, device=dev)
+        dist.all_reduce(x)
+        assert x.is_cuda and torch.equal(
+            x.cpu(), torch.full((4,), n * (n + 1) // 2, dtype=dt)), (dt, x)
+        want = torch.arange(1, n + 1, dtype=dt).repeat_interleave(4)
+        y = torch.full((4,), rank + 1, dtype=dt, device=dev)
+        out_t = torch.empty(4 * n, dtype=dt, device=dev)
+        dist.all_gather_into_tensor(out_t, y)
+        assert out_t.is_cuda and torch.equal(out_t.cpu(), want), (dt, out_t)
+        outs = [torch.empty(4, dtype=dt, device=dev) for _ in range(n)]
+        dist.all_gather(outs, y)
+        assert torch.equal(torch.cat(outs).cpu(), want), (dt, outs)
+    mesh = RankMesh(1, 2)
+    plan = ServeCommPlan(num_vcis=8)
+    plan.create_groups(mesh)
+    comm = plan.comm(mesh=mesh)
+    want = torch.tensor([1.0, 1.0, 2.0, 2.0]).repeat(3, 1)
+    x = torch.full((3, 5), float(rank + 1), device=dev, dtype=torch.bfloat16)
+    g = comm.all_gather(x[:, :2].contiguous(), "sample", gather_axis=1)
+    s = comm.psum(x, "tp_attn")
+    assert s.is_cuda and torch.equal(s.cpu(), torch.full(
+        (3, 5), 3.0, dtype=torch.bfloat16)), s
+    assert g.is_cuda and torch.equal(g.float().cpu(), want), g
+    if rank == 0:
+        with open(out, "w") as f:
+            f.write(f"{backend}|{why}")
+    dist.barrier()
+    dist.destroy_process_group()
+
+if __name__ == "__main__":
+    torch.multiprocessing.start_processes(
+        rank_main, args=(sys.argv[1], sys.argv[2]), nprocs=2,
+        start_method="spawn")
+"""
+
+
+def test_shared_card_ranks_take_gloo_cuda_collectives(cuda_device, tmp_path):
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=str(
+        torch.cuda.current_device()))
+    env["PYTHONPATH"] = os.path.join(repo, "src") + os.pathsep + \
+        env.get("PYTHONPATH", "")
+    script = tmp_path / "ranks.py"
+    script.write_text(_SHARED_CARD)
+    r = subprocess.run([sys.executable, str(script), str(tmp_path / "store"),
+                        str(tmp_path / "out")], capture_output=True,
+                       text=True, timeout=300, env=env)
+    assert r.returncode == 0, r.stderr[-3000:]
+    backend, why = (tmp_path / "out").read_text().split("|")
+    assert backend == "gloo" and "share" in why, why

@@ -201,16 +201,14 @@ def test_paged_splice_and_decode_attention_match():
 
 
 def test_unported_cache_layouts_raise():
-    """The ring cache and the hybrid family are ported
-    (``tests/test_torch_ring.py``, ``tests/test_torch_hybrid.py``); fp8
-    cache storage and KV heads stored per TP rank are not, and a VLM has
-    no paged layout, as in the reference."""
+    """The ring cache, the hybrid family and KV heads stored per TP rank
+    (``decode_kv_expand``) are ported (``tests/test_torch_ring.py``,
+    ``tests/test_torch_hybrid.py``, ``tests/test_torch_serve_tp.py``); fp8
+    cache storage is not, and a VLM has no paged layout, as in the
+    reference."""
     cfg = get_config("gemma-2b-smoke")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttf.init_cache(cfg.with_opts("kv_fp8"), 1, 128, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.init_cache(dataclasses.replace(cfg, decode_kv_expand=2), 1, 128,
-                       device="cpu")
     with pytest.raises(NotImplementedError, match="modality='vlm'"):
         ttf.init_paged_cache(get_config("phi-3-vision-4.2b-smoke"), 1, 128,
                              page_size=16, num_pages=9, device="cpu")

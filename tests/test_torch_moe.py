@@ -342,10 +342,14 @@ def test_row_gather_inv_refusals(case):
 
 
 def test_moe_ffn_refuses_shard_and_comm(moe_layer):
+    """The GSPMD ``shard=`` route is not ported (Queue 1 item 14), alone
+    or beside ``comm=`` (the manual-TP route,
+    ``tests/test_torch_serve_tp.py``), which the reference holds exclusive
+    of it."""
     cfg, _, tp, _ = moe_layer
     x = torch.zeros(1, 2, cfg.d_model)
-    for kw in ({"shard": object()}, {"comm": object()}):
-        with pytest.raises(NotImplementedError, match="item 10"):
+    for kw in ({"shard": object()}, {"shard": object(), "comm": object()}):
+        with pytest.raises(NotImplementedError, match="item 14"):
             tmoe.moe_ffn(cfg, x, tp, **kw)
 
 

@@ -15,7 +15,12 @@ writes rank 0's results to ``<dir>/out_<progress>.npz``, which
 holds the flash-decode combine over a sequence-sharded KV cache against
 ``decode_attention`` (the analogue of
 ``check_flash_decode_sequence_sharded``) and writes rank 0's error to
-``<dir>/out_seqshard.npz`` (``tests/test_torch_ring.py``).
+``<dir>/out_seqshard.npz`` (``tests/test_torch_ring.py``); ``serve_tp``
+serves the cases in ``<dir>/in.npz`` through the manual-TP engine on a
+``(ranks // 2) x 2`` mesh (``tests/test_torch_serve_tp.py``) and writes
+each rank's tokens and plan statistics to ``<dir>/out_<rank>.npz``;
+``all_to_all`` holds ``CommRuntime.all_to_all`` on a mesh axis and on the
+data group against numpy.
 """
 
 import faulthandler
@@ -149,8 +154,118 @@ def check_seqshard(rank: int, n: int, out_dir: str) -> None:
                  err=np.asarray(errs), vci=ctx.vci.index)
 
 
+def _serve_requests(cfg):
+    """The reference's ``check_serve_streams_match_single_stream``
+    requests: mixed prompt lengths, 5 new tokens each."""
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(7)
+    return [Request(prompt=rng.integers(0, cfg.vocab_size, (plen,),
+                                        dtype=np.int32), max_new_tokens=5)
+            for plen in (5, 9, 3, 7)]
+
+
+class _Calls:
+    """Counts the calls of an engine's prefill."""
+
+    def __init__(self, fn):
+        self.fn, self.n = fn, 0
+
+    def __call__(self, *a, **kw):
+        self.n += 1
+        return self.fn(*a, **kw)
+
+
+def check_serve_tp(rank: int, n: int, out_dir: str) -> None:
+    """Each case of ``in.npz`` (an arch, its full params in leaf order)
+    through ``ServeEngine`` on a ``(n // 2, 2)`` RankMesh at num_vcis 1
+    and 8: contiguous at batch 4, and paged at batch 2 (page_size 8, 11
+    pages: admission under the mesh). Every rank writes its tokens, the
+    realised VCI map, fallback hits, the page owners after the run, its
+    resident cache bytes, the collectives by purpose and the forward
+    calls; the test holds them against the JAX single-device engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.collectives import RankMesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.comm import ServeCommPlan, shard_params
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    import dataclasses
+    data = np.load(os.path.join(out_dir, "in.npz"))
+    mesh = RankMesh(n // 2, 2)
+    out = {}
+    for case in [str(c) for c in data["cases"]]:
+        arch, experts = case.split(":")
+        cfg = get_config(arch)
+        if int(experts):
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, num_experts=int(experts)))
+        treedef = tree_flatten(init_params(cfg, 0, device="cpu"))[1]
+        full = tree_unflatten(treedef, [
+            torch.from_numpy(data[f"{case}/p{i}"].copy())
+            for i in range(int(data[f"{case}/n_leaves"]))])
+        local = shard_params(cfg, full, 2, mesh.coords(rank)[1])
+        for num_vcis in (1, 8):
+            for layout, kw in (("contiguous", dict(batch_size=4)),
+                               ("paged", dict(batch_size=2, paged=True,
+                                              page_size=8, num_pages=11))):
+                plan = ServeCommPlan(num_vcis=num_vcis, token_impl="data")
+                eng = ServeEngine(cfg, local, max_len=48, device="cpu",
+                                  mesh=mesh, comm_plan=plan, **kw)
+                eng._prefill = _Calls(eng._prefill)
+                reqs = _serve_requests(cfg)
+                eng.generate(reqs)
+                key = f"{case}/{layout}/{num_vcis}"
+                for i, r in enumerate(reqs):
+                    out[f"{key}/tokens{i}"] = r.generated
+                out[f"{key}/vcis"] = np.asarray(sorted(
+                    plan.vci_map().values()))
+                out[f"{key}/fallback_hits"] = plan.stats.fallback_hits
+                out[f"{key}/bytes"] = eng.cache_bytes_resident
+                out[f"{key}/calls"] = eng._prefill.n + eng.decode_steps
+                out[f"{key}/admit"] = int(eng._can_admit)
+                for purpose, c in plan.tally.counts.items():
+                    out[f"{key}/count/{purpose}"] = c
+                if layout == "paged":
+                    out[f"{key}/owner"] = np.asarray(eng._pages.owner)
+    np.savez(os.path.join(out_dir, f"out_{rank}.npz"), **out)
+
+
+def check_all_to_all(rank: int, n: int, out_dir: str) -> None:
+    """``CommRuntime.all_to_all`` (tiled, split/concat on several axis
+    pairs) on the data group and along both axes of a ``(2, n // 2)``
+    mesh, against the same exchange done in numpy."""
+    from repro_torch.core.collectives import CommRuntime, RankMesh
+    from repro_torch.core.comm import CommWorld
+    mesh = RankMesh(2, n // 2)
+    world = CommWorld(num_vcis=4)
+    rt = CommRuntime(world, mesh=mesh)
+    ctx = world.create("a2a")
+    rng = np.random.default_rng(3)
+    full = rng.normal(size=(n, 4, 6, 8)).astype(np.float32)  # rank-major
+    for axis in (None, "data", "model"):
+        if axis is None:
+            line = list(range(n))
+        else:
+            line = next(l for l in mesh.lines(axis) if rank in l)
+        k = len(line)
+        for split, concat in ((0, 0), (0, 1), (1, 2), (2, 0)):
+            if full.shape[1 + split] % k:
+                continue
+            want = np.concatenate(
+                [np.split(full[r], k, axis=split)[line.index(rank)]
+                 for r in line], axis=concat)
+            got = rt.wait(rt.all_to_all(torch.from_numpy(full[rank].copy()),
+                                        ctx, split_axis=split,
+                                        concat_axis=concat, axis=axis))
+            np.testing.assert_array_equal(
+                got.numpy(), want, err_msg=f"axis={axis} {split}->{concat}")
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "out_all_to_all.npz"), ok=1)
+
+
 CHECKS = {"reduce": check_reduce, "train": check_train,
-          "seqshard": check_seqshard}
+          "seqshard": check_seqshard, "serve_tp": check_serve_tp,
+          "all_to_all": check_all_to_all}
 
 
 def _rank_main(rank: int, check: str, n: int, out_dir: str) -> None:

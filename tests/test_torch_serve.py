@@ -180,11 +180,22 @@ def test_cuda_is_the_default_device(olmo, monkeypatch):
 
 
 def test_unported_serve_options_raise(olmo):
+    """The tensor-parallel path is ported (``tests/test_torch_serve_tp.py``);
+    a mesh without a comm plan (the reference's GSPMD route) is not, and
+    the reference's refusals hold: ``num_vcis`` without a model axis, a
+    comm plan without a mesh, and a TP degree the arch cannot split."""
     cfg, _, tparams, _ = olmo
-    for kw in ({"mesh": object()}, {"num_vcis": 4}, {"comm_plan": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tengine.ServeEngine(cfg, tparams, batch_size=1, max_len=16,
-                                device="cpu", **kw)
-    from repro_torch.launch.serve import main
+    from repro_torch.core.collectives import RankMesh
+    from repro_torch.serve.comm import ServeCommPlan
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--tp", "2", "--device", "cpu"])
+        tengine.ServeEngine(cfg, tparams, batch_size=1, max_len=16,
+                            device="cpu", mesh=RankMesh(1, 2))
+    with pytest.raises(ValueError, match="'model' axis >1"):
+        tengine.ServeEngine(cfg, tparams, batch_size=1, max_len=16,
+                            device="cpu", num_vcis=4)
+    with pytest.raises(ValueError, match="RankMesh"):
+        tengine.ServeEngine(cfg, tparams, batch_size=1, max_len=16,
+                            device="cpu", comm_plan=ServeCommPlan())
+    from repro_torch.launch.serve import main
+    with pytest.raises(ValueError, match="num_kv_heads 2 % tp"):
+        main(["--tp", "4", "--device", "cpu"])
