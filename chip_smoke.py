@@ -211,17 +211,50 @@ Phases, each a check that exits non-zero when it fails:
    layer a step: the forward and remat's recompute), finite loss and grad
    norm; ``reduce_gradients`` with ``pack="pallas"`` equal bit for bit to
    ``pack="xla"`` on one real gradient tree; a profile of 2 steps; then
-   one step at ``remat="dots"`` (the matmul outputs kept for the
-   backward), its peak memory printed beside ``remat="block"``'s; the
-   bytes one forward keeps for its backward (saved-tensor hooks plus the
-   selective checkpoint's store) under "block", "dots" and "none", "dots"
-   strictly between the two;
+   one step at ``remat="dots"`` (the matmul outputs and the flash op's
+   (o, lse) kept for the backward): the flash kernel once a layer, its
+   peak memory printed beside ``remat="block"``'s; the bytes one forward
+   keeps for its backward (saved-tensor hooks plus the selective
+   checkpoint's store) under "block", "dots" and "none", "dots" strictly
+   between the two;
 10. reference training: olmo-1b-smoke in float32 (TF32 off), 3 steps of the
    same train step on the card (attention through the flash kernel) and on
    the CPU from the same params and batches: loss and grad norm within rtol 1e-5, params within rtol 2e-5 /
    atol 1e-4 with at most 1 element in 10^4 outside atol 1e-6 (AdamW turns
    summation-order noise in a near-zero gradient into an update of up to
-   ``lr``; ``tests/test_torch_train.py`` states the same tolerance).
+   ``lr``; ``tests/test_torch_train.py`` states the same tolerance);
+11. ZeRO-1 and overlap training: phase 9's olmo-1b step (same seed,
+   batches and knobs, one-rank NCCL group) as ZeRO-1 post, replicated
+   overlap and ZeRO-1 overlap, a warm-up and 5 timed steps each, the
+   counts zeroed just before the timed steps and read just after: the
+   ZeRO-1 post step launches the pack kernel once a bucket and the unpack
+   none, the overlap steps neither (their hooks pack by per-slot copies),
+   the flash kernel twice a layer; step 1's loss and grad norm within
+   1e-5 of phase 9's; replicated overlap's every step within 1e-5 of
+   phase 9's and its bf16 params within one ulp (the count of differing
+   elements printed: one rank's reduce is exact); ZeRO-1 overlap's f32
+   master after step 1 within rtol 2e-5 / atol 1e-6 of ZeRO-1 post's and
+   its later steps' loss and grad norm within 2^-10 (the two plans sum
+   the grad norm in other orders, the bf16 params rounded from the f32
+   master then differ by an ulp here and there, and the bf16 forward
+   carries that on); the hooks issue every bucket inside the backward in
+   ready order. Printed: step ms, tok/s, peak memory, the
+   optimizer state's bytes, the launches, and how many buckets were
+   issued before the last leaf gradient arrived;
+12. ZeRO-1 on four ranks: ``ZERO1_WORLD`` = 4 ranks spawned once on the
+   one card, joined by gloo with CUDA tensors (as phase 7; a collective
+   gloo refused would raise; the port refuses gloo's point-to-point sends
+   of CUDA tensors, which this path does not make); olmo-1b at full width
+   cut to 4 layers, the global batch 8 x 1,024 (2 rows a rank), ZeRO-1
+   post then ZeRO-1 overlap, 3 steps each: every rank's metrics equal,
+   its optimizer state exactly a quarter of one rank's (12 B a padded
+   element + the count), the pack kernel once a bucket a post step and
+   none in overlap, flash twice a layer; overlap's step 1 within 1e-5 of
+   post's and its params after it within one bf16 ulp, its later steps'
+   loss and grad norm within 2^-10 (phase 11's reason); the hooks issue
+   every bucket inside the backward in ready order. Four ranks time-share one
+   card and their collectives cross host memory: no time here is a
+   speed-up.
 
 It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Without CUDA, or without the package beside it, it fails and prints no
@@ -299,6 +332,8 @@ FLASH_CASES = (
     ("o", "bfloat16", (4, 64, 64, 12, 2, 128), True, None, (0, 9, 33, 63),
      True),
 )
+# phase 12: ZeRO-1 on ranks sharing the one card, spawned once
+ZERO1_WORLD, ZERO1_LAYERS, ZERO1_STEPS, ZERO1_TIMEOUT_S = 4, 4, 3, 420
 PAIRS = 10                       # alternating kernel / library timings
 # phase 7: TP ranks sharing the one card, spawned once
 TP_WORLD, TP_VCIS, TP_TIMEOUT_S = 4, (8, 1), 600
@@ -2079,7 +2114,9 @@ def _saved_bytes(cfg, params, batch) -> tuple:
 
     def pack(t):
         seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
-        return t
+        # a detached alias: a node that saves its own output would hold
+        # the output's grad_fn, itself, and the graph would never be freed
+        return t.detach()
 
     def tensors(x):      # the store's (version-wrapped) outputs, any nesting
         if isinstance(x, dict):
@@ -2157,6 +2194,7 @@ def phase_train() -> dict:
     torch.cuda.synchronize()
     print(f"train: warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms, "
           f"loss {float(m['loss']):.4f}", flush=True)
+    first = (float(m["loss"]), float(m["grad_norm"]))
     cp = get_comm_plan(state.params, num_streams=8, num_vcis=8,
                        pack="pallas")
     n_buckets = cp.plan.num_buckets
@@ -2173,6 +2211,9 @@ def phase_train() -> dict:
         norms.append(float(m["grad_norm"]))
     launches = (bucket_pack.launches, bucket_unpack.launches)
     flash = flash_attention.launches
+    # phase 11 holds the overlap schedule against these steps' results
+    post = dict(metrics=[first] + list(zip(losses, norms)),
+                params=[t.clone() for t in tree_flatten(state.params)[0]])
     check(launches == (n_buckets * TRAIN_STEPS, TRAIN_STEPS),
           f"{TRAIN_STEPS} steps launched pack/unpack {launches} times, want "
           f"({n_buckets} x {TRAIN_STEPS}, {TRAIN_STEPS})")
@@ -2220,15 +2261,23 @@ def phase_train() -> dict:
                             **TRAIN_KNOBS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
     t0 = time.perf_counter()
     state, m = dstep(state, batches[-1])
     torch.cuda.synchronize()
     dms = (time.perf_counter() - t0) * 1e3
     dpeak = torch.cuda.max_memory_allocated()
+    dflash = flash_attention.launches
     check(math.isfinite(float(m["loss"])), f"remat='dots': loss {m['loss']}")
+    # the selective checkpoint keeps the flash op's (o, lse): no second
+    # forward in the backward
+    check(dflash == cfg.num_layers, f"a remat='dots' step launched "
+          f"flash_attention {dflash} times, want {cfg.num_layers}")
     print(f"train: remat='dots' one step {dms:.3f} ms (its first), loss "
           f"{float(m['loss']):.4f}, max_memory_allocated {dpeak} B beside "
-          f"remat='block''s {peak} B ({dpeak / peak:.3f}x)", flush=True)
+          f"remat='block''s {peak} B ({dpeak / peak:.3f}x); flash_attention "
+          f"launches {dflash} (remat='block': {2 * cfg.num_layers} a step)",
+          flush=True)
     # what each policy's forward keeps for the backward on this path (the
     # CUDA flash kernel, bf16): "dots" must keep the matmul outputs, so
     # strictly more than "block" and less than "none"
@@ -2246,7 +2295,174 @@ def phase_train() -> dict:
           f"'block' {saved['block'][0]} and 'none' {saved['none'][0]}")
     del state
     torch.cuda.empty_cache()
-    return dict(kern, launches=launches, flash=flash, step_ms=ms)
+    return dict(kern, launches=launches, flash=flash + dflash, step_ms=ms,
+                post=post, peak=peak)
+
+
+def _f32_leaves(plan, masters) -> list:
+    """The f32 master buffers of a one-rank ZeRO-1 state (each shard the
+    whole bucket), cut into leaves in leaf order."""
+    out = [None] * plan.num_leaves
+    for b, m in zip(plan.buckets, masters):
+        for s in b.slots:
+            out[s.index] = m[s.offset:s.offset + s.size]
+    return out
+
+
+def phase_train_zero1(rep: dict) -> dict:
+    """Phase 11: phase 9's olmo-1b step as ZeRO-1 post, replicated overlap
+    and ZeRO-1 overlap (see the module docstring); ``rep`` holds phase 9's
+    metrics of its 6 steps and its params after them, which this drops."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import get_comm_plan
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels.bucket_pack import bucket_pack, bucket_unpack
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.train.trainer import (make_train_step, optimizer_bytes,
+                                           train_state_init)
+    from repro_torch.tree import tree_flatten
+
+    cfg = get_config(TRAIN_ARCH)
+    batches = [synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=i)
+               for i in range(TRAIN_STEPS + 1)]
+    out, masters = {}, {}
+    for optimizer, schedule in (("zero1", "post"), ("replicated", "overlap"),
+                                ("zero1", "overlap")):
+        name = f"{optimizer}/{schedule}"
+        knobs = dict(TRAIN_KNOBS, optimizer=optimizer, schedule=schedule)
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        t0 = time.time()
+        state = train_state_init(cfg, 0, device="cuda", optimizer=optimizer,
+                                 num_streams=8, pack="pallas",
+                                 schedule=schedule)
+        step = make_train_step(cfg, **knobs)
+        cp = get_comm_plan(state.params, num_streams=8, num_vcis=8,
+                           pack="pallas", schedule=schedule)
+        n_buckets = cp.plan.num_buckets
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, m = step(state, batches[0])
+        metrics = [(float(m["loss"]), float(m["grad_norm"]))]
+        warm_s = time.time() - t0
+        if optimizer == "zero1":     # the f32 master after step 1
+            masters[schedule] = [t.clone() for t in _f32_leaves(
+                cp.plan, state.opt.master)]
+        times = []
+        torch.cuda.synchronize()
+        bucket_pack.launches = bucket_unpack.launches = 0
+        flash_attention.launches = 0
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batches[1 + i])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        packs, unpacks = bucket_pack.launches, bucket_unpack.launches
+        flash = flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        opt_bytes = optimizer_bytes(state.opt)
+        check(all(map(math.isfinite, sum(metrics, ()))),
+              f"{name}: non-finite loss/gnorm {metrics}")
+        # step 1 starts from phase 9's params and batch: the same loss and
+        # grad norm as the replicated post step (the ZeRO-1 master is the
+        # params in f32; later steps differ in bf16, where ZeRO-1 keeps f32)
+        for got, want, what in zip(metrics[0], rep["metrics"][0],
+                                   ("loss", "grad norm")):
+            check(abs(got - want) <= 1e-5 * abs(want),
+                  f"{name} step 1 {what} {got} vs replicated post {want}")
+        want_packs = n_buckets * TRAIN_STEPS if name == "zero1/post" else 0
+        check((packs, unpacks) == (want_packs, 0),
+              f"{name}: {TRAIN_STEPS} steps launched pack/unpack "
+              f"{(packs, unpacks)}, want ({want_packs}, 0)")
+        check(flash == 2 * cfg.num_layers * TRAIN_STEPS,
+              f"{name}: flash_attention launched {flash} times")
+        issue = ""
+        if schedule == "overlap":
+            last = step.last_issue
+            check(last["order"] == cp.ready_order and
+                  last["in_backward"] == n_buckets,
+                  f"{name}: hooks issued {last}, ready order "
+                  f"{cp.ready_order}")
+            early = sum(1 for v in last["hooks_seen"].values()
+                        if v < last["leaves"])
+            issue = (f"; hooks issued all {last['in_backward']} buckets "
+                     f"before the backward returned, in ready order "
+                     f"{last['order']}, {early} of them before the last "
+                     f"leaf gradient arrived (leaf gradients seen at each "
+                     f"issue {last['hooks_seen']})")
+            # replicated: one rank's reduce is exact, so overlap repeats
+            # post's f32 arithmetic step by step. ZeRO-1: the two plans lay
+            # the buckets out apart, so the grad norm, and through the clip
+            # every update, differs in the last f32 bits; the bf16 params
+            # rounded from the f32 master then differ by one ulp here and
+            # there, and from step 2 on the bf16 forward carries that on:
+            # step 1 is held to f32 (above and its master below), later
+            # steps to a quarter of a bf16 ulp (2^-10)
+            base = rep if optimizer == "replicated" else out["zero1/post"]
+            tol = 1e-5
+            for i, (a, b) in enumerate(zip(metrics, base["metrics"])):
+                if i and optimizer == "zero1":
+                    tol = 2 ** -10
+                for x, y in zip(a, b):
+                    check(abs(x - y) <= tol * abs(y),
+                          f"{name} step {i + 1}: {a} vs post {b} (rtol "
+                          f"{tol})")
+            drift = max(abs(x - y) / abs(y) for a, b in
+                        zip(metrics, base["metrics"]) for x, y in zip(a, b))
+            issue += (f"; loss/gnorm against post's: max relative diff "
+                      f"{drift:.3e}")
+        ms = sum(times) / len(times)
+        print(f"train {name}: {cfg.name}, {TRAIN_KNOBS}, batch {TRAIN_BATCH} "
+              f"x {TRAIN_SEQ}: warm-up (init included) {warm_s:.1f} s; step "
+              f"ms {[round(t, 3) for t in times]} (mean {ms:.3f}), "
+              f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.1f} tok/s; loss "
+              f"{[round(v[0], 4) for v in metrics]}, gnorm "
+              f"{[round(v[1], 4) for v in metrics]}; max_memory_allocated "
+              f"{peak} B ({before} B allocated before the state was made: "
+              f"phase 9's params kept for the comparison); optimizer state "
+              f"{opt_bytes} B a rank; launches "
+              f"pack {packs} unpack {unpacks} flash_attention {flash}{issue}",
+              flush=True)
+        out[name] = dict(metrics=metrics, ms=ms, peak=peak, packs=packs,
+                         flash=flash, opt_bytes=opt_bytes)
+        leaves = tree_flatten(state.params)[0]
+        if name == "replicated/overlap":
+            # one rank's reduce is exact: equal bits, unless the backward's
+            # kernels sum in another order from run to run, which may move
+            # a bf16 param by one ulp (a relative 2^-7 at most)
+            off = worst = 0
+            for a, b in zip(leaves, rep["params"]):
+                d = (a.float() - b.float()).abs()
+                off += int((d > 0).sum())
+                worst = max(worst, (d / b.float().abs().clamp(min=1e-30)
+                                    ).max().item())
+            check(worst <= 2 ** -7, f"{name}: params off post's by {worst} "
+                  f"relative (> one bf16 ulp)")
+            print(f"train {name}: params after {TRAIN_STEPS + 1} steps "
+                  f"against phase 9's post schedule's: {off} elements "
+                  f"differ (max relative diff {worst:.3e}; one bf16 ulp is "
+                  f"<= {2 ** -7:.3e})", flush=True)
+        del state, step, leaves
+        torch.cuda.empty_cache()
+    # step 1 from equal params and batch: the f32 masters within f32
+    # tolerance (the clip scale is the only difference)
+    worst = 0.0
+    for a, b in zip(masters["overlap"], masters["post"]):
+        d = (a - b).abs()
+        worst = max(worst, d.max().item())
+        check(bool((d <= 1e-6 + 2e-5 * b.abs()).all()),
+              f"zero1 overlap's f32 master after step 1 differs from post's "
+              f"by {d.max().item()}")
+    print(f"train zero1/overlap: f32 master after step 1 within rtol 2e-5 "
+          f"/ atol 1e-6 of zero1/post's (max abs diff {worst:.3e})",
+          flush=True)
+    del masters
+    rep.pop("params")
+    torch.cuda.empty_cache()
+    return out
 
 
 def profile_train(step, state, batches) -> None:
@@ -2345,6 +2561,192 @@ def phase_reference_train() -> None:
           f"loss/gnorm max rel diff {worst:.3e} (tol 1e-5), params max abs "
           f"diff {pworst:.3e} (tol 1e-4 + 2e-5 rel), {off} of {total} "
           f"elements beyond 1e-6 + 2e-5 rel", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: ZeRO-1 and overlap training on four ranks of the one card
+# ---------------------------------------------------------------------------
+
+def _zero1_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One of phase 12's ranks: join the shared-card group (gloo, CUDA
+    tensors), train ZeRO-1 post then ZeRO-1 overlap from the same params
+    and batches, hold the two against each other, write what it saw to
+    ``out_dir/zero1_rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import get_comm_plan
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels.bucket_pack import bucket_pack
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import join_ranks
+    from repro_torch.train.trainer import (make_train_step, optimizer_bytes,
+                                           train_state_init)
+    from repro_torch.tree import tree_flatten
+
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device, backend, why = join_ranks(rank, world, "cuda", store)
+    out = dict(backend=backend, why=why, runs={})
+    try:
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                                  num_layers=ZERO1_LAYERS)
+        batches = [synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                                   step=i) for i in range(ZERO1_STEPS)]
+        post = None
+        for schedule in ("post", "overlap"):
+            state = train_state_init(cfg, 0, device=device,
+                                     optimizer="zero1", num_streams=8,
+                                     pack="pallas", schedule=schedule)
+            step = make_train_step(cfg, **dict(TRAIN_KNOBS, optimizer="zero1",
+                                               schedule=schedule))
+            cp = get_comm_plan(state.params, num_streams=8, num_vcis=8,
+                               pack="pallas", schedule=schedule)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            bucket_pack.launches = flash_attention.launches = 0
+            times, metrics = [], []
+            for i, b in enumerate(batches):
+                dist.barrier()
+                t0 = time.perf_counter()
+                state, m = step(state, b)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+                times.append((time.perf_counter() - t0) * 1e3)
+                if i:
+                    continue
+                # after step 1 from equal params: ZeRO-1's params are its
+                # f32 masters rounded to bf16, and the two plans sum the
+                # grad norm in other orders, so a master may round to the
+                # neighbouring bf16 value: one ulp
+                leaves = tree_flatten(state.params)[0]
+                if schedule == "post":
+                    post = [t.clone() for t in leaves]
+                else:
+                    param_rel = max(
+                        ((a.float() - c.float()).abs()
+                         / c.float().abs().clamp(min=1e-30)).max().item()
+                        for a, c in zip(leaves, post))
+                del leaves
+            run = dict(metrics=metrics, ms=times,
+                       packs=bucket_pack.launches,
+                       flash=flash_attention.launches,
+                       buckets=cp.plan.num_buckets,
+                       total_padded=cp.plan.total_padded,
+                       opt_bytes=optimizer_bytes(state.opt),
+                       peak=torch.cuda.max_memory_allocated())
+            if schedule == "overlap":
+                last = step.last_issue
+                run.update(order=list(last["order"]),
+                           ready_order=list(cp.ready_order),
+                           in_backward=last["in_backward"],
+                           param_rel=param_rel)
+            out["runs"][schedule] = run
+            del state, step
+            torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        with open(os.path.join(out_dir, f"zero1_rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+
+
+def phase_zero1_ranks(card: str) -> dict:
+    """Phase 12 (see the docstring): ``ZERO1_WORLD`` ranks on the one card,
+    spawned once. Returns the pack and flash launches summed over the
+    ranks."""
+    import tempfile
+    import torch
+
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_zero1_")
+    t0 = time.time()
+    ctx = torch.multiprocessing.start_processes(
+        _zero1_rank, args=(ZERO1_WORLD, os.path.join(out_dir, "store"),
+                           out_dir),
+        nprocs=ZERO1_WORLD, start_method="spawn", join=False)
+    try:
+        while not ctx.join(timeout=5):
+            if time.time() - t0 > ZERO1_TIMEOUT_S:
+                for proc in ctx.processes:
+                    proc.kill()
+                fail(f"phase 12: the ranks ran past {ZERO1_TIMEOUT_S} s")
+    except Exception as e:   # a rank raised: its traceback is in stderr
+        fail(f"phase 12: a rank failed: {e}")
+    ranks = []
+    for r in range(ZERO1_WORLD):
+        with open(os.path.join(out_dir, f"zero1_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    r0 = ranks[0]
+    print(f"zero1 ranks: {ZERO1_WORLD} ranks on one card ({card}) in "
+          f"{time.time() - t0:.1f}s, backend={r0['backend']} ({r0['why']}),"
+          f" CUDA tensors; {TRAIN_ARCH} at full width, {ZERO1_LAYERS} "
+          f"layers, global batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"{ZERO1_STEPS} steps, {TRAIN_KNOBS}", flush=True)
+    launches = dict(packs=0, flash=0)
+    for schedule in ("post", "overlap"):
+        runs = [r["runs"][schedule] for r in ranks]
+        run = runs[0]
+        n_b, padded = run["buckets"], run["total_padded"]
+        # one rank's ZeRO-1 state is f32 master + m + v over every padded
+        # element (+ the int32 count); a rank of 4 holds a quarter of it
+        one = 12 * padded + 4
+        for r, got in enumerate(runs):
+            check(got["metrics"] == run["metrics"],
+                  f"zero1 {schedule}: rank {r}'s metrics differ from rank "
+                  f"0's (the step means them over the group)")
+            check(got["opt_bytes"] == 12 * padded // ZERO1_WORLD + 4,
+                  f"zero1 {schedule}: rank {r} holds {got['opt_bytes']} B "
+                  f"of optimizer state, want 1/{ZERO1_WORLD} of {one}")
+            want = n_b * ZERO1_STEPS if schedule == "post" else 0
+            check(got["packs"] == want, f"zero1 {schedule}: rank {r} "
+                  f"launched bucket_pack {got['packs']} times, want {want}")
+            check(got["flash"] == 2 * ZERO1_LAYERS * ZERO1_STEPS,
+                  f"zero1 {schedule}: rank {r} launched flash "
+                  f"{got['flash']} times")
+            launches["packs"] += got["packs"]
+            launches["flash"] += got["flash"]
+        check(all(map(math.isfinite, sum(map(tuple, run["metrics"]), ()))),
+              f"zero1 {schedule}: non-finite {run['metrics']}")
+        extra = ""
+        if schedule == "overlap":
+            check(run["order"] == run["ready_order"] and
+                  run["in_backward"] == n_b,
+                  f"zero1 overlap: hooks issued {run['order']} "
+                  f"({run['in_backward']} in the backward), ready order "
+                  f"{run['ready_order']}")
+            # step 1 in f32 terms, later steps in bf16 terms (phase 11)
+            drift = 0.0
+            for i, (a, b) in enumerate(zip(
+                    run["metrics"], ranks[0]["runs"]["post"]["metrics"])):
+                tol = 2 ** -10 if i else 1e-5
+                for x, y in zip(a, b):
+                    drift = max(drift, abs(x - y) / abs(y))
+                    check(abs(x - y) <= tol * abs(y),
+                          f"zero1 overlap step {i + 1} {a} vs post {b} "
+                          f"(rtol {tol})")
+            worst = max(r["param_rel"] for r in runs)
+            check(worst <= 2 ** -7, f"zero1 overlap params after step 1 off "
+                  f"post's by {worst} relative (> one bf16 ulp)")
+            extra = (f"; hooks issued all {n_b} buckets inside the backward "
+                     f"in ready order {run['order']}; loss/gnorm against "
+                     f"post's: max relative diff {drift:.3e} (step 1 within "
+                     f"1e-5, later 2^-10), params after step 1 within "
+                     f"{worst:.3e} relative (one bf16 ulp is <= "
+                     f"{2 ** -7:.3e})")
+        print(f"zero1 ranks {schedule}: step ms (rank 0) "
+              f"{[round(t, 1) for t in run['ms']]}, loss "
+              f"{[round(m[0], 4) for m in run['metrics']]}, gnorm "
+              f"{[round(m[1], 4) for m in run['metrics']]}; optimizer state "
+              f"a rank {[r['opt_bytes'] for r in runs]} B (one rank's "
+              f"ZeRO-1 state {one} B / {ZERO1_WORLD}); peak a rank "
+              f"{[r['peak'] for r in runs]} B; launches a rank: pack "
+              f"{run['packs']}, flash {run['flash']}{extra}", flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2715,9 +3117,11 @@ def main() -> None:
     try:
         train = phase_train()
         phase_reference_train()
+        zero1 = phase_train_zero1(train.pop("post"))
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
+    ranks = phase_zero1_ranks(card)
 
     f32 = kern["float32"]
     line = {"kernels": [{
@@ -2746,7 +3150,8 @@ def main() -> None:
         "bound_by": "bytes",
         "library_ms": train[name]["library_ms"],
     } for name, line, launches in (
-        ("bucket_pack", 83, train["launches"][0]),
+        ("bucket_pack", 83, train["launches"][0]
+         + zero1["zero1/post"]["packs"] + ranks["packs"]),
         ("bucket_unpack", 110, train["launches"][1]))] + [{
         "name": "flash_attention",
         "route": "cuda",
@@ -2755,7 +3160,8 @@ def main() -> None:
         "launches": sum(r[layout]["flash"] for r in (runs, moe_runs)
                         for layout in ("paged", "contiguous"))
         + moe_runs["window"]["flash"] + hyb["flash"] + vlm_flash
-        + audio_flash + train["flash"] + tp["flash"],
+        + audio_flash + train["flash"] + tp["flash"] + ranks["flash"]
+        + sum(r["flash"] for r in zero1.values()),
         "max_abs_err": flash["max_abs_err"],
         "ms": flash["a"]["ms"],
         "plain_ms": flash["a"]["plain_ms"],

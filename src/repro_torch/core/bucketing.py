@@ -29,9 +29,18 @@ A :class:`CommPlan` caches the plan, the CommWorld with one context per
 bucket and the pack tables per (treedef, shapes, knobs); the ordering state
 (:class:`~repro_torch.core.collectives.CommRuntime`) is per step.
 
-``output="shards"``, :func:`all_gather_shards` (ZeRO-1, ROADMAP.md Queue 1
-item 7) and :func:`overlap_boundaries` (bucket-ready overlap, item 8) are
-later slices and raise ``NotImplementedError``.
+ZeRO-1: ``reduce_gradients(output="shards")`` stops after each bucket's
+reduce_scatter (at the wire dtype ``reduce_dtype``) and returns this
+rank's f32 shard of every bucket with the :class:`ShardLayout`;
+:func:`all_gather_shards` gathers updated shards back on the same
+contexts and unpacks each bucket by slicing.
+
+Bucket-ready overlap: :func:`overlap_boundaries` registers a gradient
+hook on every param leaf; the hook that delivers a bucket's last leaf
+gradient packs that bucket (per-slot copies, never the tile-gather
+kernel, as the reference's boundary) and issues its reduce (or, with
+``taps``, its reduce_scatter) on the bucket's VCI inside the backward,
+from a fresh runtime a bucket, in :attr:`CommPlan.ready_order`.
 """
 
 from __future__ import annotations
@@ -41,8 +50,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.core.collectives import CommRuntime, Request
+from repro_torch.core.collectives import CommRuntime, Request, vci_group
 from repro_torch.core.comm import CommContext, CommWorld
 from repro_torch.kernels.bucket_pack import TILE
 from repro_torch.tree import tree_flatten, tree_unflatten
@@ -302,6 +312,15 @@ class CommPlan:
         self.schedule = schedule
         self._tables = None
         self._device_tables: Dict[torch.device, tuple] = {}
+        self._ready_order: Optional[Tuple[int, ...]] = None
+
+    @property
+    def ready_order(self) -> Tuple[int, ...]:
+        """Bucket issue order for overlap scheduling (backward readiness,
+        :func:`bucket_ready_order` of the plan)."""
+        if self._ready_order is None:
+            self._ready_order = bucket_ready_order(self.plan)
+        return self._ready_order
 
     def runtime(self) -> CommRuntime:
         """A fresh per-step runtime bound to the cached world/contexts."""
@@ -422,6 +441,26 @@ def plan_cache_clear() -> None:
 # the bucketed reduction itself
 # ---------------------------------------------------------------------------
 
+def _issue_reduce(rt: CommRuntime, ctx, flat: torch.Tensor, *, n: int,
+                  reduction: str, padded: int) -> Tuple[Request, bool]:
+    """Issue the first collective of one bucket buffer's reduction: its
+    reduce_scatter when ``reduction="reduce_scatter"`` and the bucket
+    divides the group (returns True), else an in-place all_reduce."""
+    if reduction == "reduce_scatter" and padded % n == 0:
+        return rt.reduce_scatter(flat, ctx), True
+    return rt.all_reduce(flat, ctx), False
+
+
+def _gather_mean(rt: CommRuntime, ctx, req: Request, flat: torch.Tensor, *,
+                 n: int, mean: bool) -> Request:
+    """The second half after a reduce_scatter: wait for the shard, take
+    the mean, all_gather it back into ``flat`` on the same context."""
+    shard = rt.wait(req)
+    if mean:
+        shard.div_(n)
+    return rt.all_gather(shard, ctx, out=flat)
+
+
 def _reduce_flat(rt: CommRuntime, ctx, flat: torch.Tensor, *, n: int,
                  mean: bool, reduction: str, padded: int
                  ) -> Tuple[Request, bool]:
@@ -429,13 +468,22 @@ def _reduce_flat(rt: CommRuntime, ctx, flat: torch.Tensor, *, n: int,
     ``flat``: reduce_scatter, mean, all_gather when the bucket divides the
     group, else an in-place all_reduce. Returns the request and whether
     the mean's ``/ n`` is still to be applied after the wait (the
-    all_reduce case: the sum is divided after it, as the reference does)."""
-    if reduction == "reduce_scatter" and padded % n == 0:
-        shard = rt.wait(rt.reduce_scatter(flat, ctx))
-        if mean:
-            shard.div_(n)
-        return rt.all_gather(shard, ctx, out=flat), False
-    return rt.all_reduce(flat, ctx), mean
+    all_reduce case: the sum is divided after it, as the reference does).
+    The overlap boundaries issue the same ops in the same order."""
+    req, scattered = _issue_reduce(rt, ctx, flat, n=n, reduction=reduction,
+                                   padded=padded)
+    if scattered:
+        return _gather_mean(rt, ctx, req, flat, n=n, mean=mean), False
+    return req, mean
+
+
+def _shard_f32(rt: CommRuntime, req: Request, *, n: int, mean: bool
+               ) -> torch.Tensor:
+    """A bucket's reduce_scatter result as the f32 shard ZeRO-1 owns,
+    divided by ``n`` in place when ``mean`` (the result is the request's
+    own buffer, or its f32 copy)."""
+    shard = rt.wait(req).float()
+    return shard.div_(n) if mean else shard
 
 
 def reduce_gradients(
@@ -454,19 +502,23 @@ def reduce_gradients(
     return the reduced tree (leaves in their own dtypes; ``reduce_dtype`` is
     the wire and staging dtype). See the module docstring for the knobs.
     One CommContext per bucket: the CommPlan's, or created here on the
-    runtime's world for a bare ``BucketPlan``."""
+    runtime's world for a bare ``BucketPlan``.
+
+    ``output="shards"`` (with ``reduction="reduce_scatter"``) returns
+    ``(shards, layout)`` instead: ``shards[b]`` is this rank's f32 slice of
+    reduced bucket ``b`` (divided by N when ``mean``), ``layout`` the
+    :class:`ShardLayout`, which raises when a bucket does not divide the
+    group (no all_reduce fallback: ZeRO-1 owns exactly 1/N of each)."""
     if pack not in ("xla", "pallas"):
         raise ValueError(f"unknown pack impl {pack!r}")
     if reduction not in ("all_reduce", "reduce_scatter"):
         raise ValueError(f"unknown reduction {reduction!r}")
     if staging not in ("per_vci", "shared"):
         raise ValueError(f"unknown staging {staging!r}")
-    if output == "shards":
-        raise NotImplementedError(
-            "reduce_gradients(output='shards') is ZeRO-1, ROADMAP.md Queue 1 "
-            "item 7 (not ported yet)")
-    if output != "tree":
+    if output not in ("tree", "shards"):
         raise ValueError(f"unknown output {output!r}")
+    if output == "shards" and reduction != "reduce_scatter":
+        raise ValueError("output='shards' requires reduction='reduce_scatter'")
 
     comm_plan = plan if isinstance(plan, CommPlan) else None
     bplan: BucketPlan = comm_plan.plan if comm_plan is not None else plan
@@ -476,10 +528,14 @@ def reduce_gradients(
     n = rt.size
     dev = leaves[0].device
     bases = np.cumsum([0] + [b.padded_size for b in bplan.buckets]).tolist()
+    layout = ShardLayout(bplan, n) if output == "shards" else None
 
     pending: List[Tuple[Request, bool]] = []
 
     def issue(bid: int, buf: torch.Tensor) -> None:
+        if layout is not None:
+            pending.append((rt.reduce_scatter(buf, contexts[bid]), False))
+            return
         b = bplan.buckets[bid]
         pending.append(_reduce_flat(rt, contexts[bid], buf, n=n, mean=mean,
                                     reduction=reduction,
@@ -523,6 +579,11 @@ def reduce_gradients(
         for bid, buf in enumerate(packed):
             issue(bid, buf)
 
+    if layout is not None:
+        del packed
+        return [_shard_f32(rt, req, n=n, mean=mean)
+                for req, _ in pending], layout
+
     # ---- wait: every bucket's reduction is complete before any unpack ----
     for req, divide in pending:
         val = rt.wait(req)
@@ -547,13 +608,195 @@ def reduce_gradients(
     return tree_unflatten(treedef, out_leaves)
 
 
-def overlap_boundaries(*a, **kw):
-    raise NotImplementedError(
-        "overlap_boundaries (schedule='overlap', bucket-ready overlap) is "
-        "ROADMAP.md Queue 1 item 8 (not ported yet)")
+def all_gather_shards(rt: CommRuntime, shards: Sequence[torch.Tensor],
+                      plan: Union[BucketPlan, CommPlan], *, wire_dtype=None,
+                      order: Optional[Sequence[int]] = None):
+    """Rebuild the full tree from this rank's bucket shards (ZeRO-1 step
+    3): each bucket's shard, cast to ``wire_dtype`` when given, is
+    all-gathered on the same context its reduce_scatter used (the
+    CommPlan's), every gather issued before any is waited, in ``order``
+    (default bucket id); each gathered bucket is unpacked by slicing, the
+    leaves cast to their slots' dtypes."""
+    comm_plan = plan if isinstance(plan, CommPlan) else None
+    bplan: BucketPlan = comm_plan.plan if comm_plan is not None else plan
+    contexts = (comm_plan.contexts if comm_plan is not None else
+                [rt.world.create(kind="p2p") for _ in bplan.buckets])
+    if order is None:
+        order = range(bplan.num_buckets)
+    reqs = []
+    for bid in order:
+        shard = shards[bid]
+        if wire_dtype is not None:
+            shard = shard.to(wire_dtype)
+        reqs.append((bid, rt.all_gather(shard, contexts[bid])))
+    out_leaves: List[Optional[torch.Tensor]] = [None] * bplan.num_leaves
+    for bid, req in reqs:
+        for idx, val in unpack_bucket(rt.wait(req), bplan.buckets[bid]):
+            out_leaves[idx] = val
+    return tree_unflatten(bplan.treedef, out_leaves)
 
 
-def all_gather_shards(*a, **kw):
-    raise NotImplementedError(
-        "all_gather_shards (ZeRO-1 param gather) is ROADMAP.md Queue 1 "
-        "item 7 (not ported yet)")
+class OverlapBoundaries:
+    """The hooked params of one backward (see :func:`overlap_boundaries`).
+
+    ``params`` is the tree to run the loss on and ``leaves`` its leaves,
+    the tensors to differentiate; ``issued`` lists the bucket ids in the
+    order their reduces were issued, and ``hooks_seen[b]`` how many leaf
+    gradients had arrived when bucket ``b`` was issued. :meth:`wait` (after
+    the backward) waits on every bucket and returns the reduced gradient
+    tree, or, with taps, the taps holding the shards."""
+
+    def __init__(self, cp: CommPlan, leaves, treedef, *, taps, carry,
+                 accum_steps: int, mean: bool, pack: str, reduction: str,
+                 reduce_dtype):
+        self.cp = cp
+        self.leaves = leaves
+        self.params = tree_unflatten(treedef, leaves)
+        self.taps = taps
+        self._carry = carry
+        self._accum = accum_steps
+        self._kw = dict(mean=mean, pack=pack, reduction=reduction,
+                        reduce_dtype=reduce_dtype)
+        plan = cp.plan
+        self._bucket_of = {s.index: b.bid for b in plan.buckets
+                           for s in b.slots}
+        self._grads: Dict[int, torch.Tensor] = {}
+        self._missing = [len(b.slots) for b in plan.buckets]
+        self._next = 0                      # position in cp.ready_order
+        self._seen = 0                      # leaf gradients arrived
+        self._pending: Dict[int, tuple] = {}
+        self._n = dist.get_world_size()
+        self.issued: List[int] = []
+        self.hooks_seen: Dict[int, int] = {}
+        # the hooks hold this object and it holds the leaves: wait()
+        # removes them, so that the cycle does not keep the taps and the
+        # carry alive until the garbage collector runs
+        self._handles = [leaf.register_hook(self._hook(i))
+                         for i, leaf in enumerate(leaves)]
+
+    def _hook(self, index: int):
+        def hook(grad: torch.Tensor) -> None:
+            self._grads[index] = grad
+            self._seen += 1
+            self._missing[self._bucket_of[index]] -= 1
+            order = self.cp.ready_order
+            # issue in ready order: every rank issues the buckets that
+            # share a VCI in one order, whatever order the hooks run in
+            while self._next < len(order) and \
+                    self._missing[order[self._next]] == 0:
+                self._issue(order[self._next])
+                self._next += 1
+        return hook
+
+    def _issue(self, bid: int) -> None:
+        b = self.cp.plan.buckets[bid]
+        vals: Dict[int, torch.Tensor] = {}
+        for s in b.slots:
+            ct = self._grads.pop(s.index)
+            if self._carry is not None:
+                ct = (self._carry[s.index] + ct.float() / self._accum
+                      ).to(s.dtype)
+            vals[s.index] = ct
+        dtype = self._kw["reduce_dtype"]
+        flat = (_pack_bucket_dma(vals, b, dtype) if self._kw["pack"] ==
+                "pallas" else pack_bucket(vals, b, dtype=dtype))
+        rt = self.cp.runtime()       # per-stream ordering only
+        ctx = self.cp.contexts[bid]
+        if self.taps is not None:
+            # an f32 wire scatters straight into the tap
+            tap = self.taps[bid]
+            req = rt.reduce_scatter(flat, ctx, out=tap if tap.dtype ==
+                                    flat.dtype else None)
+            scattered = True
+        else:
+            req, scattered = _issue_reduce(
+                rt, ctx, flat, n=self._n, reduction=self._kw["reduction"],
+                padded=b.padded_size)
+        self._pending[bid] = (rt, req, scattered, flat)
+        self.hooks_seen[bid] = self._seen
+        self.issued.append(bid)
+
+    def wait(self):
+        """Wait on every bucket's reduction (in issue order); the reduced
+        mean-gradient tree, or the taps filled with the f32 shards."""
+        plan = self.cp.plan
+        if len(self.issued) != plan.num_buckets:
+            raise RuntimeError(
+                f"{len(self.issued)} of {plan.num_buckets} buckets were "
+                f"issued: a param leaf got no gradient in the backward")
+        for h in self._handles:
+            h.remove()
+        self._handles, self._carry = [], None
+        n, mean = self._n, self._kw["mean"]
+        if self.taps is not None:
+            for bid in self.issued:
+                rt, req, _, _ = self._pending.pop(bid)
+                shard = _shard_f32(rt, req, n=n, mean=mean)
+                if shard is not self.taps[bid]:
+                    self.taps[bid].copy_(shard)
+            return self.taps
+        out: List[Optional[torch.Tensor]] = [None] * plan.num_leaves
+        for bid in self.issued:
+            rt, req, scattered, flat = self._pending.pop(bid)
+            ctx = self.cp.contexts[bid]
+            if scattered:
+                req = _gather_mean(rt, ctx, req, flat, n=n, mean=mean)
+            val = rt.wait(req)
+            if mean and not scattered:
+                val.div_(n)
+            for idx, leaf in unpack_bucket(val, plan.buckets[bid]):
+                out[idx] = leaf
+        return tree_unflatten(plan.treedef, out)
+
+
+def overlap_boundaries(cp: CommPlan, params, *,
+                       taps: Optional[Sequence[torch.Tensor]] = None,
+                       carry=None, accum_steps: int = 1, mean: bool = True,
+                       pack: str = "xla", reduction: str = "all_reduce",
+                       reduce_dtype=torch.float32) -> OverlapBoundaries:
+    """Hook ``params`` so that every bucket's gradient reduce is issued
+    INSIDE the backward, on the bucket's VCI, as soon as the bucket's last
+    leaf gradient exists (bucket-ready hooks, PyTorch-DDP style).
+
+    Returns an :class:`OverlapBoundaries`: run the loss on its ``params``,
+    differentiate with respect to its ``leaves`` (only ``Tensor`` hooks
+    fire under ``torch.autograd.grad``), then call its ``wait()`` for the
+    mean-reduced gradients; the gradients autograd returns are this rank's
+    own, not reduced. The reduces are not waited on inside the hooks.
+    With ``taps`` (ZeRO-1: one f32 tensor of shard size a bucket, see
+    :class:`ShardLayout`) each hook issues the bucket's reduce_scatter at
+    the wire dtype ``reduce_dtype`` instead, and ``wait()`` fills each tap
+    with this rank's mean-reduced f32 shard, as ``reduce_gradients(...,
+    output="shards")`` returns it.
+
+    ``carry`` (microbatch accumulation): the f32 sum of the earlier
+    microbatches' gradients, each divided by ``accum_steps`` (a tree like
+    ``params``); each hook folds it in as ``carry + ct.float() /
+    accum_steps`` cast to the leaf dtype, the post schedule's arithmetic,
+    so only the last microbatch's backward carries hooks. Every VCI group
+    is created here, before the backward: ``new_group`` is collective, and
+    on the card the hooks run on the autograd engine's device thread."""
+    leaves, treedef = tree_flatten(params)
+    if treedef != cp.plan.treedef:
+        raise ValueError("params tree does not match the CommPlan's tree")
+    if pack not in ("xla", "pallas"):
+        raise ValueError(f"unknown pack impl {pack!r}")
+    if reduction not in ("all_reduce", "reduce_scatter"):
+        raise ValueError(f"unknown reduction {reduction!r}")
+    if taps is not None:
+        layout = ShardLayout(cp.plan, dist.get_world_size())
+        if [tuple(t.shape) for t in taps] != \
+                [(s,) for s in layout.shard_sizes]:
+            raise ValueError(f"need one f32 tap of shard size a bucket "
+                             f"{layout.shard_sizes}")
+    carry_leaves = None
+    if carry is not None:
+        carry_leaves, carry_def = tree_flatten(carry)
+        if carry_def != treedef:
+            raise ValueError("carry tree does not match the params tree")
+    vci_group(0, cp.world.pool.num_vcis)   # every VCI group, made now
+    leaves = [p.detach().requires_grad_() for p in leaves]
+    return OverlapBoundaries(cp, leaves, treedef, taps=taps,
+                             carry=carry_leaves, accum_steps=accum_steps,
+                             mean=mean, pack=pack, reduction=reduction,
+                             reduce_dtype=reduce_dtype)

@@ -25,9 +25,16 @@ for each VCI index there is one group per line of the grid along that
 axis, VCI 0 included, and each rank keeps the group of its own line.
 
 An operation returns a :class:`Request`; its value may be read only after
-:meth:`CommRuntime.wait`. Without ``axis`` the group is
-``torch.distributed``'s default group (the data group of the training
-path).
+:meth:`CommRuntime.wait` (``sendrecv`` waits itself, as MPI_Sendrecv).
+Without ``axis`` the group is ``torch.distributed``'s default group (the
+data group of the training path).
+
+The point-to-point and window half (``sendrecv``/``isend_recv``,
+``get``/``put``: ``lax.ppermute`` as one ``batch_isend_irecv``;
+``accumulate``: an all-reduce; ``flush``) follows the reference's ordering
+rules: get/put are chained on the stream only on an ``ordered`` window,
+an accumulate only without the ``accumulate_ordering="none"`` hint; an
+un-chained issue is still recorded on its stream and counted.
 
 Ranks that share a card (NCCL refuses two ranks on one device) issue
 these collectives on CUDA tensors through gloo; a collective gloo refuses
@@ -38,7 +45,7 @@ from __future__ import annotations
 
 import atexit
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -163,10 +170,14 @@ def vci_group(index: int, num_vcis: int, axis: Optional[str] = None,
     return mine[index]
 
 
-def _later(item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"CommRuntime.{item} is not ported yet: the paper benchmarks "
-        f"(sendrecv/get/put/accumulate) are ROADMAP.md Queue 1 item 6")
+def _cuda_backend(group) -> str:
+    """The backend ``group`` runs CUDA tensors on (``"gloo"`` for a gloo
+    group, ``"nccl"`` for ``"cpu:gloo,cuda:nccl"``)."""
+    for part in str(dist.get_backend(group)).split(","):
+        dev, _, name = part.rpartition(":")
+        if dev in ("", "cuda"):
+            return name
+    return ""
 
 
 class CommRuntime:
@@ -193,13 +204,65 @@ class CommRuntime:
 
     # -- plumbing ------------------------------------------------------
     def _issue(self, ctx: CommContext, value: torch.Tensor, op,
-               axis: Optional[str] = None, finish=None) -> Request:
+               axis: Optional[str] = None, finish=None, *,
+               chain: bool = True) -> Request:
         vci = ctx.vci.index
         group = vci_group(vci, self.world.pool.num_vcis, axis, self.mesh)
-        self.engine.enter(vci)
+        if chain:
+            self.engine.enter(vci)
         pending = Pending(op(group))
-        self.engine.complete(vci, pending)
+        self.engine.complete(vci, pending, chained=chain)
         return Request(value, ctx, pending, finish)
+
+    def _axis_rank(self, axis: Optional[str]) -> int:
+        """This rank's index in its group along ``axis``."""
+        rank = dist.get_rank()
+        if axis is None:
+            return rank
+        return self.mesh.coords(rank)[0 if axis == "data" else 1]
+
+    def _permute(self, x: torch.Tensor, ctx: CommContext,
+                 perm: Sequence[Tuple[int, int]], axis: Optional[str],
+                 chain: bool = True) -> Request:
+        """``lax.ppermute``: every ``(src, dst)`` of ``perm`` (indices
+        along ``axis``) ships src's ``x`` to dst; a rank that no pair
+        sends to receives zeros. One ``batch_isend_irecv`` on the
+        context's VCI group; a pair ``(r, r)`` is a local copy."""
+        n = self.axis_size(axis)
+        perm = [(int(a), int(b)) for a, b in perm]
+        srcs, dsts = [a for a, _ in perm], [b for _, b in perm]
+        if len(set(srcs)) < len(srcs) or len(set(dsts)) < len(dsts) or \
+                not all(0 <= i < n for i in srcs + dsts):
+            raise ValueError(f"perm {perm} is not a partial permutation of "
+                             f"range({n})")
+        me = self._axis_rank(axis)
+        if x.is_cuda and _cuda_backend(vci_group(
+                ctx.vci.index, self.world.pool.num_vcis, axis,
+                self.mesh)) == "gloo":
+            raise RuntimeError(
+                "gloo sends no CUDA tensor point to point (its TCP "
+                "transport writes the device pointer and aborts the rank); "
+                "run the p2p and window ops on NCCL, a card a rank, or on "
+                "CPU tensors")
+        x = x.contiguous()
+        out = torch.zeros_like(x)
+        to = next((b for a, b in perm if a == me), None)
+        frm = next((a for a, b in perm if b == me), None)
+
+        def op(group):
+            def peer(i):
+                return i if group is None else dist.get_global_rank(group, i)
+            ops = []
+            if to is not None and to != me:
+                ops.append(dist.P2POp(dist.isend, x, peer(to), group=group))
+            if frm is not None and frm != me:
+                ops.append(dist.P2POp(dist.irecv, out, peer(frm),
+                                      group=group))
+            if to == me:
+                out.copy_(x)
+            return dist.batch_isend_irecv(ops) if ops else None
+
+        return self._issue(ctx, out, op, axis, chain=chain)
 
     def wait(self, req: Request) -> torch.Tensor:
         """MPI_Wait: the operation's result, ordered after it completes."""
@@ -263,22 +326,64 @@ class CommRuntime:
         return self._issue(ctx, recv, lambda g: dist.all_to_all_single(
             recv, send, group=g, async_op=True), axis, blocks)
 
-    def sendrecv(self, *a, **kw):
-        raise _later("sendrecv")
+    # -- two-sided (communicator) ops ------------------------------------
+    def isend_recv(self, x: torch.Tensor, ctx: CommContext, *,
+                   perm: Sequence[Tuple[int, int]],
+                   axis: Optional[str] = None) -> Request:
+        """Pairwise exchange (an Isend/Irecv pair) along ``axis``: each
+        ``(src, dst)`` of ``perm`` ships src's ``x`` to dst; a rank no pair
+        sends to receives zeros (``lax.ppermute``)."""
+        return self._permute(x, ctx, perm, axis)
 
-    def isend_recv(self, *a, **kw):
-        raise _later("isend_recv")
+    def sendrecv(self, x: torch.Tensor, ctx: CommContext, *,
+                 perm: Sequence[Tuple[int, int]],
+                 axis: Optional[str] = None) -> torch.Tensor:
+        """:meth:`isend_recv`, waited: the received tensor."""
+        return self.wait(self.isend_recv(x, ctx, perm=perm, axis=axis))
 
-    def get(self, *a, **kw):
-        raise _later("get")
+    # -- one-sided (window) ops ------------------------------------------
+    def get(self, x: torch.Tensor, ctx: CommContext, *,
+            perm: Sequence[Tuple[int, int]],
+            axis: Optional[str] = None) -> Request:
+        """MPI_Get analogue: fetch the owner's ``x`` (each ``(src, dst)``
+        ships src's ``x`` to dst). Get/Put carry no matching order, so a
+        window that is not ``ordered`` issues them un-chained."""
+        if ctx.kind != "rma":
+            raise ValueError("get() requires an rma context (window)")
+        return self._permute(x, ctx, perm, axis, chain=ctx.ordered)
 
-    def put(self, *a, **kw):
-        raise _later("put")
+    def put(self, x: torch.Tensor, ctx: CommContext, *,
+            perm: Sequence[Tuple[int, int]],
+            axis: Optional[str] = None) -> Request:
+        """MPI_Put analogue: the same exchange as :meth:`get`."""
+        if ctx.kind != "rma":
+            raise ValueError("put() requires an rma context (window)")
+        return self._permute(x, ctx, perm, axis, chain=ctx.ordered)
 
-    def accumulate(self, *a, **kw):
-        raise _later("accumulate")
+    def accumulate(self, x: torch.Tensor, ctx: CommContext, *,
+                   axis: Optional[str] = None) -> Request:
+        """MPI_Accumulate analogue: the sum over the group along ``axis``,
+        into a copy of ``x``. By default (``"rar"``) accumulates are
+        chained on the window's stream (MPI-3.1's program order for
+        same-source accumulates, §2.2); with ``accumulate_ordering="none"``
+        (the §6.3 hint) each is issued without waiting on the stream, and
+        still recorded on it."""
+        if ctx.kind != "rma":
+            raise ValueError("accumulate() requires an rma context (window)")
+        buf = x.clone()
+        return self._issue(ctx, buf, lambda g: dist.all_reduce(
+            buf, group=g, async_op=True), axis,
+            chain=ctx.accumulate_ordering != "none")
 
     # -- synchronization ------------------------------------------------
+    def flush(self, ctx: CommContext) -> None:
+        """MPI_Win_flush: wait on the window's stream (its VCI's last
+        operation, and those joined to it). Other streams are not waited
+        on, so under ``per_vci`` progress this is as starvation-prone as
+        the paper warns (Fig. 9); ``hybrid`` progress's rounds wait on
+        every stream. Not counted as an issue, as in the reference."""
+        self.engine.enter(ctx.vci.index)
+
     def barrier(self) -> None:
         """MPI_Barrier-ish: order what follows after ALL streams (global
         progress), counted as the reference counts it."""

@@ -36,10 +36,13 @@ GLOBAL_STREAM = -1  # stream key used by the `global` mode
 
 
 class Pending:
-    """One issued operation's ``torch.distributed`` ``Work``, waited on at
-    most once: gloo's ``wait()`` copies the result into the output tensor
-    each time it is called, so a second wait would undo in-place work done
-    on the result after the first (e.g. the mean's division)."""
+    """One issued operation's ``torch.distributed`` ``Work``, or a list of
+    waitables (the ``Work`` of one batch of point-to-point transfers; a
+    stream's earlier last operation and an un-chained one), or ``None``
+    for an operation that moved nothing; waited on at most once: gloo's
+    ``wait()`` copies the result into the output tensor each time it is
+    called, so a second wait would undo in-place work done on the result
+    after the first (e.g. the mean's division)."""
 
     __slots__ = ("work",)
 
@@ -48,7 +51,9 @@ class Pending:
 
     def wait(self) -> None:
         if self.work is not None:
-            self.work.wait()
+            for w in (self.work if isinstance(self.work, list)
+                      else [self.work]):
+                w.wait()
             self.work = None
 
 
@@ -87,9 +92,16 @@ class ProgressEngine:
         if last is not None:
             last.wait()
 
-    def complete(self, vci_index: int, op: Pending) -> None:
-        """Record ``op`` as the stream's last operation (lock release)."""
-        self._last[self._key(vci_index)] = op
+    def complete(self, vci_index: int, op: Pending, *,
+                 chained: bool = True) -> None:
+        """Record ``op`` as the stream's last operation (lock release). An
+        op issued without :meth:`enter` (``chained=False``) joins the
+        stream's earlier last operation instead of replacing it, as the
+        reference's token after an un-chained op depends on both."""
+        key = self._key(vci_index)
+        last = self._last.get(key)
+        self._last[key] = op if chained or last is None else \
+            Pending([last, op])
         self.issued += 1
         self._issued_since_join += 1
         if self.mode == "hybrid" and self._issued_since_join >= self.join_every:

@@ -14,8 +14,10 @@ left pad), which the reference kernel lacks. Masked logits are ``NEG_INF
 = -1e30``, so a row with no valid key (a pad row) gets the model's
 uniform softmax: the mean of V over all ``Skv`` keys.
 
-* :func:`flash_attention` — the entry point the model calls, a
-  ``torch.autograd.Function``. On a CUDA tensor its forward launches the
+* :func:`flash_attention` — the entry point the model calls: the
+  dispatcher op :func:`flash_fwd` (``repro_torch::flash_fwd``, with a
+  fake implementation and its autograd registered, so a selective
+  checkpoint can keep its output). On a CUDA tensor its forward launches the
   ``sm_90a`` kernel of ``csrc/flash_attention.cu`` (which replaces
   ``flash_attention_pallas``; f32 or bf16, head_dim in
   ``_KERNEL_HEAD_DIMS``) and adds one to ``flash_attention.launches``;
@@ -215,25 +217,44 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     return _fwd_kernel(q, k, v, causal, window, start)
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, start, causal, window):
-        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                     start=start)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
-        ctx.has_start = start is not None
-        return o
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              start: Optional[torch.Tensor], causal: bool,
+              window: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_fwd` as one dispatcher op, so that a
+    selective checkpoint (``remat="dots"``) sees it and can keep its
+    ``(o, lse)``. Returns fresh tensors (``o`` contiguous)."""
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                 start=start)
+    return o.contiguous(), lse
 
-    @staticmethod
-    def backward(ctx, do):
-        if ctx.has_start:
-            raise ValueError("flash_attention has no backward with start")
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_plain(
-            q, k, v, o, lse, do, causal=ctx.causal,
-            window=ctx.window)
-        return dq, dk, dv, None, None, None
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, start, causal, window):
+    b, sq, h, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, h, sq), dtype=torch.float32))
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, start, causal, window = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal, ctx.window = causal, window
+    ctx.has_start = start is not None
+
+
+def _flash_backward(ctx, do, dlse):
+    if ctx.has_start:
+        raise ValueError("flash_attention has no backward with start")
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                           causal=ctx.causal,
+                                           window=ctx.window)
+    return dq, dk, dv, None, None, None
+
+
+flash_fwd.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -242,7 +263,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Attention of q (B,Sq,H,hd) over k/v (B,Skv,KV,hd) with the masks of
     the module doc; returns o (B,Sq,H,hd) in q's dtype. Differentiable in
     q, k and v (without ``start``)."""
-    return _FlashAttention.apply(q, k, v, start, causal, window)
+    return flash_fwd(q, k, v, start, causal, window)[0]
 
 
 flash_attention.launches = 0

@@ -10,11 +10,12 @@ by default (raises without CUDA), ``--device cpu`` for the plain CPU path.
 ``FileStore`` in a temporary directory (no network); without it the step
 runs in this process as a group of one. Rank 0 prints.
 
-``--comm vci`` is the ported mode (bucketed VCI gradient reduction). Not
-ported yet, each raising ``NotImplementedError``: ``--comm gspmd`` and
-``--ckpt-dir`` (ROADMAP.md Queue 1 item 14), ``--optimizer zero1`` /
-``--zero1-wire`` (item 7), ``--overlap`` (item 8), a 2-D or 3-D ``--mesh``
-(tensor parallelism).
+``--comm vci`` is the ported mode (bucketed VCI gradient reduction), with
+``--optimizer zero1`` (ZeRO-1: reduce_scatter, sharded AdamW, param
+all_gather; ``--zero1-wire bfloat16`` sets the wire dtype of both) and
+``--overlap`` (each bucket's reduce issued inside the backward). Not
+ported yet, each raising ``NotImplementedError``: ``--comm gspmd``,
+``--ckpt-dir`` and a 2-D or 3-D ``--mesh`` (ROADMAP.md Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -80,7 +81,7 @@ def _world_size(mesh: str) -> int:
     if "x" in mesh:
         raise NotImplementedError(
             f"--mesh {mesh}: only a 1-D data-parallel mesh is ported; "
-            f"tensor parallelism comes with ROADMAP.md Queue 1 item 10")
+            f"training on a model axis is ROADMAP.md Queue 1 item 14")
     n = int(mesh)
     if n < 1:
         raise ValueError(f"--mesh must be >= 1, got {n}")
@@ -100,15 +101,17 @@ def train(args: argparse.Namespace, device: torch.device) -> None:
         return cosine_schedule(s, peak=args.lr, warmup_steps=args.warmup,
                                total_steps=args.steps)
 
+    schedule = "overlap" if args.overlap else "post"
     step = make_train_step(
         cfg, lr_fn=lr_fn, comm=args.comm, accum_steps=args.accum,
         num_streams=args.num_streams, progress=args.progress,
         vci_policy=args.vci_policy, pack=args.pack,
         reduction=args.reduction, persistent_plan=not args.per_step_plan,
         optimizer=args.optimizer, zero1_wire_dtype=args.zero1_wire,
-        schedule="overlap" if args.overlap else "post")
+        schedule=schedule)
     state = train_state_init(cfg, args.seed, optimizer=args.optimizer,
-                             device=device)
+                             device=device, num_streams=args.num_streams,
+                             pack=args.pack, schedule=schedule)
 
     t0 = time.time()
     tokens_done = 0

@@ -77,18 +77,19 @@ from repro_torch.models.ssm import SSMState, mamba2_decode, mamba2_forward
 IMG_EMBED_DIM = 1024  # stubbed CLIP patch-embedding width (phi-3-vision)
 
 # remat="dots": the ops whose outputs the backward keeps (``aten.matmul``
-# and ``einsum`` reach the dispatcher as these)
+# and ``einsum`` reach the dispatcher as the first three; the fourth is the
+# flash forward, ``(o, lse)``, as the reference's XLA attention keeps its
+# products)
 _DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
-                      torch.ops.aten.addmm.default})
+                      torch.ops.aten.addmm.default,
+                      torch.ops.repro_torch.flash_fwd.default})
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
     """Selective activation checkpoint for ``remat="dots"``, as
-    ``jax.checkpoint_policies.checkpoint_dots``: save the matmul outputs,
-    recompute everything else. The CUDA flash forward is a ``ctypes`` call
-    inside an ``autograd.Function``, which the dispatcher does not see, so
-    it is recomputed where the reference's XLA attention keeps its two
-    products (its CPU plain version's ``bmm`` outputs are kept)."""
+    ``jax.checkpoint_policies.checkpoint_dots``: save the matmul and the
+    flash forward's outputs, recompute everything else (so the backward
+    launches no second flash forward)."""
     return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
@@ -319,7 +320,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     if n_kv:
         if "kv_fp8" in cfg.opts:
             raise NotImplementedError("kv_fp8 cache storage is not ported "
-                                      "yet (ROADMAP.md Queue 1)")
+                                      "yet (ROADMAP.md Queue 1 item 14)")
         shape = (n_kv,) + kv_cache_shape(cfg, batch, max_len)
         if kv_heads is not None:
             shape = shape[:3] + (kv_heads,) + shape[4:]
@@ -354,7 +355,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                          f"{page_size}/{num_pages}")
     if "kv_fp8" in cfg.opts:
         raise NotImplementedError("kv_fp8 cache storage is not ported yet "
-                                  "(ROADMAP.md Queue 1)")
+                                  "(ROADMAP.md Queue 1 item 14)")
     max_pages = -(-max_len // page_size)
     shape = (cfg.num_layers, num_pages, page_size,
              _stored_kv_heads(cfg) if kv_heads is None else kv_heads,

@@ -1,21 +1,28 @@
 """AdamW with dtype-configurable moments and global-norm clipping (port of
-the replicated half of ``repro.optim.adamw``).
+``repro.optim.adamw``): the replicated update and the ZeRO-1 sharded one.
 
 The math is the reference's: float32 arithmetic, b2 = 0.95, decoupled
 weight decay on matrices only (``ndim >= 2``), each result cast back to
-its tensor's dtype. Unlike the reference's pure function, the update is
-done IN PLACE on the params and the moments (the returned trees hold the
-same tensors), so a full-width step does not hold a second copy of the
-params and moments. The sharded ZeRO-1 layout is ROADMAP.md Queue 1
-item 7.
+its tensor's dtype. Unlike the reference's pure functions, the updates
+are done IN PLACE on the params (the f32 master shards) and the moments
+(the returned trees hold the same tensors), so a full-width step does not
+hold a second copy of them.
+
+ZeRO-1 keeps the state in flat bucket space (a :class:`~repro_torch.core.
+bucketing.BucketPlan`'s padded buffers) and each rank holds only its
+``1/N`` shard of every bucket (the reference stores the global buffers
+under a ``P(data)`` spec; here :func:`sharded_adamw_init` builds the
+rank's shard alone).
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.core.bucketing import BucketPlan, ShardLayout
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 
@@ -91,3 +98,176 @@ def adamw_update(
         m.copy_(mf)
         v.copy_(vf)
     return params, AdamWState(state.m, state.v, count), {"grad_norm": gnorm}
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1: sharded AdamW in flat bucket space
+# ---------------------------------------------------------------------------
+
+class ShardedAdamWState(NamedTuple):
+    """ZeRO-1 optimizer state of one rank: per-bucket 1-D shards (bucket
+    ``b``'s ``[r*S_b, (r+1)*S_b)``, ``S_b = padded_size / N``). ``master``
+    is the f32 master copy of the packed params, the source of truth for
+    the update; the param tree is its gathered, leaf-dtype view."""
+
+    m: Tuple[torch.Tensor, ...]
+    v: Tuple[torch.Tensor, ...]
+    master: Tuple[torch.Tensor, ...]
+    count: torch.Tensor   # int32 scalar
+
+
+def bucket_decay_masks(plan: BucketPlan) -> Tuple[np.ndarray, ...]:
+    """Per-bucket f32 masks carrying the per-leaf weight-decay rule into
+    flat space: 1.0 on elements of ``ndim >= 2`` leaves, 0.0 on vector and
+    scalar leaves and on alignment padding (the reference's)."""
+    masks = []
+    for b in plan.buckets:
+        mask = np.zeros((b.padded_size,), np.float32)
+        for s in b.slots:
+            if len(s.shape) >= 2:
+                mask[s.offset:s.offset + s.size] = 1.0
+        masks.append(mask)
+    return tuple(masks)
+
+
+def _shard_pieces(plan: BucketPlan, bid: int, axis_size: int, rank: int):
+    """(slot, start, stop) for every slot of bucket ``bid`` that overlaps
+    ``rank``'s shard, in bucket offsets."""
+    b = plan.buckets[bid]
+    size = b.padded_size // axis_size
+    lo, hi = rank * size, (rank + 1) * size
+    for s in b.slots:
+        start, stop = max(lo, s.offset), min(hi, s.offset + s.size)
+        if start < stop:
+            yield s, start, stop
+
+
+def shard_decay_masks(plan: BucketPlan, axis_size: int, rank: int,
+                      device=None) -> Tuple[torch.Tensor, ...]:
+    """``rank``'s shard of each :func:`bucket_decay_masks` mask, as bool
+    tensors on ``device``, made without the full masks."""
+    layout = ShardLayout(plan, axis_size)
+    out = []
+    for bid, size in enumerate(layout.shard_sizes):
+        mask = torch.zeros((size,), dtype=torch.bool, device=device)
+        for s, start, stop in _shard_pieces(plan, bid, axis_size, rank):
+            if len(s.shape) >= 2:
+                mask[start - rank * size:stop - rank * size] = True
+        out.append(mask)
+    return tuple(out)
+
+
+@torch.no_grad()
+def sharded_adamw_init(params, plan: BucketPlan, moment_dtype=torch.float32,
+                       *, axis_size: int = 1, rank: int = 0
+                       ) -> ShardedAdamWState:
+    """``rank``'s ZeRO-1 state over ``axis_size`` ranks: its shard of the
+    f32 master (the packed params, zero on padding) and zero moments. Only
+    the shards are allocated; with ``axis_size=1`` the shard is the
+    reference's global buffer."""
+    leaves, treedef = tree_flatten(params)
+    if treedef != plan.treedef:
+        raise ValueError("params tree does not match the bucket plan's tree")
+    layout = ShardLayout(plan, axis_size)
+    dev = leaves[0].device
+    master = []
+    for bid, size in enumerate(layout.shard_sizes):
+        buf = torch.zeros((size,), dtype=torch.float32, device=dev)
+        for s, start, stop in _shard_pieces(plan, bid, axis_size, rank):
+            src = leaves[s.index].reshape(-1)[start - s.offset:
+                                              stop - s.offset]
+            buf[start - rank * size:stop - rank * size].copy_(src)
+        master.append(buf)
+    zeros = [torch.zeros((size,), dtype=moment_dtype, device=dev)
+             for size in layout.shard_sizes]
+    return ShardedAdamWState(
+        m=tuple(zeros), v=tuple(torch.zeros_like(z) for z in zeros),
+        master=tuple(master),
+        count=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+@torch.no_grad()
+def sharded_adamw_bucket_update(
+    g: torch.Tensor,
+    m: torch.Tensor,
+    v: torch.Tensor,
+    master: torch.Tensor,
+    decay_mask: torch.Tensor,
+    *,
+    lr,
+    count: torch.Tensor,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    weight_decay: float = 0.1,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """AdamW on ONE bucket's owned shard, written into ``master``, ``m``
+    and ``v``, which it returns. ``g`` is already mean-reduced and
+    clip-scaled (f32); ``count`` is the incremented step count."""
+    cf = count.float()
+    c1 = 1.0 - torch.tensor(b1, dtype=torch.float32, device=cf.device) ** cf
+    c2 = 1.0 - torch.tensor(b2, dtype=torch.float32, device=cf.device) ** cf
+    wd = decay_mask.float()
+    mf = m.float() * b1 + g * (1 - b1)
+    vf = v.float() * b2 + torch.square(g) * (1 - b2)
+    step = (mf / c1) / (torch.sqrt(vf / c2) + eps) + \
+        weight_decay * wd * master
+    master.copy_(master - lr * step)
+    m.copy_(mf)
+    v.copy_(vf)
+    return master, m, v
+
+
+@torch.no_grad()
+def sharded_adamw_update(
+    grad_shards: Sequence[torch.Tensor],
+    state: ShardedAdamWState,
+    *,
+    lr,
+    layout: ShardLayout,
+    decay_masks: Sequence[torch.Tensor],
+    psum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    weight_decay: float = 0.1,
+    max_grad_norm: Optional[float] = 1.0,
+    bucket_order: Optional[Sequence[int]] = None,
+) -> Tuple[Tuple[torch.Tensor, ...], ShardedAdamWState, dict]:
+    """AdamW on this rank's shard of every bucket. ``grad_shards[b]`` is
+    the rank's mean-reduced shard of bucket ``b``, ``decay_masks[b]`` its
+    shard of the decay mask, ``psum`` sums a scalar over the ranks (the
+    cross-shard half of the global-norm clip). Returns the updated f32
+    master shards (for the param all_gather), the state and
+    ``{"grad_norm"}``. ``bucket_order`` sets the order of the per-bucket
+    updates (default bucket id; the overlap step passes
+    ``CommPlan.ready_order``); results stay indexed by bucket id."""
+    if psum is None:
+        psum = lambda x: x  # noqa: E731
+    shard_sizes = layout.shard_sizes
+    grads = [g.float() for g in grad_shards]
+    for bid, (g, wd) in enumerate(zip(grads, decay_masks)):
+        expect = (shard_sizes[bid],)
+        if tuple(g.shape) != expect or tuple(wd.shape) != expect:
+            raise ValueError(
+                f"bucket {bid}: grad shard {tuple(g.shape)} / decay mask "
+                f"{tuple(wd.shape)} do not match the layout shard {expect}")
+    # the shards tile the buckets and padding is zero, so this is the
+    # replicated tree-wise norm up to summation order
+    sumsq = sum(torch.sum(torch.square(g)) for g in grads)
+    gnorm = torch.sqrt(psum(sumsq))
+    scale = None
+    if max_grad_norm is not None:
+        scale = torch.clamp(max_grad_norm / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
+    count = state.count + 1
+    lr = torch.as_tensor(lr, dtype=torch.float32, device=count.device)
+    for bid in (range(len(grads)) if bucket_order is None
+                else bucket_order):
+        g = grads[bid] if scale is None else grads[bid] * scale
+        sharded_adamw_bucket_update(
+            g, state.m[bid], state.v[bid], state.master[bid],
+            decay_masks[bid], lr=lr, count=count, b1=b1, b2=b2, eps=eps,
+            weight_decay=weight_decay)
+    new_state = ShardedAdamWState(state.m, state.v, state.master, count)
+    return state.master, new_state, {"grad_norm": gnorm}

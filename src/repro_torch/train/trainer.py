@@ -10,16 +10,25 @@ own process group) and reduced on independent streams by
 ``num_streams`` / ``vci_policy`` / ``pack`` / ``reduction`` / ``staging``
 select the same design space as the reference.
 
+``optimizer="zero1"``: each bucket is reduce-scattered instead, each rank
+updates its ``1/N`` shard of the f32 master and the moments
+(:func:`~repro_torch.optim.adamw.sharded_adamw_update`) and the updated
+params are all-gathered back on the bucket's VCI. ``schedule="overlap"``:
+each bucket's reduce (or reduce_scatter) is issued inside the backward by
+the gradient hooks of :func:`~repro_torch.core.bucketing.
+overlap_boundaries`, the moment its last leaf gradient exists; with
+microbatches only the last one's backward carries the hooks.
+
 The step is eager: autograd computes the gradients (each block recomputed
 in the backward when ``cfg.remat != "none"``), the reduction is issued
 asynchronously on the VCI groups, and AdamW updates params and moments in
 place. With NCCL nothing in the step blocks the host on the card except
 reading metrics, which the caller does.
 
-Later slices, each raising ``NotImplementedError``: ``optimizer="zero1"``
-(ROADMAP.md Queue 1 item 7), ``schedule="overlap"`` (item 8),
-``comm="gspmd"`` (item 14), and families other than dense text (SSM and
-hybrid training are item 12b, MoE training is item 15).
+Later slices, each raising ``NotImplementedError``: ``comm="gspmd"``
+(ROADMAP.md Queue 1 item 14), and families other than dense text (SSM
+and hybrid training are item 12b, MoE training item 15, VLM and audio
+item 13c).
 """
 
 from __future__ import annotations
@@ -30,12 +39,16 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import get_comm_plan, reduce_gradients
+from repro_torch.core import TILE, get_comm_plan, reduce_gradients
+from repro_torch.core.bucketing import (ShardLayout, all_gather_shards,
+                                        overlap_boundaries, plan_buckets)
 from repro_torch.device import torch_dtype
 from repro_torch.models.transformer import Model, init_params
-from repro_torch.optim.adamw import adamw_init, adamw_update
+from repro_torch.optim.adamw import (adamw_init, adamw_update,
+                                     shard_decay_masks, sharded_adamw_init,
+                                     sharded_adamw_update)
 from repro_torch.train.losses import total_loss
-from repro_torch.tree import tree_flatten, tree_unflatten
+from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
 METRIC_KEYS = ("ce", "tokens", "load_balance", "router_z", "loss",
                "grad_norm", "lr")
@@ -43,31 +56,61 @@ METRIC_KEYS = ("ce", "tokens", "load_balance", "router_z", "loss",
 
 class TrainState(NamedTuple):
     params: Any
-    opt: Any                     # AdamWState
+    opt: Any                     # AdamWState | ShardedAdamWState (zero1)
     step: torch.Tensor           # int32 scalar on the params' device
 
 
-def _zero1_later() -> NotImplementedError:
-    return NotImplementedError(
-        "optimizer='zero1' (ZeRO-1 sharded AdamW) is ROADMAP.md Queue 1 "
-        "item 7 (not ported yet)")
+def _zero1_plan(params_or_grads, *, num_streams: int, align: int, pack: str,
+                schedule: str = "post"):
+    """The bucket plan the zero1 path uses, the one the step's
+    ``get_comm_plan`` builds, so that state init and update agree on the
+    layout (``schedule="overlap"`` plans use-order-contiguous buckets)."""
+    return plan_buckets(params_or_grads, num_streams, align=align,
+                        slot_align=align if pack == "pallas" else None,
+                        partition="contig" if schedule == "overlap"
+                        else "size")
 
 
 def train_state_init(cfg: ModelConfig, seed: int = 0, *,
                      optimizer: str = "replicated", device=None,
-                     params: Optional[Any] = None) -> TrainState:
+                     params: Optional[Any] = None, num_streams: int = 8,
+                     bucket_align: int = TILE, pack: str = "xla",
+                     schedule: str = "post") -> TrainState:
     """Fresh params (``init_params(cfg, seed)`` on ``device``, or the given
     ``params``, e.g. the reference's carried over by ``repro_torch.bridge``)
-    and zero AdamW moments in ``cfg.optimizer_dtype``."""
-    if optimizer == "zero1":
-        raise _zero1_later()
-    if optimizer != "replicated":
+    and zero AdamW moments in ``cfg.optimizer_dtype``.
+
+    ``optimizer="zero1"`` builds this rank's ZeRO-1 shard state over the
+    default group (which must be initialised): pass the ``num_streams``,
+    ``bucket_align``, ``pack`` and ``schedule`` that ``make_train_step``
+    gets, since the bucket plan, and so every buffer's layout, derives
+    from them."""
+    if optimizer not in ("replicated", "zero1"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
     if params is None:
         params = init_params(cfg, seed, device=device)
-    opt = adamw_init(params, moment_dtype=torch_dtype(cfg.optimizer_dtype))
+    moment_dtype = torch_dtype(cfg.optimizer_dtype)
+    if optimizer == "replicated":
+        opt = adamw_init(params, moment_dtype=moment_dtype)
+    else:
+        if not dist.is_initialized():
+            raise ValueError("optimizer='zero1' shards over torch."
+                             "distributed's default group; initialise it "
+                             "first (one rank is a legal group)")
+        plan = _zero1_plan(params, num_streams=num_streams,
+                           align=bucket_align, pack=pack, schedule=schedule)
+        opt = sharded_adamw_init(params, plan, moment_dtype,
+                                 axis_size=dist.get_world_size(),
+                                 rank=dist.get_rank())
     return TrainState(params, opt, torch.zeros(
         (), dtype=torch.int32, device=opt.count.device))
+
+
+def optimizer_bytes(opt) -> int:
+    """Bytes of an optimizer state on this rank (every tensor in it)."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(
+        {"m": opt.m, "v": opt.v,
+         "master": getattr(opt, "master", ()), "count": opt.count}))
 
 
 def _loss_fn(model: Model, cfg: ModelConfig, params, batch):
@@ -126,6 +169,14 @@ def make_train_step(
     of the rows. ``metrics`` are float32 tensors on the params' device,
     averaged over the data group, with the keys of :data:`METRIC_KEYS`.
     The state's params and moments are updated in place.
+
+    ``optimizer="zero1"`` needs a state from ``train_state_init(optimizer=
+    "zero1")`` with the same ``num_streams``/``bucket_align``/``pack``/
+    ``schedule``; ``zero1_wire_dtype`` (e.g. ``"bfloat16"``) is the payload
+    dtype of both the gradient scatter and the param gather (``None``: f32).
+    ``schedule="overlap"`` issues the reduces inside the backward (see the
+    module docstring); with ``optimizer="zero1"`` the shard updates and
+    the param gathers then run in ``CommPlan.ready_order``.
     """
     if cfg.modality != "text":
         raise NotImplementedError(
@@ -142,15 +193,9 @@ def make_train_step(
             "MoE training is a later slice (ROADMAP.md Queue 1 item 15: "
             "the row gather's backward); the train step runs the dense "
             "text family so far")
-    if optimizer == "zero1" or zero1_wire_dtype is not None:
-        raise _zero1_later()
-    if optimizer != "replicated":
+    if optimizer not in ("replicated", "zero1"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
-    if schedule == "overlap":
-        raise NotImplementedError(
-            "schedule='overlap' (bucket-ready overlap) is ROADMAP.md Queue 1 "
-            "item 8 (not ported yet)")
-    if schedule != "post":
+    if schedule not in ("post", "overlap"):
         raise ValueError(f"unknown schedule {schedule!r}")
     if comm == "gspmd":
         raise NotImplementedError(
@@ -158,35 +203,49 @@ def make_train_step(
             "14 (not ported yet); comm='vci' is the ported mode")
     if comm != "vci":
         raise ValueError(f"unknown comm mode {comm!r}")
+    if schedule == "overlap" and staging != "per_vci":
+        raise ValueError("schedule='overlap' requires staging='per_vci': "
+                         "shared staging threads one buffer through every "
+                         "bucket, which re-serializes the backward-issued "
+                         "reduces it exists to overlap")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if lr_fn is None:
         lr_fn = lambda step: 3e-4  # noqa: E731
     model = Model(cfg)
+    wire = torch_dtype(zero1_wire_dtype) if zero1_wire_dtype else \
+        torch.float32
 
-    def value_and_grad(params, batch):
-        leaves, treedef = tree_flatten(params)
-        leaves = [p.detach().requires_grad_() for p in leaves]
+    def value_and_grad(params, batch, leaves=None):
+        """Loss metrics and the gradients w.r.t. ``leaves`` (default: fresh
+        detached leaves of ``params``; the overlap step passes its hooked
+        ones)."""
+        if leaves is None:
+            leaves = [p.detach().requires_grad_()
+                      for p in tree_flatten(params)[0]]
+        treedef = tree_flatten(params)[1]
         _, metrics = _loss_fn(model, cfg, tree_unflatten(treedef, leaves),
                               batch)
         grads = torch.autograd.grad(metrics["loss"], leaves)
         return (tree_unflatten(treedef, list(grads)),
                 {k: v.detach() for k, v in metrics.items()})
 
-    def grads_and_metrics(params, batch):
-        if accum_steps == 1:
-            return value_and_grad(params, batch)
-        # microbatch accumulation: split the rows, mean the grads in f32
+    def microbatches(batch):
         rows = next(iter(batch.values())).shape[0]
         if rows % accum_steps:
             raise ValueError(f"{rows} rows do not split into {accum_steps} "
                              f"microbatches")
         mb = rows // accum_steps
+        return [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                for i in range(accum_steps)]
+
+    def accumulate(params, mbs):
+        """The f32 sums of the microbatches' gradients and metrics, each
+        divided by ``accum_steps``."""
         acc_g = acc_m = None
-        for i in range(accum_steps):
-            g, m = value_and_grad(params, {k: v[i * mb:(i + 1) * mb]
-                                           for k, v in batch.items()})
-            g_leaves, treedef = tree_flatten(g)
+        for b in mbs:
+            g, m = value_and_grad(params, b)
+            g_leaves = tree_flatten(g)[0]
             if acc_g is None:
                 acc_g = [torch.zeros_like(x, dtype=torch.float32)
                          for x in g_leaves]
@@ -195,9 +254,41 @@ def make_train_step(
                 a.add_(x.float() / accum_steps)
             for k in acc_m:
                 acc_m[k] = acc_m[k] + m[k] / accum_steps
-        p_leaves = tree_flatten(params)[0]
+        return acc_g, acc_m
+
+    def grads_and_metrics(params, batch):
+        if accum_steps == 1:
+            return value_and_grad(params, batch)
+        # microbatch accumulation: split the rows, mean the grads in f32
+        acc_g, acc_m = accumulate(params, microbatches(batch))
+        p_leaves, treedef = tree_flatten(params)
         grads = [a.to(p.dtype) for a, p in zip(acc_g, p_leaves)]
         return tree_unflatten(treedef, grads), acc_m
+
+    def overlap_grads_and_metrics(params, batch, cp, taps=None):
+        """The backward with bucket hooks on the LAST microbatch only; the
+        earlier ones accumulate here and ride in as the carry. Returns the
+        metrics and the boundaries (waited: the reduced grads or taps)."""
+        carry, acc_m, last = None, None, batch
+        if accum_steps > 1:
+            mbs = microbatches(batch)
+            acc_g, acc_m = accumulate(params, mbs[:-1])
+            carry = tree_unflatten(tree_flatten(params)[1], acc_g)
+            last = mbs[-1]
+        bnd = overlap_boundaries(cp, params, taps=taps, carry=carry,
+                                 accum_steps=accum_steps, mean=True,
+                                 pack=pack, reduction=reduction,
+                                 reduce_dtype=wire if taps is not None
+                                 else torch.float32)
+        _, metrics = value_and_grad(bnd.params, last, bnd.leaves)
+        last_issue.update(order=tuple(bnd.issued),
+                          in_backward=len(bnd.issued),
+                          hooks_seen=dict(bnd.hooks_seen),
+                          leaves=len(bnd.leaves))
+        if acc_m is not None:
+            metrics = {k: acc_m[k] + metrics[k] / accum_steps
+                       for k in acc_m}
+        return metrics, bnd
 
     def apply_update(state: TrainState, grads, metrics):
         lr = torch.as_tensor(lr_fn(state.step), dtype=torch.float32,
@@ -217,25 +308,105 @@ def make_train_step(
         stacked = stacked / dist.get_world_size()
         return {k: stacked[i] for i, k in enumerate(keys)}
 
-    def inner_step(state: TrainState, batch):
-        grads, metrics = grads_and_metrics(state.params, batch)
+    def data_sum(x):
+        """The global-norm ``psum``: one all_reduce of a scalar on the
+        default group."""
+        dist.all_reduce(x)
+        return x
+
+    def comm_plan(tree):
         # Persistent plan: BucketPlan + CommWorld + contexts + pack tables
         # cached on (treedef, shapes, knobs); the runtime is per step.
-        cp = get_comm_plan(grads, num_streams=num_streams,
-                           align=bucket_align, pack=pack, num_vcis=num_vcis,
-                           vci_policy=vci_policy, progress=progress,
-                           join_every=join_every, token_impl=token_impl,
-                           schedule=schedule, persistent=persistent_plan)
+        return get_comm_plan(tree, num_streams=num_streams,
+                             align=bucket_align, pack=pack,
+                             num_vcis=num_vcis, vci_policy=vci_policy,
+                             progress=progress, join_every=join_every,
+                             token_impl=token_impl, schedule=schedule,
+                             persistent=persistent_plan)
+
+    masks: Dict[str, Any] = {"plan": None}    # this rank's decay masks
+    # the overlap hooks' record of the last step: the bucket issue order,
+    # how many were issued inside the backward, the leaf gradients seen
+    # at each issue (empty under the post schedule)
+    last_issue: Dict[str, Any] = {}
+
+    def zero1_update(state: TrainState, cp, rt, shards, metrics,
+                     order=None):
+        """Sharded AdamW on this rank's shards, then the updated params
+        gathered back on each bucket's VCI and written into the params."""
+        layout = ShardLayout(cp.plan, dist.get_world_size())
+        if masks["plan"] is not cp.plan:
+            masks["plan"], masks["shards"] = cp.plan, shard_decay_masks(
+                cp.plan, layout.axis_size, dist.get_rank(),
+                device=state.step.device)
+        lr = torch.as_tensor(lr_fn(state.step), dtype=torch.float32,
+                             device=state.step.device)
+        new_shards, new_opt, om = sharded_adamw_update(
+            shards, state.opt, lr=lr, layout=layout,
+            decay_masks=masks["shards"], psum=data_sum,
+            max_grad_norm=max_grad_norm, bucket_order=order)
+        new_params = all_gather_shards(rt, new_shards, cp, wire_dtype=wire,
+                                       order=order)
+        with torch.no_grad():
+            for p, q in zip(tree_flatten(state.params)[0],
+                            tree_flatten(new_params)[0]):
+                p.copy_(q)
+        metrics = dict(metrics) | om | {"lr": lr}
+        return TrainState(state.params, new_opt, state.step + 1), metrics
+
+    def inner_step(state: TrainState, batch):
+        grads, metrics = grads_and_metrics(state.params, batch)
+        cp = comm_plan(grads)
         grads = reduce_gradients(cp.runtime(), grads, cp, mean=True,
                                  staging=staging, pack=pack,
                                  reduction=reduction)
         return apply_update(state, grads, data_mean(metrics))
 
-    def train_step(state: TrainState, batch):
+    def inner_step_overlap(state: TrainState, batch):
+        # the reduces live inside the backward: wait() hands back the
+        # already-reduced mean gradients, with no post pass
+        cp = comm_plan(state.params)
+        metrics, bnd = overlap_grads_and_metrics(state.params, batch, cp)
+        return apply_update(state, bnd.wait(), data_mean(metrics))
+
+    def inner_step_zero1(state: TrainState, batch):
+        grads, metrics = grads_and_metrics(state.params, batch)
+        cp = comm_plan(grads)
+        rt = cp.runtime()
+        # 1) scatter: each rank receives (and owns) 1/N of every bucket
+        shards, _ = reduce_gradients(
+            rt, grads, cp, mean=True, staging=staging, pack=pack,
+            reduction="reduce_scatter", output="shards", reduce_dtype=wire)
+        del grads
+        # 2) sharded AdamW, 3) the updated params gathered per bucket
+        return zero1_update(state, cp, rt, shards, data_mean(metrics))
+
+    def inner_step_zero1_overlap(state: TrainState, batch):
+        # each bucket's reduce_scatter is issued by the backward's hooks;
+        # the shard updates and param gathers then run in ready order
+        cp = comm_plan(state.params)
+        rt = cp.runtime()
+        layout = ShardLayout(cp.plan, dist.get_world_size())
+        taps = [torch.zeros((s,), dtype=torch.float32,
+                            device=state.step.device)
+                for s in layout.shard_sizes]
+        metrics, bnd = overlap_grads_and_metrics(state.params, batch, cp,
+                                                 taps=taps)
+        return zero1_update(state, cp, rt, bnd.wait(), data_mean(metrics),
+                            order=cp.ready_order)
+
+    inner = {("replicated", "post"): inner_step,
+             ("replicated", "overlap"): inner_step_overlap,
+             ("zero1", "post"): inner_step_zero1,
+             ("zero1", "overlap"): inner_step_zero1_overlap}[
+                 (optimizer, schedule)]
+
+    def step(state: TrainState, batch):
         if not dist.is_initialized():
             raise RuntimeError(
                 "comm='vci' trains over torch.distributed's default group; "
                 "initialise it first (one rank is a legal group)")
-        return inner_step(state, _rank_slice(batch, state.step.device))
+        return inner(state, _rank_slice(batch, state.step.device))
 
-    return train_step
+    step.last_issue = last_issue
+    return step

@@ -178,6 +178,77 @@ def test_progress_counts_match_reference(one_rank, progress, reduction):
             assert torch.equal(a, b)
 
 
+def _jax_op_counts(progress, ops):
+    """The reference engine's (issued, joins) after tracing ``ops(rt,
+    world, x)`` on a one-device mesh (a perm of one rank: ``(0, 0)``)."""
+    from repro.core.collectives import CommRuntime as JCommRuntime
+    from repro.core.comm import CommWorld as JCommWorld
+    mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
+    seen = {}
+
+    def run(x):
+        world = JCommWorld(num_vcis=4)
+        rt = JCommRuntime(world, progress=progress, join_every=2)
+        seen["engine"] = rt.engine
+        return ops(rt, world, x)
+
+    jax.jit(shard_map(run, mesh=mesh, in_specs=P("data"),
+                      out_specs=P("data"), check_vma=False)).lower(
+        np.zeros((1, 4), np.float32))
+    return seen["engine"].issued, seen["engine"].joins
+
+
+def _jax_numerics_ops(rt, world, x):
+    c1, c2 = world.create("c1"), world.create("c2")
+    w = world.create("w", kind="rma")
+    ar = rt.all_reduce(x, c1, axis="data")
+    ag = rt.all_gather(x, c2, axis="data")
+    rs = rt.reduce_scatter(ag, c1, axis="data")
+    a2a = rt.all_to_all(jnp.broadcast_to(x, (1,) + x.shape), c2,
+                        axis="data", split_axis=0, concat_axis=1)
+    sr = rt.sendrecv(x, c1, axis="data", perm=[(0, 0)])
+    acc = rt.accumulate(x, w, axis="data")
+    return rt.barrier(ar + rs + sr + acc + ag + a2a.sum())
+
+
+def _jax_window_ops(ordered):
+    import dataclasses
+
+    def ops(rt, world, x):
+        w = world.create("win", kind="rma")
+        if not ordered:
+            w = dataclasses.replace(w, ordered=False)
+        g = rt.get(x, w, axis="data", perm=[(0, 0)])
+        p = rt.put(x * 2, w, axis="data", perm=[(0, 0)])
+        y = rt.flush(g + p, w)
+        for ordering in ("rar", "none"):
+            a = world.create(f"acc_{ordering}", kind="rma",
+                             accumulate_ordering=ordering)
+            y = y + rt.accumulate(x, a, axis="data") + \
+                rt.accumulate(x * 2, a, axis="data")
+        return rt.barrier(y)
+    return ops
+
+
+def test_collectives_and_window_ops_over_8_ranks_match_reference(tmp_path):
+    """8 spawned gloo ranks (``test_torch_ranks.py collectives``): the
+    analogues of ``check_collectives_numerics`` and
+    ``check_accumulate_relaxed_matches_ordered`` for each progress mode,
+    plus get/put on an ordered and an un-ordered window and a flush; each
+    value against numpy on the ranks, and each runtime's (issued, joins)
+    equal to the reference engine's for the same sequence."""
+    r = run_ranks("collectives", tmp_path, n=8)
+    assert r.returncode == 0, r.stdout + r.stderr
+    out = np.load(tmp_path / "out_collectives.npz")
+    for progress in ("global", "per_vci", "hybrid"):
+        want = _jax_op_counts(progress, _jax_numerics_ops)
+        assert tuple(out[f"{progress}/numerics"]) == want, progress
+        for ordered in (True, False):
+            want = _jax_op_counts(progress, _jax_window_ops(ordered))
+            assert tuple(out[f"{progress}/window/{ordered}"]) == want, \
+                (progress, ordered)
+
+
 def test_reduce_gradients_over_4_ranks_equals_mean(tmp_path):
     """4 spawned gloo ranks: every cell of pack x reduction x staging x
     plan persistence equals the tree mean (rtol 1e-5 / atol 1e-6, as
@@ -209,14 +280,25 @@ def test_pack_paths_agree_with_reference():
 
 
 def test_later_slices_raise(one_rank):
+    """What this test once held refused (the ZeRO-1 shards and gather,
+    the overlap boundaries, the p2p ops) now runs on one rank: the shards
+    are the packed buckets, the gather gives the tree back, the hooked
+    leaves' backward issues every bucket, sendrecv copies."""
     _, tparams = _bridged("olmo-1b-smoke")
     cp = tbk.get_comm_plan(tparams, num_streams=2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tbk.reduce_gradients(cp.runtime(), tparams, cp, output="shards",
-                             reduction="reduce_scatter")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tbk.overlap_boundaries(cp, tparams)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tbk.all_gather_shards(cp.runtime(), [], cp)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cp.runtime().sendrecv(torch.zeros(1), cp.contexts[0])
+    shards, layout = tbk.reduce_gradients(
+        cp.runtime(), tparams, cp, output="shards",
+        reduction="reduce_scatter")
+    assert layout.shard_sizes == tuple(b.padded_size
+                                       for b in cp.plan.buckets)
+    back = tbk.all_gather_shards(cp.runtime(), shards, cp)
+    for a, b in zip(tree_flatten(back)[0], tree_flatten(tparams)[0]):
+        assert torch.equal(a, b)
+    bnd = tbk.overlap_boundaries(cp, tparams)
+    torch.autograd.grad(sum(leaf.sum() for leaf in bnd.leaves), bnd.leaves)
+    assert sorted(bnd.issued) == list(range(cp.plan.num_buckets))
+    for g in tree_flatten(bnd.wait())[0]:
+        assert torch.equal(g, torch.ones_like(g))
+    x = torch.arange(4.0)
+    assert torch.equal(cp.runtime().sendrecv(x, cp.contexts[0],
+                                             perm=[(0, 0)]), x)

@@ -314,6 +314,126 @@ def test_model_runs_flash_once_a_layer_and_twice_under_remat(cuda_device):
         assert (a - b).abs().max().item() <= 1e-4 * max(1.0, a.abs().max())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _FLASH_CASES[:3], ids=str)
+def test_flash_op_equals_the_forward_bits(cuda_device, dtype, case):
+    """The dispatcher op ``repro_torch::flash_fwd`` gives the bits of
+    ``flash_attention_fwd`` (one launch a call)."""
+    hd, b, sq, skv, h, kv, causal, window, start = case
+    q, k, v = _flash_inputs(cuda_device, dtype, b, sq, skv, h, kv, hd)
+    st = None if start is None else torch.tensor(start, dtype=torch.int32,
+                                                  device=cuda_device)
+    n0 = fa.flash_attention.launches
+    o, lse = fa.flash_fwd(q, k, v, st, causal, window)
+    wo, wl = fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                    start=st)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 2
+    assert torch.equal(_bits(o), _bits(wo)) and torch.equal(_bits(lse),
+                                                             _bits(wl))
+
+
+def test_remat_dots_keeps_the_flash_output(cuda_device):
+    """olmo-1b-smoke f32 forward + backward: remat="dots" launches the
+    kernel once a layer (the selective checkpoint keeps the op's (o,
+    lse)), "block" twice, "none" once; the three give the same grads
+    within 1e-5."""
+    grads = {}
+    for remat, per_layer in (("none", 1), ("block", 2), ("dots", 1)):
+        cfg = dataclasses.replace(get_config("olmo-1b-smoke"), remat=remat)
+        params = init_params(cfg, 0, device=cuda_device)
+        leaves, treedef = tree_flatten(params)
+        leaves = [t.detach().requires_grad_() for t in leaves]
+        tokens = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (2, 64)).astype(np.int32)).to(cuda_device)
+        n0 = fa.flash_attention.launches
+        logits = Model(cfg).forward(tree_unflatten(treedef, leaves),
+                                    {"tokens": tokens})[0]
+        grads[remat] = torch.autograd.grad(logits.square().mean(), leaves)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches - n0 == \
+            per_layer * cfg.num_layers, remat
+    for a, b, c in zip(grads["none"], grads["block"], grads["dots"]):
+        assert (a - b).abs().max().item() <= 1e-5 * max(1.0, a.abs().max())
+        assert (a - c).abs().max().item() <= 1e-5 * max(1.0, a.abs().max())
+
+
+@pytest.fixture
+def nccl_rank(cuda_device, tmp_path):
+    """A one-rank data group: NCCL for CUDA tensors, gloo for CPU ones."""
+    import torch.distributed as dist
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    yield cuda_device
+    dist.destroy_process_group()
+
+
+def test_p2p_on_one_nccl_rank(nccl_rank):
+    """The mixed group runs CUDA tensors on NCCL, so the window ops take
+    them: a perm of one rank is a local copy, and a get counts one
+    issue."""
+    from repro_torch.core.collectives import CommRuntime, _cuda_backend
+    from repro_torch.core.comm import CommWorld
+    assert _cuda_backend(None) == "nccl"
+    rt = CommRuntime(CommWorld(num_vcis=4))
+    x = torch.arange(6.0, device=nccl_rank)
+    assert torch.equal(rt.sendrecv(x, rt.world.create("c"), perm=[(0, 0)]),
+                       x)
+    w = rt.world.create("w", kind="rma")
+    got = rt.get(x, w, perm=[(0, 0)])
+    rt.flush(w)
+    assert torch.equal(got.value, x) and rt.engine.issued == 2
+
+
+@pytest.mark.parametrize("optimizer,schedule", [
+    ("zero1", "post"), ("replicated", "overlap"), ("zero1", "overlap")])
+def test_zero1_and_overlap_steps_on_card_equal_cpu(nccl_rank, optimizer,
+                                                   schedule):
+    """3 olmo-1b-smoke f32 steps (pack="pallas", accum 2 under overlap) on
+    a one-rank NCCL group against the same step on the CPU: loss and grad
+    norm within 1e-5, params within 1e-4 + 2e-5 rel (the card's kernels
+    and matmuls sum in other orders); the ZeRO-1 post step launches the
+    pack kernel once a bucket, the overlap step none, and the overlap
+    hooks issue every bucket inside the backward in ready order."""
+    from repro_torch.core import get_comm_plan
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.train.trainer import make_train_step, train_state_init
+    cfg = get_config("olmo-1b-smoke")
+    params = init_params(cfg, 0, device="cpu")
+    accum = 2 if schedule == "overlap" else 1
+    knobs = dict(comm="vci", pack="pallas", num_streams=4, num_vcis=4,
+                 optimizer=optimizer, schedule=schedule, accum_steps=accum)
+    runs = {}
+    for dev in ("cpu", nccl_rank):
+        state = train_state_init(
+            cfg, params=tree_map(lambda t: t.clone().to(dev), params),
+            optimizer=optimizer, num_streams=4, pack="pallas",
+            schedule=schedule)
+        step = make_train_step(cfg, **knobs)
+        metrics = []
+        n0 = bucket_pack.bucket_pack.launches
+        for i in range(3):
+            state, m = step(state, synthetic_batch(cfg, 4, 64, seed=i))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        if dev != "cpu":
+            cp = get_comm_plan(state.params, num_streams=4, num_vcis=4,
+                               pack="pallas", schedule=schedule)
+            packs = bucket_pack.bucket_pack.launches - n0
+            if schedule == "post":
+                assert packs == 3 * cp.plan.num_buckets
+            else:
+                assert packs == 0
+                issue = step.last_issue
+                assert issue["order"] == cp.ready_order
+                assert issue["in_backward"] == cp.plan.num_buckets
+        runs[str(dev)] = (metrics, [t.cpu() for t in
+                                    tree_flatten(state.params)[0]])
+    (mc, pc), (mg, pg) = runs["cpu"], runs[str(nccl_rank)]
+    np.testing.assert_allclose(mg, mc, rtol=1e-5)
+    for a, b in zip(pc, pg):
+        assert bool(((a - b).abs() <= 1e-4 + 2e-5 * a.abs()).all())
+
+
 # ---------------------------------------------------------------------------
 # the MoE row gather
 # ---------------------------------------------------------------------------
@@ -772,9 +892,10 @@ def test_ring_and_hybrid_engines_on_card_equal_cpu(cuda_device, arch, layers,
 # two ranks sharing the one card (the layout of chip_smoke's phase 7):
 # the launcher's backend choice; gloo takes all_reduce,
 # all_gather_into_tensor and the list all_gather of CUDA tensors in every
-# dtype the serve path moves (a refusal raises and fails the test); then a
-# psum and a tiled all-gather of CUDA tensors on VCI streams along the
-# model axis
+# dtype the serve path moves (a refusal raises and fails the test), and
+# the ZeRO-1 path's reduce_scatter on a VCI group, while the port refuses
+# the window path's send/recv of CUDA tensors on gloo; then a psum and a tiled all-gather of CUDA tensors on VCI streams
+# along the model axis
 _SHARED_CARD = r"""
 import os, sys, torch, torch.distributed as dist
 from repro_torch.core.collectives import RankMesh
@@ -797,6 +918,26 @@ def rank_main(rank, store, out):
         outs = [torch.empty(4, dtype=dt, device=dev) for _ in range(n)]
         dist.all_gather(outs, y)
         assert torch.equal(torch.cat(outs).cpu(), want), (dt, outs)
+    # the ZeRO-1 and window paths: reduce_scatter_tensor, and the
+    # point-to-point batch (send/recv) of CUDA tensors on a VCI group
+    from repro_torch.core.collectives import CommRuntime
+    from repro_torch.core.comm import CommWorld
+    rt = CommRuntime(CommWorld(num_vcis=4))
+    ctx = rt.world.create("z1")
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.arange(8, dtype=dt, device=dev) * (rank + 1)
+        got = rt.wait(rt.reduce_scatter(x, ctx))
+        assert got.is_cuda and torch.equal(
+            got.cpu(), (torch.arange(8, dtype=dt) * 3)[rank * 4:][:4]), got
+    # gloo's TCP pairs write a CUDA tensor's device pointer and abort the
+    # rank: the port refuses point-to-point CUDA sends on gloo (no host
+    # staging)
+    x = torch.ones(5, device=dev)
+    try:
+        rt.sendrecv(x, ctx, perm=[(0, 1), (1, 0)])
+        raise AssertionError("gloo p2p of a CUDA tensor was not refused")
+    except RuntimeError as e:
+        assert "point to point" in str(e), e
     mesh = RankMesh(1, 2)
     plan = ServeCommPlan(num_vcis=8)
     plan.create_groups(mesh)

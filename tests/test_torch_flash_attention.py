@@ -1,5 +1,5 @@
-"""The port's flash attention (plain versions and the autograd Function,
-on the CPU) against the JAX reference.
+"""The port's flash attention (plain versions and the dispatcher op with
+its autograd, on the CPU) against the JAX reference.
 
 Inputs are made with numpy from a seed and fed to both sides. The plain
 forward is held against ``repro.kernels.ops.flash_attention`` run in
@@ -272,9 +272,16 @@ def test_kernel_argument_checks_take_every_kernel_head_dim():
 
 
 def test_non_cpu_tensor_never_reaches_the_plain_forward():
+    """A tensor that is neither on the CPU nor on a card raises in the
+    forward; the dispatcher op gives a meta tensor its registered fake
+    (shapes only, no arithmetic) and never the plain forward."""
     q, k, v = (torch.empty(1, 8, 2, 64, device="meta") for _ in range(3))
     with pytest.raises(ValueError, match="unsupported device"):
-        fa.flash_attention(q, k, v)
+        fa.flash_attention_fwd(q, k, v)
+    o, lse = fa.flash_fwd(q, k, v, None, True, None)
+    assert (o.device.type, o.shape, o.dtype) == ("meta", q.shape, q.dtype)
+    assert (lse.shape, lse.dtype) == ((1, 2, 8), torch.float32)
+    assert fa.flash_attention(q, k, v).device.type == "meta"
 
 
 def test_inference_mode_runs_through_the_function():

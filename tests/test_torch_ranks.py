@@ -20,7 +20,11 @@ serves the cases in ``<dir>/in.npz`` through the manual-TP engine on a
 ``(ranks // 2) x 2`` mesh (``tests/test_torch_serve_tp.py``) and writes
 each rank's tokens and plan statistics to ``<dir>/out_<rank>.npz``;
 ``all_to_all`` holds ``CommRuntime.all_to_all`` on a mesh axis and on the
-data group against numpy.
+data group against numpy; ``collectives`` holds the runtime's collectives
+and its window/p2p ops against numpy and writes their op counts;
+``zero1`` and ``overlap`` train 5 steps from ``in.npz`` as ZeRO-1 and
+replicated, and post and overlap for both optimizers, and write rank 0's
+results (``tests/test_torch_zero1.py``, ``tests/test_torch_overlap.py``).
 """
 
 import faulthandler
@@ -263,9 +267,163 @@ def check_all_to_all(rank: int, n: int, out_dir: str) -> None:
         np.savez(os.path.join(out_dir, "out_all_to_all.npz"), ok=1)
 
 
+def _collective_ops(rt, world, x, n):
+    """The reference's ``check_collectives_numerics`` sequence on one
+    runtime: all_reduce, all_gather, reduce_scatter of the gather,
+    all_to_all, sendrecv one rank up and an accumulate, then a barrier.
+    Returns the waited values."""
+    c1, c2 = world.create("c1"), world.create("c2")
+    w = world.create("w", kind="rma")
+    ar = rt.all_reduce(x.clone(), c1)
+    ag = rt.wait(rt.all_gather(x, c2))
+    rs = rt.reduce_scatter(ag, c1)
+    a2a = rt.all_to_all(x.expand((n,) + tuple(x.shape)).contiguous(), c2,
+                        split_axis=0, concat_axis=1)
+    sr = rt.sendrecv(x, c1, perm=[(i, (i + 1) % n) for i in range(n)])
+    acc = rt.accumulate(x, w)
+    rt.barrier()
+    return [rt.wait(ar), ag, rt.wait(rs), rt.wait(a2a), sr, rt.wait(acc)]
+
+
+def _window_ops(rt, world, x, n, ordered):
+    """get from one rank down, put to one rank up on a window (``ordered``
+    or not: un-chained issues), then ``flush`` of the window alone; a
+    second window's accumulate pair under each ordering hint; a barrier.
+    Returns the values and whether the get/put had completed by the
+    flush."""
+    import dataclasses
+    w = world.create("win", kind="rma")
+    if not ordered:
+        w = dataclasses.replace(w, ordered=False)
+    g = rt.get(x, w, perm=[(i, (i - 1) % n) for i in range(n)])
+    p = rt.put(x * 2, w, perm=[(i, (i + 1) % n) for i in range(n)])
+    rt.flush(w)
+    flushed = g.op.work is None and p.op.work is None
+    out = [g.value, p.value]
+    for ordering in ("rar", "none"):
+        a = world.create(f"acc_{ordering}", kind="rma",
+                         accumulate_ordering=ordering)
+        ra, rb = rt.accumulate(x, a), rt.accumulate(x * 2, a)
+        out.append(rt.wait(ra) + rt.wait(rb))
+    rt.barrier()
+    return out, flushed
+
+
+def check_collectives(rank: int, n: int, out_dir: str) -> None:
+    """The reference's ``check_collectives_numerics`` and
+    ``check_accumulate_relaxed_matches_ordered`` on the port's
+    ``CommRuntime``, for each progress mode: every value against numpy,
+    and each runtime's (issued, joins) written to
+    ``<dir>/out_collectives.npz`` by rank 0, for the test to hold against
+    the reference engine's counts of the same sequences. get/put go
+    through an ordered and an un-ordered window; ``flush`` must complete
+    both."""
+    from repro_torch.core.collectives import CommRuntime
+    from repro_torch.core.comm import CommWorld
+    full = np.arange(n * 4, dtype=np.float32).reshape(n, 4)
+    x = torch.from_numpy(full[rank:rank + 1].copy())
+    total = full.sum(0, keepdims=True)
+    out = {}
+    for progress in ("global", "per_vci", "hybrid"):
+        world = CommWorld(num_vcis=4)
+        rt = CommRuntime(world, progress=progress, join_every=2)
+        ar, ag, rs, a2a, sr, acc = _collective_ops(rt, world, x, n)
+        np.testing.assert_allclose(ar.numpy(), total)
+        np.testing.assert_allclose(ag.numpy().reshape(n, 4), full)
+        np.testing.assert_allclose(rs.numpy(), full[rank] * n)
+        np.testing.assert_allclose(a2a.numpy(), full[None])
+        np.testing.assert_allclose(sr.numpy(), full[(rank - 1) % n][None])
+        np.testing.assert_allclose(acc.numpy(), total)
+        out[f"{progress}/numerics"] = (rt.engine.issued, rt.engine.joins)
+        for ordered in (True, False):
+            world = CommWorld(num_vcis=4)
+            rt = CommRuntime(world, progress=progress, join_every=2)
+            (g, p, rar, none), flushed = _window_ops(rt, world, x, n,
+                                                     ordered)
+            assert flushed, (progress, ordered)
+            np.testing.assert_allclose(g.numpy(), full[(rank + 1) % n][None])
+            np.testing.assert_allclose(p.numpy(),
+                                       2 * full[(rank - 1) % n][None])
+            np.testing.assert_allclose(rar.numpy(), 3 * total)
+            np.testing.assert_array_equal(rar.numpy(), none.numpy())
+            out[f"{progress}/window/{ordered}"] = (rt.engine.issued,
+                                                   rt.engine.joins)
+    # a rank that no pair sends to receives zeros; (r, r) is a copy
+    rt = CommRuntime(CommWorld(num_vcis=2))
+    ctx = rt.world.create("partial")
+    got = rt.sendrecv(x, ctx, perm=[(0, 0), (1, 2)])
+    want = {0: full[0:1], 2: full[1:2]}.get(rank, np.zeros((1, 4)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "out_collectives.npz"),
+                 **{k: np.asarray(v) for k, v in out.items()})
+
+
+def _train_runs(out_dir: str, runs, name: str) -> None:
+    """5 port VCI train steps (4 streams on 4 VCIs, pack "pallas") from
+    the params and batches in ``in.npz`` for each ``(optimizer, schedule,
+    accum)`` of ``runs``; rank 0 writes each run's per-step loss and grad
+    norm, its params, its optimizer bytes and the overlap hooks' issue
+    order beside ``CommPlan.ready_order`` to ``<dir>/out_<name>.npz``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import get_comm_plan
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.trainer import (make_train_step, optimizer_bytes,
+                                           train_state_init)
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    data = np.load(os.path.join(out_dir, "in.npz"))
+    cfg = get_config(str(data["arch"]))
+    treedef = tree_flatten(init_params(cfg, 0, device="cpu"))[1]
+    out = {}
+    for optimizer, schedule, accum in runs:
+        key = f"{optimizer}/{schedule}/{accum}"
+        params = tree_unflatten(treedef, [
+            torch.from_numpy(data[f"p{i}"].copy())
+            for i in range(int(data["n_leaves"]))])
+        knobs = dict(num_streams=4, pack="pallas", schedule=schedule)
+        state = train_state_init(cfg, params=params, optimizer=optimizer,
+                                 **knobs)
+        step = make_train_step(cfg, comm="vci", num_vcis=4,
+                               optimizer=optimizer, accum_steps=accum,
+                               **knobs)
+        metrics = []
+        for i in range(int(data["steps"])):
+            batch = {"tokens": data[f"tokens{i}"],
+                     "labels": data[f"labels{i}"]}
+            state, m = step(state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        out[f"{key}/metrics"] = np.asarray(metrics)
+        out[f"{key}/opt_bytes"] = optimizer_bytes(state.opt)
+        for i, leaf in enumerate(tree_flatten(state.params)[0]):
+            out[f"{key}/p{i}"] = leaf.numpy()
+        if schedule == "overlap":
+            cp = get_comm_plan(state.params, num_streams=4, num_vcis=4,
+                               pack="pallas", schedule="overlap")
+            out[f"{key}/order"] = np.asarray(step.last_issue["order"])
+            out[f"{key}/ready_order"] = np.asarray(cp.ready_order)
+            out[f"{key}/in_backward"] = step.last_issue["in_backward"]
+    if dist.get_rank() == 0:
+        np.savez(os.path.join(out_dir, f"out_{name}.npz"), **out)
+
+
+def check_zero1(rank: int, n: int, out_dir: str) -> None:
+    """ZeRO-1 against the replicated optimizer, post schedule (the
+    analogue of ``check_zero1_matches_replicated``)."""
+    _train_runs(out_dir, [("replicated", "post", 1), ("zero1", "post", 1)],
+                "zero1")
+
+
+def check_overlap(rank: int, n: int, out_dir: str) -> None:
+    """Overlap against post for both optimizers, 2 microbatches (the
+    analogue of ``check_overlap_matches_post``)."""
+    _train_runs(out_dir, [(o, s, 2) for o in ("replicated", "zero1")
+                          for s in ("post", "overlap")], "overlap")
+
+
 CHECKS = {"reduce": check_reduce, "train": check_train,
           "seqshard": check_seqshard, "serve_tp": check_serve_tp,
-          "all_to_all": check_all_to_all}
+          "all_to_all": check_all_to_all, "collectives": check_collectives,
+          "zero1": check_zero1, "overlap": check_overlap}
 
 
 def _rank_main(rank: int, check: str, n: int, out_dir: str) -> None:

@@ -211,7 +211,9 @@ def _saved_bytes(cfg, params, batch, monkeypatch):
 
     def pack(t):
         seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
-        return t
+        # a detached alias: a node that saves its own output would hold
+        # the output's grad_fn, itself, and the graph would never be freed
+        return t.detach()
 
     monkeypatch.setattr(ttf, "_dots_contexts", contexts)
     leaves, treedef = tree_flatten(params)
@@ -288,14 +290,53 @@ def test_later_slices_raise():
     cfg = get_config("olmo-1b-smoke")
     with pytest.raises(NotImplementedError, match="item 14"):
         make_train_step(cfg)                       # comm="gspmd" default
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_train_step(cfg, comm="vci", optimizer="zero1")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_train_step(cfg, comm="vci", schedule="overlap")
     with pytest.raises(NotImplementedError, match="dense text"):
         make_train_step(get_config("mixtral-8x22b-smoke"), comm="vci")
     with pytest.raises(NotImplementedError, match="item 14"):
         train_cli.main(["--device", "cpu", "--ckpt-dir", "/nonexistent"])
+
+
+def test_a_2d_mesh_refusal_names_item_14():
+    """Training on a model axis is ROADMAP.md Queue 1 item 14 (item 10
+    was tensor-parallel serving, now done)."""
+    with pytest.raises(NotImplementedError, match="item 14"):
+        train_cli.main(["--device", "cpu", "--mesh", "4x2"])
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_kv_fp8_refusals_name_item_14(paged):
+    from repro_torch.models.transformer import init_cache, init_paged_cache
+    cfg = get_config("olmo-1b-smoke").with_opts("kv_fp8")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        if paged:
+            init_paged_cache(cfg, 2, 32, page_size=8, num_pages=9,
+                             device="cpu")
+        else:
+            init_cache(cfg, 2, 32, device="cpu")
+
+
+@pytest.mark.parametrize("remat,calls", [("none", 1), ("block", 2),
+                                         ("dots", 1)])
+def test_remat_dots_runs_the_flash_forward_once_a_layer(monkeypatch, remat,
+                                                        calls):
+    """The flash forward is one dispatcher op, so ``remat="dots"`` keeps
+    its (o, lse) and the backward does not run it again: once a layer a
+    forward + backward, as without remat; ``"block"`` twice."""
+    from repro_torch.kernels import flash_attention as fa
+    seen = []
+    real = fa.flash_attention_fwd
+
+    def counted(*a, **kw):
+        seen.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(fa, "flash_attention_fwd", counted)
+    cfg = dataclasses.replace(get_config("olmo-1b-smoke"), remat=remat)
+    params = train_state_init(cfg, 0, device="cpu").params
+    batch = {k: torch.from_numpy(v) for k, v in
+             synthetic_batch(cfg, 2, 16, seed=0).items()}
+    _grads(cfg, params, batch)
+    assert len(seen) == calls * cfg.num_layers
 
 
 def test_cli_trains_on_two_cpu_ranks():
