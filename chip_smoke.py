@@ -254,7 +254,37 @@ Phases, each a check that exits non-zero when it fails:
    loss and grad norm within 2^-10 (phase 11's reason); the hooks issue
    every bucket inside the backward in ready order. Four ranks time-share one
    card and their collectives cross host memory: no time here is a
-   speed-up.
+   speed-up;
+13a. the MoE row moves' backwards (each phase 13 first frees what earlier
+   phases hold and fails if more than 4 GB stays allocated): the
+   gather-sum kernel and, at K = 1, the gather kernel against their plain
+   versions, bit for bit, at mixtral-8x22b's d = 6,144 bf16 on
+   ``dispatch_tables`` of 8 groups x 1,024 tokens at the training
+   capacity factor 1.25 (C = 320, 20,480 slots): the dispatch backward
+   (20,480, 6,144) -> (8,192, 6,144) over ``comb`` (K = 2) and the
+   combine backward (16,384, 6,144) -> (20,480, 6,144) over ``asg``
+   (K = 1); an f32 case at d = 256, a skewed routing that drops
+   assignments and a table with every entry empty; ``row_gather``'s
+   autograd at the full-width tables against autograd of the plain
+   gather; both backwards timed beside the bound and one library call
+   (``index_add_`` into zeros; ``index_select``), medians of ten
+   alternating pairs;
+13b. MoE training: ``mixtral-8x22b`` at full width (d 6,144, 8 experts
+   top-2, window 4,096), depth cut to 1 of 56 layers (2.907 B params:
+   bf16 params, f32 moments, bf16 grads and the f32 bucket arena are
+   ≈46.5 GB before activations; two layers would not fit), phase 9's
+   step and batch, a warm-up and 5 timed steps: per step and layer 5
+   ``row_gather`` launches (dispatch and combine, their recompute, the
+   combine's backward; the two dispatches on the read-once route), 1
+   ``row_gather_sum`` (the dispatch's backward), 2 flash, and the pack
+   once a bucket; finite loss, grad norm, load balance and router z; a
+   profile of 2 steps; then mixtral-8x22b-smoke card vs CPU as phase 10
+   (load balance and router z too);
+13c. VLM and audio training: ``phi-3-vision-4.2b`` at full width, 24 of
+   32 layers, batch 4 x (576 patches + 448 tokens), and
+   ``musicgen-large`` at full width and depth, batch 4 x 1,000 frames x
+   4 codebooks, each a warm-up and 3 timed steps (flash twice a layer a
+   step, finite metrics), then its smoke arch card vs CPU as phase 10.
 
 It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Without CUDA, or without the package beside it, it fails and prints no
@@ -335,6 +365,13 @@ FLASH_CASES = (
 # phase 12: ZeRO-1 on ranks sharing the one card, spawned once
 ZERO1_WORLD, ZERO1_LAYERS, ZERO1_STEPS, ZERO1_TIMEOUT_S = 4, 4, 3, 420
 PAIRS = 10                       # alternating kernel / library timings
+# phases 13b and 13c: MoE, VLM and audio training at full width, depth cut
+# to what one card's memory holds (see the docstring)
+MOE_TRAIN_LAYERS, VLM_TRAIN_LAYERS, MM_TRAIN_STEPS = 1, 24, 3
+MM_TRAIN_BATCH, AUDIO_TRAIN_FRAMES = 4, 1000
+# what a phase 13 may find still allocated when it starts (a leaked
+# autograd graph once left 35 GB behind)
+FRESH_MAX_BYTES = 4 << 30
 # phase 7: TP ranks sharing the one card, spawned once
 TP_WORLD, TP_VCIS, TP_TIMEOUT_S = 4, (8, 1), 600
 TP_SMOKE = ("olmo-1b-smoke", "mixtral-8x22b-smoke")
@@ -526,10 +563,10 @@ def phase_row_gather() -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     d = 6144
-    dec, dec_inv = _routed(4, 1, 8, 2, 2.0, gen)      # decode: C = 1
-    pre, pre_inv = _routed(1, 64, 8, 2, 2.0, gen)     # prefill: C = 32
-    big, comb = _routed(8, 1024, 8, 2, 1.25, gen)     # C = 320
-    smoke, smoke_inv = _routed(4, 20, 4, 2, 2.0, gen)  # mixtral-smoke, f32
+    dec, dec_inv, _ = _routed(4, 1, 8, 2, 2.0, gen)      # decode: C = 1
+    pre, pre_inv, _ = _routed(1, 64, 8, 2, 2.0, gen)     # prefill: C = 32
+    big, comb, _ = _routed(8, 1024, 8, 2, 1.25, gen)     # C = 320
+    smoke, smoke_inv, _ = _routed(4, 20, 4, 2, 2.0, gen)  # smoke, f32
     # phase 7's expert-parallel dispatch at tp 4: rank 1's 2 of 8 experts,
     # one contiguous slot range of the table, its inverse rebased
     lo, hi = 2 * 8 * 320, 4 * 8 * 320
@@ -1264,10 +1301,10 @@ def phase_moe_reference() -> None:
     tables = moe.dispatch_tables
 
     def recording(log):
-        def wrapped(eidx, num_experts, cap):
-            disp, comb = tables(eidx, num_experts, cap)
+        def wrapped(eidx, num_experts, cap, **kw):
+            disp, comb, asg = tables(eidx, num_experts, cap, **kw)
             log.append((eidx.cpu(), comb.cpu()))
-            return disp, comb
+            return disp, comb, asg
         return wrapped
 
     for cf in (base.moe.capacity_factor_eval, 0.5):
@@ -2495,12 +2532,20 @@ def profile_train(step, state, batches) -> None:
                   if "bucket_pack_kernel" in e.key) / 1e3
     flash_ms = sum(e.self_device_time_total for e in kern
                    if "flash_fwd_" in e.key) / 1e3
+    gather_ms = sum(e.self_device_time_total for e in kern
+                    if "row_gather_kernel" in e.key) / 1e3
+    gsum_ms = sum(e.self_device_time_total for e in kern
+                  if "row_gather_sum_kernel" in e.key) / 1e3
+    ports = pack_ms + flash_ms + gather_ms + gsum_ms
     print(f"profile train: {len(batches)} steps: wall {wall_ms:.2f} ms "
           f"({prof_wall_ms:.2f} under the profiler), device busy "
           f"{busy_ms:.2f} ms, device idle share {1 - busy_ms / wall_ms:.4f};"
           f" pack+unpack {pack_ms:.3f} ms = {pack_ms / busy_ms:.4f} of "
           f"device time; flash_attention {flash_ms:.3f} ms = "
-          f"{flash_ms / busy_ms:.4f} of device time; "
+          f"{flash_ms / busy_ms:.4f} of device time; row_gather "
+          f"{gather_ms:.3f} ms = {gather_ms / busy_ms:.4f}; row_gather_sum "
+          f"{gsum_ms:.3f} ms = {gsum_ms / busy_ms:.4f}; the port's kernels "
+          f"together {ports / busy_ms:.4f} of device time; "
           f"{sum(e.count for e in kern)} kernel launches",
           flush=True)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
@@ -2509,19 +2554,24 @@ def profile_train(step, state, batches) -> None:
               f" us  {e.key[:90]}", flush=True)
 
 
-def phase_reference_train() -> None:
-    """olmo-1b-smoke f32: 3 steps of the same train step on the card and
-    on the CPU, from the same params and batches."""
+def phase_reference_train(arch: str = "olmo-1b-smoke") -> None:
+    """``arch`` (a smoke arch, f32): 3 steps of the same train step on the
+    card and on the CPU, from the same params and batches; an MoE arch's
+    load balance and router z too, and its row moves through both row
+    gather kernels."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gather import row_gather, row_gather_sum
     from repro_torch.models.transformer import init_params
     from repro_torch.train.trainer import make_train_step, train_state_init
     from repro_torch.tree import tree_flatten, tree_map
 
-    cfg = get_config("olmo-1b-smoke")
+    cfg = get_config(arch)
+    keys = ("loss", "grad_norm") + (("load_balance", "router_z")
+                                    if cfg.moe is not None else ())
     params = init_params(cfg, 0, device="cpu")
     runs = {}
     for dev in ("cuda", "cpu"):
@@ -2530,21 +2580,26 @@ def phase_reference_train() -> None:
         step = make_train_step(cfg, **TRAIN_KNOBS)
         metrics = []
         flash_attention.launches = 0
+        row_gather.launches = row_gather_sum.launches = 0
         for i in range(3):
             state, m = step(state, synthetic_batch(cfg, 4, 64, seed=i))
-            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            metrics.append(tuple(float(m[k]) for k in keys))
         if dev == "cuda":
             flash = flash_attention.launches
-            check(flash > 0, "the card's train steps launched no flash "
-                  "attention")
+            check(flash > 0, f"{arch}: the card's train steps launched no "
+                  f"flash attention")
+            moved = (row_gather.launches, row_gather_sum.launches)
+            check(cfg.moe is None or min(moved) > 0,
+                  f"{arch}: the card's steps launched row_gather / "
+                  f"row_gather_sum {moved} times")
         runs[dev] = (metrics, [t.cpu() for t in tree_flatten(state.params)[0]])
     worst = 0.0
-    for (lc, gc), (la, ga) in zip(runs["cuda"][0], runs["cpu"][0]):
-        for c, a in ((lc, la), (gc, ga)):
-            check(c == c, "non-finite metric on the card")
+    for card, cpu in zip(runs["cuda"][0], runs["cpu"][0]):
+        for c, a in zip(card, cpu):
+            check(c == c, f"{arch}: non-finite metric on the card")
             worst = max(worst, abs(c - a) / abs(a))
             check(abs(c - a) <= 1e-5 * abs(a),
-                  f"card loss/gnorm {c} vs CPU {a} (rtol 1e-5)")
+                  f"{arch}: card {keys} {card} vs CPU {cpu} (rtol 1e-5)")
     off = total = 0
     pworst = 0.0
     for c, a in zip(runs["cuda"][1], runs["cpu"][1]):
@@ -2552,13 +2607,15 @@ def phase_reference_train() -> None:
         d = np.abs(c - a)
         pworst = max(pworst, float(d.max()))
         check(bool((d <= 1e-4 + 2e-5 * np.abs(a)).all()),
-              f"card params differ from the CPU's by {d.max():.3e}")
+              f"{arch}: card params differ from the CPU's by {d.max():.3e}")
         off += int((d > 1e-6 + 2e-5 * np.abs(a)).sum())
         total += a.size
-    check(off <= total * 1e-4, f"{off} of {total} param elements off")
-    print(f"reference train: olmo-1b-smoke f32, 3 steps card (flash "
-          f"launches {flash}) vs CPU: "
-          f"loss/gnorm max rel diff {worst:.3e} (tol 1e-5), params max abs "
+    check(off <= total * 1e-4, f"{arch}: {off} of {total} param elements "
+          f"off")
+    print(f"reference train: {arch} f32, 3 steps card (flash launches "
+          f"{flash}{'' if cfg.moe is None else f', row_gather / row_gather_sum {moved}'}) "
+          f"vs CPU: {'/'.join(keys)} max rel diff {worst:.3e} (tol 1e-5), "
+          f"params max abs "
           f"diff {pworst:.3e} (tol 1e-4 + 2e-5 rel), {off} of {total} "
           f"elements beyond 1e-6 + 2e-5 rel", flush=True)
 
@@ -3069,6 +3126,260 @@ def phase_tp_serve(olmo_runs: dict, moe_runs: dict, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 13a-13c: MoE, VLM and audio training
+# ---------------------------------------------------------------------------
+
+def _fresh(what: str) -> None:
+    """Free what earlier phases hold; fail if more than ``FRESH_MAX_BYTES``
+    stays allocated."""
+    import torch
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"{what}: memory_allocated {held} B at its start", flush=True)
+    check(held <= FRESH_MAX_BYTES, f"{what}: {held} B still allocated from "
+          f"earlier phases (limit {FRESH_MAX_BYTES} B)")
+
+
+def phase_row_gather_bwd() -> dict:
+    """Phase 13a: the backwards of the MoE row moves against their plain
+    versions, bit for bit, at mixtral-8x22b's training shapes (see the
+    docstring), and through ``row_gather``'s autograd; times beside the
+    bound and one library call."""
+    import torch
+    from repro_torch.kernels.moe_gather import (row_gather, row_gather_plain,
+                                                row_gather_sum,
+                                                row_gather_sum_plain)
+    from repro_torch.models.moe import capacity, dispatch_tables
+
+    _fresh("phase 13a")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    d, t = 6144, 8 * 1024
+    disp, comb, asg = _routed(8, 1024, 8, 2, 1.25, gen)   # C = 320
+    sdisp, scomb, sasg = _routed(4, 20, 4, 2, 2.0, gen)   # smoke, f32
+    # skewed: every token to experts 0 and 1, so most assignments drop
+    crowd = torch.arange(2, device=dev).expand(8, 1024, 2)
+    kdisp, kcomb, kasg = dispatch_tables(
+        crowd, 8, min(capacity(1024, 8, 1.25, 2), 1024))
+    dropped = int((kcomb < 0).sum())
+    check(dropped > 0, "phase 13a: the skewed routing dropped nothing")
+    empty = torch.full((64,), -1, dtype=torch.int32, device=dev)
+    # name, dtype, width, gradient rows, inverse table, K, timed
+    cases = (("dispatch bwd", torch.bfloat16, d, disp.numel(), comb, 2, True),
+             ("combine bwd", torch.bfloat16, d, comb.numel(), asg, 1, True),
+             ("smoke dispatch bwd f32 d=256", torch.float32, 256,
+              sdisp.numel(), scomb, 2, False),
+             ("smoke combine bwd f32 d=256", torch.float32, 256,
+              scomb.numel(), sasg, 1, False),
+             ("skewed dispatch bwd", torch.bfloat16, d, kdisp.numel(), kcomb,
+              2, False),
+             ("skewed combine bwd", torch.bfloat16, d, kcomb.numel(), kasg,
+              1, False),
+             ("every entry empty", torch.bfloat16, d, 16, empty, 2, False))
+    res = {"max_abs_err": 0.0}
+    for name, dtype, width, m, inv, k, timed in cases:
+        src = torch.randn((m, width), generator=gen, device=dev).to(dtype)
+        n0 = (row_gather_sum.launches, row_gather.launches)
+        got = row_gather_sum(src, inv, k)
+        torch.cuda.synchronize()
+        n1 = (row_gather_sum.launches - n0[0], row_gather.launches - n0[1])
+        check(n1 == ((1, 0) if k > 1 else (0, 1)),
+              f"row_gather_sum {name}: launches {n1}")
+        want = row_gather_sum_plain(src, inv, k)
+        valid = int((inv >= 0).sum())
+        what = (f"row_gather_sum {name}: src {tuple(src.shape)} {dtype}, inv "
+                f"{tuple(inv.shape)} ({valid} valid), K={k}")
+        check(torch.equal(_bits(got), _bits(want)),
+              f"{what}: kernel != plain version")
+        err = (got.float() - want.float()).abs().max().item()
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        print(f"kernel {what}: bitwise equal to plain "
+              f"({'the gather-sum kernel' if k > 1 else 'the gather kernel'})"
+              f", max_abs_err={err}", flush=True)
+        if not timed:
+            continue
+        rows = inv.numel() // k
+        if k > 1:   # the library: index_add_ of the kept slots into zeros
+            ids = disp.long().clamp(min=0)
+            kept = torch.where((disp >= 0)[:, None], src,
+                               torch.zeros((), dtype=dtype, device=dev))
+
+            def lib(i):
+                return torch.zeros((rows, width), dtype=dtype,
+                                   device=dev).index_add_(0, ids, kept)
+            lib_name = "index_add_ into zeros"
+        else:       # K = 1 is a gather: index_select of the clamped ids
+            ids = inv.long().clamp(min=0)
+
+            def lib(i):
+                return src.index_select(0, ids)
+            lib_name = "index_select"
+        kernel_ms, library_ms, wins = paired_ms(
+            lambda i: row_gather_sum(src, inv, k), lib, n_iter=20, reps=3)
+        plain_ms = time_ms(lambda i: row_gather_sum_plain(src, inv, k),
+                           n_iter=20, reps=3)
+        # each valid entry's row read once, every output row written once,
+        # the table read once
+        row = width * src.element_size()
+        nbytes = valid * row + rows * row + inv.nbytes
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        res[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms)
+        print(f"kernel row_gather_sum {name} times: kernel_ms="
+              f"{kernel_ms:.5f} plain_ms={plain_ms:.5f} library_ms("
+              f"{lib_name})={library_ms:.5f} (medians of {PAIRS} "
+              f"alternating pairs, the kernel faster in {wins}) bound_ms="
+              f"{bound_ms:.5f} ({nbytes} B: {valid} rows read, {rows} "
+              f"written; {bound_ms / kernel_ms:.3f} of the bound)",
+              flush=True)
+        del src, got, want, lib, ids
+    # through row_gather's autograd at the full-width tables: the dispatch
+    # (x -> slots, inverse comb) and the combine (slots -> assignments,
+    # inverse asg), each against autograd of the plain gather
+    for name, idx, inv, rows in (("dispatch", disp, comb, t),
+                                 ("combine", comb, asg, disp.numel())):
+        src = torch.randn((rows, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        dy = torch.randn((idx.numel(), d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        a = src.clone().requires_grad_()
+        row_gather(a, idx, inv).backward(dy)
+        b = src.clone().requires_grad_()
+        row_gather_plain(b, idx).backward(dy)
+        torch.cuda.synchronize()
+        check(torch.equal(_bits(a.grad), _bits(b.grad)),
+              f"row_gather's {name} backward != autograd of the plain "
+              f"gather")
+        print(f"kernel row_gather autograd, the {name} at 8 x 1,024 tokens: "
+              f"gradient bitwise equal to autograd of the plain gather",
+              flush=True)
+        del src, dy, a, b
+    torch.cuda.empty_cache()
+    return res
+
+
+def _train_run(cfg, batches, what: str, profile: bool = False) -> dict:
+    """``make_train_step(cfg, **TRAIN_KNOBS)`` on the card from seeded
+    params: a warm-up step on ``batches[0]``, then ``MM_TRAIN_STEPS`` (5
+    for MoE) timed steps, the launch counts zeroed just before them and
+    read just after; checks the counts and finite metrics; with
+    ``profile``, a profile of 2 more steps. Returns the numbers."""
+    import torch
+    from repro_torch.core import get_comm_plan
+    from repro_torch.kernels.bucket_pack import bucket_pack, bucket_unpack
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gather import row_gather, row_gather_sum
+    from repro_torch.train.trainer import (make_train_step, optimizer_bytes,
+                                           train_state_init)
+
+    steps = len(batches) - 1 - (2 if profile else 0)
+    t0 = time.time()
+    state = train_state_init(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"{what}: {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
+          f"params={cfg.param_count() / 1e9:.3f}B {cfg.param_dtype}, "
+          f"moments {cfg.optimizer_dtype}, remat={cfg.remat}, batch "
+          f"{tuple(batches[0]['tokens'].shape)}, {TRAIN_KNOBS} (init "
+          f"{time.time() - t0:.1f}s)", flush=True)
+    torch.cuda.reset_peak_memory_stats()   # the state stays counted
+    step = make_train_step(cfg, **TRAIN_KNOBS)
+    t0 = time.perf_counter()
+    state, m = step(state, batches[0])
+    torch.cuda.synchronize()
+    print(f"{what}: warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+          f"loss {float(m['loss']):.4f}", flush=True)
+    n_buckets = get_comm_plan(state.params, num_streams=8, num_vcis=8,
+                              pack="pallas").plan.num_buckets
+    kernels = {"bucket_pack": bucket_pack, "bucket_unpack": bucket_unpack,
+               "flash_attention": flash_attention, "row_gather": row_gather,
+               "row_gather_sum": row_gather_sum}
+    for fn in kernels.values():
+        fn.launches = 0
+    row_gather.read_once_launches = 0
+    times, metrics = [], []
+    for b in batches[1:1 + steps]:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(m[k]) for k in ("loss", "grad_norm",
+                                                 "load_balance",
+                                                 "router_z")})
+    counts = {k: fn.launches for k, fn in kernels.items()}
+    counts["row_gather read-once"] = row_gather.read_once_launches
+    layers, moe = cfg.num_layers, cfg.moe is not None
+    # a layer's attention runs in the forward and again in remat's
+    # recompute; an MoE layer's two row moves likewise, plus the combine's
+    # backward (the gather over asg) and the dispatch's (the gather-sum);
+    # the dispatch takes the read-once route at 8 x 1,024 tokens
+    want = {"bucket_pack": n_buckets * steps, "bucket_unpack": steps,
+            "flash_attention": 2 * layers * steps,
+            "row_gather": 5 * layers * steps if moe else 0,
+            "row_gather_sum": layers * steps if moe else 0,
+            "row_gather read-once": 2 * layers * steps if moe else 0}
+    check(counts == want, f"{what}: {steps} steps launched {counts}, want "
+          f"{want}")
+    check(all(math.isfinite(v) for mt in metrics for v in mt.values()),
+          f"{what}: non-finite metrics {metrics}")
+    check(not moe or all(mt["load_balance"] > 0 and mt["router_z"] > 0
+                         for mt in metrics),
+          f"{what}: MoE aux metrics {metrics}")
+    ms = sum(times) / len(times)
+    peak = torch.cuda.max_memory_allocated()
+    opt_bytes = optimizer_bytes(state.opt)
+    tokens = int(batches[0]["labels"].size)
+    print(f"{what}: {steps} steps, step ms {[round(x, 3) for x in times]} "
+          f"(mean {ms:.3f}), {tokens / ms * 1e3:.1f} label positions/s "
+          f"({tokens} a step), metrics {metrics}, max_memory_allocated "
+          f"{peak} B, optimizer state {opt_bytes} B; launches {counts} "
+          f"({n_buckets} buckets)", flush=True)
+    if profile:
+        profile_train(step, state, batches[-2:])
+    del state, step
+    return dict(ms=ms, tok_s=tokens / ms * 1e3, peak=peak,
+                opt_bytes=opt_bytes, counts=counts)
+
+
+def phase_train_moe() -> dict:
+    """Phase 13b: full-width mixtral-8x22b training, one layer of 56 (see
+    the docstring); then mixtral-8x22b-smoke card vs CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synthetic_batch
+
+    _fresh("phase 13b")
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              num_layers=MOE_TRAIN_LAYERS, remat="block")
+    batches = [synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=i)
+               for i in range(TRAIN_STEPS + 3)]
+    run = _train_run(cfg, batches, "train moe", profile=True)
+    phase_reference_train(MOE_ARCH + "-smoke")
+    return run
+
+
+def phase_train_mm() -> dict:
+    """Phase 13c: full-width phi-3-vision-4.2b (24 of 32 layers) and
+    musicgen-large (all 48) training (see the docstring), each followed by
+    its smoke arch card vs CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synthetic_batch
+
+    runs = {}
+    for arch, layers, seq in ((VLM_ARCH, VLM_TRAIN_LAYERS, VLM_TEXT),
+                              (AUDIO_ARCH, None, AUDIO_TRAIN_FRAMES)):
+        _fresh(f"phase 13c {arch}")
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, remat="block",
+                                  num_layers=layers or cfg.num_layers)
+        seq += cfg.num_patches       # the VLM's labels span image + text
+        batches = [synthetic_batch(cfg, MM_TRAIN_BATCH, seq, seed=0, step=i)
+                   for i in range(MM_TRAIN_STEPS + 1)]
+        runs[arch] = _train_run(cfg, batches, f"train {cfg.modality}")
+        phase_reference_train(arch + "-smoke")
+    return runs
+
 def _table_bytes() -> int:
     """The page table of phase 5's paged cache: ``BATCH`` rows of
     ``MAX_LEN / PAGE_SIZE`` int32 entries."""
@@ -3122,6 +3433,15 @@ def main() -> None:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     ranks = phase_zero1_ranks(card)
+    bwd = phase_row_gather_bwd()
+    tmp = init_data_group()
+    try:
+        moe_train = phase_train_moe()
+        mm_train = phase_train_mm()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    trained = [moe_train] + list(mm_train.values())
 
     f32 = kern["float32"]
     line = {"kernels": [{
@@ -3151,8 +3471,10 @@ def main() -> None:
         "library_ms": train[name]["library_ms"],
     } for name, line, launches in (
         ("bucket_pack", 83, train["launches"][0]
-         + zero1["zero1/post"]["packs"] + ranks["packs"]),
-        ("bucket_unpack", 110, train["launches"][1]))] + [{
+         + zero1["zero1/post"]["packs"] + ranks["packs"]
+         + sum(r["counts"]["bucket_pack"] for r in trained)),
+        ("bucket_unpack", 110, train["launches"][1]
+         + sum(r["counts"]["bucket_unpack"] for r in trained)))] + [{
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3161,7 +3483,8 @@ def main() -> None:
                         for layout in ("paged", "contiguous"))
         + moe_runs["window"]["flash"] + hyb["flash"] + vlm_flash
         + audio_flash + train["flash"] + tp["flash"] + ranks["flash"]
-        + sum(r["flash"] for r in zero1.values()),
+        + sum(r["flash"] for r in zero1.values())
+        + sum(r["counts"]["flash_attention"] for r in trained),
         "max_abs_err": flash["max_abs_err"],
         "ms": flash["a"]["ms"],
         "plain_ms": flash["a"]["plain_ms"],
@@ -3175,13 +3498,28 @@ def main() -> None:
         "replaces": "src/repro/kernels/moe_gather.py:29",
         "launches": sum(moe_runs[k]["rows"]
                         for k in ("paged", "contiguous", "long", "window"))
-        + tp["rows"],
+        + tp["rows"] + moe_train["counts"]["row_gather"],
         "max_abs_err": rows["max_abs_err"],
         "ms": rows["8x1024 dispatch"]["ms"],
         "plain_ms": rows["8x1024 dispatch"]["plain_ms"],
         "bound_ms": rows["8x1024 dispatch"]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": rows["8x1024 dispatch"]["library_ms"],
+    }, {
+        "name": "row_gather_sum",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/row_gather.cu",
+        # no TPU kernel: row_gather_pallas has no backward (XLA
+        # differentiates the reference's gathers); this is row_gather's
+        "replaces": None,
+        "backward_of": "src/repro/kernels/moe_gather.py:29",
+        "launches": moe_train["counts"]["row_gather_sum"],
+        "max_abs_err": bwd["max_abs_err"],
+        "ms": bwd["dispatch bwd"]["ms"],
+        "plain_ms": bwd["dispatch bwd"]["plain_ms"],
+        "bound_ms": bwd["dispatch bwd"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": bwd["dispatch bwd"]["library_ms"],
     }, {
         "name": "ssd_chunk",
         "route": "cuda",
@@ -3197,9 +3535,11 @@ def main() -> None:
     }]}
     print(f"row_gather on the main path: {line['kernels'][4]['launches']} "
           f"launches, {moe_runs['long']['read_once']} (long prompts) + "
-          f"{moe_runs['window']['read_once']} (past the window) of them on "
-          f"the read-once route that its ms measures (the 8 x 1,024 "
-          f"dispatch)", flush=True)
+          f"{moe_runs['window']['read_once']} (past the window) + "
+          f"{moe_train['counts']['row_gather read-once']} (phase 13b's "
+          f"training) of them on the read-once route that its ms measures "
+          f"(the 8 x 1,024 dispatch); row_gather_sum "
+          f"{line['kernels'][5]['launches']} (phase 13b)", flush=True)
     print(f"chip_smoke: all phases passed in {time.time() - t_all:.1f}s",
           flush=True)
     print(json.dumps(line), flush=True)

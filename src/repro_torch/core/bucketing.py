@@ -599,8 +599,10 @@ def reduce_gradients(
         del staged
         for i, leaf in enumerate(leaves):
             off = int(arena_offs[i])
+            # a copy even where the dtypes match (f32 norm scales): a view
+            # would keep the whole f32 arena alive through the update
             out_leaves[i] = out_arena[off:off + leaf.numel()].reshape(
-                leaf.shape).to(leaf.dtype)
+                leaf.shape).to(leaf.dtype, copy=True)
     else:
         for flat, b in zip(packed, bplan.buckets):
             for idx, val in unpack_bucket(flat, b):

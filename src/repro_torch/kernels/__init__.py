@@ -15,7 +15,9 @@ with its Python wrapper, its plain PyTorch version and its launch count in
   flash_attention_pallas``) with a plain recompute backward;
 * :mod:`repro_torch.kernels.moe_gather` — ``row_gather``, the MoE
   dispatch and combine row moves (replaces ``repro/kernels/moe_gather.py::
-  row_gather_pallas``);
+  row_gather_pallas``), and ``row_gather_sum``, the gather-sum that is its
+  backward (no TPU counterpart: the reference differentiates its gathers
+  through XLA);
 * :mod:`repro_torch.kernels.ssd_scan` — ``ssd_chunk``, the Mamba2 SSD
   intra-chunk step (replaces ``repro/kernels/ssd_scan.py::
   ssd_chunk_pallas``).

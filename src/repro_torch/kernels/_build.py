@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
-Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` for ``sm_90a``
+Each ``csrc/<source>.cu`` is compiled on its own by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, then loaded with
 ``ctypes``; no PyTorch headers are involved, so a build takes seconds.
 Libraries go to ``kernels/build/`` (listed in ``.gitignore``), named by a
@@ -25,17 +25,22 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# kernel name -> (C entry point, its ctypes argtypes)
+# kernel name -> (its source csrc/<source>.cu, C entry point, its ctypes
+# argtypes); a source may hold more than one kernel's entry point
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNELS: Dict[str, tuple] = {
-    "paged_gather": ("paged_gather_launch", [_P, _P, _P, _LL, _I, _LL, _P]),
-    "bucket_pack": ("bucket_pack_launch",
+    "paged_gather": ("paged_gather", "paged_gather_launch",
+                     [_P, _P, _P, _LL, _I, _LL, _P]),
+    "bucket_pack": ("bucket_pack", "bucket_pack_launch",
                     [_P, _P, _P, _P, _LL, _LL, _LL, _I, _P]),
-    "flash_attention": ("flash_attention_fwd_launch",
+    "flash_attention": ("flash_attention", "flash_attention_fwd_launch",
                         [_P] * 6 + [_LL] * 9 + [_I] * 9 + [_P]),
-    "row_gather": ("row_gather_launch",
+    "row_gather": ("row_gather", "row_gather_launch",
                    [_P, _P, _P, _P, _LL, _LL, _I, _LL, _P]),
-    "ssd_chunk": ("ssd_chunk_launch", [_P] * 7 + [_LL] * 15 + [_I] * 8 + [_P]),
+    "row_gather_sum": ("row_gather", "row_gather_sum_launch",
+                       [_P, _P, _P, _LL, _LL, _I, _LL, _I, _P]),
+    "ssd_chunk": ("ssd_chunk", "ssd_chunk_launch",
+                  [_P] * 7 + [_LL] * 15 + [_I] * 8 + [_P]),
 }
 
 
@@ -50,19 +55,22 @@ def nvcc_path() -> str:
                        "of repro_torch are built from source at first use")
 
 
-def lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+def lib_path(source: str) -> Path:
+    """The shared library built from ``csrc/<source>.cu``."""
+    src = CSRC / f"{source}.cu"
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{source}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Optional[List[str]] = None) -> Dict[str, str]:
-    """Compile every kernel not yet built, one ``nvcc`` per source, all
-    started together; wait for each. Returns ``{name: compiler log}`` for
-    the sources built by this call (``-Xptxas -v``: registers, spills).
-    Raises ``RuntimeError`` with the compiler's output if a build fails."""
+    """Compile the sources of the named kernels (default: all) not yet
+    built, one ``nvcc`` per source, all started together; wait for each.
+    Returns ``{source: compiler log}`` for the sources built by this call
+    (``-Xptxas -v``: registers, spills). Raises ``RuntimeError`` with the
+    compiler's output if a build fails."""
     names = list(KERNELS) if names is None else names
-    todo = [n for n in names if not lib_path(n).exists()]
+    sources = dict.fromkeys(KERNELS[n][0] for n in names)
+    todo = [n for n in sources if not lib_path(n).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -89,8 +97,8 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, str]:
 def load(name: str):
     """The kernel's C entry point as a ctypes function (built if needed)."""
     build_all([name])
-    lib = ctypes.CDLL(str(lib_path(name)))
-    sym, argtypes = KERNELS[name]
+    source, sym, argtypes = KERNELS[name]
+    lib = ctypes.CDLL(str(lib_path(source)))
     fn = getattr(lib, sym)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int

@@ -52,7 +52,37 @@
 // four fully used 128-byte lines. Offsets are 64-bit: T * row_bytes can
 // exceed 2^31. Every output row is written by one block, so two launches
 // give equal bits.
+//
+// The gather-sum (row_gather_sum_launch), the gather's backward given its
+// inverse table. It replaces no TPU kernel: row_gather_pallas has no
+// backward, and the reference differentiates its take_along_axis and
+// scatter through XLA. Here the plain backward would be a scatter-add;
+// since inv names each source row's K output rows, every row of the
+// gradient is instead one block's sum of its own K rows: no atomics, and
+// a fixed order, so two launches give equal bits.
+//
+//   src (M, d)    the gather's output gradient
+//   inv (T*K,)    int32, -1 where an entry is empty
+//   out (T, d)    out[t] = sum_{k<K} src[inv[t*K+k]] over the entries
+//                 >= 0 (an entry past M-1 reads row M-1, as the gather's
+//                 ids clamp); a row with no entry is zero
+//
+// The MoE dispatch's backward is the gather-sum at K = top_k over comb
+// (a token's gradient is the sum of its capacity slots'); the combine's
+// has K = 1, a copy, which the wrapper runs on the gather kernel above.
+// It sums in f32 in k order and rounds each element once to the row
+// dtype (f32, bf16 or f16): at K = 2, 0 + a is exact and a + b rounds
+// once, so it equals a scatter-add into zeros in the row dtype bit for
+// bit. Bound: HBM bytes: each valid entry's row read once (no slot is
+// named twice), every output row written once, inv read once; at the
+// mixtral-8x22b training dispatch (8 groups of 1,024 tokens, d = 6,144
+// bf16, top-2, cf 1.25) <= 16,384 rows read and 8,192 written, ~302 MB,
+// 0.090 ms at 3.35 TB/s. Layout as the gather: grid.x an output row,
+// grid.y its 16 KiB chunks, 256 threads, 16-byte vectors; the rows of up
+// to 4 entries are loaded together before any is summed.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -174,6 +204,118 @@ row_gather_kernel_inv(const int4* __restrict__ src,
   }
 }
 
+// Row dtypes of the gather-sum (the codes of row_gather_sum_launch): each
+// unpacks a 16-byte vector into f32 sums and packs the sums back, rounding
+// to nearest even.
+enum { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+template <int D>
+struct Vec;
+
+template <>
+struct Vec<kF32> {
+  static constexpr int kElems = 4;
+  __device__ __forceinline__ static void add(float* acc, int4 v) {
+    acc[0] += __int_as_float(v.x);
+    acc[1] += __int_as_float(v.y);
+    acc[2] += __int_as_float(v.z);
+    acc[3] += __int_as_float(v.w);
+  }
+  __device__ __forceinline__ static int4 pack(const float* acc) {
+    return make_int4(__float_as_int(acc[0]), __float_as_int(acc[1]),
+                     __float_as_int(acc[2]), __float_as_int(acc[3]));
+  }
+};
+
+// two 16-bit values a 32-bit word, the lower one first
+template <int D>
+struct Vec16 {
+  static constexpr int kElems = 8;
+  __device__ __forceinline__ static float to_f32(uint32_t h) {
+    if (D == kBF16) return __uint_as_float(h << 16);
+    return __half2float(__ushort_as_half((unsigned short)h));
+  }
+  __device__ __forceinline__ static uint32_t from_f32(float f) {
+    if (D == kBF16) return __bfloat16_as_ushort(__float2bfloat16_rn(f));
+    return __half_as_ushort(__float2half_rn(f));
+  }
+  __device__ __forceinline__ static void add(float* acc, int4 v) {
+    const uint32_t w[4] = {(uint32_t)v.x, (uint32_t)v.y, (uint32_t)v.z,
+                           (uint32_t)v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[2 * i] += to_f32(w[i] & 0xffffu);
+      acc[2 * i + 1] += to_f32(w[i] >> 16);
+    }
+  }
+  __device__ __forceinline__ static int4 pack(const float* acc) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w[i] = from_f32(acc[2 * i]) | (from_f32(acc[2 * i + 1]) << 16);
+    }
+    return make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
+  }
+};
+
+template <>
+struct Vec<kBF16> : Vec16<kBF16> {};
+template <>
+struct Vec<kF16> : Vec16<kF16> {};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+row_gather_sum_kernel(const int4* __restrict__ src,
+                      const int32_t* __restrict__ inv,
+                      int4* __restrict__ out,
+                      long long num_src_rows,
+                      int k_slots,
+                      long long row_vecs) {
+  using V = Vec<D>;
+  const long long t = blockIdx.x;  // output row
+  const long long base = (long long)blockIdx.y * kChunkVecs + threadIdx.x;
+  const int32_t* slots = inv + t * k_slots;
+  float acc[kVecPerThread][V::kElems];
+#pragma unroll
+  for (int v = 0; v < kVecPerThread; ++v) {
+#pragma unroll
+    for (int j = 0; j < V::kElems; ++j) acc[v][j] = 0.0f;
+  }
+  // kSlotRegs entries at a time: their ids read together, then their rows,
+  // then summed in k order
+  for (int k0 = 0; k0 < k_slots; k0 += kSlotRegs) {
+    long long row[kSlotRegs];
+#pragma unroll
+    for (int k = 0; k < kSlotRegs; ++k) {
+      const int32_t s = k0 + k < k_slots ? __ldg(slots + k0 + k) : -1;
+      row[k] = s < 0 ? -1 : (s < num_src_rows ? s : num_src_rows - 1);
+    }
+    int4 r[kSlotRegs][kVecPerThread];
+#pragma unroll
+    for (int k = 0; k < kSlotRegs; ++k) {
+#pragma unroll
+      for (int v = 0; v < kVecPerThread; ++v) {
+        const long long e = base + (long long)v * kThreads;
+        r[k][v] = row[k] >= 0 && e < row_vecs
+                      ? __ldg(src + row[k] * row_vecs + e)
+                      : make_int4(0, 0, 0, 0);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kSlotRegs; ++k) {
+      if (row[k] < 0) continue;
+#pragma unroll
+      for (int v = 0; v < kVecPerThread; ++v) V::add(acc[v], r[k][v]);
+    }
+  }
+  int4* dst = out + t * row_vecs;
+#pragma unroll
+  for (int v = 0; v < kVecPerThread; ++v) {
+    const long long e = base + (long long)v * kThreads;
+    if (e < row_vecs) dst[e] = V::pack(acc[v]);
+  }
+}
+
 }  // namespace
 
 // C entry point, bound with ctypes. inv == nullptr takes the gather route,
@@ -209,6 +351,40 @@ extern "C" int row_gather_launch(const void* src, const void* idx,
         static_cast<const int4*>(src), static_cast<const int32_t*>(idx),
         static_cast<const int32_t*>(inv), static_cast<int4*>(out),
         num_out_rows, num_src_rows, k_slots, row_vecs);
+  }
+  return (int)cudaGetLastError();
+}
+
+// C entry point of the gather-sum, bound with ctypes: out (num_out_rows,
+// row_bytes) from src (num_src_rows, row_bytes) and inv (num_out_rows *
+// k_slots,); dtype 0 f32, 1 bf16, 2 f16. Launches on `stream`, does not
+// synchronise, returns cudaGetLastError().
+extern "C" int row_gather_sum_launch(const void* src, const void* inv,
+                                     void* out, long long num_out_rows,
+                                     long long num_src_rows, int k_slots,
+                                     long long row_bytes, int dtype,
+                                     void* stream) {
+  if (num_out_rows == 0 || row_bytes == 0) return 0;
+  const long long row_vecs = row_bytes / 16;
+  const long long chunks = (row_vecs + kChunkVecs - 1) / kChunkVecs;
+  if (num_out_rows > 0x7fffffffLL || chunks > 65535 || num_src_rows < 1 ||
+      row_bytes % 16 != 0 || k_slots < 1 || dtype < kF32 || dtype > kF16) {
+    return (int)cudaErrorInvalidValue;
+  }
+  dim3 grid((unsigned)num_out_rows, (unsigned)chunks);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int4* in = static_cast<const int4*>(src);
+  const int32_t* tab = static_cast<const int32_t*>(inv);
+  int4* o = static_cast<int4*>(out);
+  if (dtype == kF32) {
+    row_gather_sum_kernel<kF32><<<grid, kThreads, 0, s>>>(
+        in, tab, o, num_src_rows, k_slots, row_vecs);
+  } else if (dtype == kBF16) {
+    row_gather_sum_kernel<kBF16><<<grid, kThreads, 0, s>>>(
+        in, tab, o, num_src_rows, k_slots, row_vecs);
+  } else {
+    row_gather_sum_kernel<kF16><<<grid, kThreads, 0, s>>>(
+        in, tab, o, num_src_rows, k_slots, row_vecs);
   }
   return (int)cudaGetLastError();
 }

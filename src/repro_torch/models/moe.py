@@ -16,6 +16,11 @@ capacity ``C`` (GShard/Switch dropping). The row moves are two launches of
   assignments zero (``moe.py:135,140``); the gate-weighted sum over ``K``
   replaces the reference's scatter-add.
 
+Both moves carry their table's inverse, so their backwards need no
+scatter: the dispatch's is a gather-sum of each token's K slot gradients
+over ``comb``, the combine's a gather of each slot's assignment gradient
+over ``asg`` (:func:`dispatch_tables`).
+
 The buffer is expert-major, so the expert FFNs are plain ``bmm`` calls on
 the ``(E, d, ff)`` weights without a transpose. Aux losses: Switch-style
 load balance and the router z-loss, as in the reference.
@@ -24,7 +29,7 @@ load balance and the router z-loss, as in the reference.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -39,15 +44,21 @@ def capacity(tokens_per_group: int, num_experts: int, cf: float,
     return max(4, c)
 
 
-def dispatch_tables(eidx: torch.Tensor, num_experts: int, cap: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def dispatch_tables(eidx: torch.Tensor, num_experts: int, cap: int,
+                    assignments: bool = True
+                    ) -> Tuple[torch.Tensor, torch.Tensor,
+                               Optional[torch.Tensor]]:
     """Routing tables of the two row moves, built on ``eidx``'s device.
 
     eidx: (B, S, K) expert of each assignment. Returns ``disp`` (E*B*C,)
     int32 — the token row ``b*S + s`` each capacity slot ``(e, b, c)``
-    takes, -1 where the slot stays empty — and ``comb`` (B*S*K,) int32 —
+    takes, -1 where the slot stays empty —, ``comb`` (B*S*K,) int32 —
     the capacity slot ``e*B*C + b*C + c`` each assignment reads back, -1
-    where it was dropped. ``comb >= 0`` is the kept set."""
+    where it was dropped — and ``asg`` (E*B*C,) int32, ``comb``'s inverse
+    — the assignment ``b*S*K + j`` that reads each slot back, -1 where
+    none does (``None`` unless ``assignments``: only the combine's
+    backward reads it). ``comb >= 0`` is the kept set; ``comb`` is also
+    ``disp``'s inverse (a token's K slots)."""
     B, S, K = eidx.shape
     E, C = num_experts, cap
     dev = eidx.device
@@ -68,7 +79,12 @@ def dispatch_tables(eidx: torch.Tensor, num_experts: int, cap: int
                   tok.to(torch.int32).reshape(-1))
     comb = torch.empty((B, S * K), dtype=torch.int32, device=dev)
     comb.scatter_(1, order, torch.where(keep, slot, -1).to(torch.int32))
-    return disp[:-1], comb.reshape(-1)
+    if not assignments:
+        return disp[:-1], comb.reshape(-1), None
+    asg = torch.full((E * B * C + 1,), -1, dtype=torch.int32, device=dev)
+    asg.scatter_(0, torch.where(keep, slot, E * B * C).reshape(-1),
+                 (grp * (S * K) + order).to(torch.int32).reshape(-1))
+    return disp[:-1], comb.reshape(-1), asg[:-1]
 
 
 def moe_ffn(cfg: ModelConfig, x, p, shard=None, *, inference: bool = False,
@@ -99,7 +115,11 @@ def moe_ffn(cfg: ModelConfig, x, p, shard=None, *, inference: bool = False,
     gates, eidx = top[..., :K], idx[..., :K]                       # (B,S,K)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
-    disp, comb = dispatch_tables(eidx, E, C)
+    # asg serves only the combine's backward: serving builds no such table
+    train = comm is None and torch.is_grad_enabled() and (
+        x.requires_grad
+        or any(p[k].requires_grad for k in ("w_gate", "w_up", "w_down")))
+    disp, comb, asg = dispatch_tables(eidx, E, C, assignments=train)
     if comm is not None:
         out = _moe_experts_comm(cfg, x.reshape(B * S, d), disp, comb, p,
                                 comm)
@@ -111,8 +131,10 @@ def moe_ffn(cfg: ModelConfig, x, p, shard=None, *, inference: bool = False,
     # combine: gather each assignment's expert output (a zero row where it
     # was dropped) and sum over K. For top_k = 2 (every MoE config here)
     # this equals the reference's scatter-add bit for bit: 0+a+b = a+b in
-    # either order. ys keeps the activation dtype, as there.
-    ys = row_gather(out.view(E * B * C, d), comb).view(B, S, K, d)
+    # either order. ys keeps the activation dtype, as there. asg, comb's
+    # inverse, makes the backward a gather (each slot read by one
+    # assignment)
+    ys = row_gather(out.view(E * B * C, d), comb, asg).view(B, S, K, d)
     gate = torch.where(comb.view(B, S, K) >= 0, gates, 0.0)
     y = (ys * gate[..., None].to(ys.dtype)).sum(2)
 

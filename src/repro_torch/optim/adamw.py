@@ -8,6 +8,13 @@ are done IN PLACE on the params (the f32 master shards) and the moments
 (the returned trees hold the same tensors), so a full-width step does not
 hold a second copy of them.
 
+The replicated update walks each leaf in slices of at most
+``_UPDATE_CHUNK`` elements and applies the clip's scale there, so its f32
+temporaries stay a slice's size and no clipped copy of the gradient tree
+is made (every op is elementwise: the same bits as whole-leaf math and a
+clipped tree). A full-width step's largest leaf (805 M elements in
+mixtral-8x22b and musicgen-large) would otherwise hold ≈19 GB of them.
+
 ZeRO-1 keeps the state in flat bucket space (a :class:`~repro_torch.core.
 bucketing.BucketPlan`'s padded buffers) and each rank holds only its
 ``1/N`` shard of every bucket (the reference stores the global buffers
@@ -24,6 +31,10 @@ import torch
 
 from repro_torch.core.bucketing import BucketPlan, ShardLayout
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map
+
+
+# elements of a leaf updated at once (f32 temporaries of 256 MiB each)
+_UPDATE_CHUNK = 1 << 26
 
 
 class AdamWState(NamedTuple):
@@ -50,10 +61,10 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
+def _chunks(t: torch.Tensor):
+    """``t``'s elements as views of at most ``_UPDATE_CHUNK`` each (in-place
+    writes reach ``t``; a tensor that cannot be viewed flat raises)."""
+    return t.view(-1).split(_UPDATE_CHUNK)
 
 
 @torch.no_grad()
@@ -71,10 +82,9 @@ def adamw_update(
 ) -> Tuple[Any, AdamWState, dict]:
     """One AdamW step. Writes the new params and moments into ``params``,
     ``state.m`` and ``state.v`` and returns them with the new count."""
-    if max_grad_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
-    else:
-        gnorm = global_norm(grads)
+    gnorm = global_norm(grads)
+    scale = None if max_grad_norm is None else torch.clamp(
+        max_grad_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     count = state.count + 1
     cf = count.float()
     c1 = 1.0 - torch.tensor(b1, dtype=torch.float32, device=cf.device) ** cf
@@ -88,15 +98,20 @@ def adamw_update(
     if not treedef == m_def == v_def == p_def:
         raise ValueError("grads, moments and params differ in structure")
     for g, m, v, p in zip(flat_g, flat_m, flat_v, flat_p):
-        gf = g.float()
-        mf = m.float() * b1 + gf * (1 - b1)
-        vf = v.float() * b2 + torch.square(gf) * (1 - b2)
-        step = (mf / c1) / (torch.sqrt(vf / c2) + eps)
-        if p.dim() >= 2:  # decoupled weight decay on matrices only
-            step = step + weight_decay * p.float()
-        p.copy_(p.float() - lr * step)
-        m.copy_(mf)
-        v.copy_(vf)
+        decay = p.dim() >= 2  # decoupled weight decay on matrices only
+        for gc, mc, vc, pc in zip(g.reshape(-1).split(_UPDATE_CHUNK),
+                                  _chunks(m), _chunks(v), _chunks(p)):
+            gf = gc.float()
+            if scale is not None:   # the clipped gradient, in g's dtype
+                gf = (gf * scale).to(g.dtype).float()
+            mf = mc.float() * b1 + gf * (1 - b1)
+            vf = vc.float() * b2 + torch.square(gf) * (1 - b2)
+            step = (mf / c1) / (torch.sqrt(vf / c2) + eps)
+            if decay:
+                step = step + weight_decay * pc.float()
+            pc.copy_(pc.float() - lr * step)
+            mc.copy_(mf)
+            vc.copy_(vf)
     return params, AdamWState(state.m, state.v, count), {"grad_norm": gnorm}
 
 

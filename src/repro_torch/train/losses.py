@@ -1,6 +1,8 @@
-"""Loss functions: masked next-token cross-entropy (port of
-``repro.train.losses`` for the families this port trains: no MoE aux
-terms, but the same fixed metric keys)."""
+"""Loss functions: masked next-token cross-entropy plus the MoE aux terms
+(port of ``repro.train.losses``). The CE is shape-generic: audio's
+``(B,K,S,V)`` logits against ``(B,K,S)`` labels are the mean over every
+codebook's tokens; a VLM's labels span image + text with ``PAD_LABEL``
+over the patches."""
 
 from __future__ import annotations
 
@@ -10,6 +12,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import PAD_LABEL
+
+LOAD_BALANCE_COEF = 0.01
+ROUTER_Z_COEF = 1e-3
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
@@ -26,17 +31,18 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
 
 def total_loss(cfg: ModelConfig, logits, labels, aux: Dict[str, torch.Tensor]
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean CE over the unmasked tokens, plus the reference's fixed metric
-    structure (``load_balance``/``router_z`` are zero for dense archs)."""
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE training losses come with the MoE "
-                                  "training slice (ROADMAP.md Queue 1 item "
-                                  "15)")
+    """Mean CE over the unmasked tokens, plus ``LOAD_BALANCE_COEF * lb +
+    ROUTER_Z_COEF * rz`` for MoE configs (the aux losses averaged over the
+    layers), in the reference's fixed metric structure
+    (``load_balance``/``router_z`` are zero for dense archs)."""
     ce_sum, n = cross_entropy(logits, labels)
     ce = ce_sum / torch.clamp(n, min=1)
     zero = torch.zeros((), device=ce.device)
     lb = aux.get("load_balance", zero) / max(1, cfg.num_layers)
     rz = aux.get("router_z", zero) / max(1, cfg.num_layers)
+    loss = ce
+    if cfg.moe is not None:
+        loss = loss + LOAD_BALANCE_COEF * lb + ROUTER_Z_COEF * rz
     metrics = {"ce": ce, "tokens": n.float(), "load_balance": lb,
-               "router_z": rz, "loss": ce}
-    return ce, metrics
+               "router_z": rz, "loss": loss}
+    return loss, metrics

@@ -25,10 +25,12 @@ asynchronously on the VCI groups, and AdamW updates params and moments in
 place. With NCCL nothing in the step blocks the host on the card except
 reading metrics, which the caller does.
 
-Later slices, each raising ``NotImplementedError``: ``comm="gspmd"``
-(ROADMAP.md Queue 1 item 14), and families other than dense text (SSM
-and hybrid training are item 12b, MoE training item 15, VLM and audio
-item 13c).
+Every attention family trains: dense and MoE text (the MoE row moves
+through the row-gather kernels forward and backward, the loss with the
+router's aux terms), VLM (image + text labels) and audio (the K codebook
+heads). Later slices, each raising ``NotImplementedError``:
+``comm="gspmd"`` (ROADMAP.md Queue 1 item 14), and SSM and hybrid
+training (item 12b).
 """
 
 from __future__ import annotations
@@ -178,21 +180,11 @@ def make_train_step(
     module docstring); with ``optimizer="zero1"`` the shard updates and
     the param gathers then run in ``CommPlan.ready_order``.
     """
-    if cfg.modality != "text":
-        raise NotImplementedError(
-            f"{cfg.modality} training is a later slice (ROADMAP.md Queue 1 "
-            f"item 13c: the (B,K,S,V) and image-masked losses); the "
-            f"{cfg.family} family serves only")
     if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"{'SSM' if cfg.family == 'ssm' else 'hybrid'} training is a "
             f"later slice (ROADMAP.md Queue 1 item 12b: the SSD kernel has "
             f"no backward); the {cfg.family} family serves only")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "MoE training is a later slice (ROADMAP.md Queue 1 item 15: "
-            "the row gather's backward); the train step runs the dense "
-            "text family so far")
     if optimizer not in ("replicated", "zero1"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
     if schedule not in ("post", "overlap"):

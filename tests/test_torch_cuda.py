@@ -485,7 +485,8 @@ def test_row_gather_inv_matches_plain(cuda_device, monkeypatch, dtype, cf,
     monkeypatch.setattr(moe_gather, "_READ_ONCE_MIN_BYTES", 0)
     d = 6144 if dtype == torch.bfloat16 else 256
     groups, tokens = 4, 96
-    disp, comb = _routing(cuda_device, groups, tokens, 8, top_k, cf, 7)
+    disp, comb, _ = _routing(cuda_device, groups, tokens, 8, top_k, cf,
+                             7)
     gen = torch.Generator(device=cuda_device).manual_seed(8)
     src = torch.randn((groups * tokens, d), generator=gen,
                       device=cuda_device).to(dtype)
@@ -504,7 +505,7 @@ def test_row_gather_inv_fully_dropped_and_empty(cuda_device, monkeypatch):
     """Tokens whose every assignment was dropped are never read; a table
     with every slot empty gives zeros (the read-once route, forced)."""
     monkeypatch.setattr(moe_gather, "_READ_ONCE_MIN_BYTES", 0)
-    disp, comb = _routing(cuda_device, 2, 64, 8, 2, 0.5, 9, crowd=True)
+    disp, comb, _ = _routing(cuda_device, 2, 64, 8, 2, 0.5, 9, crowd=True)
     dropped = (comb.view(-1, 2) < 0).all(1)
     assert int(dropped.sum()) > 0
     src = torch.randn((128, 512), device=cuda_device).to(torch.bfloat16)
@@ -544,8 +545,114 @@ def test_row_gather_kernel_rejects_what_it_cannot_take(cuda_device):
         moe_gather.row_gather(torch.zeros((8, 4), device=cuda_device).T, idx)
     with pytest.raises(ValueError, match="16 bytes"):
         moe_gather.row_gather(torch.zeros((4, 3), device=cuda_device), idx)
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        moe_gather.row_gather(src.requires_grad_(), idx)
+    # a source that requires grad trains (once refused): the backward
+    # without the inverse table raises, naming it
+    out = moe_gather.row_gather(src.requires_grad_(), idx)
+    with pytest.raises(NotImplementedError, match="inverse table"):
+        out.sum().backward()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("t,d", [(300, 256), (64, 6144), (5, 8)])
+def test_row_gather_sum_kernel_matches_plain(cuda_device, dtype, k, t, d):
+    """The gather-sum kernel against ``row_gather_sum_plain``: bit for bit
+    at K <= 2 (a sum of two in f32, rounded once), at K = 3 within two
+    roundings of the row dtype relative to the terms' magnitudes (the two
+    sum three terms in other orders); empty entries, ids past M-1 (clamped), rows
+    with no entry (zero), one launch a call (K = 1: the gather kernel's)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(t + k)
+    m = 2 * t + 3
+    src = torch.randn((m, d), generator=gen, device=cuda_device).to(dtype)
+    inv = torch.randint(-2, m + 2, (t * k,), generator=gen,
+                        device=cuda_device, dtype=torch.int32)
+    inv[:k] = -1                               # row 0 has no entry
+    n0 = moe_gather.row_gather_sum.launches
+    g0 = moe_gather.row_gather.launches
+    got = moe_gather.row_gather_sum(src, inv, k)
+    torch.cuda.synchronize()
+    assert (moe_gather.row_gather_sum.launches - n0,
+            moe_gather.row_gather.launches - g0) == \
+        ((0, 1) if k == 1 else (1, 0))
+    want = moe_gather.row_gather_sum_plain(src, inv, k)
+    assert got.shape == want.shape == (t, d)
+    assert torch.equal(_bits(got[0]), torch.zeros_like(_bits(got[0])))
+    if k <= 2:
+        assert torch.equal(_bits(got), _bits(want))
+    else:
+        ulp = {torch.float32: 2 ** -23, torch.bfloat16: 2 ** -8,
+               torch.float16: 2 ** -10}[dtype]
+        mag = moe_gather.row_gather_sum_plain(src.abs(), inv, k).float()
+        assert bool(((got.float() - want.float()).abs()
+                     <= 2 * ulp * mag).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_gather_grad_on_card_goes_through_the_kernels(cuda_device,
+                                                          dtype):
+    """``row_gather``'s backward on a CUDA tensor, given the dispatch's
+    inverse (K = 2) or the combine's (K = 1), launches the gather-sum or
+    the gather kernel and equals autograd of the plain gather bit for
+    bit."""
+    disp, comb, asg = _routing(cuda_device, 4, 96, 8, 2, 1.25, 11)
+    d = 6144 if dtype == torch.bfloat16 else 256
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    x = torch.randn((4 * 96, d), generator=gen, device=cuda_device).to(dtype)
+    for idx, inv, rows, kernel in ((disp, comb, 4 * 96, "row_gather_sum"),
+                                   (comb, asg, disp.numel(), "row_gather")):
+        src = x if rows == x.shape[0] else torch.randn(
+            (rows, d), generator=gen, device=cuda_device).to(dtype)
+        dy = torch.randn((idx.numel(), d), generator=gen,
+                         device=cuda_device).to(dtype)
+        a = src.clone().requires_grad_()
+        out = moe_gather.row_gather(a, idx, inv)
+        n0 = getattr(moe_gather, kernel).launches
+        out.backward(dy)
+        torch.cuda.synchronize()
+        assert getattr(moe_gather, kernel).launches == n0 + 1
+        b = src.clone().requires_grad_()
+        moe_gather.row_gather_plain(b, idx).backward(dy)
+        assert torch.equal(_bits(a.grad), _bits(b.grad))
+
+
+def test_moe_train_step_on_card_equals_cpu(nccl_rank):
+    """3 mixtral-8x22b-smoke f32 steps (pack="pallas", remat="block") on a
+    one-rank NCCL group against the same step on the CPU: loss, grad norm,
+    load balance and router z within 1e-5, params within 1e-4 + 2e-5 rel;
+    the card's steps launch the row gather 5 times a layer a step (dispatch
+    and combine, their remat recompute, the combine's backward) and the
+    gather-sum once (the dispatch's backward)."""
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.train.trainer import make_train_step, train_state_init
+    cfg = dataclasses.replace(_moe_smoke(), remat="block")
+    params = init_params(cfg, 0, device="cpu")
+    knobs = dict(comm="vci", pack="pallas", num_streams=4, num_vcis=4)
+    runs = {}
+    for dev in ("cpu", nccl_rank):
+        state = train_state_init(cfg, params=tree_map(
+            lambda t: t.clone().to(dev), params))
+        step = make_train_step(cfg, **knobs)
+        metrics = []
+        n0 = moe_gather.row_gather.launches
+        s0 = moe_gather.row_gather_sum.launches
+        for i in range(3):
+            state, m = step(state, synthetic_batch(cfg, 4, 32, seed=i))
+            metrics.append([float(m[k]) for k in ("loss", "grad_norm",
+                                                  "load_balance",
+                                                  "router_z")])
+        if dev != "cpu":
+            assert moe_gather.row_gather.launches - n0 == \
+                3 * 5 * cfg.num_layers
+            assert moe_gather.row_gather_sum.launches - s0 == \
+                3 * cfg.num_layers
+        runs[str(dev)] = (metrics, [t.cpu() for t in
+                                    tree_flatten(state.params)[0]])
+    (mc, pc), (mg, pg) = runs["cpu"], runs[str(nccl_rank)]
+    assert np.isfinite(mg).all()
+    np.testing.assert_allclose(mg, mc, rtol=1e-5)
+    for a, b in zip(pc, pg):
+        assert bool(((a - b).abs() <= 1e-4 + 2e-5 * a.abs()).all())
 
 
 def _moe_smoke():

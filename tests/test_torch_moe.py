@@ -113,11 +113,113 @@ def test_row_gather_kernel_refusals(case):
     elif case == "row_bytes":
         src, match = torch.zeros(4, 3), "16 bytes"
     elif case == "requires_grad":
-        src, err, match = src.requires_grad_(), NotImplementedError, "item 15"
+        # a source that requires grad is no longer refused (the kernel
+        # trains through its gather-sum backward): the check gets as far as
+        # the device; only a backward without the inverse table raises,
+        # anywhere but on the CPU
+        src = src.requires_grad_()
+        with pytest.raises(NotImplementedError, match="inverse table"):
+            moe_gather._scatter_add_plain(torch.zeros(3, 8, device="meta"),
+                                          idx.to("meta"), 4)
+        match = "CUDA device"
     else:
         match = "CUDA device"
     with pytest.raises(err, match=match):
         moe_gather._check_cuda_args(src, idx)
+
+
+def _inverse_tables(t, m, k, seed):
+    """A gather table ``idx`` (M,) over T source rows in which each source
+    row fills at most ``k`` output slots (some none, some slots empty), and
+    its exact inverse ``inv`` (T*k,), as ``dispatch_tables`` builds them."""
+    rng = np.random.default_rng(seed)
+    slots = rng.permutation(m)[:min(m, t * k)]
+    owners = rng.permutation(np.repeat(np.arange(t), k))[:slots.size]
+    keep = rng.random(slots.size) < 0.8
+    idx = np.full(m, -1, np.int32)
+    inv = np.full(t * k, -1, np.int32)
+    fill = np.zeros(t, np.int64)
+    for s_, o, kp in zip(slots, owners, keep):
+        if kp:
+            idx[s_] = o
+            inv[o * k + fill[o]] = s_
+            fill[o] += 1
+    return torch.from_numpy(idx), torch.from_numpy(inv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2])
+def test_row_gather_grad_equals_autograd_of_plain(dtype, k):
+    """The dispatcher op's backward given the inverse table (the gather-sum,
+    each source row the sum of its K output rows' gradients) equals
+    ``torch.autograd`` of the plain gather — rows read twice, rows read by
+    none, empty output rows — bit for bit (at K <= 2 a sum in f32 rounded
+    once is the scatter-add's)."""
+    t, m, d = 12, 20, 16
+    idx, inv = _inverse_tables(t, m, k, seed=k)
+    assert int((idx < 0).sum()) > 0 and int((inv < 0).sum()) > 0
+    if k == 2:
+        assert int(torch.bincount(idx[idx >= 0].long()).max()) == 2
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(t, d)).astype(np.float32)).to(dtype)
+    dy = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)
+                          ).to(dtype)
+    a = x.clone().requires_grad_()
+    moe_gather.row_gather(a, idx, inv).backward(dy)
+    b = x.clone().requires_grad_()
+    moe_gather.row_gather_plain(b, idx).backward(dy)
+    assert a.grad.dtype == dtype
+    assert torch.equal(a.grad, b.grad)
+
+
+def test_row_gather_grad_without_inverse_is_the_scatter_add():
+    """Without ``inv`` the CPU backward adds each output row's gradient into
+    its source row: duplicate ids sum, negative ids add nothing, ids past
+    T-1 land on the last row (the forward clamps them)."""
+    idx = torch.tensor([3, -1, 0, 3, 7, 3, -4], dtype=torch.int32)
+    x = torch.randn(5, 8, requires_grad=True)
+    dy = torch.randn(7, 8)
+    moe_gather.row_gather(x, idx).backward(dy)
+    want = torch.zeros(5, 8)
+    for i, r in enumerate(idx.tolist()):
+        if r >= 0:
+            want[min(r, 4)] += dy[i]
+    assert torch.allclose(x.grad, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_row_gather_sum_plain_matches_a_numpy_loop(dtype, k):
+    """``row_gather_sum_plain`` (the CPU path and the card's yardstick of
+    the gather-sum kernel) against a numpy loop: the entries >= 0 of each
+    row summed in f32 in k order, ids past M-1 clamped, rounded once."""
+    rng = np.random.default_rng(k)
+    np_dt = np.float32 if dtype == "float32" else ml_dtypes.bfloat16
+    m, t, d = 9, 6, 24
+    src = rng.normal(size=(m, d)).astype(np_dt)
+    inv = rng.integers(-3, m + 2, (t * k,)).astype(np.int32)
+    want = np.zeros((t, d), np.float32)
+    for r in range(t):
+        for j in range(k):
+            i = inv[r * k + j]
+            if i >= 0:
+                want[r] += src[min(i, m - 1)].astype(np.float32)
+    want = want.astype(np_dt)
+    got = moe_gather.row_gather_sum_plain(tensor_from_numpy(src, "cpu"),
+                                          torch.from_numpy(inv), k)
+    assert got.shape == (t, d)
+    if k <= 2:   # two terms: one rounding, any order
+        np.testing.assert_array_equal(_bits(np.asarray(
+            got.float().numpy().astype(np_dt))), _bits(want))
+    else:
+        np.testing.assert_allclose(got.float().numpy(),
+                                   want.astype(np.float32), rtol=1e-6,
+                                   atol=1e-6 if dtype == "float32" else 0.05)
+    # the wrapper on a CPU tensor is the plain version (K = 1: the gather)
+    before = moe_gather.row_gather_sum.launches
+    assert torch.equal(moe_gather.row_gather_sum(
+        tensor_from_numpy(src, "cpu"), torch.from_numpy(inv), k), got)
+    assert moe_gather.row_gather_sum.launches == before
 
 
 def test_row_gather_refuses_other_devices():
@@ -209,7 +311,7 @@ def test_moe_ffn_matches_reference(moe_layer, inference, capacity):
                         stable=True)[1][..., :cfg.moe.top_k]
     np.testing.assert_array_equal(eidx_t.numpy(), eidx_j)
     C = min(tmoe.capacity(16, cfg.moe.num_experts, cf, cfg.moe.top_k), 16)
-    disp, comb = tmoe.dispatch_tables(eidx_t, cfg.moe.num_experts, C)
+    disp, comb, _ = tmoe.dispatch_tables(eidx_t, cfg.moe.num_experts, C)
     keep_t = (comb >= 0).reshape(3, -1).numpy()
     np.testing.assert_array_equal(keep_t, keep_j)
     assert keep_t.all() == (capacity == "drop_free")
@@ -224,9 +326,10 @@ def test_dispatch_tables_round_trip():
     eidx = torch.from_numpy(np.stack([np.stack([rng.choice(E, K, replace=False)
                                                 for _ in range(S)])
                                       for _ in range(B)]))
-    disp, comb = tmoe.dispatch_tables(eidx, E, C)
-    assert disp.shape == (E * B * C,) and comb.shape == (B * S * K,)
-    assert disp.dtype == comb.dtype == torch.int32
+    disp, comb, asg = tmoe.dispatch_tables(eidx, E, C)
+    assert disp.shape == asg.shape == (E * B * C,)
+    assert comb.shape == (B * S * K,)
+    assert disp.dtype == comb.dtype == asg.dtype == torch.int32
     for a, slot in enumerate(comb.tolist()):
         b, s, k = a // (S * K), (a // K) % S, a % K
         if slot >= 0:
@@ -261,7 +364,7 @@ def _tables(B, S, E, K, cf, seed=0):
                                                 for _ in range(S)])
                                       for _ in range(B)]))
     cap = min(tmoe.capacity(S, E, cf, K), S)
-    disp, comb = tmoe.dispatch_tables(eidx, E, cap)
+    disp, comb, _ = tmoe.dispatch_tables(eidx, E, cap)
     return cap, disp, comb
 
 
@@ -283,6 +386,28 @@ def test_comb_is_the_inverse_of_disp(B, S, E, K, cf):
         assert int((~kept).sum()) > 0
     src = torch.zeros(B * S, 8)
     assert moe_gather._check_inv(src, comb) == K
+
+
+@pytest.mark.parametrize("B,S,E,K,cf", _TABLE_CASES)
+def test_asg_is_the_inverse_of_comb(B, S, E, K, cf):
+    """``asg`` is exactly ``comb``'s inverse, as the combine's backward
+    needs: every kept assignment's slot names it back, every slot no
+    assignment reads is -1 (the empty slots, where ``disp`` is -1 too)."""
+    rng = np.random.default_rng(4)
+    eidx = torch.from_numpy(np.stack([np.stack([rng.choice(E, K, replace=False)
+                                                for _ in range(S)])
+                                      for _ in range(B)]))
+    cap = min(tmoe.capacity(S, E, cf, K), S)
+    disp, comb, asg = tmoe.dispatch_tables(eidx, E, cap)
+    kept = (comb >= 0).nonzero()[:, 0]
+    assert torch.equal(asg[comb[kept].long()], kept.to(torch.int32))
+    assert torch.equal(asg >= 0, disp >= 0)
+    read = asg[asg >= 0].long()
+    assert read.unique().numel() == read.numel() == kept.numel()
+    assert torch.equal(comb[read], (asg >= 0).nonzero()[:, 0].to(
+        torch.int32))
+    src = torch.zeros(E * B * cap, 8)
+    assert moe_gather._check_inv(src, asg) == 1
 
 
 @pytest.mark.parametrize("B,S,E,K,cf", _TABLE_CASES)
@@ -429,8 +554,61 @@ def test_moe_engine_tokens_match_reference(mixtral, kind, paged):
 
 
 def test_moe_training_is_refused():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        make_train_step(get_config(ARCH), comm="vci")
+    """Once refused (ROADMAP item 15); now MoE trains: the step builds and
+    gradients reach every expert table, the router and the layer's input
+    through both row moves. What is
+    left refused on the MoE path is the GSPMD-sharded route (item 14)."""
+    cfg = get_config(ARCH)
+    make_train_step(cfg, comm="vci")
+    params = ttf.init_params(cfg, 0, device="cpu")
+    p = {k: v.detach().requires_grad_() for k, v in
+         ttf.layer_params(params, 0)["moe"].items()}
+    x = torch.randn(2, 12, cfg.d_model, requires_grad=True)
+    y, aux = tmoe.moe_ffn(cfg, x, p)
+    (y.square().sum() + aux["load_balance"] + aux["router_z"]).backward()
+    for name in ("w_gate", "w_up", "w_down", "router"):
+        assert p[name].grad is not None and p[name].grad.abs().sum() > 0
+    assert x.grad.abs().sum() > 0
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tmoe.moe_ffn(cfg, x, p, shard=object())
+
+
+@pytest.mark.parametrize("mode", ["no_grad", "inference_mode", "frozen",
+                                  "x_grad", "w_grad"])
+def test_assignment_table_only_where_autograd_reads_it(monkeypatch, mode):
+    """``moe_ffn`` asks ``dispatch_tables`` for ``asg`` only where the
+    combine's backward will run (a serve forward builds no such table),
+    and its output does not depend on it."""
+    cfg = get_config(ARCH)
+    params = ttf.init_params(cfg, 0, device="cpu")
+    p = dict(ttf.layer_params(params, 0)["moe"])
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(2, 12, cfg.d_model)).astype(np.float32))
+    want, _ = tmoe.moe_ffn(cfg, x, p)
+    tables, asked = tmoe.dispatch_tables, []
+
+    def recording(eidx, num_experts, cap, **kw):
+        out = tables(eidx, num_experts, cap, **kw)
+        asked.append(out[2] is not None)
+        return out
+
+    monkeypatch.setattr(tmoe, "dispatch_tables", recording)
+    if mode == "x_grad":
+        x = x.clone().requires_grad_()
+    elif mode == "w_grad":
+        p["w_down"] = p["w_down"].clone().requires_grad_()
+    if mode == "no_grad":
+        with torch.no_grad():
+            y, _ = tmoe.moe_ffn(cfg, x.requires_grad_(), p)
+    elif mode == "inference_mode":
+        with torch.inference_mode():
+            y, _ = tmoe.moe_ffn(cfg, x, p)
+    else:
+        y, _ = tmoe.moe_ffn(cfg, x, p)
+    assert asked == [mode in ("x_grad", "w_grad")]
+    assert torch.equal(y.detach(), want)
+    if asked[0]:
+        y.square().sum().backward()
 
 
 def test_cli_serves_moe_on_cpu():

@@ -286,9 +286,56 @@ def test_vlm_engine_is_refused():
 
 
 @pytest.mark.parametrize("arch", [VLM, AUDIO])
-def test_training_is_refused(arch):
-    with pytest.raises(NotImplementedError, match="item 13c"):
-        make_train_step(get_config(arch), comm="vci")
+def test_training_is_refused(arch, tmp_path, monkeypatch):
+    """Once refused (ROADMAP item 13c); now both train (the steps are held
+    against the reference in ``tests/test_torch_train.py``). Here: the
+    bucket plan holds every leaf whole (the VLM's ``img_proj.w``, audio's
+    ``(K,V,d)`` embeddings and ``(K,d,V)`` heads); a rank's slice and each
+    microbatch take the same rows of every batch key (``image_embeds``
+    too); and a step of 2 microbatches gives the one-batch step's loss and
+    grad norm within 1e-5."""
+    import torch.distributed as dist
+    from repro_torch.core.bucketing import plan_buckets
+    from repro_torch.train import trainer
+    from repro_torch.tree import tree_flatten, tree_map
+    cfg = get_config(arch)
+    params = ttf.init_params(cfg, 0, device="cpu")
+    leaves = tree_flatten(params)[0]
+    plan = plan_buckets(params, 4, slot_align=1024)
+    slots = sorted((sl.index, sl.shape) for b in plan.buckets
+                   for sl in b.slots)
+    assert slots == [(i, tuple(t.shape)) for i, t in enumerate(leaves)]
+    if arch == VLM:
+        assert params["img_proj"]["w"].shape == (ttf.IMG_EMBED_DIM,
+                                                 cfg.d_model)
+    else:
+        k, v, d = cfg.num_codebooks, cfg.vocab_size, cfg.d_model
+        assert params["embed"]["tok"].shape == (k, v, d)
+        assert params["lm_head"]["w"].shape == (k, d, v)
+    seq = cfg.num_patches + 24 if arch == VLM else 24
+    batch = synthetic_batch(cfg, 4, seq, seed=0)
+    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+    monkeypatch.setattr(dist, "get_rank", lambda: 1)
+    got = trainer._rank_slice(batch, "cpu")
+    monkeypatch.undo()
+    assert set(got) == set(batch)
+    for key, v in batch.items():
+        assert torch.equal(got[key], torch.as_tensor(v[2:]))
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        runs = []
+        for accum in (1, 2):
+            state = trainer.train_state_init(cfg, params=tree_map(
+                torch.clone, params))
+            step = make_train_step(cfg, comm="vci", accum_steps=accum,
+                                   num_streams=2, num_vcis=2)
+            _, m = step(state, batch)
+            runs.append((float(m["loss"]), float(m["grad_norm"])))
+    finally:
+        dist.destroy_process_group()
+    assert all(np.isfinite(runs[0]))
+    np.testing.assert_allclose(runs[1], runs[0], rtol=1e-5)
 
 
 def test_cli_serves_audio_on_cpu(capsys):

@@ -175,6 +175,38 @@ def test_overlap_step_equals_post_on_one_rank(one_rank, optimizer, accum):
                                    atol=1e-6)
 
 
+def test_moe_zero1_overlap_equals_replicated_post(one_rank):
+    """3 mixtral-8x22b-smoke steps on one rank (the row moves' backwards,
+    the aux losses in the loss): ZeRO-1 under the overlap schedule against
+    replicated AdamW under post, loss and grad norm within rtol 1e-5 and
+    params within rtol 2e-5 / atol 1e-6; every bucket issued inside the
+    backward, in ready order."""
+    cfg = get_config("mixtral-8x22b-smoke")
+    params = init_params(cfg, 0, device="cpu")
+    runs = {}
+    for optimizer, schedule in (("replicated", "post"), ("zero1", "overlap")):
+        knobs = dict(num_streams=4, pack="pallas", schedule=schedule)
+        state = train_state_init(cfg, params=tree_map(torch.clone, params),
+                                 optimizer=optimizer, **knobs)
+        step = make_train_step(cfg, comm="vci", num_vcis=4,
+                               optimizer=optimizer, **knobs)
+        metrics = []
+        for i in range(3):
+            state, m = step(state, synthetic_batch(cfg, 4, 32, seed=i))
+            metrics.append((float(m["loss"]), float(m["grad_norm"]),
+                            float(m["load_balance"]), float(m["router_z"])))
+        runs[schedule] = (metrics, tree_flatten(state.params)[0])
+    cp = tbk.get_comm_plan(state.params, num_streams=4, num_vcis=4,
+                           pack="pallas", schedule="overlap")
+    assert step.last_issue["order"] == cp.ready_order
+    assert step.last_issue["in_backward"] == cp.plan.num_buckets
+    np.testing.assert_allclose(runs["overlap"][0], runs["post"][0],
+                               rtol=1e-5)
+    for a, b in zip(runs["overlap"][1], runs["post"][1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-5,
+                                   atol=1e-6)
+
+
 def test_overlap_over_4_ranks_matches_post_and_reference(tmp_path):
     """5 steps on gemma-2b-smoke over 4 gloo ranks with 2 microbatches
     (the analogue of ``check_overlap_matches_post``): overlap against

@@ -31,7 +31,7 @@ def gather_routes() -> None:
                                (2, 256, 1.25), (4, 256, 1.25),
                                (8, 256, 1.25), (4, 1024, 1.25),
                                (8, 1024, 1.25)):
-        idx, inv = cs._routed(groups, tokens, 8, 2, cf, gen)
+        idx, inv, _ = cs._routed(groups, tokens, 8, 2, cf, gen)
         t = groups * tokens
         src = torch.randn((t, 6144), generator=gen,
                           device="cuda").to(torch.bfloat16)
