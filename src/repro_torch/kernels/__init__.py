@@ -20,7 +20,9 @@ with its Python wrapper, its plain PyTorch version and its launch count in
   through XLA);
 * :mod:`repro_torch.kernels.ssd_scan` — ``ssd_chunk``, the Mamba2 SSD
   intra-chunk step (replaces ``repro/kernels/ssd_scan.py::
-  ssd_chunk_pallas``).
+  ssd_chunk_pallas``), and ``ssd_chunk_bwd``, its backward
+  (``csrc/ssd_chunk_bwd.cu``; no TPU counterpart: the reference
+  differentiates its einsums through XLA).
 
 Every Pallas kernel of the reference now has its CUDA counterpart.
 """

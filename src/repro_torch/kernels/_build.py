@@ -41,6 +41,8 @@ KERNELS: Dict[str, tuple] = {
                        [_P, _P, _P, _LL, _LL, _I, _LL, _I, _P]),
     "ssd_chunk": ("ssd_chunk", "ssd_chunk_launch",
                   [_P] * 7 + [_LL] * 15 + [_I] * 8 + [_P]),
+    "ssd_chunk_bwd": ("ssd_chunk_bwd", "ssd_chunk_bwd_launch",
+                      [_P] * 13 + [_LL] * 18 + [_I] * 8 + [_P]),
 }
 
 

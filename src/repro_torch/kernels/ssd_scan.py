@@ -1,4 +1,5 @@
-"""Mamba2 SSD intra-chunk step: hand-written CUDA kernel + plain version.
+"""Mamba2 SSD intra-chunk step and its backward: hand-written CUDA kernels
++ plain versions.
 
 Port of ``repro.kernels.ssd_scan``. The blocked SSD scan
 (:func:`repro_torch.models.ssm.ssd_chunked`) splits into a quadratic
@@ -6,15 +7,23 @@ intra-chunk part and a short inter-chunk recurrence; this module is the
 intra-chunk part, in the model's layout rather than the Pallas kernel's
 ``(b*h, nc, c, ...)`` one:
 
-* :func:`ssd_chunk` — the entry point the model calls. A CUDA tensor goes
-  to the ``sm_90a`` kernel in ``csrc/ssd_chunk.cu`` (which replaces
-  ``ssd_chunk_pallas``); a CPU tensor goes to :func:`ssd_chunk_plain`.
-  There is no fallback: a CUDA call launches the kernel or raises. bf16
-  inputs with ``chunk <= 256`` run on the tensor cores (one ``C B^T`` for
-  many heads of a group); f32 inputs, and longer chunks, on FFMA.
-* :func:`ssd_chunk_plain` — plain f32 einsums (``ssd_chunk_batched_ref``
-  in the reference); the CPU path, and what the kernel is held against on
-  the card.
+* :func:`ssd_chunk` — the entry point the model calls: the dispatcher op
+  ``repro_torch::ssd_chunk`` (``torch.library.custom_op``, with a fake
+  for meta tensors and its autograd registered, so that ``remat="dots"``
+  can keep its outputs). A CUDA tensor goes to the ``sm_90a`` kernel in
+  ``csrc/ssd_chunk.cu`` (which replaces ``ssd_chunk_pallas``); a CPU
+  tensor goes to :func:`ssd_chunk_plain`. There is no fallback: a CUDA
+  call launches the kernel or raises. bf16 inputs with ``chunk <= 256``
+  run on the tensor cores (one ``C B^T`` for many heads of a group); f32
+  inputs, and longer chunks, on FFMA.
+* Its backward, :func:`ssd_chunk_bwd`: the kernel in
+  ``csrc/ssd_chunk_bwd.cu`` on a CUDA tensor (counted in
+  ``ssd_chunk_bwd.launches``), :func:`ssd_chunk_bwd_plain` on a CPU tensor.
+  The TPU kernel has no backward: the reference differentiates its einsums
+  through XLA.
+* :func:`ssd_chunk_plain` and :func:`ssd_chunk_bwd_plain` — plain f32
+  einsums (``ssd_chunk_batched_ref`` in the reference, and its vjp); the
+  CPU path, and what the kernels are held against on the card.
 
 Per (batch, head, chunk), with ``i, j`` rows of the chunk::
 
@@ -22,21 +31,37 @@ Per (batch, head, chunk), with ``i, j`` rows of the chunk::
     y      = ((C B^T) o L o dt_j) x
     state  = (B o dt o exp(cum_last - cum))^T x
 
-The heads of a group read the group's ``B``/``C`` (head ``hh`` reads group
-``hh // (h // g)``); nothing is repeated over heads. The kernel has no
-backward: a CUDA tensor that requires grad is refused (SSM and hybrid
-training are a later slice, ROADMAP.md Queue 1 item 12b).
+and, given the output gradients ``dy`` and ``dst``, with ``CB = C B^T``,
+``W = CB o L o dt_j``, ``e = exp(cum_last - cum)``, ``G = (dy x^T) o L``,
+``M = G o CB o dt_j`` and ``r_j = sum_q B[j,q] (x_j . dst[q,:])``::
+
+    dx   = W^T dy + (dt o e) o (B dst)
+    dC   = (G o dt_j) B
+    dB   = (G o dt_j)^T C + (dt o e) o (x dst^T)
+    ddt  = colsum(G o CB) + e o r
+    dcum = rowsum(M) - colsum(M) - dt o e o r,  dcum_last += sum_j dt_j e_j r_j
+
+``dB`` and ``dC`` are summed over the heads of a group in f32 before they
+are rounded to the inputs' dtype. The heads of a group read the group's
+``B``/``C`` (head ``hh`` reads group ``hh // (h // g)``); nothing is
+repeated over heads. ``L`` is taken only on and below the diagonal: above
+it ``cum_i - cum_j > 0`` and ``exp`` can overflow, and a masked ``inf``
+would turn the backward's zero cotangents into NaN.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_MAX_N = 256   # d_state
 _KERNEL_MAX_P = 128   # head_dim
+# the backward kernel keeps a chunk's 64-row tiles of x, B, dy and C in
+# shared memory, up to 128 wide
+_BWD_MAX_N = 128
+_BWD_MAX_P = 128
 
 
 def _shapes(x, dt, cum, B, C, chunk: int):
@@ -112,22 +137,12 @@ def _check_cuda_args(x, dt, cum, B, C, chunk: int):
     for name, t in (("x", x), ("B", B), ("C", C)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} must have a contiguous last dim")
-    if any(t.requires_grad for t in (x, dt, cum, B, C)):
-        raise NotImplementedError(
-            "ssd_chunk's CUDA kernel has no backward (the TPU kernel has "
-            "none); SSM training is a later slice (ROADMAP.md Queue 1 item "
-            "12b)")
     return b, s, h, p, g, n, nc
 
 
-def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
-              B: torch.Tensor, C: torch.Tensor, chunk: int
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The intra-chunk SSD step (see the module doc): ``(y_intra (b,s,h,p),
-    states (b,nc,h,n,p))``, both f32. On a CUDA tensor this launches the
-    hand-written kernel on the current stream and adds one to
-    ``ssd_chunk.launches``; on a CPU tensor it runs :func:`ssd_chunk_plain`
-    and counts nothing."""
+def _fwd(x, dt, cum, B, C, chunk: int):
+    """The forward on ``x``'s device: the kernel (counted) or the plain
+    version."""
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, dt, cum, B, C, chunk)
     if not x.is_cuda:
@@ -154,4 +169,176 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     return y, states
 
 
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+
+def ssd_chunk_bwd_plain(x, dt, cum, B, C, dy: torch.Tensor,
+                        dst: Optional[torch.Tensor], chunk: int):
+    """The backward of :func:`ssd_chunk_plain` (the module doc's formulas
+    as f32 einsums): given ``dy (b,s,h,p)`` and ``dst (b,nc,h,n,p)``
+    (``None`` for zeros), returns ``(dx, ddt, dcum, dB, dC)``: ``dx`` in
+    x's dtype, ``dB``/``dC`` in B's (summed over a group's heads in f32,
+    then rounded once), ``ddt``/``dcum`` in f32."""
+    b, s, h, p, g, n, nc = _shapes(x, dt, cum, B, C, chunk)
+    rep = h // g
+    f32 = torch.float32
+    xs = x.to(f32).reshape(b, nc, chunk, h, p)
+    dys = dy.to(f32).reshape(b, nc, chunk, h, p)
+    dts = dt.to(f32).reshape(b, nc, chunk, h)
+    cs = cum.to(f32).reshape(b, nc, chunk, h)
+    Bh = B.to(f32).reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
+    Ch = C.to(f32).reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
+    mask = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=x.device).tril()[None, None, :, :, None]
+    diff = cs[:, :, :, None, :] - cs[:, :, None, :, :]           # (b,nc,i,j,h)
+    L = torch.where(mask, torch.exp(torch.where(mask, diff, 0.0)), 0.0)
+    CB = torch.einsum("bnihq,bnjhq->bnijh", Ch, Bh)
+    dtj = dts[:, :, None, :, :]
+    G = torch.einsum("bnihp,bnjhp->bnijh", dys, xs) * L
+    Gd = G * dtj
+    dx = torch.einsum("bnijh,bnihp->bnjhp", CB * L * dtj, dys)
+    dCh = torch.einsum("bnijh,bnjhq->bnihq", Gd, Bh)
+    dBh = torch.einsum("bnijh,bnihq->bnjhq", Gd, Ch)
+    GCB = G * CB
+    ddt = GCB.sum(2)
+    M = GCB * dtj
+    dcum = M.sum(3) - M.sum(2)
+    if dst is not None:
+        dsts = dst.to(f32)                                       # (b,nc,h,n,p)
+        e = torch.exp(cs[:, :, -1:, :] - cs)                     # (b,nc,c,h)
+        dte = dts * e
+        dx = dx + dte[..., None] * torch.einsum("bnchq,bnhqp->bnchp", Bh,
+                                                dsts)
+        XD = torch.einsum("bnchp,bnhqp->bnchq", xs, dsts)
+        dBh = dBh + dte[..., None] * XD
+        r = (Bh * XD).sum(-1)
+        ddt = ddt + e * r
+        t = dte * r
+        dcum = dcum - t
+        dcum[:, :, -1, :] += t.sum(2)
+    dB = dBh.reshape(b, nc, chunk, g, rep, n).sum(4).reshape(b, s, g, n)
+    dC = dCh.reshape(b, nc, chunk, g, rep, n).sum(4).reshape(b, s, g, n)
+    return (dx.reshape(b, s, h, p).to(x.dtype), ddt.reshape(b, s, h),
+            dcum.reshape(b, s, h), dB.to(B.dtype), dC.to(C.dtype))
+
+
+def _check_bwd_args(x, dt, cum, B, C, dy, dst, chunk: int):
+    """Validate the backward kernel's inputs; returns :func:`_shapes`."""
+    b, s, h, p, g, n, nc = _check_cuda_args(x, dt, cum, B, C, chunk)
+    if n > _BWD_MAX_N or p > _BWD_MAX_P:
+        raise ValueError(f"ssd_chunk_bwd kernel takes d_state <= "
+                         f"{_BWD_MAX_N} and head_dim <= {_BWD_MAX_P}, got "
+                         f"{n}, {p}")
+    for name, t, shape in (("dy", dy, (b, s, h, p)),
+                           ("dst", dst, (b, nc, h, n, p))):
+        if t is None:
+            continue
+        if t.device != x.device or t.dtype != torch.float32 or \
+                t.shape != shape:
+            raise ValueError(f"ssd_chunk_bwd takes {name} {shape} float32 "
+                             f"on {x.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    if dy.stride(3) != 1:
+        raise ValueError("dy must have a contiguous last dim")
+    if dst is not None and not dst.is_contiguous():
+        raise ValueError("dst must be contiguous")
+    return b, s, h, p, g, n, nc
+
+
+def ssd_chunk_bwd(x, dt, cum, B, C, dy: torch.Tensor,
+                  dst: Optional[torch.Tensor], chunk: int):
+    """The backward of :func:`ssd_chunk`, ``(dx, ddt, dcum, dB, dC)`` as
+    :func:`ssd_chunk_bwd_plain` returns them. On a CUDA tensor this
+    launches the hand-written kernel on the current stream and adds one to
+    ``ssd_chunk_bwd.launches``; on a CPU tensor it runs
+    :func:`ssd_chunk_bwd_plain` and counts nothing."""
+    if x.device.type == "cpu":
+        return ssd_chunk_bwd_plain(x, dt, cum, B, C, dy, dst, chunk)
+    if not x.is_cuda:
+        raise ValueError(f"ssd_chunk_bwd: unsupported device {x.device}")
+    from repro_torch.kernels._build import load
+    b, s, h, p, g, n, nc = _check_bwd_args(x, dt, cum, B, C, dy, dst, chunk)
+    dev = x.device
+    dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
+    ddt = torch.empty((b, s, h), dtype=torch.float32, device=dev)
+    dcum = torch.empty((b, s, h), dtype=torch.float32, device=dev)
+    dB = torch.empty((b, s, g, n), dtype=B.dtype, device=dev)
+    dC = torch.empty((b, s, g, n), dtype=C.dtype, device=dev)
+    if dx.numel() == 0 or dB.numel() == 0:
+        return dx.zero_(), ddt.zero_(), dcum.zero_(), dB.zero_(), dC.zero_()
+    # each head's dB and dC rows in f32, summed over the group's heads by
+    # the same launch
+    part = torch.empty((2, b, s, h, n), dtype=torch.float32, device=dev)
+    launch = load("ssd_chunk_bwd")
+    with torch.cuda.device(dev):
+        err = launch(x.data_ptr(), dt.data_ptr(), cum.data_ptr(),
+                     B.data_ptr(), C.data_ptr(), dy.data_ptr(),
+                     0 if dst is None else dst.data_ptr(), dx.data_ptr(),
+                     ddt.data_ptr(), dcum.data_ptr(), dB.data_ptr(),
+                     dC.data_ptr(), part.data_ptr(), *x.stride()[:3],
+                     *dt.stride(), *cum.stride(), *B.stride()[:3],
+                     *C.stride()[:3], *dy.stride()[:3], b, s, h, p, g, n,
+                     chunk, _KERNEL_DTYPES[x.dtype],
+                     torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_chunk_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+    ssd_chunk_bwd.launches += 1
+    return dx, ddt, dcum, dB, dC
+
+
+# ---------------------------------------------------------------------------
+# the dispatcher op
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::ssd_chunk", mutates_args=())
+def ssd_chunk_op(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, chunk: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssd_chunk` as one dispatcher op with its autograd."""
+    return _fwd(x, dt, cum, B, C, chunk)
+
+
+@ssd_chunk_op.register_fake
+def _ssd_chunk_fake(x, dt, cum, B, C, chunk):
+    b, s, h, p = x.shape
+    return (x.new_empty((b, s, h, p), dtype=torch.float32),
+            x.new_empty((b, s // chunk, h, B.shape[3], p),
+                        dtype=torch.float32))
+
+
+def _ssd_chunk_setup(ctx, inputs, output):
+    x, dt, cum, B, C, chunk = inputs
+    ctx.save_for_backward(x, dt, cum, B, C)
+    ctx.chunk = chunk
+
+
+def _ssd_chunk_backward(ctx, dy, dst):
+    x, dt, cum, B, C = ctx.saved_tensors
+    dst = None if dst is None else dst.contiguous()
+    dx, ddt, dcum, dB, dC = ssd_chunk_bwd(x, dt, cum, B, C, dy, dst,
+                                          ctx.chunk)
+    return dx, ddt.to(dt.dtype), dcum.to(cum.dtype), dB, dC, None
+
+
+ssd_chunk_op.register_autograd(_ssd_chunk_backward,
+                               setup_context=_ssd_chunk_setup)
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor, chunk: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The intra-chunk SSD step (see the module doc): ``(y_intra (b,s,h,p),
+    states (b,nc,h,n,p))``, both f32. On a CUDA tensor this launches the
+    hand-written kernel on the current stream and adds one to
+    ``ssd_chunk.launches``; on a CPU tensor it runs :func:`ssd_chunk_plain`
+    and counts nothing. Differentiable in x, dt, cum, B and C (the backward
+    is :func:`ssd_chunk_bwd`)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_chunk: unsupported device {x.device}")
+    return ssd_chunk_op(x, dt, cum, B, C, chunk)
+
+
 ssd_chunk.launches = 0
+ssd_chunk_bwd.launches = 0

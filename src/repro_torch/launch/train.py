@@ -10,10 +10,10 @@ by default (raises without CUDA), ``--device cpu`` for the plain CPU path.
 ``FileStore`` in a temporary directory (no network); without it the step
 runs in this process as a group of one. Rank 0 prints.
 
-Every attention family trains: dense and MoE text (``--arch
-mixtral-8x22b-smoke``), VLM (``phi-3-vision-4.2b-smoke``; ``--seq`` counts
-the image patches too) and audio (``musicgen-large-smoke``); SSM and
-hybrid archs are refused (ROADMAP.md Queue 1 item 12b).
+Every family trains: dense and MoE text (``--arch
+mixtral-8x22b-smoke``), SSM and hybrid (``mamba2-780m-smoke``,
+``zamba2-7b-smoke``), VLM (``phi-3-vision-4.2b-smoke``; ``--seq`` counts
+the image patches too) and audio (``musicgen-large-smoke``).
 ``--comm vci`` is the ported mode (bucketed VCI gradient reduction), with
 ``--optimizer zero1`` (ZeRO-1: reduce_scatter, sharded AdamW, param
 all_gather; ``--zero1-wire bfloat16`` sets the wire dtype of both) and

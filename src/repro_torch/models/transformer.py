@@ -12,6 +12,8 @@ The training forward (no cache, autograd on) recomputes each block in the
 backward when ``cfg.remat != "none"`` (``torch.utils.checkpoint``):
 ``"block"`` keeps only each block's input, ``"dots"`` also the outputs of
 its matmuls (the reference's ``checkpoint_dots``, see :func:`_dots_policy`).
+A block is a dense or MoE layer, a Mamba2 block, or a hybrid's
+shared-attention site.
 
 MoE layers (mixtral, arctic) replace the FFN with
 :func:`repro_torch.models.moe.moe_ffn` and sum its aux losses over the
@@ -77,19 +79,21 @@ from repro_torch.models.ssm import SSMState, mamba2_decode, mamba2_forward
 IMG_EMBED_DIM = 1024  # stubbed CLIP patch-embedding width (phi-3-vision)
 
 # remat="dots": the ops whose outputs the backward keeps (``aten.matmul``
-# and ``einsum`` reach the dispatcher as the first three; the fourth is the
-# flash forward, ``(o, lse)``, as the reference's XLA attention keeps its
-# products)
+# and ``einsum`` reach the dispatcher as the first three; then the flash
+# forward, ``(o, lse)``, and the SSD intra-chunk step, ``(y, states)``, as
+# the reference's XLA attention and SSD einsums keep their products)
 _DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
                       torch.ops.aten.addmm.default,
-                      torch.ops.repro_torch.flash_fwd.default})
+                      torch.ops.repro_torch.flash_fwd.default,
+                      torch.ops.repro_torch.ssd_chunk.default})
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
     """Selective activation checkpoint for ``remat="dots"``, as
-    ``jax.checkpoint_policies.checkpoint_dots``: save the matmul and the
-    flash forward's outputs, recompute everything else (so the backward
-    launches no second flash forward)."""
+    ``jax.checkpoint_policies.checkpoint_dots``: save the outputs of the
+    matmuls, the flash forward and the SSD intra-chunk step, recompute
+    everything else (so the backward launches no second flash or SSD
+    forward)."""
     return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
@@ -614,19 +618,15 @@ class Model:
         if start is not None:
             # per-row RoPE positions: the first real token sits at 0
             positions = torch.clamp(positions[None, :] - start[:, None], min=0)
-        # training forward: cfg.remat != "none" recomputes each block in the
-        # backward (the reference's jax.checkpoint around the scan body);
-        # "dots" keeps the block's matmul outputs (_dots_policy)
-        remat = (cache is None and self.cfg.remat != "none"
-                 and torch.is_grad_enabled())
-        kw = {"context_fn": _dots_contexts} if self.cfg.remat == "dots" \
-            else {}
+        # training forward: each block recomputed in the backward (the
+        # reference's jax.checkpoint around the scan body)
+        ckpt = self._checkpoint_kw(cache)
         auxes = []
         for l in range(self.cfg.num_layers):
-            if remat:
+            if ckpt is not None:
                 x, aux = checkpoint(functools.partial(
                     self._train_block, params, positions, start, l), x,
-                    use_reentrant=False, **kw)
+                    **ckpt)
             else:
                 kv = None if cache is None else _layer_kv(cache.kv, l)
                 x, _, aux = _dense_block(self.cfg, x, layer_params(params, l),
@@ -650,13 +650,24 @@ class Model:
         ssm = None if cache is None else cache.ssm
         if ssm is not None and ssm.conv.dtype != x.dtype:
             ssm = SSMState(torch.empty_like(ssm.conv, dtype=x.dtype), ssm.ssd)
+        # training forward: each Mamba2 block and each shared-attention site
+        # is recomputed in the backward (the reference's jax.checkpoint of
+        # ssm_body and group_body)
+        ckpt = self._checkpoint_kw(cache)
         for l in range(self.cfg.num_layers):
+            site = self._site_after(l)
+            if ckpt is not None:
+                x = checkpoint(functools.partial(self._train_ssm_block,
+                                                 params, l), x, **ckpt)
+                if site is not None:
+                    x = checkpoint(functools.partial(
+                        self._train_site, params, positions), x, **ckpt)
+                continue
             st = None if ssm is None else _ssm_layer(ssm, l)
             x, new_st = _ssm_block(self.cfg, x, layer_params(params, l),
                                    state=st)
             if ssm is not None:
                 _write_ssm(ssm, l, new_st)
-            site = self._site_after(l)
             if site is not None:
                 kv = None if cache is None else _layer_kv(cache.kv, site)
                 x, _ = _shared_attn_block(self.cfg, x, params["shared_attn"],
@@ -676,12 +687,33 @@ class Model:
             return None
         return l // k
 
+    def _checkpoint_kw(self, cache) -> Optional[Dict[str, Any]]:
+        """``torch.utils.checkpoint``'s keywords for a training forward (no
+        cache, autograd on, ``cfg.remat != "none"``), else ``None``;
+        ``"dots"`` keeps the outputs of :data:`_DOT_OPS`."""
+        if cache is not None or self.cfg.remat == "none" or \
+                not torch.is_grad_enabled():
+            return None
+        if self.cfg.remat == "dots":
+            return {"use_reentrant": False, "context_fn": _dots_contexts}
+        return {"use_reentrant": False}
+
     def _train_block(self, params, positions, start, l: int, x):
         """Layer ``l`` without a cache (the unit that remat recomputes):
         (x, aux)."""
         x, _, aux = _dense_block(self.cfg, x, layer_params(params, l),
                                  positions, start=start)
         return x, aux
+
+    def _train_ssm_block(self, params, l: int, x):
+        """Mamba2 layer ``l`` without a cache (a unit remat recomputes)."""
+        return _ssm_block(self.cfg, x, layer_params(params, l))[0]
+
+    def _train_site(self, params, positions, x):
+        """A hybrid's shared-attention block without a cache (a unit remat
+        recomputes)."""
+        return _shared_attn_block(self.cfg, x, params["shared_attn"],
+                                  positions)[0]
 
     # -- one-token decode --------------------------------------------------
     def decode_step(self, params, tokens, cache: DecodeCache,

@@ -25,12 +25,12 @@ asynchronously on the VCI groups, and AdamW updates params and moments in
 place. With NCCL nothing in the step blocks the host on the card except
 reading metrics, which the caller does.
 
-Every attention family trains: dense and MoE text (the MoE row moves
-through the row-gather kernels forward and backward, the loss with the
-router's aux terms), VLM (image + text labels) and audio (the K codebook
-heads). Later slices, each raising ``NotImplementedError``:
-``comm="gspmd"`` (ROADMAP.md Queue 1 item 14), and SSM and hybrid
-training (item 12b).
+Every family trains: dense and MoE text (the MoE row moves through the
+row-gather kernels forward and backward, the loss with the router's aux
+terms), SSM and hybrid (the SSD intra-chunk step through its forward and
+backward kernels, plain CE), VLM (image + text labels) and audio (the K
+codebook heads). A later slice, raising ``NotImplementedError``:
+``comm="gspmd"`` (ROADMAP.md Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -180,11 +180,6 @@ def make_train_step(
     module docstring); with ``optimizer="zero1"`` the shard updates and
     the param gathers then run in ``CommPlan.ready_order``.
     """
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{'SSM' if cfg.family == 'ssm' else 'hybrid'} training is a "
-            f"later slice (ROADMAP.md Queue 1 item 12b: the SSD kernel has "
-            f"no backward); the {cfg.family} family serves only")
     if optimizer not in ("replicated", "zero1"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
     if schedule not in ("post", "overlap"):

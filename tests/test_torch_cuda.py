@@ -860,14 +860,195 @@ def test_ssd_kernel_rejects_what_it_cannot_take(cuda_device):
                                    1, 8, 32)
     with pytest.raises(ValueError, match="must be on"):
         ssd_scan.ssd_chunk(x, dt.cpu(), cum, B, C, 32)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ssd_scan.ssd_chunk(x.clone().requires_grad_(), dt, cum, B, C, 32)
+    with pytest.raises(ValueError, match="dy"):    # the backward's input
+        ssd_scan.ssd_chunk_bwd(x, dt, cum, B, C, x.double(), None, 32)
     with pytest.raises(TypeError, match="one dtype"):
         ssd_scan.ssd_chunk(x.half(), dt, cum, B.half(), C.half(), 32)
     with pytest.raises(TypeError, match="one dtype"):
         ssd_scan.ssd_chunk(x, dt, cum, B.bfloat16(), C, 32)
     with pytest.raises(ValueError, match="multiple of chunk"):
         ssd_scan.ssd_chunk(x, dt, cum, B, C, 48)
+
+
+# the SSD backward kernel: b, s, h, p, g, n, chunk
+_SSD_BWD_CASES = [
+    (2, 512, 4, 64, 1, 128, 256),   # the mamba2-780m widths, 2 chunks
+    (1, 512, 8, 64, 2, 64, 256),    # g 2 at zamba2's n 64
+    (2, 96, 6, 32, 2, 16, 32),      # smoke widths, chunk 32, 3 heads a group
+    (1, 256, 2, 128, 1, 128, 256),  # the largest p and n it takes
+    (1, 200, 3, 24, 3, 40, 100),    # ragged: chunk, p and n off the tiles
+    (1, 1024, 112, 64, 1, 64, 256),  # zamba2-7b: 112 heads on one group
+]
+
+
+def _ssd_grads(dev, b, s, h, p, n, chunk, seed=1, dst=True):
+    """Output gradients: dy (b,s,h,p) and dst (b,nc,h,n,p) ~ N(0,1), f32."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dy = torch.randn((b, s, h, p), generator=gen, device=dev)
+    ds = torch.randn((b, s // chunk, h, n, p), generator=gen, device=dev)
+    return dy, ds if dst else None
+
+
+def _ssd_bwd_close(got, want):
+    """f32 outputs within 2e-5 x max(1, max|want|) of the plain version run
+    in f32 on the same inputs; bf16 outputs within one bf16 ulp of that f32
+    result plus the same term (the kernel rounds its f32 sum once)."""
+    tol = 2e-5 * max(1.0, want.abs().max().item())
+    err = (got.float() - want).abs()
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(want)
+        err = err - torch.ldexp(torch.ones_like(want), e - 8)
+    assert err.max().item() <= tol, (got.dtype, err.max().item(), tol)
+
+
+def _ssd_bwd_check(x, dt, cum, B, C, dy, dst, chunk):
+    """Two launches (equal bits, counted once each), finite outputs of the
+    inputs' dtypes and shapes, each within :func:`_ssd_bwd_close` of
+    ``ssd_chunk_bwd_plain`` on the f32 upcast inputs."""
+    n0 = ssd_scan.ssd_chunk_bwd.launches
+    got = ssd_scan.ssd_chunk_bwd(x, dt, cum, B, C, dy, dst, chunk)
+    again = ssd_scan.ssd_chunk_bwd(x, dt, cum, B, C, dy, dst, chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.ssd_chunk_bwd.launches == n0 + 2
+    want = ssd_scan.ssd_chunk_bwd_plain(x.float(), dt, cum, B.float(),
+                                        C.float(), dy, dst, chunk)
+    for g, g2, w, t in zip(got, again, want, (x, dt, cum, B, C)):
+        assert g.shape == t.shape and g.dtype == t.dtype
+        assert torch.equal(_bits(g), _bits(g2))
+        assert bool(torch.isfinite(g).all())
+        _ssd_bwd_close(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _SSD_BWD_CASES, ids=str)
+def test_ssd_bwd_kernel_matches_plain(cuda_device, dtype, case):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, h, p, g, n, chunk = case
+    args = _ssd_inputs(cuda_device, dtype, b, s, h, p, g, n, chunk)
+    _ssd_bwd_check(*args, *_ssd_grads(cuda_device, b, s, h, p, n, chunk),
+                   chunk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_kernel_takes_strided_views_and_no_dst(cuda_device, dtype):
+    """x, B and C as views of one (b, s, channels) tensor, as the model
+    passes them; dt, cum and dy transposed views; dst ``None`` (one chunk
+    reaches only the unused final state)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, h, p, g, n, chunk = 2, 256, 4, 64, 1, 128, 256
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    xbc = torch.randn((b, s, h * p + 2 * g * n), generator=gen,
+                      device=cuda_device).to(dtype)
+    x = xbc[..., : h * p].reshape(b, s, h, p)
+    B = xbc[..., h * p: h * p + g * n].reshape(b, s, g, n)
+    C = xbc[..., h * p + g * n:].reshape(b, s, g, n)
+    dt = (1e-3 + 0.099 * torch.rand((b, h, s), generator=gen,
+                                    device=cuda_device)).transpose(1, 2)
+    A = -1.0 - 15.0 * torch.rand((h,), generator=gen, device=cuda_device)
+    cum = (dt * A).reshape(b, s // chunk, chunk, h).cumsum(2).reshape(b, s, h)
+    cum = cum.transpose(1, 2).contiguous().transpose(1, 2)
+    dy = torch.randn((b, h, s, p), generator=gen,
+                     device=cuda_device).transpose(1, 2)
+    assert not (x.is_contiguous() or dt.is_contiguous()
+                or dy.is_contiguous())
+    _ssd_bwd_check(x, dt, cum, B, C, dy, None, chunk)
+
+
+def test_ssd_bwd_kernel_masks_before_exp(cuda_device):
+    """One chunk of 256 rows, dt 0.1, A = -linspace(1, 16, 4): above the
+    diagonal cum_i - cum_j reaches 408, where exp overflows in f32; the
+    kernel's gradients are finite and equal the plain version's."""
+    b, s, h, p, g, n, chunk = 1, 256, 4, 64, 1, 128, 256
+    x, _, _, B, C = _ssd_inputs(cuda_device, torch.float32, b, s, h, p, g, n,
+                                chunk)
+    dt = torch.full((b, s, h), 0.1, device=cuda_device)
+    A = -torch.linspace(1.0, 16.0, h, device=cuda_device)
+    cum = (dt * A).cumsum(1)
+    _ssd_bwd_check(x, dt, cum, B, C,
+                   *_ssd_grads(cuda_device, b, s, h, p, n, chunk), chunk)
+
+
+def test_ssd_op_backward_launches_the_kernel_once(cuda_device, monkeypatch):
+    """The op's autograd on CUDA tensors: one forward and one backward
+    launch a call, the plain versions never run, and the gradients equal
+    the same op's on the CPU (the plain forward and backward)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, h, p, g, n, chunk = 2, 512, 4, 64, 2, 64, 256
+    args = _ssd_inputs(cuda_device, torch.float32, b, s, h, p, g, n, chunk)
+    dy, dst = _ssd_grads(cuda_device, b, s, h, p, n, chunk)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        ins = [t.detach().to(dev).requires_grad_() for t in args]
+        if dev != "cpu":
+            def refuse(*a, **kw):
+                raise AssertionError("a plain version ran on the card")
+            monkeypatch.setattr(ssd_scan, "ssd_chunk_plain", refuse)
+            monkeypatch.setattr(ssd_scan, "ssd_chunk_bwd_plain", refuse)
+            n0 = (ssd_scan.ssd_chunk.launches,
+                  ssd_scan.ssd_chunk_bwd.launches)
+        y, st = ssd_scan.ssd_chunk(*ins, chunk)
+        torch.autograd.backward((y, st), (dy.to(dev), dst.to(dev)))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert (ssd_scan.ssd_chunk.launches - n0[0],
+                    ssd_scan.ssd_chunk_bwd.launches - n0[1]) == (1, 1)
+        grads[str(dev)] = [t.grad.cpu() for t in ins]
+    for a, w in zip(grads[str(cuda_device)], grads["cpu"]):
+        _ssd_bwd_close(a, w)
+
+
+def test_ssd_bwd_kernel_rejects_what_it_cannot_take(cuda_device):
+    x, dt, cum, B, C = _ssd_inputs(cuda_device, torch.float32, 1, 64, 2, 8,
+                                   1, 200, 32)
+    dy, dst = _ssd_grads(cuda_device, 1, 64, 2, 8, 200, 32)
+    with pytest.raises(ValueError, match="d_state <= 128"):
+        ssd_scan.ssd_chunk_bwd(x, dt, cum, B, C, dy, dst, 32)
+    x, dt, cum, B, C = _ssd_inputs(cuda_device, torch.float32, 1, 64, 2, 8,
+                                   1, 8, 32)
+    dy, dst = _ssd_grads(cuda_device, 1, 64, 2, 8, 8, 32)
+    with pytest.raises(ValueError, match="dst"):
+        ssd_scan.ssd_chunk_bwd(x, dt, cum, B, C, dy, dst[:, :1], 32)
+    with pytest.raises(ValueError, match="dy"):
+        ssd_scan.ssd_chunk_bwd(x, dt, cum, B, C, dy.cpu(), dst, 32)
+
+
+@pytest.mark.parametrize("arch,layers,seq", [("mamba2-780m-smoke", None, 96),
+                                             ("zamba2-7b-smoke", 3, 96)])
+def test_ssm_train_step_on_card_equals_cpu(nccl_rank, arch, layers, seq):
+    """3 f32 steps (pack="pallas", remat="block") on a one-rank NCCL group
+    against the same step on the CPU: loss and grad norm within 1e-5,
+    params within 1e-4 + 2e-5 rel; the card's steps launch the SSD forward
+    twice a layer a step (the forward and remat's recompute) and its
+    backward once."""
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.train.trainer import make_train_step, train_state_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, remat="block",
+                              num_layers=layers or cfg.num_layers)
+    params = init_params(cfg, 0, device="cpu")
+    knobs = dict(comm="vci", pack="pallas", num_streams=4, num_vcis=4)
+    runs = {}
+    for dev in ("cpu", nccl_rank):
+        state = train_state_init(cfg, params=tree_map(
+            lambda t: t.clone().to(dev), params))
+        step = make_train_step(cfg, **knobs)
+        metrics = []
+        n0 = (ssd_scan.ssd_chunk.launches, ssd_scan.ssd_chunk_bwd.launches)
+        for i in range(3):
+            state, m = step(state, synthetic_batch(cfg, 4, seq, seed=i))
+            metrics.append([float(m[k]) for k in ("loss", "grad_norm")])
+        if dev != "cpu":
+            assert (ssd_scan.ssd_chunk.launches - n0[0],
+                    ssd_scan.ssd_chunk_bwd.launches - n0[1]) == (
+                3 * 2 * cfg.num_layers, 3 * cfg.num_layers)
+        runs[str(dev)] = (metrics, [t.cpu() for t in
+                                    tree_flatten(state.params)[0]])
+    (mc, pc), (mg, pg) = runs["cpu"], runs[str(nccl_rank)]
+    assert np.isfinite(mg).all()
+    np.testing.assert_allclose(mg, mc, rtol=1e-5)
+    for a, b in zip(pc, pg):
+        assert bool(((a - b).abs() <= 1e-4 + 2e-5 * a.abs()).all())
 
 
 def test_ssm_model_runs_the_kernel_once_a_layer(cuda_device):

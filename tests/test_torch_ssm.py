@@ -21,7 +21,8 @@ both sides).
   equal ``cache_bytes_resident``.
 
 The CUDA kernel is held against the plain version on the card by
-``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``; the backward and SSM
+training by ``tests/test_torch_ssm_train.py`` and ``test_torch_train.py``.
 """
 
 import dataclasses
@@ -149,7 +150,20 @@ def test_ssd_chunk_kernel_refusals(case):
     elif case == "strided":
         x, match = torch.zeros(b, s, h, 2 * p)[..., ::2], "contiguous"
     elif case == "requires_grad":
-        x, err, match = x.requires_grad_(), NotImplementedError, "item 12"
+        # a tensor that requires grad goes in (the op's backward is the
+        # backward kernel); the backward refuses an output gradient it
+        # cannot take
+        x.requires_grad_()
+        assert ssd_scan._check_cuda_args(x, dt, cum, B, C, chunk)[0] == b
+        with pytest.raises(ValueError, match="dy"):
+            ssd_scan._check_bwd_args(x, dt, cum, B, C, x.detach().double(),
+                                     None, chunk)
+        err, match = ValueError, "d_state <= 128"
+        B, C = torch.zeros(b, s, g, 200), torch.zeros(b, s, g, 200)
+        with pytest.raises(err, match=match):
+            ssd_scan._check_bwd_args(x, dt, cum, B, C, torch.zeros(b, s, h, p),
+                                     None, chunk)
+        return
     else:
         dt, match = torch.zeros(b, s, h, device="meta"), "must be on"
     with pytest.raises(err, match=match):
@@ -460,16 +474,14 @@ def test_ssm_engine_tokens_match_reference(mamba, kind):
 
 
 def test_ssm_training_and_other_families_are_refused():
-    with pytest.raises(NotImplementedError, match="SSM training"):
-        make_train_step(get_config(ARCH), comm="vci")
+    # SSM training, once refused here (item 12b), now builds; the serve
+    # engine still refuses a VLM
+    make_train_step(get_config(ARCH), comm="vci")
     vlm = get_config("phi-3-vision-4.2b-smoke")
     with pytest.raises(NotImplementedError, match="does not serve a VLM"):
         tengine.ServeEngine(vlm, ttf.init_params(vlm, 0, device="cpu"),
                             batch_size=2, max_len=64, device="cpu")
-    # the SSM refusal names its item; audio, once refused beside it (item
-    # 13c), now trains
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        make_train_step(get_config(ARCH), comm="vci")
+    # audio, once refused beside it (item 13c), trains too
     make_train_step(get_config("musicgen-large-smoke"), comm="vci")
 
 
