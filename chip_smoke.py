@@ -287,22 +287,28 @@ Phases, each a check that exits non-zero when it fails:
    step, finite metrics), then its smoke arch card vs CPU as phase 10;
 14a. the SSD backward kernel (``ssd_chunk_bwd``, each phase 14 first frees
    what earlier phases hold, as phase 13 does) against its plain version
-   run in f32 on the same inputs, at the mamba2-780m training shape (b 8,
+   run in f32 on the same inputs, each case on its route (printed; bf16 on
+   the tensor cores, ``csrc/ssd_chunk_bwd_tc.cu``, f32 on FFMA,
+   ``csrc/ssd_chunk_bwd.cu``): at the mamba2-780m training shape (b 8,
    s 1,024, h 48, p 64, g 1, n 128, chunk 256, x/B/C bf16, dy and dst f32),
    the zamba2-7b one (b 4, h 112, n 64), an f32 case, a g = 2 case and the
-   overflow case (one chunk of 256, dt 0.1, A = -linspace(1, 16, 4): above
-   the diagonal exp would overflow): f32 outputs within 2e-5 x max(1,
-   max|plain|), bf16 outputs within one bf16 ulp of the plain f32 result
-   plus that term; a second launch gives equal bits; at the two training
-   shapes kernel and plain times (medians of ten alternating pairs) beside
-   the bound (bytes: inputs once, outputs once; library "none": no single
-   PyTorch call computes it);
+   overflow case in f32 and in bf16 (one chunk of 256, dt 0.1, A =
+   -linspace(1, 16, 4): above the diagonal exp would overflow): f32
+   outputs within 2e-5 x max(1, max|plain|), bf16 outputs within one bf16
+   ulp of the plain f32 result plus that term; a second launch gives equal
+   bits and each launch is counted on its route; at the two training
+   shapes the tensor-core and FFMA routes' times as ten alternating pairs,
+   and plain against the tensor cores as four (medians), beside the bound
+   (bytes: inputs once, outputs once; the same count of work whichever
+   route does it; library "none": no single PyTorch call computes it);
 14b. SSM training: ``mamba2-780m`` at full width and depth (48 layers, d
    1,536, 0.780 B params, bf16 params from a seed, ``remat="block"``),
    phase 9's step and batch (8 x 1,024), a warm-up and 5 timed steps: per
    step 96 ``ssd_chunk`` launches (each layer's forward and remat's
-   recompute), 48 ``ssd_chunk_bwd``, the pack once a bucket, the unpack
-   once, no flash; finite loss and grad norm; a profile of 2 steps; then
+   recompute), 48 ``ssd_chunk_bwd``, all 48 on the tensor cores, the pack
+   once a bucket, the unpack once, no flash; finite loss and grad norm; a
+   profile of 2 steps (the backward's share of device time, both routes'
+   kernels counted); then
    mamba2-780m-smoke card vs CPU as phase 10 (the SSD forward and backward
    kernels on the card);
 14c. hybrid training: ``zamba2-7b`` at full width (d 3,584, 112 SSM heads
@@ -311,7 +317,8 @@ Phases, each a check that exits non-zero when it fails:
    3-layer remainder, as 81 = 13 x 6 + 3: 3.008 B params; the full 6.750 B
    would need ~150 GB at the ~22 B a param phase 13 measured), batch 4 x
    1,024, a warm-up and 3 timed steps: per step 66 ``ssd_chunk``, 33
-   ``ssd_chunk_bwd`` and 10 flash launches (5 sites, forward and
+   ``ssd_chunk_bwd`` (all on the tensor cores) and 10 flash launches (5
+   sites, forward and
    recompute), the pack once a bucket; finite metrics; a profile of 2
    steps; then zamba2-7b-smoke card vs CPU as phase 10. Phase 10's
    parameter rule gets one more kind of exempt element for these two smoke
@@ -414,6 +421,7 @@ SSD_BWD_CASES = (
     ("f32", "float32", (2, 512, 8, 64, 1, 128, 256), False),
     ("g2", "bfloat16", (2, 512, 8, 64, 2, 64, 256), False),
     ("overflow", "float32", (1, 256, 4, 64, 1, 128, 256), False),
+    ("overflow", "bfloat16", (1, 256, 4, 64, 1, 128, 256), False),
 )
 # what a phase 13 may find still allocated when it starts (a leaked
 # autograd graph once left 35 GB behind)
@@ -2586,7 +2594,8 @@ def profile_train(step, state, batches) -> None:
                  if "ssd_chunk_kernel" in e.key) / 1e3
     ssd_bwd_ms = sum(e.self_device_time_total for e in kern
                      if "ssd_chunk_bwd_kernel" in e.key
-                     or "ssd_group_sum_kernel" in e.key) / 1e3
+                     or "ssd_group_sum_kernel" in e.key
+                     or "ssd_bwd_" in e.key) / 1e3
     ports = pack_ms + flash_ms + gather_ms + gsum_ms + ssd_ms + ssd_bwd_ms
     print(f"profile train: {len(batches)} steps: wall {wall_ms:.2f} ms "
           f"({prof_wall_ms:.2f} under the profiler), device busy "
@@ -2596,8 +2605,9 @@ def profile_train(step, state, batches) -> None:
           f"{flash_ms / busy_ms:.4f} of device time; row_gather "
           f"{gather_ms:.3f} ms = {gather_ms / busy_ms:.4f}; row_gather_sum "
           f"{gsum_ms:.3f} ms = {gsum_ms / busy_ms:.4f}; ssd_chunk "
-          f"{ssd_ms:.3f} ms = {ssd_ms / busy_ms:.4f}; ssd_chunk_bwd (with "
-          f"its group sum) {ssd_bwd_ms:.3f} ms = {ssd_bwd_ms / busy_ms:.4f}"
+          f"{ssd_ms:.3f} ms = {ssd_ms / busy_ms:.4f}; ssd_chunk_bwd (both "
+          f"routes, with their sums) {ssd_bwd_ms:.3f} ms = "
+          f"{ssd_bwd_ms / busy_ms:.4f}"
           f"; the port's kernels "
           f"together {ports / busy_ms:.4f} of device time; "
           f"{sum(e.count for e in kern)} kernel launches",
@@ -3399,6 +3409,7 @@ def _train_run(cfg, batches, what: str, profile: bool = False) -> dict:
     for fn in kernels.values():
         fn.launches = 0
     row_gather.read_once_launches = 0
+    ssd_chunk_bwd.tc_launches = 0
     times, metrics = [], []
     for b in batches[1:1 + steps]:
         t0 = time.perf_counter()
@@ -3410,6 +3421,7 @@ def _train_run(cfg, batches, what: str, profile: bool = False) -> dict:
                                                  "router_z")})
     counts = {k: fn.launches for k, fn in kernels.items()}
     counts["row_gather read-once"] = row_gather.read_once_launches
+    counts["ssd_chunk_bwd tc"] = ssd_chunk_bwd.tc_launches
     layers, moe = cfg.num_layers, cfg.moe is not None
     ssm = layers if cfg.family in ("ssm", "hybrid") else 0
     attn = {"ssm": 0, "hybrid": layers // max(cfg.hybrid_attn_every, 1)
@@ -3419,13 +3431,15 @@ def _train_run(cfg, batches, what: str, profile: bool = False) -> dict:
     # backward (the gather over asg) and the dispatch's (the gather-sum);
     # the dispatch takes the read-once route at 8 x 1,024 tokens; a Mamba2
     # layer's SSD step runs in the forward and the recompute, its backward
-    # once; a hybrid's attention runs once a site
+    # once (bf16, chunk 256: on the tensor cores); a hybrid's attention
+    # runs once a site
     want = {"bucket_pack": n_buckets * steps, "bucket_unpack": steps,
             "flash_attention": 2 * attn * steps,
             "row_gather": 5 * layers * steps if moe else 0,
             "row_gather_sum": layers * steps if moe else 0,
             "ssd_chunk": 2 * ssm * steps, "ssd_chunk_bwd": ssm * steps,
-            "row_gather read-once": 2 * layers * steps if moe else 0}
+            "row_gather read-once": 2 * layers * steps if moe else 0,
+            "ssd_chunk_bwd tc": ssm * steps}
     check(counts == want, f"{what}: {steps} steps launched {counts}, want "
           f"{want}")
     check(all(math.isfinite(v) for mt in metrics for v in mt.values()),
@@ -3508,10 +3522,11 @@ def ssd_bwd_work(x, B, chunk) -> tuple:
 
 
 def phase_ssd_bwd() -> dict:
-    """Phase 14a: the SSD backward kernel against its plain version (see
-    the docstring)."""
+    """Phase 14a: the SSD backward kernel's two routes against its plain
+    version (see the docstring)."""
     import torch
-    from repro_torch.kernels.ssd_scan import ssd_chunk_bwd, ssd_chunk_bwd_plain
+    from repro_torch.kernels.ssd_scan import (bwd_route, ssd_chunk_bwd,
+                                              ssd_chunk_bwd_plain)
 
     _fresh("phase 14a")
     gen = torch.Generator(device="cuda").manual_seed(14)
@@ -3528,14 +3543,19 @@ def phase_ssd_bwd() -> dict:
         dst = torch.randn((b, s // chunk, h, n, p), generator=gen,
                           device="cuda")
         args = (x, dt, cum, B, C, dy, dst, chunk)
-        n0 = ssd_chunk_bwd.launches
+        route = bwd_route(x, B, C, dy, dst, chunk)
+        check(route == ("tc" if dtype == torch.bfloat16 else "ffma"),
+              f"ssd_chunk_bwd ({name}, {dt_name}) takes the {route} route")
+        n0 = (ssd_chunk_bwd.launches, ssd_chunk_bwd.tc_launches)
         got = ssd_chunk_bwd(*args)
         again = ssd_chunk_bwd(*args)
         torch.cuda.synchronize()
         what = (f"ssd_chunk_bwd ({name}) x/B/C {dt_name} (b,s,h,p)=({b},{s},"
-                f"{h},{p}) g={g} n={n} chunk={chunk}")
-        check(ssd_chunk_bwd.launches == n0 + 2,
-              f"{what}: 2 calls counted {ssd_chunk_bwd.launches - n0}")
+                f"{h},{p}) g={g} n={n} chunk={chunk} route {route}")
+        counted = (ssd_chunk_bwd.launches - n0[0],
+                   ssd_chunk_bwd.tc_launches - n0[1])
+        check(counted == (2, 2 if route == "tc" else 0),
+              f"{what}: 2 calls counted (all, tc) {counted}")
         want = ssd_chunk_bwd_plain(x.float(), dt, cum, B.float(), C.float(),
                                    dy, dst, chunk)
         errs = []
@@ -3563,25 +3583,34 @@ def phase_ssd_bwd() -> dict:
               f"second launch bit-equal", flush=True)
         del got, again, want
         if timed:
-            kernel_ms, plain_ms, wins = paired_ms(
+            # the two routes as one pair, then the plain version against
+            # the tensor cores; the FFMA route is the row's earlier kernel
+            tc_ms, ffma_ms, wins = paired_ms(
                 lambda i: ssd_chunk_bwd(*args),
-                lambda i: ssd_chunk_bwd_plain(*args), n_iter=3, reps=2)
+                lambda i: ssd_chunk_bwd(*args, route="ffma"), n_iter=3,
+                reps=2)
+            _, plain_ms, plain_wins = paired_ms(
+                lambda i: ssd_chunk_bwd(*args),
+                lambda i: ssd_chunk_bwd_plain(*args), pairs=4, n_iter=3,
+                reps=2)
             flops, nbytes = ssd_bwd_work(x, B, chunk)
             flop_ms = flops / (BF16_FLOPS_PER_S if dtype == torch.bfloat16
                                else FP32_FLOPS_PER_S) * 1e3
             byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
             bound_ms = max(flop_ms, byte_ms)
             bound_by = "operations" if flop_ms > byte_ms else "bytes"
-            res[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
+            res[name] = dict(ms=tc_ms, ffma_ms=ffma_ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
-            print(f"kernel ssd_chunk_bwd ({name}) times: kernel_ms="
-                  f"{kernel_ms:.5f} plain_ms={plain_ms:.5f} (medians of "
-                  f"{PAIRS} alternating pairs, the kernel faster in {wins}) "
-                  f"library_ms=none bound_ms={bound_ms:.5f} ({bound_by}: "
-                  f"{nbytes} B -> {byte_ms:.5f} ms, {flops} causal FLOPs -> "
-                  f"{flop_ms:.5f} ms; {bound_ms / kernel_ms:.4f} of the "
-                  f"bound, {flops / kernel_ms / 1e9:.2f} TFLOP/s)",
-                  flush=True)
+            print(f"kernel ssd_chunk_bwd ({name}) times: tc_ms={tc_ms:.5f} "
+                  f"ffma_ms={ffma_ms:.5f} (medians of {PAIRS} alternating "
+                  f"pairs, tc faster in {wins}; {ffma_ms / tc_ms:.2f}x) "
+                  f"plain_ms={plain_ms:.5f} (4 pairs, tc faster in "
+                  f"{plain_wins}) library_ms=none bound_ms={bound_ms:.5f} "
+                  f"({bound_by}: {nbytes} B -> {byte_ms:.5f} ms, {flops} "
+                  f"causal FLOPs -> {flop_ms:.5f} ms; tc {bound_ms / tc_ms:.4f}"
+                  f" of the bound, {flops / tc_ms / 1e9:.2f} TFLOP/s; ffma "
+                  f"{bound_ms / ffma_ms:.4f}, {flops / ffma_ms / 1e9:.2f} "
+                  f"TFLOP/s)", flush=True)
         del args, x, dt, cum, B, C, dy, dst
     torch.cuda.empty_cache()
     return res
@@ -3779,7 +3808,10 @@ def main() -> None:
     }, {
         "name": "ssd_chunk_bwd",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+        # the tensor-core route, which the training path takes (bf16); the
+        # FFMA route (csrc/ssd_chunk_bwd.cu, f32 and what the tensor cores
+        # do not take) is timed beside it as ffma_ms
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd_tc.cu",
         # no TPU kernel: ssd_chunk_pallas has no backward (XLA
         # differentiates the reference's einsums); this is ssd_chunk's
         "replaces": None,
@@ -3787,6 +3819,7 @@ def main() -> None:
         "launches": sum(r["counts"]["ssd_chunk_bwd"] for r in trained),
         "max_abs_err": ssd_bwd["max_abs_err"],
         "ms": ssd_bwd["mamba2-780m train"]["ms"],
+        "ffma_ms": ssd_bwd["mamba2-780m train"]["ffma_ms"],
         "plain_ms": ssd_bwd["mamba2-780m train"]["plain_ms"],
         "bound_ms": ssd_bwd["mamba2-780m train"]["bound_ms"],
         "bound_by": ssd_bwd["mamba2-780m train"]["bound_by"],

@@ -42,7 +42,9 @@ KERNELS: Dict[str, tuple] = {
     "ssd_chunk": ("ssd_chunk", "ssd_chunk_launch",
                   [_P] * 7 + [_LL] * 15 + [_I] * 8 + [_P]),
     "ssd_chunk_bwd": ("ssd_chunk_bwd", "ssd_chunk_bwd_launch",
-                      [_P] * 13 + [_LL] * 18 + [_I] * 8 + [_P]),
+                      [_P] * 13 + [_LL] * 18 + [_I] * 9 + [_P]),
+    "ssd_chunk_bwd_tc": ("ssd_chunk_bwd_tc", "ssd_chunk_bwd_tc_launch",
+                         [_P] * 21 + [_LL] * 18 + [_I] * 9 + [_P]),
 }
 
 

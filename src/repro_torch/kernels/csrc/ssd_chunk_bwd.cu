@@ -1,4 +1,7 @@
-// Backward of the Mamba2 SSD intra-chunk step for Hopper (sm_90a).
+// Backward of the Mamba2 SSD intra-chunk step for Hopper (sm_90a): the FFMA
+// route, for f32 inputs and for what the tensor-core route
+// (ssd_chunk_bwd_tc.cu, which bf16 training takes) does not: chunks over
+// 256, head_dim over 64, d_state over 128, rows not 16-byte aligned.
 //
 // Replaces no TPU kernel: repro/kernels/ssd_scan.py::ssd_chunk_pallas has no
 // backward, and the reference trains by differentiating its einsums through
@@ -18,8 +21,9 @@
 // Outputs, all contiguous:
 //   dx    (b, s, h, p)     x's dtype
 //   ddt, dcum (b, s, h)    f32
-//   dB, dC (b, s, g, n)    x's dtype, summed over the heads of a group in f32
-//                          and then rounded once
+//   dB, dC (b, s, g, n)    x's dtype (dC f32 where C came as f32 beside bf16
+//                          x), summed over the heads of a group in f32 and
+//                          then rounded once
 //   part  (2, b, s, h, n)  f32 scratch: each head's dB, then dC rows
 //
 // Per (batch, head, chunk) of c rows, with i, j rows of the chunk:
@@ -487,9 +491,9 @@ ssd_chunk_bwd_kernel(const Args a) {
 
 // dB and dC: each head's f32 rows summed over its group's heads, in order,
 // then rounded once. part (2, rows, H, N) -> out (rows, G, N), rows = b*s.
-template <typename T>
+template <typename T, typename TC>
 __global__ void __launch_bounds__(256)
-ssd_group_sum_kernel(const float* part, T* dB, T* dC, long long rows, int H,
+ssd_group_sum_kernel(const float* part, T* dB, TC* dC, long long rows, int H,
                      int G, int N) {
   const int rep = H / G;
   const long long per = rows * G * N;
@@ -506,7 +510,11 @@ ssd_group_sum_kernel(const float* part, T* dB, T* dC, long long rows, int H,
                                                  N + q;
     float acc = 0.f;
     for (int r = 0; r < rep; ++r) acc += src[(long long)r * N];
-    store((which ? dC : dB) + o, acc);
+    if (which) {
+      store(dC + o, acc);
+    } else {
+      store(dB + o, acc);
+    }
   }
 }
 
@@ -524,7 +532,8 @@ int sm_count() {
 }
 
 template <typename T, int PC, int NC>
-int launch(const Args& a, int batch, void* dB, void* dC, cudaStream_t stream) {
+int launch(const Args& a, int batch, void* dB, void* dC, int dc_f32,
+           cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -543,25 +552,34 @@ int launch(const Args& a, int batch, void* dB, void* dC, cudaStream_t stream) {
   const long long total = 2 * rows * a.G * a.N;
   const long long want = (total + 255) / 256;
   const int blocks = (int)(want < 8LL * sm_count() ? want : 8LL * sm_count());
-  ssd_group_sum_kernel<T><<<blocks, 256, 0, stream>>>(
-      a.part, static_cast<T*>(dB), static_cast<T*>(dC), rows, a.H, a.G, a.N);
+  if (dc_f32) {
+    ssd_group_sum_kernel<T, float><<<blocks, 256, 0, stream>>>(
+        a.part, static_cast<T*>(dB), static_cast<float*>(dC), rows, a.H, a.G,
+        a.N);
+  } else {
+    ssd_group_sum_kernel<T, T><<<blocks, 256, 0, stream>>>(
+        a.part, static_cast<T*>(dB), static_cast<T*>(dC), rows, a.H, a.G,
+        a.N);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const Args& a, int batch, void* dB, void* dC, cudaStream_t s) {
+int dispatch(const Args& a, int batch, void* dB, void* dC, int dc_f32,
+             cudaStream_t s) {
   if (a.P <= 64) {
-    return a.N <= 64 ? launch<T, 4, 4>(a, batch, dB, dC, s)
-                     : launch<T, 4, 8>(a, batch, dB, dC, s);
+    return a.N <= 64 ? launch<T, 4, 4>(a, batch, dB, dC, dc_f32, s)
+                     : launch<T, 4, 8>(a, batch, dB, dC, dc_f32, s);
   }
-  return a.N <= 64 ? launch<T, 8, 4>(a, batch, dB, dC, s)
-                   : launch<T, 8, 8>(a, batch, dB, dC, s);
+  return a.N <= 64 ? launch<T, 8, 4>(a, batch, dB, dC, dc_f32, s)
+                   : launch<T, 8, 8>(a, batch, dB, dC, dc_f32, s);
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes. dtype: 0 float32, 1 bfloat16 (x, B, C,
-// dx, dB and dC share it). dst may be null (zeros). Launches on `stream`
+// dx and dB share it; dC too, or float32 where dc_f32 is 1). dst may be
+// null (zeros). Launches on `stream`
 // (PyTorch's current stream), does not synchronise, and returns
 // cudaGetLastError() so that a refused launch is reported to the caller.
 extern "C" int ssd_chunk_bwd_launch(
@@ -573,7 +591,7 @@ extern "C" int ssd_chunk_bwd_launch(
     long long B_sb, long long B_ss, long long B_sg, long long C_sb,
     long long C_ss, long long C_sg, long long dy_sb, long long dy_ss,
     long long dy_sh, int batch, int S, int H, int P, int G, int N, int chunk,
-    int dtype, void* stream) {
+    int dtype, int dc_f32, void* stream) {
   if (batch < 1 || S < 1 || H < 1 || G < 1 || H % G != 0 || P < 1 ||
       P > kMaxP || N < 1 || N > kMaxN || chunk < 1 || S % chunk != 0 ||
       (long long)batch * H > 65535) {
@@ -620,9 +638,9 @@ extern "C" int ssd_chunk_bwd_launch(
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
     case 0:
-      return dispatch<float>(a, batch, dB, dC, s);
+      return dispatch<float>(a, batch, dB, dC, 0, s);
     case 1:
-      return dispatch<bf16>(a, batch, dB, dC, s);
+      return dispatch<bf16>(a, batch, dB, dC, dc_f32, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -16,11 +16,18 @@ intra-chunk part, in the model's layout rather than the Pallas kernel's
   call launches the kernel or raises. bf16 inputs with ``chunk <= 256``
   run on the tensor cores (one ``C B^T`` for many heads of a group); f32
   inputs, and longer chunks, on FFMA.
-* Its backward, :func:`ssd_chunk_bwd`: the kernel in
-  ``csrc/ssd_chunk_bwd.cu`` on a CUDA tensor (counted in
-  ``ssd_chunk_bwd.launches``), :func:`ssd_chunk_bwd_plain` on a CPU tensor.
-  The TPU kernel has no backward: the reference differentiates its einsums
-  through XLA.
+* Its backward, :func:`ssd_chunk_bwd`: on a CUDA tensor one of two
+  hand-written routes (:func:`bwd_route`; counted in
+  ``ssd_chunk_bwd.launches``): bf16 inputs with ``chunk <= 256`` (the
+  training path of both SSM families) on the tensor cores,
+  ``csrc/ssd_chunk_bwd_tc.cu`` (also counted in
+  ``ssd_chunk_bwd.tc_launches``), the rest on FFMA, ``csrc/ssd_chunk_bwd.cu``;
+  :func:`ssd_chunk_bwd_plain` on a CPU tensor. The TPU kernel has no
+  backward: the reference differentiates its einsums through XLA.
+* ``C`` may be float32 beside bf16 ``x`` and ``B``, provided its values are
+  bf16's: the model passes the one f32 copy of C that also feeds the
+  inter-chunk term, so that C's gradient is rounded once. The kernels read
+  it rounded to bf16 (exact), and the backward returns dC in float32.
 * :func:`ssd_chunk_plain` and :func:`ssd_chunk_bwd_plain` — plain f32
   einsums (``ssd_chunk_batched_ref`` in the reference, and its vjp); the
   CPU path, and what the kernels are held against on the card.
@@ -51,6 +58,7 @@ would turn the backward's zero cotangents into NaN.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -62,6 +70,13 @@ _KERNEL_MAX_P = 128   # head_dim
 # shared memory, up to 128 wide
 _BWD_MAX_N = 128
 _BWD_MAX_P = 128
+# the backward's tensor-core route (bwd_route): S^T of a warp's 16 rows
+# against up to 4 query tiles in registers, dx up to 64 wide, dB/dC up to
+# 128; per-head row sums of at most 24 heads a block in shared memory
+_TC_MAX_CHUNK = 256
+_TC_MAX_P = 64
+_TC_MAX_N = 128
+_TC_MAX_HEADS = 24
 
 
 def _shapes(x, dt, cum, B, C, chunk: int):
@@ -120,10 +135,10 @@ def _check_cuda_args(x, dt, cum, B, C, chunk: int):
         if t.device != x.device:
             raise ValueError(f"{name} must be on {x.device}, got {t.device}")
     if x.dtype not in _KERNEL_DTYPES or B.dtype != x.dtype or \
-            C.dtype != x.dtype:
+            C.dtype not in (x.dtype, torch.float32):
         raise TypeError(f"ssd_chunk kernel takes x/B/C of one dtype in "
-                        f"{tuple(_KERNEL_DTYPES)}, got {x.dtype}, {B.dtype}, "
-                        f"{C.dtype}")
+                        f"{tuple(_KERNEL_DTYPES)} (C may be float32 beside "
+                        f"bf16 x), got {x.dtype}, {B.dtype}, {C.dtype}")
     if dt.dtype != torch.float32 or cum.dtype != torch.float32:
         raise TypeError(f"ssd_chunk kernel takes dt and cum in float32, got "
                         f"{dt.dtype}, {cum.dtype}")
@@ -140,6 +155,12 @@ def _check_cuda_args(x, dt, cum, B, C, chunk: int):
     return b, s, h, p, g, n, nc
 
 
+def _kernel_C(x, C):
+    """C as the kernels read it: an f32 C beside bf16 x (the model's one f32
+    copy, whose values are bf16's) rounded to x's dtype, which is exact."""
+    return C.to(x.dtype) if C.dtype != x.dtype else C
+
+
 def _fwd(x, dt, cum, B, C, chunk: int):
     """The forward on ``x``'s device: the kernel (counted) or the plain
     version."""
@@ -149,6 +170,7 @@ def _fwd(x, dt, cum, B, C, chunk: int):
         raise ValueError(f"ssd_chunk: unsupported device {x.device}")
     from repro_torch.kernels._build import load
     b, s, h, p, g, n, nc = _check_cuda_args(x, dt, cum, B, C, chunk)
+    C = _kernel_C(x, C)
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     states = torch.empty((b, nc, h, n, p), dtype=torch.float32,
                          device=x.device)
@@ -246,19 +268,71 @@ def _check_bwd_args(x, dt, cum, B, C, dy, dst, chunk: int):
     return b, s, h, p, g, n, nc
 
 
+def _vec_rows(t: torch.Tensor, elems: int) -> bool:
+    """16-byte aligned base and rows: every stride over a dim longer than
+    one and the last dim's size are multiples of ``elems`` elements."""
+    return t.data_ptr() % 16 == 0 and t.shape[-1] % elems == 0 and all(
+        st % elems == 0 for st, sz in zip(t.stride()[:-1], t.shape[:-1])
+        if sz > 1)
+
+
+def bwd_route(x, B, C, dy, dst, chunk: int) -> str:
+    """The backward kernel's route for these inputs (``C`` as the kernels
+    read it, :func:`_kernel_C`; both routes are held against
+    :func:`ssd_chunk_bwd_plain`): ``"tc"``, the tensor cores
+    (``csrc/ssd_chunk_bwd_tc.cu``) for bf16 x, B and C, ``chunk <= 256`` a
+    multiple of 4, head_dim <= 64 and d_state <= 128, multiples of 8, on
+    16-byte aligned rows; ``"ffma"``
+    (``csrc/ssd_chunk_bwd.cu``) for everything else the kernels take."""
+    p, n = x.shape[3], B.shape[3]
+    tc = (x.dtype == torch.bfloat16 and B.dtype == torch.bfloat16
+          and chunk <= _TC_MAX_CHUNK and chunk % 4 == 0 and p <= _TC_MAX_P
+          and n <= _TC_MAX_N
+          and C.dtype == torch.bfloat16 and _vec_rows(x, 8)
+          and _vec_rows(B, 8) and _vec_rows(C, 8) and _vec_rows(dy, 4)
+          and (dst is None or dst.data_ptr() % 16 == 0))
+    return "tc" if tc else "ffma"
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def tc_heads_per_block(b: int, nc: int, g: int, rep: int, nt: int,
+                       sms: int) -> int:
+    """Heads a block of the tensor-core route takes: the fewest head sets
+    a group (the least recomputing of C B^T and the fewest dB / dC
+    partial sums) that still give each of its kernels' grids 4 blocks an
+    SM (two are resident), at most ``_TC_MAX_HEADS`` heads a set, the
+    heads shared evenly."""
+    sets = -(-rep // _TC_MAX_HEADS)
+    while sets < rep and b * nc * g * nt * sets < 4 * sms:
+        sets += 1
+    return -(-rep // sets)
+
+
 def ssd_chunk_bwd(x, dt, cum, B, C, dy: torch.Tensor,
-                  dst: Optional[torch.Tensor], chunk: int):
+                  dst: Optional[torch.Tensor], chunk: int,
+                  route: Optional[str] = None):
     """The backward of :func:`ssd_chunk`, ``(dx, ddt, dcum, dB, dC)`` as
-    :func:`ssd_chunk_bwd_plain` returns them. On a CUDA tensor this
-    launches the hand-written kernel on the current stream and adds one to
-    ``ssd_chunk_bwd.launches``; on a CPU tensor it runs
-    :func:`ssd_chunk_bwd_plain` and counts nothing."""
+    :func:`ssd_chunk_bwd_plain` returns them (dC in C's dtype). On a CUDA
+    tensor this launches the hand-written kernel of :func:`bwd_route`'s
+    route on the current stream and adds one to ``ssd_chunk_bwd.launches``
+    (and, on the tensor cores, to ``ssd_chunk_bwd.tc_launches``); on a CPU
+    tensor it runs :func:`ssd_chunk_bwd_plain` and counts nothing.
+    ``route="ffma"`` takes the FFMA kernel whatever the inputs (to time it
+    beside the other)."""
     if x.device.type == "cpu":
         return ssd_chunk_bwd_plain(x, dt, cum, B, C, dy, dst, chunk)
     if not x.is_cuda:
         raise ValueError(f"ssd_chunk_bwd: unsupported device {x.device}")
     from repro_torch.kernels._build import load
     b, s, h, p, g, n, nc = _check_bwd_args(x, dt, cum, B, C, dy, dst, chunk)
+    if route not in (None, "ffma"):
+        raise ValueError(f"ssd_chunk_bwd: unknown route {route!r}")
+    Ck = _kernel_C(x, C)
+    route = route or bwd_route(x, B, Ck, dy, dst, chunk)
     dev = x.device
     dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
     ddt = torch.empty((b, s, h), dtype=torch.float32, device=dev)
@@ -267,24 +341,54 @@ def ssd_chunk_bwd(x, dt, cum, B, C, dy: torch.Tensor,
     dC = torch.empty((b, s, g, n), dtype=C.dtype, device=dev)
     if dx.numel() == 0 or dB.numel() == 0:
         return dx.zero_(), ddt.zero_(), dcum.zero_(), dB.zero_(), dC.zero_()
-    # each head's dB and dC rows in f32, summed over the group's heads by
-    # the same launch
-    part = torch.empty((2, b, s, h, n), dtype=torch.float32, device=dev)
-    launch = load("ssd_chunk_bwd")
-    with torch.cuda.device(dev):
-        err = launch(x.data_ptr(), dt.data_ptr(), cum.data_ptr(),
-                     B.data_ptr(), C.data_ptr(), dy.data_ptr(),
-                     0 if dst is None else dst.data_ptr(), dx.data_ptr(),
-                     ddt.data_ptr(), dcum.data_ptr(), dB.data_ptr(),
-                     dC.data_ptr(), part.data_ptr(), *x.stride()[:3],
-                     *dt.stride(), *cum.stride(), *B.stride()[:3],
-                     *C.stride()[:3], *dy.stride()[:3], b, s, h, p, g, n,
-                     chunk, _KERNEL_DTYPES[x.dtype],
-                     torch.cuda.current_stream().cuda_stream)
+    ptrs = (x.data_ptr(), dt.data_ptr(), cum.data_ptr(), B.data_ptr(),
+            Ck.data_ptr(), dy.data_ptr(),
+            0 if dst is None else dst.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dcum.data_ptr(), dB.data_ptr(), dC.data_ptr())
+    strides = (*x.stride()[:3], *dt.stride(), *cum.stride(),
+               *B.stride()[:3], *Ck.stride()[:3], *dy.stride()[:3])
+    dc_f32 = int(C.dtype != x.dtype)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "tc":
+        nt = -(-chunk // 64)
+        hpb = tc_heads_per_block(b, nc, g, h // g, nt,
+                                 _sm_count(dev.index or 0))
+        f32, bf16 = torch.float32, torch.bfloat16
+        # each head set's f32 dB and dC rows, dcum's row sums and the
+        # state term's sums over each key tile, summed by the same launch;
+        # dy and dst split into bf16 hi + lo and dt, cum by head, made by
+        # its first kernel
+        part = torch.empty((2, -(-(h // g) // hpb), b, s, g, n), dtype=f32,
+                           device=dev)
+        mrow = torch.empty((b, s, h), dtype=f32, device=dev)
+        tsum = torch.empty((b, nc, h, nt), dtype=f32, device=dev)
+        dy_split = torch.empty((2, b, s, h, p), dtype=bf16, device=dev)
+        dst_split = None if dst is None else torch.empty(
+            (2,) + dst.shape, dtype=bf16, device=dev)
+        vecs = torch.empty((2, b, h, s), dtype=f32, device=dev)
+        launch = load("ssd_chunk_bwd_tc")
+        with torch.cuda.device(dev):
+            err = launch(*ptrs, part.data_ptr(), mrow.data_ptr(),
+                         tsum.data_ptr(), dy_split[0].data_ptr(),
+                         dy_split[1].data_ptr(),
+                         0 if dst is None else dst_split[0].data_ptr(),
+                         0 if dst is None else dst_split[1].data_ptr(),
+                         vecs[0].data_ptr(), vecs[1].data_ptr(), *strides,
+                         b, s, h, p, g, n, chunk, hpb, dc_f32, stream)
+    else:
+        # each head's dB and dC rows in f32, summed over the group's heads
+        # by the same launch
+        part = torch.empty((2, b, s, h, n), dtype=torch.float32, device=dev)
+        launch = load("ssd_chunk_bwd")
+        with torch.cuda.device(dev):
+            err = launch(*ptrs, part.data_ptr(), *strides, b, s, h, p, g, n,
+                         chunk, _KERNEL_DTYPES[x.dtype], dc_f32, stream)
     if err != 0:
-        raise RuntimeError(f"ssd_chunk_bwd kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"ssd_chunk_bwd kernel ({route}) launch failed: "
+                           f"CUDA error {err}")
     ssd_chunk_bwd.launches += 1
+    if route == "tc":
+        ssd_chunk_bwd.tc_launches += 1
     return dx, ddt, dcum, dB, dC
 
 
@@ -296,7 +400,9 @@ def ssd_chunk_bwd(x, dt, cum, B, C, dy: torch.Tensor,
 def ssd_chunk_op(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
                  B: torch.Tensor, C: torch.Tensor, chunk: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`ssd_chunk` as one dispatcher op with its autograd."""
+    """:func:`ssd_chunk` as one dispatcher op with its autograd. An f32
+    ``C`` beside bf16 ``x`` must hold values of x's dtype (the kernels round
+    it to bf16); its gradient comes back in f32."""
     return _fwd(x, dt, cum, B, C, chunk)
 
 
@@ -334,7 +440,8 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     hand-written kernel on the current stream and adds one to
     ``ssd_chunk.launches``; on a CPU tensor it runs :func:`ssd_chunk_plain`
     and counts nothing. Differentiable in x, dt, cum, B and C (the backward
-    is :func:`ssd_chunk_bwd`)."""
+    is :func:`ssd_chunk_bwd`). C may be float32 beside bf16 x and B if its
+    values are bf16's (see the module doc)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ssd_chunk: unsupported device {x.device}")
     return ssd_chunk_op(x, dt, cum, B, C, chunk)
@@ -342,3 +449,4 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
 
 ssd_chunk.launches = 0
 ssd_chunk_bwd.launches = 0
+ssd_chunk_bwd.tc_launches = 0

@@ -56,7 +56,11 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int,
     rep = h // g
 
     cum = (dt * A.to(f32)).reshape(b, nc, chunk, h).cumsum(dim=2)
-    y_intra, st_loc = ssd_chunk(x, dt, cum.reshape(b, s, h), B, C, chunk)
+    # one f32 copy of C feeds the intra-chunk step and the inter-chunk
+    # term, as in the reference, so that autograd adds their two f32
+    # gradients and C's dtype conversion rounds the sum once
+    Cs = C.to(f32)
+    y_intra, st_loc = ssd_chunk(x, dt, cum.reshape(b, s, h), B, Cs, chunk)
 
     # ---- inter-chunk recurrence: a loop over the nc chunks ----------------
     a = torch.exp(cum[:, :, -1, :])[..., None, None]          # (b,nc,h,1,1)
@@ -69,8 +73,8 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int,
     s_prev = torch.stack(entering, dim=1).reshape(b, nc, g, rep, n, p)
 
     decay_in = torch.exp(cum).reshape(b, nc, chunk, g, rep, 1)
-    Cs = C.to(f32).reshape(b, nc, chunk, g, n)
-    y_inter = torch.einsum("bncgq,bngrqp->bncgrp", Cs, s_prev) * decay_in
+    y_inter = torch.einsum("bncgq,bngrqp->bncgrp",
+                           Cs.reshape(b, nc, chunk, g, n), s_prev) * decay_in
     y = y_intra + y_inter.reshape(b, s, h, p)
     return y[:, :s_orig].to(x.dtype), state
 

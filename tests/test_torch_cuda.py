@@ -1012,6 +1012,171 @@ def test_ssd_bwd_kernel_rejects_what_it_cannot_take(cuda_device):
         ssd_scan.ssd_chunk_bwd(x, dt, cum, B, C, dy.cpu(), dst, 32)
 
 
+# the backward's tensor-core route: b, s, h, p, g, n, chunk
+_SSD_BWD_TC_CASES = [
+    (1, 512, 48, 64, 1, 128, 256),  # mamba2-780m training widths, batch 1
+    (1, 512, 112, 64, 1, 64, 256),  # zamba2-7b training widths, batch 1
+    (1, 512, 8, 64, 2, 64, 256),    # g 2
+    (2, 96, 6, 32, 2, 16, 32),      # the smoke archs' chunk 32, n 16
+    (1, 192, 4, 64, 1, 128, 96),    # chunk 96: a ragged second tile
+    (1, 200, 3, 24, 3, 40, 100),    # ragged chunk, p and n off the tiles
+    (2, 256, 30, 64, 1, 128, 256),  # head sets that do not divide a group
+]
+
+
+def _ssd_bwd_tc_check(x, dt, cum, B, C, dy, dst, chunk):
+    """:func:`_ssd_bwd_check` on the tensor-core route, which both launches
+    take (counted in ``tc_launches``)."""
+    assert ssd_scan.bwd_route(x, B, C, dy, dst, chunk) == "tc"
+    n0 = ssd_scan.ssd_chunk_bwd.tc_launches
+    _ssd_bwd_check(x, dt, cum, B, C, dy, dst, chunk)
+    assert ssd_scan.ssd_chunk_bwd.tc_launches == n0 + 2
+
+
+@pytest.mark.parametrize("hpb", [None, 7, 24])
+@pytest.mark.parametrize("case", _SSD_BWD_TC_CASES, ids=str)
+def test_ssd_bwd_tc_route_matches_plain(cuda_device, monkeypatch, case, hpb):
+    """``hpb`` heads a block (None: the rule, which takes one head a block
+    at these small grids; 7 leaves a smaller last set; 24 the most)."""
+    b, s, h, p, g, n, chunk = case
+    if hpb is not None:
+        monkeypatch.setattr(ssd_scan, "tc_heads_per_block",
+                            lambda *a: hpb)
+    args = _ssd_inputs(cuda_device, torch.bfloat16, b, s, h, p, g, n, chunk)
+    _ssd_bwd_tc_check(*args, *_ssd_grads(cuda_device, b, s, h, p, n, chunk),
+                      chunk)
+
+
+def test_ssd_bwd_tc_route_takes_strided_views_and_no_dst(cuda_device):
+    """bf16 x, B and C as views of one (b, s, channels) tensor, as the
+    model passes them; dt, cum and dy transposed views; dst ``None``."""
+    b, s, h, p, g, n, chunk = 2, 512, 4, 64, 1, 128, 256
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    xbc = torch.randn((b, s, h * p + 2 * g * n), generator=gen,
+                      device=cuda_device).bfloat16()
+    x = xbc[..., : h * p].reshape(b, s, h, p)
+    B = xbc[..., h * p: h * p + g * n].reshape(b, s, g, n)
+    C = xbc[..., h * p + g * n:].reshape(b, s, g, n)
+    dt = (1e-3 + 0.099 * torch.rand((b, h, s), generator=gen,
+                                    device=cuda_device)).transpose(1, 2)
+    A = -1.0 - 15.0 * torch.rand((h,), generator=gen, device=cuda_device)
+    cum = (dt * A).reshape(b, s // chunk, chunk, h).cumsum(2).reshape(b, s, h)
+    cum = cum.transpose(1, 2).contiguous().transpose(1, 2)
+    dy = torch.randn((b, h, s, p), generator=gen,
+                     device=cuda_device).transpose(1, 2)
+    assert not (x.is_contiguous() or dt.is_contiguous()
+                or dy.is_contiguous())
+    _ssd_bwd_tc_check(x, dt, cum, B, C, dy, None, chunk)
+
+
+def test_ssd_bwd_tc_route_masks_before_exp(cuda_device):
+    """bf16, one chunk of 256 rows, dt 0.1, A = -linspace(1, 16, 4): above
+    the diagonal cum_i - cum_j reaches 408, where exp overflows in f32."""
+    b, s, h, p, g, n, chunk = 1, 256, 4, 64, 1, 128, 256
+    x, _, _, B, C = _ssd_inputs(cuda_device, torch.bfloat16, b, s, h, p, g,
+                                n, chunk)
+    dt = torch.full((b, s, h), 0.1, device=cuda_device)
+    A = -torch.linspace(1.0, 16.0, h, device=cuda_device)
+    cum = (dt * A).cumsum(1)
+    _ssd_bwd_tc_check(x, dt, cum, B, C,
+                      *_ssd_grads(cuda_device, b, s, h, p, n, chunk), chunk)
+
+
+def test_ssd_bwd_routes_agree_and_the_ffma_route_is_forced(cuda_device):
+    """``route="ffma"`` takes the FFMA kernel for inputs the tensor cores
+    take (chip_smoke times both); both are within the tolerance of plain,
+    and an unknown route is refused."""
+    b, s, h, p, g, n, chunk = 1, 512, 8, 64, 1, 128, 256
+    args = _ssd_inputs(cuda_device, torch.bfloat16, b, s, h, p, g, n, chunk)
+    grads = _ssd_grads(cuda_device, b, s, h, p, n, chunk)
+    n0 = (ssd_scan.ssd_chunk_bwd.launches, ssd_scan.ssd_chunk_bwd.tc_launches)
+    ffma = ssd_scan.ssd_chunk_bwd(*args, *grads, chunk, route="ffma")
+    tc = ssd_scan.ssd_chunk_bwd(*args, *grads, chunk)
+    assert (ssd_scan.ssd_chunk_bwd.launches - n0[0],
+            ssd_scan.ssd_chunk_bwd.tc_launches - n0[1]) == (2, 1)
+    x, dt, cum, B, C = args
+    want = ssd_scan.ssd_chunk_bwd_plain(x.float(), dt, cum, B.float(),
+                                        C.float(), *grads, chunk)
+    for f, t, w in zip(ffma, tc, want):
+        _ssd_bwd_close(f, w)
+        _ssd_bwd_close(t, w)
+    with pytest.raises(ValueError, match="unknown route"):
+        ssd_scan.ssd_chunk_bwd(*args, *grads, chunk, route="tc")
+
+
+@pytest.mark.parametrize("p,route", [(64, "tc"), (128, "ffma")])
+def test_ssd_op_takes_f32_C_beside_bf16_x(cuda_device, p, route):
+    """The model's call: bf16 x and B, C as the f32 copy of bf16 values.
+    The forward equals the bf16-C op's bits; the backward (on either route:
+    head_dim 128 takes FFMA) returns dC in f32, within 2e-5 x max(1,
+    max|plain|) of the plain version (no bf16 rounding), and dx, dB, ddt
+    and dcum equal the bf16-C op's."""
+    b, s, h, g, n, chunk = 2, 512, 8, 1, 128, 256
+    x, dt, cum, B, C = _ssd_inputs(cuda_device, torch.bfloat16, b, s, h, p,
+                                   g, n, chunk)
+    dy, dst = _ssd_grads(cuda_device, b, s, h, p, n, chunk)
+    assert ssd_scan.bwd_route(x, B, C, dy, dst, chunk) == route
+    outs, grads = {}, {}
+    for name, c in (("bf16", C), ("f32", C.float())):
+        ins = [t.detach().clone().requires_grad_() for t in (x, dt, cum, B)]
+        ins.append(c.detach().clone().requires_grad_())
+        n0 = ssd_scan.ssd_chunk_bwd.tc_launches
+        outs[name] = ssd_scan.ssd_chunk(*ins, chunk)
+        torch.autograd.backward(outs[name], (dy, dst))
+        torch.cuda.synchronize()
+        assert ssd_scan.ssd_chunk_bwd.tc_launches == n0 + (route == "tc")
+        grads[name] = [t.grad for t in ins]
+    for a, w in zip(outs["f32"], outs["bf16"]):
+        assert torch.equal(a, w)
+    dC = grads["f32"][4]
+    assert dC.dtype == torch.float32 and grads["bf16"][4].dtype == \
+        torch.bfloat16
+    for a, w in zip(grads["f32"][:4], grads["bf16"][:4]):
+        assert torch.equal(_bits(a), _bits(w))
+    want = ssd_scan.ssd_chunk_bwd_plain(x.float(), dt, cum, B.float(),
+                                        C.float(), dy, dst, chunk)[4]
+    _ssd_bwd_close(dC, want)
+
+
+def test_bf16_ssm_grads_through_the_tc_route_equal_plain(cuda_device,
+                                                         monkeypatch):
+    """One bf16 mamba2-780m-smoke forward and backward (the smoke archs are
+    f32, so nothing else runs the tensor-core route inside a model): the
+    parameter gradients with the backward on the tensor cores (once a
+    layer) against the same step with the backward monkeypatched to the
+    plain version: each within 2e-5 x max(1, max|plain|) plus one bf16 ulp
+    of the plain's value."""
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.train.losses import total_loss
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("mamba2-780m-smoke"),
+                              dtype="bfloat16", param_dtype="bfloat16")
+    params = tree_map(lambda t: t.to(cuda_device),
+                      init_params(cfg, 0, device="cpu"))
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in
+             synthetic_batch(cfg, 4, 96, seed=0).items()}
+    leaves, treedef = tree_flatten(params)
+
+    def grads():
+        ls = [t.detach().requires_grad_() for t in leaves]
+        logits, aux, _ = Model(cfg).forward(tree_unflatten(treedef, ls),
+                                            batch)
+        loss, _ = total_loss(cfg, logits, batch["labels"], aux)
+        return torch.autograd.grad(loss, ls)
+
+    n0 = ssd_scan.ssd_chunk_bwd.tc_launches
+    got = grads()
+    torch.cuda.synchronize()
+    assert ssd_scan.ssd_chunk_bwd.tc_launches - n0 == cfg.num_layers
+    plain = ssd_scan.ssd_chunk_bwd_plain
+    monkeypatch.setattr(ssd_scan, "ssd_chunk_bwd",
+                        lambda *a, **kw: plain(*a, **kw))
+    want = grads()
+    for g_, w in zip(got, want):
+        assert g_.dtype == w.dtype and bool(torch.isfinite(g_).all())
+        _ssd_bwd_close(g_, w.float())
+
+
 @pytest.mark.parametrize("arch,layers,seq", [("mamba2-780m-smoke", None, 96),
                                              ("zamba2-7b-smoke", 3, 96)])
 def test_ssm_train_step_on_card_equals_cpu(nccl_rank, arch, layers, seq):

@@ -23,6 +23,13 @@ products summed in other orders).
 * The op's forward runs once a layer a training step under
   ``remat="none"`` and ``"dots"`` (the op's outputs are kept), twice under
   ``"block"``, and its backward once a layer.
+* In bf16, C's gradient is rounded once, as in the reference: the port's
+  dx, dB and dC each agree with the reference's in all but 0.1% of their
+  elements, by at most one bf16 ulp. The op takes the model's f32 copy of
+  C beside bf16 x and returns dC in f32.
+* The backward's route (the tensor cores or FFMA) and the tensor-core
+  route's heads a block, which are decided on the host from shapes and
+  pointers.
 
 The CUDA kernel is held against ``ssd_chunk_bwd_plain`` on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -153,6 +160,122 @@ def test_ssd_chunked_grads_match_reference(s, g):
     for name, gt, w in zip("x dt A B C".split(), got, want):
         assert np.isfinite(np.asarray(w)).all(), f"reference d{name}"
         _close(gt, w, f"d{name}")
+
+
+def test_bf16_grads_round_once_as_the_reference_does():
+    """bf16 x, B and C through both packages' ``ssd_chunked``, gradients of
+    ``sum(y * w)``. C feeds the intra-chunk step and the inter-chunk term;
+    the reference makes one f32 copy for both, so autograd sums the two f32
+    gradients and rounds dC to bf16 once. The port does the same, so its
+    dC agrees with the reference's as closely as dx and dB do: at most
+    0.1% of the elements of each differ, each by at most one bf16 ulp of
+    the reference's value (the sums' orders differ). Two copies, each
+    rounded to bf16 before autograd adds them, put 553 of the 6,144 dC
+    elements off, by up to 865 ulps where the two terms cancel."""
+    b, s, h, p, g, n, chunk = 2, 96, 4, 16, 1, 32, 32
+    rng = np.random.default_rng(0)
+
+    def bf16(a):  # values exact in bf16
+        return torch.from_numpy(a).bfloat16().float().numpy()
+
+    x = bf16(rng.normal(size=(b, s, h, p)).astype(np.float32))
+    dt = rng.uniform(1e-3, 0.1, size=(b, s, h)).astype(np.float32)
+    A = -rng.uniform(1.0, 16.0, size=(h,)).astype(np.float32)
+    B = bf16(rng.normal(size=(b, s, g, n)).astype(np.float32))
+    C = bf16(rng.normal(size=(b, s, g, n)).astype(np.float32))
+    w = rng.normal(size=(b, s, h, p)).astype(np.float32)
+
+    def loss(x, B, C):
+        y, _ = jssm.ssd_chunked(x, jnp.asarray(dt), jnp.asarray(A), B, C,
+                                chunk=chunk)
+        return (y.astype(jnp.float32) * w).sum()
+
+    want = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (x, B, C)))
+    ins = [torch.from_numpy(a).bfloat16().requires_grad_()
+           for a in (x, B, C)]
+    y, _ = tssm.ssd_chunked(ins[0], _t(dt), _t(A), ins[1], ins[2],
+                            chunk=chunk)
+    (y.float() * _t(w)).sum().backward()
+    for name, t, wv in zip("x B C".split(), ins, want):
+        assert t.grad.dtype == torch.bfloat16, name
+        got = t.grad.float().numpy()
+        ref = np.asarray(wv.astype(jnp.float32))
+        ulp = np.ldexp(np.float32(1), np.frexp(ref)[1] - 8)
+        off = got != ref
+        assert off.sum() <= got.size // 1000, (name, int(off.sum()))
+        assert (np.abs(got - ref)[off] <= ulp[off]).all(), name
+
+
+def _bf16_views(b, s, h, p, g, n, offset=0):
+    """x, B and C as the model passes them: bf16 views of one
+    (b, s, channels) tensor, ``offset`` elements into it."""
+    xbc = torch.zeros((b, s, offset + h * p + 2 * g * n), dtype=torch.bfloat16)
+    xbc = xbc[..., offset:]
+    return (xbc[..., : h * p].reshape(b, s, h, p),
+            xbc[..., h * p: h * p + g * n].reshape(b, s, g, n),
+            xbc[..., h * p + g * n:].reshape(b, s, g, n))
+
+
+@pytest.mark.parametrize("case,want", [
+    (dict(), "tc"),                         # mamba2-780m's training widths
+    (dict(n=64, h=112), "tc"),               # zamba2-7b's
+    (dict(p=32, n=16, chunk=32), "tc"),      # the smoke archs'
+    (dict(chunk=100, s=200), "tc"),          # a chunk off the 64-row tiles
+    (dict(chunk=98, s=196), "ffma"),         # not a multiple of 4
+    (dict(chunk=512), "ffma"),               # more than 4 tiles of S^T
+    (dict(p=128), "ffma"),                   # dx wider than 64
+    (dict(n=256), "ffma"),                   # dB/dC wider than 128
+    (dict(offset=1), "ffma"),                # rows not 16-byte aligned
+    (dict(f32=True), "ffma"),
+])
+def test_bwd_route(case, want):
+    """The backward's route for the model's bf16 views (the tensor cores)
+    and for what they do not take (FFMA); decided on the shapes and the
+    pointers, so it holds for CPU tensors too."""
+    c = dict(b=2, s=512, h=48, p=64, g=1, n=128, chunk=256, offset=0,
+             f32=False)
+    c.update(case)
+    x, B, C = _bf16_views(c["b"], c["s"], c["h"], c["p"], c["g"], c["n"],
+                          c["offset"])
+    if c["f32"]:
+        x, B, C = x.float(), B.float(), C.float()
+    dy = torch.zeros(x.shape)
+    assert ssd_scan.bwd_route(x, B, C.float() if c["f32"] else C, dy, None,
+                              c["chunk"]) == want
+
+
+@pytest.mark.parametrize("shape,sms,want", [
+    ((8, 4, 1, 48, 4), 132, 10),   # mamba2-780m training: 5 sets of 10
+    ((4, 4, 1, 112, 4), 132, 13),  # zamba2-7b: 9 sets, the last of 8
+    ((64, 4, 1, 48, 4), 132, 24),  # a large grid: at most 24 a set
+    ((1, 2, 1, 48, 4), 132, 1),    # a small grid: a head a block
+    ((2, 3, 2, 3, 2), 132, 1),
+])
+def test_tc_heads_per_block(shape, sms, want):
+    """The fewest head sets that give each kernel's grid 4 blocks an SM,
+    at most 24 heads a set, shared evenly."""
+    assert ssd_scan.tc_heads_per_block(*shape, sms) == want
+
+
+def test_op_takes_f32_C_beside_bf16_x_on_the_cpu():
+    """bf16 x and B with an f32 C (the model's call): the plain backward
+    returns dC in f32, unrounded, equal to the all-f32 op's dC."""
+    b, s, h, p, g, n, chunk = 1, 64, 4, 16, 1, 8, 32
+    x, dt, A, B, C = _inputs(60, b, s, h, p, g, n)
+    cum = (dt * A).reshape(b, s // chunk, chunk, h).cumsum(2).reshape(b, s, h)
+    x, B, C = (torch.from_numpy(a).bfloat16() for a in (x, B, C))
+    rng = np.random.default_rng(61)
+    dy = _t(rng.normal(size=(b, s, h, p)).astype(np.float32))
+    grads = {}
+    for name, ins in (("mixed", (x, B, C.float())),
+                      ("f32", (x.float(), B.float(), C.float()))):
+        xs, Bs, Cs = (t.clone().requires_grad_() for t in ins)
+        y, _ = ssd_scan.ssd_chunk(xs, _t(dt), _t(cum), Bs, Cs, chunk)
+        (y * dy).sum().backward()
+        grads[name] = Cs.grad
+    assert grads["mixed"].dtype == torch.float32
+    assert torch.equal(grads["mixed"], grads["f32"])
 
 
 def test_reference_overflows_where_the_port_stays_finite(monkeypatch):
