@@ -326,7 +326,33 @@ Phases, each a check that exits non-zero when it fails:
    the noise of zero (under 1e-5 of its leaf's largest on the CPU);
    AdamW's first update is then about ``lr`` times the sign of that noise,
    so it is held to ``3 x lr`` (``tests/test_torch_train.py`` states the
-   same rule).
+   same rule);
+15a. ``comm="gspmd"`` on one rank: full-width ``olmo-1b`` (phase 9's
+   config, batch and ``remat="block"``), a warm-up and 5 timed steps; the
+   first step's loss and grad norm within 1e-5 of a ``comm="vci"`` post
+   step from the same state and batch (on one rank the same math), 2 x 16
+   flash launches a step, no collective; ms a step beside phase 9's, peak;
+15b. FSDP on ``GSPMD_WORLD`` = 4 gloo ranks sharing the card (phase 12's
+   pattern): ``olmo-1b`` at full width and 4 layers, in f32 (so that
+   ``tests/test_torch_train.py``'s f32 rules apply), global batch 8 x
+   1,024, 2 steps: every rank's metrics equal, within 1e-5 of a one-rank
+   run here on the same batches; every param element within 1e-4 + 2e-5
+   relative of the one-rank run's, and the count beyond 1e-6 + 2e-5
+   relative no more than the tests' one in 10^4 or twice what another
+   order of the same sums gives (the one-rank run with the ranks' rows as
+   4 microbatches); each rank holds a quarter of the params and moments
+   (every olmo-1b leaf is sliced), to the byte; a step's all-gathers (7 a
+   layer, forward and recompute, and the tied table twice),
+   reduce-scatters and all-reduces as predicted, with their bytes;
+15c. checkpoints: the bf16 4-layer FSDP state on the same ranks, saved
+   after step 2 as whole leaves (rank 0 writes), restored on the 4 ranks
+   and on one rank here, each equal to the saved state bit for bit (sha256
+   of every rank's slices); step 3 after the resume against the
+   uninterrupted step 3 on the 4 ranks (bit for bit expected; the
+   difference is printed), and on one rank; the directory removed; then
+   the CLI at smoke size on the card: ``--steps 4 --ckpt-every 2`` and
+   ``--steps 6`` in the same directory, which must print ``resumed from
+   step 4``.
 
 It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Without CUDA, or without the package beside it, it fails and prints no
@@ -411,6 +437,10 @@ PAIRS = 10                       # alternating kernel / library timings
 # to what one card's memory holds (see the docstring)
 MOE_TRAIN_LAYERS, VLM_TRAIN_LAYERS, MM_TRAIN_STEPS = 1, 24, 3
 MM_TRAIN_BATCH, AUDIO_TRAIN_FRAMES = 4, 1000
+# phase 15: comm="gspmd" training (FSDP over the data ranks) and
+# checkpoints: 15a's steps, 15b/15c's ranks on the one card, layers, steps
+GSPMD_STEPS = 5
+GSPMD_WORLD, GSPMD_LAYERS, GSPMD_RANK_STEPS, GSPMD_TIMEOUT_S = 4, 4, 2, 600
 # phases 14a-14c: the SSD backward and SSM / hybrid training
 SSM_TRAIN_ARCH, HYB_TRAIN_LAYERS = "mamba2-780m", 33
 FP32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -3647,6 +3677,413 @@ def phase_train_hybrid() -> dict:
     return run
 
 
+# ---------------------------------------------------------------------------
+# phase 15: comm="gspmd" training (FSDP) and checkpoints
+# ---------------------------------------------------------------------------
+
+def phase_gspmd(train_ms: float) -> dict:
+    """Phase 15a (see the docstring): one rank, ``comm="gspmd"``,
+    full-width olmo-1b. Returns the flash launches and the step's ms."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.train.trainer import make_train_step, train_state_init
+
+    _fresh("gspmd 1 rank")
+    cfg = get_config(TRAIN_ARCH)
+    batches = [synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=i)
+               for i in range(GSPMD_STEPS + 1)]
+    flash_attention.launches = 0
+    # the paper's mode from the same state and batch: on one rank the two
+    # steps are the same math
+    state = train_state_init(cfg, 0, device="cuda")
+    state, m = make_train_step(cfg, **TRAIN_KNOBS)(state, batches[0])
+    want = (float(m["loss"]), float(m["grad_norm"]))
+    del state, m
+    _fresh("gspmd 1 rank, after its vci step")
+    state = train_state_init(cfg, 0, device="cuda", comm="gspmd")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()   # the state stays counted
+    step = make_train_step(cfg)            # comm="gspmd", the default
+    t0 = time.perf_counter()
+    state, m = step(state, batches[0])
+    torch.cuda.synchronize()
+    warm = (time.perf_counter() - t0) * 1e3
+    got = (float(m["loss"]), float(m["grad_norm"]))
+    for k, a, b in zip(("loss", "grad_norm"), got, want):
+        check(abs(a - b) <= 1e-5 * abs(b), f"gspmd step 1 {k} {a} vs the vci "
+              f"step's {b} (rtol 1e-5)")
+    times, losses = [], []
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    check(all(map(math.isfinite, losses)), f"gspmd: loss {losses}")
+    flash = flash_attention.launches
+    want_flash = 2 * cfg.num_layers * (GSPMD_STEPS + 2)
+    check(flash == want_flash, f"gspmd: flash_attention launched {flash} "
+          f"times, want 2 x {cfg.num_layers} x {GSPMD_STEPS + 2}")
+    check(all(v == 0 for v in step.comm_tally.values()),
+          f"gspmd on one rank issued collectives {step.comm_tally}")
+    ms = sum(times) / len(times)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"gspmd 1 rank: {cfg.name} full width and depth, {cfg.param_dtype}"
+          f", remat={cfg.remat}, batch {TRAIN_BATCH} x {TRAIN_SEQ}; step 1 "
+          f"loss/gnorm {got} vs the vci post step's {want} (rtol 1e-5); "
+          f"warm-up {warm:.1f} ms, {GSPMD_STEPS} steps ms "
+          f"{[round(t, 3) for t in times]} (mean {ms:.3f}; phase 9's vci "
+          f"step {train_ms:.3f}), {TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.1f} "
+          f"tok/s, max_memory_allocated {peak} B, flash_attention launches "
+          f"{flash} (the vci step, the warm-up and {GSPMD_STEPS} steps), "
+          f"collectives {step.comm_tally}", flush=True)
+    del state, step
+    _fresh("gspmd 1 rank, done")
+    return dict(flash=flash, ms=ms, peak=peak)
+
+
+def _digest(t) -> str:
+    """sha256 of a tensor's bytes (its bits, whatever its dtype)."""
+    import hashlib
+    import torch
+    return hashlib.sha256(t.detach().reshape(-1).contiguous().view(
+        torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def _gspmd_cfgs():
+    """15b's f32 config and 15c's bf16 one: olmo-1b at full width,
+    ``GSPMD_LAYERS`` layers."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=GSPMD_LAYERS)
+    return dataclasses.replace(cfg, param_dtype="float32",
+                               dtype="float32"), cfg
+
+
+def _params_off(got, want) -> tuple:
+    """``tests/test_torch_train.py``'s parameter rules on one leaf (or a
+    rank's slice of it): (the largest difference, whether every element
+    lies within 1e-4 + 2e-5 relative, the count beyond 1e-6 + 2e-5
+    relative, which the tests allow in one element of 10^4)."""
+    d = (got.float() - want.float()).abs()
+    w = want.float().abs()
+    return (float(d.max()), bool((d <= 1e-4 + 2e-5 * w).all()),
+            int((d > 1e-6 + 2e-5 * w).sum()))
+
+
+def _gspmd_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One of phase 15's ranks (15b and 15c): join the shared-card group,
+    train FSDP in f32 against the one-rank run in ``ref.pt``, then in bf16
+    through a checkpoint and a resume; write what it saw to
+    ``gspmd_rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import load_state, save_state
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.dist.sharding import param_shapes
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import join_ranks
+    from repro_torch.train.trainer import make_train_step, train_state_init
+    from repro_torch.tree import tree_flatten, tree_flatten_with_paths
+
+    def leaves(tree):
+        return [t for _, t in tree_flatten_with_paths(tree)]
+
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device, backend, why = join_ranks(rank, world, "cuda", store)
+    out = dict(backend=backend, why=why)
+    try:
+        f32, bf16 = _gspmd_cfgs()
+        batches = [synthetic_batch(f32, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                                   step=i) for i in range(3)]
+        # 15b: FSDP in f32 against the one-rank run
+        ref = torch.load(os.path.join(out_dir, "ref.pt"), mmap=True)
+        flash_attention.launches = 0
+        state = train_state_init(f32, 0, device=device, comm="gspmd")
+        step = make_train_step(f32)
+        shard = step.sharder()
+        metrics, tallies, times = [], [], []
+        for b in batches[:GSPMD_RANK_STEPS]:
+            dist.barrier()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            metrics.append([float(m[k]) for k in ("loss", "grad_norm")])
+            times.append((time.perf_counter() - t0) * 1e3)
+            tallies.append(dict(step.comm_tally))
+        sliced = {"/".join(p): shard.sharded_dim(p) is not None
+                  for p, _ in tree_flatten_with_paths(state.params)}
+        want_p = want_m = 0
+        for p, leaf in tree_flatten_with_paths(param_shapes(f32)):
+            part = world if sliced["/".join(p)] else 1
+            want_p += leaf.numel() * 4 // part
+            want_m += 2 * leaf.numel() * 4 // part
+        close = [_params_off(t, shard.shard_leaf(p, ref[i]).to(device))
+                 for i, (p, t) in enumerate(
+                     tree_flatten_with_paths(state.params))]
+        close = dict(worst=max(c[0] for c in close),
+                     rule1=all(c[1] for c in close),
+                     off=[c[2] for c in close],
+                     total=sum(t.numel() for t in tree_flatten(
+                         state.params)[0]))
+        out["b"] = dict(
+            metrics=metrics, ms=times, tally=tallies,
+            flash=flash_attention.launches,
+            param_bytes=sum(t.nbytes for t in tree_flatten(state.params)[0]),
+            moment_bytes=sum(t.nbytes for t in tree_flatten(
+                (state.opt.m, state.opt.v))[0]),
+            want_param_bytes=want_p, want_moment_bytes=want_m,
+            sliced=sum(sliced.values()), leaves=len(sliced),
+            peak=torch.cuda.max_memory_allocated(), **close)
+        del state, step, ref
+        torch.cuda.empty_cache()
+
+        # 15c: bf16 FSDP, a checkpoint after step 2, a resume, step 3
+        flash_attention.launches = 0
+        state = train_state_init(bf16, 0, device=device, comm="gspmd")
+        step = make_train_step(bf16)
+        shard = step.sharder()
+        for b in batches[:2]:
+            state, _ = step(state, b)
+        ckpt = os.path.join(out_dir, "ckpt")
+        t0 = time.perf_counter()
+        save_state(ckpt, 2, state, shard=shard, metadata={"arch": bf16.name})
+        save_s = time.perf_counter() - t0
+        saved = [t.clone() for t in leaves(state)]
+        out["c"] = dict(save_s=save_s, digests=[
+            _digest(t) for t in saved])
+        state, m = step(state, batches[2])
+        full = [t.clone() for t in leaves(state)]
+        loss3 = float(m["loss"])
+        del state
+        like = train_state_init(bf16, 1, device=device, comm="gspmd")
+        t0 = time.perf_counter()
+        back = load_state(ckpt, 2, like, shard=shard)
+        load_s = time.perf_counter() - t0
+        del like
+        same = [_digest(a) == d for a, d in
+                zip(leaves(back), out["c"]["digests"])]
+        check(all(same), f"15c rank {rank}: the restored state differs "
+              f"from the saved one at leaves "
+              f"{[i for i, s in enumerate(same) if not s]}")
+        back, m = step(back, batches[2])
+        diffs = [float((a.float() - b.float()).abs().max())
+                 for a, b in zip(leaves(back), full)]
+        out["c"].update(load_s=load_s, loss3=loss3,
+                        loss3_resumed=float(m["loss"]),
+                        resume_bitwise=all(
+                            _digest(a) == _digest(b) for a, b in
+                            zip(leaves(back), full)),
+                        resume_max_diff=max(diffs),
+                        flash=flash_attention.launches)
+        dist.barrier()
+    finally:
+        with open(os.path.join(out_dir, f"gspmd_rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+
+
+def phase_gspmd_ranks(card: str) -> dict:
+    """Phases 15b and 15c (see the docstring): the one-rank f32 run here,
+    then ``GSPMD_WORLD`` ranks on the one card, spawned once, then the
+    checkpoint restored on one rank here. Returns the flash launches."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import load_state
+    from repro_torch.core.collectives import RankMesh
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.dist.sharding import Sharder
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.train.trainer import make_train_step, train_state_init
+    from repro_torch.tree import tree_flatten, tree_flatten_with_paths
+
+    _fresh("gspmd ranks")
+    f32, bf16 = _gspmd_cfgs()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_gspmd_")
+    batches = [synthetic_batch(f32, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=i)
+               for i in range(3)]
+    # the one-rank run (no group: one rank) the ranks are held against
+    flash_attention.launches = 0
+    state = train_state_init(f32, 0, device="cuda", comm="gspmd")
+    step = make_train_step(f32)
+    ref_metrics = []
+    for b in batches[:GSPMD_RANK_STEPS]:
+        state, m = step(state, b)
+        ref_metrics.append([float(m["loss"]), float(m["grad_norm"])])
+    torch.save([t.cpu() for t in tree_flatten(state.params)[0]],
+               os.path.join(out_dir, "ref.pt"))
+    # the yardstick: the same math with another order of the same sums,
+    # one rank taking the ranks' rows as GSPMD_WORLD microbatches
+    alt = train_state_init(f32, 0, device="cuda", comm="gspmd")
+    astep = make_train_step(f32, accum_steps=GSPMD_WORLD)
+    for b in batches[:GSPMD_RANK_STEPS]:
+        alt, _ = astep(alt, b)
+    order = [_params_off(a, w) for a, w in zip(
+        tree_flatten(alt.params)[0], tree_flatten(state.params)[0])]
+    flash = flash_attention.launches
+    del state, step, alt, astep
+    _fresh("gspmd ranks, after the one-rank run")
+
+    t0 = time.time()
+    ctx = torch.multiprocessing.start_processes(
+        _gspmd_rank, args=(GSPMD_WORLD, os.path.join(out_dir, "store"),
+                           out_dir),
+        nprocs=GSPMD_WORLD, start_method="spawn", join=False)
+    try:
+        while not ctx.join(timeout=5):
+            if time.time() - t0 > GSPMD_TIMEOUT_S:
+                for proc in ctx.processes:
+                    proc.kill()
+                fail(f"phase 15: the ranks ran past {GSPMD_TIMEOUT_S} s")
+    except Exception as e:   # a rank raised: its traceback is in stderr
+        fail(f"phase 15: a rank failed: {e}")
+    ranks = []
+    for r in range(GSPMD_WORLD):
+        with open(os.path.join(out_dir, f"gspmd_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    spawn_s = time.time() - t0
+    b0 = ranks[0]["b"]
+    for r, rk in enumerate(ranks):
+        b = rk["b"]
+        check(b["metrics"] == b0["metrics"], f"15b: rank {r}'s metrics "
+              f"{b['metrics']} differ from rank 0's {b0['metrics']}")
+        check(b["param_bytes"] == b["want_param_bytes"] and
+              b["moment_bytes"] == b["want_moment_bytes"],
+              f"15b: rank {r} holds {b['param_bytes']} B of params and "
+              f"{b['moment_bytes']} B of moments, want "
+              f"{b['want_param_bytes']} and {b['want_moment_bytes']}")
+        flash += b["flash"] + rk["c"]["flash"]
+    for got, want in zip(b0["metrics"], ref_metrics):
+        for a, w in zip(got, want):
+            check(abs(a - w) <= 1e-5 * abs(w), f"15b: {GSPMD_WORLD} ranks' "
+                  f"loss/gnorm {got} vs one rank's {want} (rtol 1e-5)")
+    total = sum(rk["b"]["total"] for rk in ranks)
+    off = [sum(rk["b"]["off"][i] for rk in ranks)
+           for i in range(len(b0["off"]))]
+    yard = [c[2] for c in order]
+    print(f"gspmd ranks: 15b params against the one-rank run, by leaf: "
+          f"beyond 1e-6 + 2e-5 rel {off} ({sum(off)} of {total}; the tests "
+          f"allow {total // 10 ** 4}), max abs diff "
+          f"{max(rk['b']['worst'] for rk in ranks):.3e} (tol 1e-4 + 2e-5 "
+          f"rel); one rank with {GSPMD_WORLD} microbatches against one "
+          f"rank with one: {yard} ({sum(yard)}), max abs diff "
+          f"{max(c[0] for c in order):.3e}", flush=True)
+    check(all(rk["b"]["rule1"] for rk in ranks), "15b: a param element off "
+          "the one-rank run by more than 1e-4 + 2e-5 rel")
+    # at full width the count of elements at the summation noise outgrows
+    # the tests' share: held to what another order of the same sums gives
+    check(sum(off) <= max(total // 10 ** 4, 2 * sum(yard)),
+          f"15b: {sum(off)} of {total} param elements beyond 1e-6 + 2e-5 "
+          f"rel, against {sum(yard)} from another order of the sums")
+    check(b0["sliced"] > 0 and b0["param_bytes"] * GSPMD_WORLD >
+          b0["want_param_bytes"], "15b: nothing was sliced")
+    tally = b0["tally"][-1]
+    print(f"gspmd ranks: {GSPMD_WORLD} ranks on one card ({card}) in "
+          f"{spawn_s:.1f}s, backend={ranks[0]['backend']} "
+          f"({ranks[0]['why']}), CUDA tensors; 15b: {TRAIN_ARCH} at full "
+          f"width, {GSPMD_LAYERS} layers, f32, global batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, {GSPMD_RANK_STEPS} steps: loss/gnorm {b0['metrics']}"
+          f" equal on every rank, one rank's {ref_metrics} (rtol 1e-5); "
+          f"params within the train tests' rules; a rank holds "
+          f"{b0['param_bytes']} B of params and {b0['moment_bytes']} B of "
+          f"moments ({b0['sliced']} of {b0['leaves']} leaves sliced 1/"
+          f"{GSPMD_WORLD}, to the byte); a step: {tally['all_gather']} "
+          f"all-gathers ({tally['gather_bytes']} B received), "
+          f"{tally['reduce_scatter']} reduce-scatters "
+          f"({tally['scatter_bytes']} B sent), {tally['all_reduce']} "
+          f"all-reduces; step ms (rank 0) "
+          f"{[round(t, 1) for t in b0['ms']]}; peak a rank "
+          f"{[rk['b']['peak'] for rk in ranks]} B", flush=True)
+    per_layer = 7
+    check(tally["all_gather"] == 2 * per_layer * GSPMD_LAYERS + 2 and
+          tally["reduce_scatter"] == per_layer * GSPMD_LAYERS + 2,
+          f"15b: a step's collectives {tally}, predicted "
+          f"{2 * per_layer * GSPMD_LAYERS + 2} gathers and "
+          f"{per_layer * GSPMD_LAYERS + 2} reduce-scatters")
+
+    # 15c: the checkpoint restored on one rank, each leaf's 4 slices
+    # against the digests of the ranks' saved slices
+    c0 = ranks[0]["c"]
+    like = train_state_init(bf16, 1, device="cuda", comm="gspmd")
+    t0 = time.perf_counter()
+    back = load_state(os.path.join(out_dir, "ckpt"), 2, like)
+    load_s = time.perf_counter() - t0
+    del like
+    cuts = [Sharder(RankMesh(GSPMD_WORLD, 1), bf16, rank=r)
+            for r in range(GSPMD_WORLD)]
+    for i, (p, t) in enumerate(tree_flatten_with_paths(back)):
+        for r, cut in enumerate(cuts):
+            part = t
+            if p[0] == "params":
+                part = cut.shard_leaf(p[1:], t)
+            elif p[0] == "opt" and p[1] in ("m", "v"):
+                part = cut.shard_leaf(p[2:], t)
+            check(_digest(part) == ranks[r]["c"]["digests"][i],
+                  f"15c: leaf {'/'.join(p)} restored on one rank differs "
+                  f"from rank {r}'s saved slice")
+    step = make_train_step(bf16)
+    back, m = step(back, batches[2])
+    one_loss3 = float(m["loss"])
+    del back, step
+    ckpt_bytes = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in
+                     os.walk(os.path.join(out_dir, "ckpt")) for f in fs)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    bitwise = all(rk["c"]["resume_bitwise"] for rk in ranks)
+    print(f"gspmd ranks: 15c: {TRAIN_ARCH} {GSPMD_LAYERS} layers bf16 FSDP "
+          f"on {GSPMD_WORLD} ranks, saved after step 2 as whole leaves "
+          f"({ckpt_bytes} B on disk, {c0['save_s']:.2f} s), restored on "
+          f"{GSPMD_WORLD} ranks ({c0['load_s']:.2f} s) and on one "
+          f"({load_s:.2f} s): equal to the saved state bit for bit on both; "
+          f"step 3 after the resume on {GSPMD_WORLD} ranks "
+          f"{'equals' if bitwise else 'differs from'} the uninterrupted "
+          f"step 3 bit for bit (max abs diff "
+          f"{max(rk['c']['resume_max_diff'] for rk in ranks):.3e}; loss "
+          f"{c0['loss3_resumed']} vs {c0['loss3']}); on one rank its loss "
+          f"{one_loss3}", flush=True)
+    check(math.isfinite(one_loss3) and abs(one_loss3 - c0["loss3"]) <=
+          2 ** -7 * abs(c0["loss3"]), f"15c: one rank's step 3 loss "
+          f"{one_loss3} vs {GSPMD_WORLD} ranks' {c0['loss3']}")
+    _fresh("gspmd ranks, done")
+    return dict(flash=flash, bitwise=bitwise)
+
+
+def phase_ckpt_cli() -> None:
+    """15c's CLI: ``--steps 4 --ckpt-every 2`` at smoke size on the card,
+    then ``--steps 6`` in the same directory, which must resume."""
+    import tempfile
+    ck = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(HERE, "src") + os.pathsep + \
+        env.get("PYTHONPATH", "")
+    outs = []
+    try:
+        for steps in (4, 6):
+            t0 = time.time()
+            r = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                 "olmo-1b-smoke", "--steps", str(steps), "--batch", "4",
+                 "--seq", "32", "--log-every", "1", "--ckpt-every", "2",
+                 "--ckpt-dir", ck], capture_output=True, text=True,
+                timeout=300, env=env, cwd=HERE)
+            check(r.returncode == 0, f"15c: the CLI (--steps {steps}) "
+                  f"failed:\n{r.stdout}\n{r.stderr}")
+            outs.append((r.stdout, time.time() - t0))
+        check("resumed from step 4" in outs[1][0], f"15c: the CLI did not "
+              f"resume:\n{outs[1][0]}")
+        check(sorted(os.listdir(ck)) == [f"step_{s:08d}" for s in
+                                         (2, 4, 6)], f"15c: {os.listdir(ck)}")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    lines = [ln for ln in outs[1][0].splitlines()
+             if ln.startswith(("resumed", "step"))]
+    print(f"ckpt cli: olmo-1b-smoke on the card, --steps 4 --ckpt-every 2 "
+          f"({outs[0][1]:.1f} s) then --steps 6 ({outs[1][1]:.1f} s): "
+          f"{lines}", flush=True)
+
+
 def _table_bytes() -> int:
     """The page table of phase 5's paged cache: ``BATCH`` rows of
     ``MAX_LEN / PAGE_SIZE`` int32 entries."""
@@ -3710,9 +4147,14 @@ def main() -> None:
         ssm_train = phase_train_ssm()
         hyb_train = phase_train_hybrid()
         print(f"phases 14a-14c took {time.time() - t14:.1f}s", flush=True)
+        t15 = time.time()
+        gspmd = phase_gspmd(train["step_ms"])
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
+    gspmd_ranks = phase_gspmd_ranks(card)
+    phase_ckpt_cli()
+    print(f"phases 15a-15c took {time.time() - t15:.1f}s", flush=True)
     trained = [moe_train, ssm_train, hyb_train] + list(mm_train.values())
 
     f32 = kern["float32"]
@@ -3756,7 +4198,8 @@ def main() -> None:
         + moe_runs["window"]["flash"] + hyb["flash"] + vlm_flash
         + audio_flash + train["flash"] + tp["flash"] + ranks["flash"]
         + sum(r["flash"] for r in zero1.values())
-        + sum(r["counts"]["flash_attention"] for r in trained),
+        + sum(r["counts"]["flash_attention"] for r in trained)
+        + gspmd["flash"] + gspmd_ranks["flash"],
         "max_abs_err": flash["max_abs_err"],
         "ms": flash["a"]["ms"],
         "plain_ms": flash["a"]["plain_ms"],

@@ -14,12 +14,17 @@ Every family trains: dense and MoE text (``--arch
 mixtral-8x22b-smoke``), SSM and hybrid (``mamba2-780m-smoke``,
 ``zamba2-7b-smoke``), VLM (``phi-3-vision-4.2b-smoke``; ``--seq`` counts
 the image patches too) and audio (``musicgen-large-smoke``).
-``--comm vci`` is the ported mode (bucketed VCI gradient reduction), with
-``--optimizer zero1`` (ZeRO-1: reduce_scatter, sharded AdamW, param
+``--comm gspmd`` (the default) is FSDP over the data ranks, every
+collective on the default group (:mod:`repro_torch.dist.sharding`);
+``--comm vci`` is the paper's mode (bucketed VCI gradient reduction),
+with ``--optimizer zero1`` (ZeRO-1: reduce_scatter, sharded AdamW, param
 all_gather; ``--zero1-wire bfloat16`` sets the wire dtype of both) and
-``--overlap`` (each bucket's reduce issued inside the backward). Not
-ported yet, each raising ``NotImplementedError``: ``--comm gspmd``,
-``--ckpt-dir`` and a 2-D or 3-D ``--mesh`` (ROADMAP.md Queue 1 item 14).
+``--overlap`` (each bucket's reduce issued inside the backward).
+``--ckpt-dir`` resumes from the directory's latest step (printing
+``resumed from step N``), saves every ``--ckpt-every`` steps and at the
+end, in the reference's format (:mod:`repro_torch.checkpoint`; sharded
+states as whole leaves). A 2-D or 3-D ``--mesh`` (a model axis) raises
+``NotImplementedError`` (ROADMAP.md Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint.io import latest_step, load_state, save_state
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data.pipeline import synthetic_batch
 from repro_torch.device import resolve_device
@@ -115,11 +121,24 @@ def train(args: argparse.Namespace, device: torch.device) -> None:
         schedule=schedule)
     state = train_state_init(cfg, args.seed, optimizer=args.optimizer,
                              device=device, num_streams=args.num_streams,
-                             pack=args.pack, schedule=schedule)
+                             pack=args.pack, schedule=schedule,
+                             comm=args.comm)
+    # the FSDP layout the checkpoint gathers and slices (gspmd only)
+    shard = step.sharder() if args.comm == "gspmd" else None
+    start = 0
+    if args.ckpt_dir and (ls := latest_step(args.ckpt_dir)) is not None:
+        state = load_state(args.ckpt_dir, ls, state, shard=shard)
+        start = ls
+        if rank == 0:
+            print(f"resumed from step {ls}", flush=True)
+
+    def save(n: int) -> None:
+        save_state(args.ckpt_dir, n, state, shard=shard,
+                   metadata={"arch": cfg.name})
 
     t0 = time.time()
     tokens_done = 0
-    for i in range(args.steps):
+    for i in range(start, args.steps):
         batch = synthetic_batch(cfg, args.batch, args.seq, seed=args.seed,
                                 step=i)
         state, metrics = step(state, batch)
@@ -132,6 +151,13 @@ def train(args: argparse.Namespace, device: torch.device) -> None:
                   f"ce {float(metrics['ce']):7.4f}  "
                   f"gnorm {float(metrics['grad_norm']):6.3f}  "
                   f"tok/s {tokens_done/dt:9.0f}", flush=True)
+        if args.ckpt_dir and args.ckpt_every and \
+                (i + 1) % args.ckpt_every == 0:
+            save(i + 1)
+    if args.ckpt_dir:
+        save(args.steps)
+        if rank == 0:
+            print(f"checkpoint -> {args.ckpt_dir}", flush=True)
 
 
 def _rank_main(rank: int, args: argparse.Namespace, device_type: str,
@@ -154,10 +180,6 @@ def _rank_main(rank: int, args: argparse.Namespace, device_type: str,
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir (checkpoint save/resume) is ROADMAP.md Queue 1 item "
-            "14 (not ported yet)")
     device = resolve_device(args.device)
     world = _world_size(args.mesh)
     if device.type == "cuda" and world > torch.cuda.device_count():

@@ -1,7 +1,8 @@
 """Mixture-of-Experts FFN: top-k router + sort-based capacity dispatch.
 
-Port of ``repro.models.moe``, on one device or under the manual-TP serve
-path (``comm``, see :func:`_moe_experts_comm`).
+Port of ``repro.models.moe``, on one device, under the manual-TP serve
+path (``comm``, see :func:`_moe_experts_comm`), or on the data ranks of a
+``comm="gspmd"`` training step (``shard``, see :func:`moe_ffn`).
 Per batch row (group) the token->expert assignments are sorted by expert;
 each assignment's rank within its expert decides whether it fits the
 capacity ``C`` (GShard/Switch dropping). The row moves are two launches of
@@ -94,13 +95,19 @@ def moe_ffn(cfg: ModelConfig, x, p, shard=None, *, inference: bool = False,
     ``comm`` (a :class:`repro_torch.serve.comm.ServeComm`) selects the
     manual-TP serve path: activations are replicated over the TP axis,
     expert tables arrive expert-parallel (E over the axis) or ff-TP
-    sharded, and the combine collective rides the ``moe`` VCI stream. The
-    reference's ``shard`` (a GSPMD ``Sharder``) is not ported."""
-    if shard is not None:
-        raise NotImplementedError(
-            "the GSPMD-sharded MoE route (moe_ffn(shard=...)) is not ported "
-            "yet; see ROADMAP.md Queue 1 item 14 (tensor-parallel serving "
-            "takes comm=)")
+    sharded, and the combine collective rides the ``moe`` VCI stream.
+
+    ``shard`` (a :class:`repro_torch.dist.sharding.Sharder` on a data-only
+    mesh of N ranks): the tables arrive whole (the block's ``materialize``
+    gathered them), so each rank runs every expert on its own batch rows;
+    a group is one row, so routing and dropping are the reference's. The
+    aux losses are the global batch's: ``me`` and ``ce`` are token means
+    over every rank's rows (summed over the data ranks, ``me`` with its
+    gradient) before their product, and each rank returns its share of
+    each term, ``load_balance / N`` and its rows' part of the z-loss mean,
+    so that the shares sum to the global values over the ranks."""
+    if shard is not None and comm is not None:
+        raise ValueError("moe_ffn takes shard or comm, not both")
     m = cfg.moe
     B, S, d = x.shape
     E, K = m.num_experts, m.top_k
@@ -138,12 +145,23 @@ def moe_ffn(cfg: ModelConfig, x, p, shard=None, *, inference: bool = False,
     gate = torch.where(comb.view(B, S, K) >= 0, gates, 0.0)
     y = (ys * gate[..., None].to(ys.dtype)).sum(2)
 
-    me = probs.mean(dim=(0, 1))                                    # (E,)
     routed = eidx[..., None] == torch.arange(E, device=x.device)   # (B,S,K,E)
-    ce = routed.sum(2).float().mean(dim=(0, 1))                    # fraction
-    load_balance = E * torch.sum(me * ce / K)
-    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    z = torch.logsumexp(logits, dim=-1) ** 2
+    if shard is not None and shard.n > 1:
+        # the global batch's token means, and this rank's share of each term
+        tokens = B * S * shard.n
+        me = shard.data_sum(probs.sum(dim=(0, 1))) / tokens
+        ce = shard.data_sum_(routed.sum(2).float().sum(dim=(0, 1))) / tokens
+        load_balance = E * torch.sum(me * ce / K) / shard.n
+        z_loss = z.sum() / tokens
+    else:
+        me = probs.mean(dim=(0, 1))                                # (E,)
+        ce = routed.sum(2).float().mean(dim=(0, 1))                # fraction
+        load_balance = E * torch.sum(me * ce / K)
+        z_loss = torch.mean(z)
     aux = {"load_balance": load_balance, "router_z": z_loss}
+    if shard is not None:
+        y = shard.hidden(y)
 
     if m.dense_residual:
         y = y + gated_ffn(cfg, x, p["residual"], comm=comm)

@@ -152,12 +152,13 @@ def _heads_out(cfg: ModelConfig, y, xv, z, p):
     return y @ p["out_proj"].to(y.dtype)
 
 
-def mamba2_forward(cfg: ModelConfig, x, p,
+def mamba2_forward(cfg: ModelConfig, x, p, shard=None,
                    initial: Optional[SSMState] = None
                    ) -> Tuple[torch.Tensor, SSMState]:
     """Full-sequence Mamba2 block. x: (b,s,d) -> (y: (b,s,d), final state).
     ``initial.ssd`` seeds the scan; the conv starts from zeros (as the
-    reference's prefill does)."""
+    reference's prefill does). ``shard`` (a :class:`repro_torch.dist.
+    sharding.Sharder`) hooks the heads, as the reference's does."""
     c = cfg.ssm
     b, s, _ = x.shape
     d_in = c.d_inner(cfg.d_model)
@@ -173,6 +174,9 @@ def mamba2_forward(cfg: ModelConfig, x, p,
     C = C.reshape(b, s, c.ngroups, c.d_state)
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
+
+    if shard is not None:
+        xv = shard.heads(xv)
 
     init_ssd = initial.ssd if initial is not None else None
     y, final = ssd_chunked(xv, dt, A, B, C, chunk=c.chunk_size,

@@ -215,10 +215,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
     generator's order, so one rank holds one full leaf at a time and the
     numbers equal a slice of the unsharded init's."""
     keep = shard or _keep_all
-    dev = resolve_device(device)
+    # the meta device gives the tree's shapes and dtypes without memory
+    # (``repro_torch.dist.sharding.param_shapes``); it takes no generator
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if not meta:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     dims = (cfg.num_layers,)
     # audio: one table and one head a codebook
     books = (cfg.num_codebooks,) if cfg.modality == "audio" else ()
@@ -455,38 +460,50 @@ def _prefill_cache(kv: KVCache, k, v) -> KVCache:
     return KVCache(kv.k, kv.v, kv.length + s, kv.ring)
 
 
-def _ffn_apply(cfg: ModelConfig, h, p, inference: bool, comm=None):
+def _ffn_apply(cfg: ModelConfig, h, p, inference: bool, comm=None,
+               shard=None):
     """The block's FFN: dense, or MoE with its aux losses. (out, aux)."""
     if cfg.moe is not None:
-        return moe_ffn(cfg, h, p["moe"], inference=inference, comm=comm)
+        return moe_ffn(cfg, h, p["moe"], shard, inference=inference,
+                       comm=comm)
     return gated_ffn(cfg, h, p["ffn"], comm=comm), {}
 
 
 def _dense_block(cfg: ModelConfig, x, p, positions, kv=None, decode=False,
-                 start=None, comm=None):
+                 start=None, comm=None, shard=None):
     """Standard (or parallel) transformer block. Returns (x, new_kv, aux);
-    ``aux`` holds the MoE router losses (empty for a dense FFN)."""
+    ``aux`` holds the MoE router losses (empty for a dense FFN). ``shard``
+    (a :class:`repro_torch.dist.sharding.Sharder`): ``p`` is this rank's
+    FSDP slice of the layer, gathered here right before use."""
+    if shard is not None:
+        p = shard.materialize(p, ("layers",))  # the ZeRO/FSDP weight gather
     inference = decode or kv is not None
     h = apply_norm(cfg, x, p.get("norm1"))
     h = maybe_bf16_grads(cfg, h)  # opt bf16_grads: bf16 cotangents
     attn_out, new_kv = _attn_apply(cfg, h, p["attn"], positions, kv=kv,
                                    decode=decode, start=start, comm=comm)
     if cfg.parallel_block:
-        ffn_out, aux = _ffn_apply(cfg, h, p, inference, comm)
+        ffn_out, aux = _ffn_apply(cfg, h, p, inference, comm, shard)
         x = x + attn_out + ffn_out
     else:
         x = x + attn_out
         h2 = apply_norm(cfg, x, p.get("norm2"))
         h2 = maybe_bf16_grads(cfg, h2)
-        ffn_out, aux = _ffn_apply(cfg, h2, p, inference, comm)
+        ffn_out, aux = _ffn_apply(cfg, h2, p, inference, comm, shard)
         x = x + ffn_out
+    if shard is not None:
+        x = shard.hidden(x)
     return x, new_kv, aux
 
 
 def _shared_attn_block(cfg: ModelConfig, x, p, positions, kv=None,
-                       decode: bool = False):
+                       decode: bool = False, shard=None):
     """A hybrid's shared-weight attention block (norm1, attention, norm2,
-    gated FFN, each with a residual): (x, new_kv)."""
+    gated FFN, each with a residual): (x, new_kv). Under ``shard`` its
+    weights are gathered at every site (the reference leaves them to
+    XLA)."""
+    if shard is not None:
+        p = shard.materialize(p, ("shared_attn",))
     h = apply_norm(cfg, x, p.get("norm1"))
     o, new_kv = _attn_apply(cfg, h, p["attn"], positions, kv=kv,
                             decode=decode)
@@ -496,14 +513,20 @@ def _shared_attn_block(cfg: ModelConfig, x, p, positions, kv=None,
 
 
 def _ssm_block(cfg: ModelConfig, x, p, state: Optional[SSMState] = None,
-               decode: bool = False):
+               decode: bool = False, shard=None):
     """Pre-norm Mamba2 block with a residual: (x, new_state)."""
+    if shard is not None:
+        p = shard.materialize(p, ("layers",))  # the ZeRO/FSDP weight gather
     h = apply_norm(cfg, x, p.get("norm1"))
     if decode:
         out, new_state = mamba2_decode(cfg, h, p["ssm"], state)
     else:
-        out, new_state = mamba2_forward(cfg, h, p["ssm"], initial=state)
-    return x + out, new_state
+        out, new_state = mamba2_forward(cfg, h, p["ssm"], shard,
+                                        initial=state)
+    x = x + out
+    if shard is not None:
+        x = shard.hidden(x)
+    return x, new_state
 
 
 def _ssm_layer(ssm: SSMState, l: int) -> SSMState:
@@ -535,15 +558,23 @@ class Model:
         manual-TP serve path: the params are this rank's Megatron shard
         (:func:`repro_torch.serve.comm.serve_param_specs`) and every
         cross-rank exchange is an explicit collective on a per-purpose
-        CommContext/VCI stream. ``shard`` (the reference's GSPMD
-        ``Sharder``) is not ported."""
-        if shard is not None:
-            raise NotImplementedError(
-                "the GSPMD Sharder route (Model(cfg, shard)) is not ported: "
-                "ROADMAP.md Queue 1 item 14; tensor-parallel serving runs "
-                "Model(cfg, comm=ServeComm)")
+        CommContext/VCI stream. ``shard`` — a :class:`repro_torch.dist.
+        sharding.Sharder` on a data-only mesh (the ``comm="gspmd"`` train
+        step): the params are this rank's FSDP slices, each layer's
+        gathered where it runs (``materialize``), the embedding, final
+        norm and head where they are used; the MoE aux losses and the
+        loss are the global batch's (:func:`repro_torch.models.moe.
+        moe_ffn`, :func:`repro_torch.train.losses.total_loss`)."""
+        if shard is not None and comm is not None:
+            raise ValueError("shard and comm are exclusive")
         self.cfg = cfg
+        self.shard = shard
         self.comm = comm
+
+    def _gathered(self, params, key: str):
+        """``params[key]`` whole: gathered under ``shard``."""
+        p = params[key]
+        return p if self.shard is None else self.shard.materialize(p, (key,))
 
     # -- embeddings ------------------------------------------------------
     def _tok_embed(self, params, tok) -> torch.Tensor:
@@ -551,7 +582,8 @@ class Model:
         sums the K codebook embeddings, (B,K,S) -> (B,S,d). Vocab-parallel
         (a masked lookup + a psum on the ``sample`` stream) when the table
         arrives row-sharded over TP."""
-        emb = params["embed"]["tok"].to(torch_dtype(self.cfg.dtype))
+        emb = self._gathered(params, "embed")["tok"].to(
+            torch_dtype(self.cfg.dtype))
         if self.cfg.modality == "audio":               # emb: (K,V,d)
             books = torch.arange(emb.shape[0], device=tok.device)
             return emb[books[:, None], tok.long()].sum(1)
@@ -572,19 +604,25 @@ class Model:
         x = self._tok_embed(params, tok)
         if self.cfg.modality == "vlm":
             img = batch["image_embeds"].to(x.dtype)            # (B,P,1024)
-            x = torch.cat([img @ params["img_proj"]["w"].to(x.dtype), x], 1)
+            w = self._gathered(params, "img_proj")["w"]
+            x = torch.cat([img @ w.to(x.dtype), x], 1)
+        if self.shard is not None:
+            x = self.shard.hidden(x)
         return x, torch.arange(x.shape[1], device=tok.device)
 
     def unembed(self, params, x) -> torch.Tensor:
         """Logits (B,S,V); audio (B,K,S,V), one head a codebook."""
-        x = apply_norm(self.cfg, x, params.get("final_norm"))
+        x = apply_norm(self.cfg, x, None if "final_norm" not in params
+                       else self._gathered(params, "final_norm"))
         if self.cfg.modality == "audio":
-            return torch.einsum("bsd,kdv->bksv", x,
-                                params["lm_head"]["w"].to(x.dtype))
+            return torch.einsum("bsd,kdv->bksv", x, self._gathered(
+                params, "lm_head")["w"].to(x.dtype))
         if self.cfg.tie_embeddings:
-            logits = x @ params["embed"]["tok"].to(x.dtype).T
+            logits = x @ self._gathered(params, "embed")["tok"].to(x.dtype).T
         else:
-            logits = x @ params["lm_head"]["w"].to(x.dtype)
+            logits = x @ self._gathered(params, "lm_head")["w"].to(x.dtype)
+        if self.shard is not None:
+            logits = self.shard.logits(logits)
         if self.comm is not None and logits.shape[-1] != self.cfg.vocab_size:
             # vocab-parallel logits: gather shards on the sampling stream
             logits = self.comm.all_gather(logits, "sample",
@@ -631,7 +669,8 @@ class Model:
                 kv = None if cache is None else _layer_kv(cache.kv, l)
                 x, _, aux = _dense_block(self.cfg, x, layer_params(params, l),
                                          positions, kv=kv, decode=False,
-                                         start=start, comm=self.comm)
+                                         start=start, comm=self.comm,
+                                         shard=self.shard)
             auxes.append(aux)
         new_cache = None
         if cache is not None:
@@ -665,13 +704,13 @@ class Model:
                 continue
             st = None if ssm is None else _ssm_layer(ssm, l)
             x, new_st = _ssm_block(self.cfg, x, layer_params(params, l),
-                                   state=st)
+                                   state=st, shard=self.shard)
             if ssm is not None:
                 _write_ssm(ssm, l, new_st)
             if site is not None:
                 kv = None if cache is None else _layer_kv(cache.kv, site)
                 x, _ = _shared_attn_block(self.cfg, x, params["shared_attn"],
-                                          positions, kv=kv)
+                                          positions, kv=kv, shard=self.shard)
         if cache is None:
             return x, None
         s = x.shape[1]
@@ -702,18 +741,19 @@ class Model:
         """Layer ``l`` without a cache (the unit that remat recomputes):
         (x, aux)."""
         x, _, aux = _dense_block(self.cfg, x, layer_params(params, l),
-                                 positions, start=start)
+                                 positions, start=start, shard=self.shard)
         return x, aux
 
     def _train_ssm_block(self, params, l: int, x):
         """Mamba2 layer ``l`` without a cache (a unit remat recomputes)."""
-        return _ssm_block(self.cfg, x, layer_params(params, l))[0]
+        return _ssm_block(self.cfg, x, layer_params(params, l),
+                          shard=self.shard)[0]
 
     def _train_site(self, params, positions, x):
         """A hybrid's shared-attention block without a cache (a unit remat
         recomputes)."""
         return _shared_attn_block(self.cfg, x, params["shared_attn"],
-                                  positions)[0]
+                                  positions, shard=self.shard)[0]
 
     # -- one-token decode --------------------------------------------------
     def decode_step(self, params, tokens, cache: DecodeCache,
@@ -737,13 +777,14 @@ class Model:
             for l in range(self.cfg.num_layers):
                 x, new_st = _ssm_block(self.cfg, x, layer_params(params, l),
                                        state=_ssm_layer(cache.ssm, l),
-                                       decode=True)
+                                       decode=True, shard=self.shard)
                 _write_ssm(cache.ssm, l, new_st)
                 site = self._site_after(l)
                 if site is not None:
                     x, _ = _shared_attn_block(
                         self.cfg, x, params["shared_attn"], positions,
-                        kv=_layer_kv(cache.kv, site), decode=True)
+                        kv=_layer_kv(cache.kv, site), decode=True,
+                        shard=self.shard)
             kv = None if cache.kv is None else _advanced(cache.kv, 1)
             return self.unembed(params, x), DecodeCache(
                 kv, cache.length + 1, cache.ssm)
@@ -755,6 +796,7 @@ class Model:
         for l in range(self.cfg.num_layers):  # aux dropped, as there
             x, _, _ = _dense_block(self.cfg, x, layer_params(params, l),
                                    positions, kv=_layer_kv(cache.kv, l),
-                                   decode=True, start=start, comm=self.comm)
+                                   decode=True, start=start, comm=self.comm,
+                                   shard=self.shard)
         new_cache = DecodeCache(_advanced(cache.kv, 1), cache.length + 1)
         return self.unembed(params, x), new_cache

@@ -51,14 +51,30 @@ def adamw_init(params, moment_dtype=torch.float32) -> AdamWState:
                       count=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, sharded: Optional[Sequence[bool]] = None,
+                psum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                ) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32, summed leaf
-    by leaf in the reference's leaf order."""
+    by leaf in the reference's leaf order.
+
+    Over FSDP shards (``sharded[i]``: leaf ``i`` is this rank's slice of a
+    leaf split over the data ranks) the sliced leaves' squares are summed
+    over the ranks by ``psum`` and the replicated leaves', equal on every
+    rank, are added once."""
     leaves = tree_leaves(tree)
     total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    for l in leaves:
-        total = total + torch.sum(torch.square(l.float()))
-    return torch.sqrt(total)
+    if sharded is None:
+        for l in leaves:
+            total = total + torch.sum(torch.square(l.float()))
+        return torch.sqrt(total)
+    part = torch.zeros_like(total)
+    for l, s in zip(leaves, sharded):
+        sq = torch.sum(torch.square(l.float()))
+        if s:
+            part = part + sq
+        else:
+            total = total + sq
+    return torch.sqrt(psum(part) + total)
 
 
 def _chunks(t: torch.Tensor):
@@ -79,10 +95,19 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     max_grad_norm: Optional[float] = 1.0,
+    sharded: Optional[Sequence[bool]] = None,
+    psum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[Any, AdamWState, dict]:
     """One AdamW step. Writes the new params and moments into ``params``,
-    ``state.m`` and ``state.v`` and returns them with the new count."""
-    gnorm = global_norm(grads)
+    ``state.m`` and ``state.v`` and returns them with the new count.
+
+    The FSDP update (``comm="gspmd"`` over N data ranks): params, grads
+    and moments are this rank's slices of the leaves that ``sharded``
+    marks, whole copies of the rest; ``psum`` sums a scalar over the ranks
+    for the clip's global norm (:func:`global_norm`). Everything else is
+    elementwise, and weight decay keeps the leaf's rule (``ndim >= 2``:
+    a slice has its leaf's rank)."""
+    gnorm = global_norm(grads, sharded, psum)
     scale = None if max_grad_norm is None else torch.clamp(
         max_grad_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     count = state.count + 1

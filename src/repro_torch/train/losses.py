@@ -29,13 +29,26 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     return loss.sum(), mask.sum()
 
 
-def total_loss(cfg: ModelConfig, logits, labels, aux: Dict[str, torch.Tensor]
+def total_loss(cfg: ModelConfig, logits, labels, aux: Dict[str, torch.Tensor],
+               shard=None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean CE over the unmasked tokens, plus ``LOAD_BALANCE_COEF * lb +
     ROUTER_Z_COEF * rz`` for MoE configs (the aux losses averaged over the
     layers), in the reference's fixed metric structure
-    (``load_balance``/``router_z`` are zero for dense archs)."""
+    (``load_balance``/``router_z`` are zero for dense archs).
+
+    ``shard`` (a :class:`repro_torch.dist.sharding.Sharder` over N data
+    ranks, the ``comm="gspmd"`` step): the loss is the reference's
+    global-batch loss, split into ranks' shares that sum to it. The CE
+    sum of this rank's rows is divided by the unmasked tokens of every
+    rank (summed over the data ranks: ranks may hold different counts of
+    ``PAD_LABEL``), and ``aux`` already holds this rank's shares
+    (:func:`repro_torch.models.moe.moe_ffn`). ``tokens`` is the global
+    count; the other metrics are this rank's shares, which the step sums
+    over the ranks."""
     ce_sum, n = cross_entropy(logits, labels)
+    if shard is not None:
+        n = shard.data_sum_(n.clone())
     ce = ce_sum / torch.clamp(n, min=1)
     zero = torch.zeros((), device=ce.device)
     lb = aux.get("load_balance", zero) / max(1, cfg.num_layers)

@@ -25,12 +25,24 @@ asynchronously on the VCI groups, and AdamW updates params and moments in
 place. With NCCL nothing in the step blocks the host on the card except
 reading metrics, which the caller does.
 
+``comm="gspmd"`` (the reference's default) is FSDP over the data ranks:
+each rank keeps its ``1/N`` slice of every leaf the rule table
+(:mod:`repro_torch.dist.sharding`) shards over data and whole copies of
+the rest (``train_state_init(comm="gspmd")``); each layer's slices are
+all-gathered where the layer runs and its gradient reduce-scattered back
+(``Sharder.materialize``), the replicated leaves' gradients are summed
+by one all-reduce, and AdamW updates the slices (its clip's norm summed
+over the ranks). The loss is the reference's global-batch loss (each
+rank's share, :func:`repro_torch.train.losses.total_loss`), so N ranks
+give the single-device step on the whole batch; with one rank it is that
+step. Every collective of it runs on the default group, the fallback VCI.
+
 Every family trains: dense and MoE text (the MoE row moves through the
 row-gather kernels forward and backward, the loss with the router's aux
 terms), SSM and hybrid (the SSD intra-chunk step through its forward and
 backward kernels, plain CE), VLM (image + text labels) and audio (the K
-codebook heads). A later slice, raising ``NotImplementedError``:
-``comm="gspmd"`` (ROADMAP.md Queue 1 item 14).
+codebook heads), in both modes. Training on a ``model`` axis is
+ROADMAP.md Queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -44,13 +56,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import TILE, get_comm_plan, reduce_gradients
 from repro_torch.core.bucketing import (ShardLayout, all_gather_shards,
                                         overlap_boundaries, plan_buckets)
+from repro_torch.core.collectives import RankMesh
 from repro_torch.device import torch_dtype
+from repro_torch.dist.sharding import Sharder
 from repro_torch.models.transformer import Model, init_params
 from repro_torch.optim.adamw import (adamw_init, adamw_update,
                                      shard_decay_masks, sharded_adamw_init,
                                      sharded_adamw_update)
 from repro_torch.train.losses import total_loss
-from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+from repro_torch.tree import (tree_flatten, tree_flatten_with_paths,
+                              tree_leaves, tree_unflatten)
 
 METRIC_KEYS = ("ce", "tokens", "load_balance", "router_z", "loss",
                "grad_norm", "lr")
@@ -73,11 +88,20 @@ def _zero1_plan(params_or_grads, *, num_streams: int, align: int, pack: str,
                         else "size")
 
 
+def data_sharder(cfg: ModelConfig) -> Sharder:
+    """The :class:`Sharder` of a ``comm="gspmd"`` step in this process: a
+    data-only mesh over torch.distributed's default group (no mesh, one
+    rank, when the group is not initialised or has one rank)."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    return Sharder(RankMesh(n, 1) if n > 1 else None, cfg)
+
+
 def train_state_init(cfg: ModelConfig, seed: int = 0, *,
                      optimizer: str = "replicated", device=None,
                      params: Optional[Any] = None, num_streams: int = 8,
                      bucket_align: int = TILE, pack: str = "xla",
-                     schedule: str = "post") -> TrainState:
+                     schedule: str = "post", comm: str = "vci"
+                     ) -> TrainState:
     """Fresh params (``init_params(cfg, seed)`` on ``device``, or the given
     ``params``, e.g. the reference's carried over by ``repro_torch.bridge``)
     and zero AdamW moments in ``cfg.optimizer_dtype``.
@@ -86,11 +110,24 @@ def train_state_init(cfg: ModelConfig, seed: int = 0, *,
     default group (which must be initialised): pass the ``num_streams``,
     ``bucket_align``, ``pack`` and ``schedule`` that ``make_train_step``
     gets, since the bucket plan, and so every buffer's layout, derives
-    from them."""
+    from them.
+
+    ``comm="gspmd"`` builds this rank's FSDP state over the default group
+    (one rank without it): its slice of every leaf the rule table shards
+    over data (a copy, the full leaf freed), whole copies of the rest, and
+    moments of the slices' shapes. ``comm="vci"`` (the default here)
+    keeps every leaf whole on every rank."""
     if optimizer not in ("replicated", "zero1"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
+    if comm not in ("vci", "gspmd"):
+        raise ValueError(f"unknown comm mode {comm!r}")
+    if comm == "gspmd" and optimizer != "replicated":
+        raise ValueError("optimizer='zero1' requires comm='vci' (the "
+                         "bucketed reduce_scatter path)")
     if params is None:
         params = init_params(cfg, seed, device=device)
+    if comm == "gspmd":
+        params = data_sharder(cfg).shard_params(params)
     moment_dtype = torch_dtype(cfg.optimizer_dtype)
     if optimizer == "replicated":
         opt = adamw_init(params, moment_dtype=moment_dtype)
@@ -117,22 +154,34 @@ def optimizer_bytes(opt) -> int:
 
 def _loss_fn(model: Model, cfg: ModelConfig, params, batch):
     logits, aux, _ = model.forward(params, batch)
-    return total_loss(cfg, logits, batch["labels"], aux)
+    return total_loss(cfg, logits, batch["labels"], aux, shard=model.shard)
 
 
 def _rank_slice(batch, device) -> Dict[str, torch.Tensor]:
     """This rank's contiguous ``1/N`` of the global batch's rows, on
     ``device`` (the reference's ``P(data)`` in_spec)."""
-    n = dist.get_world_size()
-    r = dist.get_rank()
+    return _microbatch_rows(batch, device, dist.get_world_size(),
+                            dist.get_rank(), 1)
+
+
+def _microbatch_rows(batch, device, n: int, rank: int, accum: int
+                     ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of the global batch for a ``comm="gspmd"`` step:
+    its contiguous ``1/n`` of each of the ``accum`` microbatches (the
+    reference splits the global batch into microbatches first), so that
+    the rank's microbatch ``i`` is its slice of the global microbatch
+    ``i``; with one microbatch, its contiguous ``1/n`` of the rows."""
     out = {}
     for k, v in batch.items():
         v = torch.as_tensor(v)
-        if v.shape[0] % n:
+        if v.shape[0] % (n * accum):
             raise ValueError(f"batch of {v.shape[0]} rows does not split "
-                             f"over {n} data ranks")
-        rows = v.shape[0] // n
-        out[k] = v[r * rows:(r + 1) * rows].to(device)
+                             f"into {accum} microbatches over {n} data "
+                             f"ranks")
+        mb = v.shape[0] // accum
+        part = mb // n
+        out[k] = torch.cat([v[i * mb + rank * part:i * mb + (rank + 1) * part]
+                            for i in range(accum)]).to(device)
     return out
 
 
@@ -165,12 +214,22 @@ def make_train_step(
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     The keywords and their defaults are the reference's, without ``mesh``:
-    the data group is ``torch.distributed``'s default group, which must be
-    initialised (one rank is a legal group). ``batch`` is the GLOBAL batch
-    (numpy arrays or tensors); each rank trains on its contiguous ``1/N``
-    of the rows. ``metrics`` are float32 tensors on the params' device,
-    averaged over the data group, with the keys of :data:`METRIC_KEYS`.
-    The state's params and moments are updated in place.
+    the data group is ``torch.distributed``'s default group, which
+    ``comm="vci"`` needs initialised (one rank is a legal group;
+    ``comm="gspmd"`` runs on one rank without it). ``batch`` is the
+    GLOBAL batch (numpy arrays or tensors); each rank trains on its
+    contiguous ``1/N`` of the rows (under ``comm="gspmd"`` with
+    ``accum_steps`` microbatches, its ``1/N`` of each). ``metrics`` are
+    float32 tensors on the params' device, equal on every rank, with the
+    keys of :data:`METRIC_KEYS`: ``comm="vci"`` averages each rank's
+    values over the data group (the reference's ``pmean``),
+    ``comm="gspmd"`` gives the global batch's. The state's params and
+    moments are updated in place.
+
+    ``comm="gspmd"`` needs a state from ``train_state_init(comm="gspmd")``
+    on the same ranks; ``step.comm_tally`` then holds the last step's
+    count of each collective (``all_gather``, ``reduce_scatter``,
+    ``all_reduce``) and the bytes gathered and scattered.
 
     ``optimizer="zero1"`` needs a state from ``train_state_init(optimizer=
     "zero1")`` with the same ``num_streams``/``bucket_align``/``pack``/
@@ -182,13 +241,15 @@ def make_train_step(
     """
     if optimizer not in ("replicated", "zero1"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
+    if optimizer == "zero1" and comm != "vci":
+        raise ValueError("optimizer='zero1' requires comm='vci' (the "
+                         "bucketed reduce_scatter path)")
     if schedule not in ("post", "overlap"):
         raise ValueError(f"unknown schedule {schedule!r}")
-    if comm == "gspmd":
-        raise NotImplementedError(
-            "comm='gspmd' (FSDP/DTensor sharding) is ROADMAP.md Queue 1 item "
-            "14 (not ported yet); comm='vci' is the ported mode")
-    if comm != "vci":
+    if schedule == "overlap" and comm != "vci":
+        raise ValueError("schedule='overlap' requires comm='vci' (the "
+                         "bucketed reduction path)")
+    if comm not in ("vci", "gspmd"):
         raise ValueError(f"unknown comm mode {comm!r}")
     if schedule == "overlap" and staging != "per_vci":
         raise ValueError("schedule='overlap' requires staging='per_vci': "
@@ -199,7 +260,9 @@ def make_train_step(
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if lr_fn is None:
         lr_fn = lambda step: 3e-4  # noqa: E731
-    model = Model(cfg)
+    # the model (and, under gspmd, its Sharder, built at the first step on
+    # the data group of that moment)
+    built: Dict[str, Any] = {"model": Model(cfg), "shard": None}
     wire = torch_dtype(zero1_wire_dtype) if zero1_wire_dtype else \
         torch.float32
 
@@ -211,8 +274,8 @@ def make_train_step(
             leaves = [p.detach().requires_grad_()
                       for p in tree_flatten(params)[0]]
         treedef = tree_flatten(params)[1]
-        _, metrics = _loss_fn(model, cfg, tree_unflatten(treedef, leaves),
-                              batch)
+        _, metrics = _loss_fn(built["model"], cfg,
+                              tree_unflatten(treedef, leaves), batch)
         grads = torch.autograd.grad(metrics["loss"], leaves)
         return (tree_unflatten(treedef, list(grads)),
                 {k: v.detach() for k, v in metrics.items()})
@@ -382,6 +445,55 @@ def make_train_step(
         return zero1_update(state, cp, rt, bnd.wait(), data_mean(metrics),
                             order=cp.ready_order)
 
+    def sharder() -> Sharder:
+        n = dist.get_world_size() if dist.is_initialized() else 1
+        if built["shard"] is None or built["shard"].n != n:
+            built["shard"] = data_sharder(cfg)
+            built["model"] = Model(cfg, built["shard"])
+        return built["shard"]
+
+    def gspmd_step(state: TrainState, batch):
+        shard = sharder()
+        shard.reset_tally()
+        paths = [p for p, _ in tree_flatten_with_paths(state.params)]
+        for path, leaf in zip(paths, tree_flatten(state.params)[0]):
+            if tuple(leaf.shape) != shard.local_shape(path):
+                raise ValueError(
+                    f"{'/'.join(path)}: {tuple(leaf.shape)} is not this "
+                    f"rank's FSDP slice {shard.local_shape(path)}; build the "
+                    f"state with train_state_init(comm='gspmd') on the same "
+                    f"{shard.n} ranks")
+        grads, metrics = grads_and_metrics(state.params, _microbatch_rows(
+            batch, state.step.device, shard.n, shard.rank, accum_steps))
+        sharded = None
+        if shard.n > 1:
+            # the sliced leaves' gradients came reduce-scattered out of the
+            # backward; the replicated ones are summed here, one all-reduce
+            # a dtype, and the metrics' shares summed to the global values
+            sharded = [shard.sharded_dim(p) is not None for p in paths]
+            grads = _sum_replicated(grads, sharded, shard)
+            keys = [k for k in sorted(metrics) if k != "tokens"]
+            shares = shard.data_sum_(torch.stack([metrics[k].float()
+                                                  for k in keys]))
+            metrics = dict(metrics) | {k: shares[i]
+                                       for i, k in enumerate(keys)}
+        lr = torch.as_tensor(lr_fn(state.step), dtype=torch.float32,
+                             device=state.step.device)
+        new_p, new_opt, om = adamw_update(
+            grads, state.opt, state.params, lr=lr,
+            max_grad_norm=max_grad_norm, sharded=sharded,
+            psum=shard.data_sum_)
+        comm_tally.clear()
+        comm_tally.update(shard.tally)
+        metrics = dict(metrics) | om | {"lr": lr}
+        return TrainState(new_p, new_opt, state.step + 1), metrics
+
+    comm_tally: Dict[str, int] = {}
+    if comm == "gspmd":
+        gspmd_step.comm_tally = comm_tally
+        gspmd_step.sharder = sharder
+        return gspmd_step
+
     inner = {("replicated", "post"): inner_step,
              ("replicated", "overlap"): inner_step_overlap,
              ("zero1", "post"): inner_step_zero1,
@@ -397,3 +509,21 @@ def make_train_step(
 
     step.last_issue = last_issue
     return step
+
+
+def _sum_replicated(grads, sharded, shard: Sharder):
+    """The gradients of the leaves that every rank holds whole, summed over
+    the data ranks (one all-reduce of their concatenation a dtype); the
+    sliced leaves' pass through."""
+    leaves, treedef = tree_flatten(grads)
+    by_dtype: Dict[torch.dtype, list] = {}
+    for i, (g, s) in enumerate(zip(leaves, sharded)):
+        if not s:
+            by_dtype.setdefault(g.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = shard.data_sum_(torch.cat([leaves[i].reshape(-1)
+                                          for i in idx]))
+        for i, part in zip(idx, flat.split([leaves[i].numel()
+                                            for i in idx])):
+            leaves[i] = part.view_as(leaves[i])
+    return tree_unflatten(treedef, leaves)

@@ -75,3 +75,63 @@ def tree_map(fn, tree: Any, *rest: Any) -> Any:
             raise ValueError("trees differ in structure")
         others.append(r_leaves)
     return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def _key_str(key: Any) -> str:
+    """A path entry as the reference's checkpoint writes it: a dict key or
+    a NamedTuple field by name, a list or tuple index as ``[i]``."""
+    return f"[{key}]" if isinstance(key, int) else str(key)
+
+
+def _children(tree: Any):
+    """``(key, child)`` pairs of a container in ``jax.tree_util`` order,
+    or ``None`` for a leaf. NamedTuples are containers (their fields in
+    order), as they are there."""
+    if isinstance(tree, dict):
+        return [(k, tree[k]) for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        if hasattr(tree, "_fields"):
+            return list(zip(tree._fields, tree))
+        return list(enumerate(tree))
+    return None
+
+
+def tree_flatten_with_paths(tree: Any, is_leaf=None
+                            ) -> List[Tuple[Tuple[str, ...], Any]]:
+    """``(path, leaf)`` for every leaf, in ``jax.tree_util`` order, each
+    path the tuple of its keys (see :func:`_key_str`); NamedTuples (a
+    ``TrainState``, an optimizer state) are walked by field. ``None`` is an
+    empty subtree; ``is_leaf(x)`` stops the walk at ``x``."""
+    out: List[Tuple[Tuple[str, ...], Any]] = []
+
+    def walk(t, at):
+        if t is None:
+            return
+        kids = None if is_leaf is not None and is_leaf(t) else _children(t)
+        if kids is None:
+            out.append((at, t))
+            return
+        for k, c in kids:
+            walk(c, at + (_key_str(k),))
+
+    walk(tree, ())
+    return out
+
+
+def tree_map_with_paths(fn, tree: Any, is_leaf=None) -> Any:
+    """``fn(path, leaf)`` over every leaf of ``tree``, rebuilt with the same
+    containers (dicts in sorted key order, NamedTuples by field)."""
+    def build(t, at):
+        if t is None:
+            return None
+        kids = None if is_leaf is not None and is_leaf(t) else _children(t)
+        if kids is None:
+            return fn(at, t)
+        vals = [build(c, at + (_key_str(k),)) for k, c in kids]
+        if isinstance(t, dict):
+            return dict(zip(sorted(t), vals))
+        if hasattr(t, "_fields"):
+            return type(t)(*vals)
+        return vals if isinstance(t, list) else tuple(vals)
+
+    return build(tree, ())

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``
-(only the tests import both)."""
+``chip_smoke.py`` imports JAX, anything of the JAX package ``repro``, or
+``ml_dtypes`` (the card's machine has none; the checkpoint reads and
+writes bfloat16 itself). Only the tests import them."""
 
 import ast
 import os
@@ -30,7 +31,8 @@ def _imported_modules(path):
 
 def _forbidden(mod: str) -> bool:
     top = mod.split(".")[0]
-    return top in ("jax", "jaxlib", "repro") or top.startswith("jax_")
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes") or \
+        top.startswith("jax_")
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -48,5 +50,6 @@ def test_port_package_is_scanned():
                  "kernels/bucket_pack.py", "core/bucketing.py",
                  "core/collectives.py", "core/progress.py", "core/vci.py",
                  "core/comm.py", "train/trainer.py", "launch/train.py",
-                 "optim/adamw.py", "tree.py", "kernels/flash_attention.py"):
+                 "optim/adamw.py", "tree.py", "kernels/flash_attention.py",
+                 "dist/sharding.py", "checkpoint/io.py"):
         assert must in rel

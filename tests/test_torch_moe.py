@@ -467,15 +467,26 @@ def test_row_gather_inv_refusals(case):
 
 
 def test_moe_ffn_refuses_shard_and_comm(moe_layer):
-    """The GSPMD ``shard=`` route is not ported (Queue 1 item 14), alone
-    or beside ``comm=`` (the manual-TP route,
-    ``tests/test_torch_serve_tp.py``), which the reference holds exclusive
-    of it."""
+    """Once refused: the ``shard=`` route is ported on a data-only mesh
+    (``tests/test_torch_gspmd.py`` runs it on 2 and 4 ranks); on one rank
+    it is the plain route, value for value. It stays exclusive of
+    ``comm=`` (the manual-TP route, ``tests/test_torch_serve_tp.py``), as
+    in the reference, and a model axis is refused by the Sharder, naming
+    item 14."""
+    from repro_torch.core.collectives import RankMesh
+    from repro_torch.dist.sharding import Sharder
     cfg, _, tp, _ = moe_layer
-    x = torch.zeros(1, 2, cfg.d_model)
-    for kw in ({"shard": object()}, {"shard": object(), "comm": object()}):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            tmoe.moe_ffn(cfg, x, tp, **kw)
+    x = torch.randn(1, 6, cfg.d_model,
+                    generator=torch.Generator().manual_seed(0))
+    want, want_aux = tmoe.moe_ffn(cfg, x, tp)
+    got, aux = tmoe.moe_ffn(cfg, x, tp, shard=Sharder(None, cfg))
+    assert torch.equal(got, want)
+    for k in want_aux:
+        assert torch.equal(aux[k], want_aux[k]), k
+    with pytest.raises(ValueError, match="shard or comm"):
+        tmoe.moe_ffn(cfg, x, tp, shard=Sharder(None, cfg), comm=object())
+    with pytest.raises(NotImplementedError, match="item 14"):
+        Sharder(RankMesh(1, 2), cfg)
 
 
 def test_moe_params_match_reference_layout():
@@ -556,8 +567,8 @@ def test_moe_engine_tokens_match_reference(mixtral, kind, paged):
 def test_moe_training_is_refused():
     """Once refused (ROADMAP item 15); now MoE trains: the step builds and
     gradients reach every expert table, the router and the layer's input
-    through both row moves. What is
-    left refused on the MoE path is the GSPMD-sharded route (item 14)."""
+    through both row moves, with and without the (one-rank) GSPMD
+    Sharder, to the same bits."""
     cfg = get_config(ARCH)
     make_train_step(cfg, comm="vci")
     params = ttf.init_params(cfg, 0, device="cpu")
@@ -569,8 +580,15 @@ def test_moe_training_is_refused():
     for name in ("w_gate", "w_up", "w_down", "router"):
         assert p[name].grad is not None and p[name].grad.abs().sum() > 0
     assert x.grad.abs().sum() > 0
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tmoe.moe_ffn(cfg, x, p, shard=object())
+    # the GSPMD-sharded route trains too: on one rank, the same gradients
+    from repro_torch.dist.sharding import Sharder
+    grads = [p[k].grad.clone() for k in sorted(p)] + [x.grad.clone()]
+    for t in list(p.values()) + [x]:
+        t.grad = None
+    y, aux = tmoe.moe_ffn(cfg, x, p, shard=Sharder(None, cfg))
+    (y.square().sum() + aux["load_balance"] + aux["router_z"]).backward()
+    for g, t in zip(grads, [p[k] for k in sorted(p)] + [x]):
+        assert torch.equal(t.grad, g)
 
 
 @pytest.mark.parametrize("mode", ["no_grad", "inference_mode", "frozen",

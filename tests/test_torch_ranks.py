@@ -24,7 +24,14 @@ data group against numpy; ``collectives`` holds the runtime's collectives
 and its window/p2p ops against numpy and writes their op counts;
 ``zero1`` and ``overlap`` train 5 steps from ``in.npz`` as ZeRO-1 and
 replicated, and post and overlap for both optimizers, and write rank 0's
-results (``tests/test_torch_zero1.py``, ``tests/test_torch_overlap.py``).
+results (``tests/test_torch_zero1.py``, ``tests/test_torch_overlap.py``);
+``gspmd`` trains each ``gspmd_<case>.npz`` with ``comm="gspmd"`` (FSDP
+over the ranks) and writes every rank's metrics, bytes and collectives
+and rank 0's gathered params (``tests/test_torch_gspmd.py``);
+``gather_grad`` holds ``Sharder.materialize``'s backward against
+autograd of the whole leaves; ``ckpt_save`` and ``ckpt_load`` save the
+replicated, ZeRO-1 and FSDP states of ``ckpt.npz`` and restore them on
+another count of ranks (``tests/test_torch_checkpoint.py``).
 """
 
 import faulthandler
@@ -420,10 +427,181 @@ def check_overlap(rank: int, n: int, out_dir: str) -> None:
                           for s in ("post", "overlap")], "overlap")
 
 
+def _case_params(cfg, data):
+    """The full params of a case file (leaves ``p<i>`` in leaf order)."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    treedef = tree_flatten(init_params(cfg, 0, device="meta"))[1]
+    return tree_unflatten(treedef, [
+        torch.from_numpy(data[f"p{i}"].copy())
+        for i in range(int(data["n_leaves"]))])
+
+
+def _case_cfg(data):
+    from repro_torch.configs import get_config
+    return get_config(str(data["arch"]))
+
+
+def _case_batch(data, i):
+    return {k: data[f"{k}{i}"] for k in ("tokens", "labels", "image_embeds")
+            if f"{k}{i}" in data}
+
+
+def check_gspmd(rank: int, n: int, out_dir: str) -> None:
+    """Each ``gspmd_<case>.npz`` of the directory (an arch, its full
+    params, ``steps`` global batches, ``accum``): that many
+    ``comm="gspmd"`` steps from the params, FSDP over the ``n`` ranks.
+    Every rank writes its metrics a step, its collectives' tally, the
+    bytes of its params and moments and their shapes to
+    ``gspmd_out_<case>_r<rank>.npz``; rank 0 adds the gathered params."""
+    from repro_torch.train.trainer import make_train_step, train_state_init
+    from repro_torch.tree import tree_flatten
+    cases = sorted(f[6:-4] for f in os.listdir(out_dir)
+                   if f.startswith("gspmd_") and f.endswith(".npz")
+                   and "_out_" not in f)
+    keys = ("loss", "ce", "grad_norm", "tokens", "load_balance", "router_z",
+            "lr")
+    for case in cases:
+        data = np.load(os.path.join(out_dir, f"gspmd_{case}.npz"))
+        cfg = _case_cfg(data)
+        state = train_state_init(cfg, params=_case_params(cfg, data),
+                                 comm="gspmd")
+        step = make_train_step(cfg, accum_steps=int(data["accum"]))
+        metrics, tallies = [], []
+        for i in range(int(data["steps"])):
+            state, m = step(state, _case_batch(data, i))
+            metrics.append([float(m[k]) for k in keys])
+            tallies.append([step.comm_tally[k] for k in (
+                "all_gather", "reduce_scatter", "all_reduce")])
+        shard = step.sharder()
+        out = {"metrics": np.asarray(metrics), "tally": np.asarray(tallies),
+               "param_bytes": sum(t.nbytes for t in
+                                  tree_flatten(state.params)[0]),
+               "moment_bytes": sum(t.nbytes for t in
+                                   tree_flatten((state.opt.m,
+                                                 state.opt.v))[0])}
+        for i, leaf in enumerate(tree_flatten(state.opt.m)[0]):
+            out[f"m_shape{i}"] = np.asarray(leaf.shape)
+        full = tree_flatten(shard.gather_params(state.params))[0]
+        if rank == 0:
+            out.update({f"p{i}": l.numpy() for i, l in enumerate(full)})
+        np.savez(os.path.join(out_dir, f"gspmd_out_{case}_r{rank}.npz"),
+                 **out)
+
+
+def check_gather_grad(rank: int, n: int, out_dir: str) -> None:
+    """``Sharder.materialize``'s backward against autograd of the
+    whole-leaf forward: every rank's loss reads the gathered leaves of a
+    layer with its own rows; the gradient of each rank's slice must be
+    its slice of the whole leaf's gradient of the summed losses (computed
+    here, in one process, from every rank's rows). Writes each rank's
+    largest difference, relative to the leaf's largest gradient, to
+    ``gather_grad_r<rank>.npy``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.collectives import RankMesh
+    from repro_torch.dist.sharding import Sharder
+    from repro_torch.models.transformer import init_params, layer_params
+    from repro_torch.tree import (tree_flatten, tree_flatten_with_paths,
+                                  tree_unflatten)
+    cfg = get_config("olmo-1b-smoke")
+    shard = Sharder(RankMesh(n, 1), cfg)
+    layer = layer_params(init_params(cfg, 3, device="cpu"), 1)
+    paths = [("layers",) + p for p, _ in tree_flatten_with_paths(layer)]
+    leaves, treedef = tree_flatten(layer)
+    rng = np.random.default_rng(11)
+    xs = torch.from_numpy(rng.normal(size=(n, 3, cfg.d_model)).astype(
+        np.float32))
+
+    def loss(p, x):
+        a, f = p["attn"], p["ffn"]
+        h = torch.tanh(x @ a["wq"]) @ a["wo"] + (x @ a["wk"]) @ a["wv"].T
+        return ((h @ f["w_gate"]) * (h @ f["w_up"]) @ f["w_down"]).square(
+        ).sum()
+
+    whole = [t.clone().requires_grad_() for t in leaves]
+    total = sum(loss(tree_unflatten(treedef, whole), xs[r])
+                for r in range(n))
+    want = torch.autograd.grad(total, whole)
+    mine = [shard.shard_leaf(p, t).detach().requires_grad_()
+            for p, t in zip(paths, leaves)]
+    got = torch.autograd.grad(loss(shard.materialize(
+        tree_unflatten(treedef, mine), ("layers",)), xs[rank]), mine)
+    err = 0.0
+    for p, g, w in zip(paths, got, want):
+        w = shard.shard_leaf(p, w)
+        assert g.shape == w.shape, (p, g.shape, w.shape)
+        err = max(err, float((g - w).abs().max() / w.abs().max()))
+    sliced = sum(shard.sharded_dim(p) is not None for p in paths)
+    assert sliced and shard.tally["all_gather"] == sliced, shard.tally
+    assert shard.tally["reduce_scatter"] == sliced, shard.tally
+    np.save(os.path.join(out_dir, f"gather_grad_r{rank}.npy"), err)
+
+
+_CKPT_LAYOUTS = {"vci": dict(comm="vci"),
+                 "zero1": dict(comm="vci", optimizer="zero1"),
+                 "gspmd": dict(comm="gspmd")}
+
+
+def _ckpt_state(cfg, data, layout):
+    """A fresh state of ``layout`` from the case's params, and its step."""
+    from repro_torch.train.trainer import make_train_step, train_state_init
+    kw = _CKPT_LAYOUTS[layout]
+    knobs = dict(num_streams=4, pack="pallas") if kw["comm"] == "vci" \
+        else {}
+    state = train_state_init(cfg, params=_case_params(cfg, data),
+                             optimizer=kw.get("optimizer", "replicated"),
+                             comm=kw["comm"], **knobs)
+    step = make_train_step(cfg, comm=kw["comm"], num_vcis=4,
+                           optimizer=kw.get("optimizer", "replicated"),
+                           **knobs)
+    return state, step
+
+
+def check_ckpt_save(rank: int, n: int, out_dir: str) -> None:
+    """Each layout (replicated VCI, ZeRO-1, FSDP) trains one step from
+    ``ckpt.npz`` and saves it to ``save_<layout>`` (step 1), then a second
+    step, saved to ``full_<layout>`` (step 2)."""
+    from repro_torch.checkpoint import save_state
+    data = np.load(os.path.join(out_dir, "ckpt.npz"))
+    cfg = _case_cfg(data)
+    for layout in _CKPT_LAYOUTS:
+        state, step = _ckpt_state(cfg, data, layout)
+        state, _ = step(state, _case_batch(data, 0))
+        shard = step.sharder() if layout == "gspmd" else None
+        save_state(os.path.join(out_dir, f"save_{layout}"), 1, state,
+                   shard=shard)
+        state, _ = step(state, _case_batch(data, 1))
+        save_state(os.path.join(out_dir, f"full_{layout}"), 2, state,
+                   shard=shard)
+
+
+def check_ckpt_load(rank: int, n: int, out_dir: str) -> None:
+    """Each layout's step-1 checkpoint loaded on these ranks into a fresh
+    state of the layout, saved again to ``resave_<layout>_<n>`` (step 1),
+    then one more step, saved to ``resume_<layout>_<n>`` (step 2)."""
+    from repro_torch.checkpoint import latest_step, load_state, save_state
+    from repro_torch.train.trainer import data_sharder
+    data = np.load(os.path.join(out_dir, "ckpt.npz"))
+    cfg = _case_cfg(data)
+    for layout in _CKPT_LAYOUTS:
+        like, step = _ckpt_state(cfg, data, layout)
+        shard = data_sharder(cfg) if layout == "gspmd" else None
+        src = os.path.join(out_dir, f"save_{layout}")
+        state = load_state(src, latest_step(src), like, shard=shard)
+        assert int(state.step) == 1
+        save_state(os.path.join(out_dir, f"resave_{layout}_{n}"), 1, state,
+                   shard=shard)
+        state, _ = step(state, _case_batch(data, 1))
+        save_state(os.path.join(out_dir, f"resume_{layout}_{n}"), 2, state,
+                   shard=shard)
+
+
 CHECKS = {"reduce": check_reduce, "train": check_train,
           "seqshard": check_seqshard, "serve_tp": check_serve_tp,
           "all_to_all": check_all_to_all, "collectives": check_collectives,
-          "zero1": check_zero1, "overlap": check_overlap}
+          "zero1": check_zero1, "overlap": check_overlap,
+          "gspmd": check_gspmd, "gather_grad": check_gather_grad,
+          "ckpt_save": check_ckpt_save, "ckpt_load": check_ckpt_load}
 
 
 def _rank_main(rank: int, check: str, n: int, out_dir: str) -> None:

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu  # noqa: F401  (warms torch.exp: see its docstring)
 from repro.configs import get_config as jax_get_config
 from repro.kernels import ops as jops
 from repro.kernels.ref import ssd_chunk_batched_ref

@@ -43,6 +43,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu  # noqa: F401  (warms torch.exp: see its docstring)
 from repro.kernels.ref import ssd_chunk_batched_ref
 from repro.models import ssm as jssm
 from repro_torch.configs import get_config
@@ -55,18 +56,6 @@ from repro_torch.train.trainer import train_state_init
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 RTOL = 1e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _warm_cpu_exp():
-    """The first multi-threaded ``torch.exp`` of a process sometimes gives
-    one thread's share of its elements ~1e-4 off (relative) on this CPU
-    build of PyTorch: a run of 479 of ``L``'s 16,384 elements, in about one
-    fresh process in five; later calls agree with f64 to f32 rounding, and
-    none is off with one thread (ROADMAP.md Queue 3). One call over every
-    thread of the pool before the comparisons keeps that library fault out
-    of them."""
-    torch.exp(torch.zeros(1 << 20))
 
 
 def _close(got, want, what=""):

@@ -55,6 +55,8 @@ import torch
 import torch.distributed as dist
 from jax.sharding import Mesh
 
+import _torch_cpu  # noqa: F401  (warms torch.exp: see its docstring)
+
 from repro.compat import set_mesh
 from repro.configs import get_config as jax_get_config
 from repro.data.pipeline import synthetic_batch as jax_synthetic_batch
@@ -394,15 +396,30 @@ def test_bf16_grad_boundary_rounds_the_cotangent():
     assert torch.equal(x.grad, g.to(torch.bfloat16).float())
 
 
-def test_later_slices_raise():
+def test_later_slices_raise(one_rank, tmp_path):
+    """Once refused here: ``comm="gspmd"`` (the default) and
+    ``--ckpt-dir`` now work (``tests/test_torch_gspmd.py``,
+    ``tests/test_torch_checkpoint.py``): the default step trains on one
+    rank without a group, and the CLI writes a checkpoint. What still
+    raises, naming item 14, is training on a model axis."""
     cfg = get_config("olmo-1b-smoke")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_train_step(cfg)                       # comm="gspmd" default
-    # every family trains now: SSM and hybrid were the last refused
+    step = make_train_step(cfg)                    # comm="gspmd" default
+    state, m = step(train_state_init(cfg, 0, device="cpu", comm="gspmd"),
+                    synthetic_batch(cfg, 2, 16, seed=0))
+    assert int(state.step) == 1 and np.isfinite(float(m["loss"]))
+    # every family trains: SSM and hybrid were the last refused
     for arch in ("mamba2-780m-smoke", "zamba2-7b-smoke"):
         make_train_step(get_config(arch), comm="vci")
+    # the CLI's loop on this module's one-rank group (``main`` only adds
+    # the ranks: tests/test_torch_checkpoint.py runs it)
+    train_cli.train(train_cli.parse_args([
+        "--device", "cpu", "--steps", "1", "--batch", "2", "--seq", "16",
+        "--ckpt-dir", str(tmp_path)]), torch.device("cpu"))
+    assert os.path.isfile(tmp_path / "step_00000001" / "manifest.json")
+    from repro_torch.core.collectives import RankMesh
+    from repro_torch.dist.sharding import Sharder
     with pytest.raises(NotImplementedError, match="item 14"):
-        train_cli.main(["--device", "cpu", "--ckpt-dir", "/nonexistent"])
+        Sharder(RankMesh(2, 2), cfg)
 
 
 def test_a_2d_mesh_refusal_names_item_14():
