@@ -177,7 +177,8 @@ Phases, each a check that exits non-zero when it fails:
    the kernels). Each rank makes ``init_params``' leaves one at a time and
    cuts each to its shard (the ranks take turns). olmo-1b at full width
    and depth (phase 5's requests, f32 cache) paged and contiguous at
-   ``num_vcis`` 8 and 1; mixtral-8x22b at full width, 4 layers,
+   ``num_vcis`` 8, then paged through the GSPMD route (16d, below);
+   mixtral-8x22b at full width, 4 layers,
    expert-parallel (2 experts a rank), paged at ``num_vcis`` 8, then phase
    6b's 8 x 1,024-token prefill call. Held against tp 1 (phases 5 and 6b):
    the first prefill's last-position logits within ``TP_LOGIT_TOL`` x max
@@ -190,8 +191,9 @@ Phases, each a check that exits non-zero when it fails:
    (the long prefill's dispatch on the read-once route). Then the smoke
    archs olmo-1b-smoke and mixtral-8x22b-smoke in f32 on the same ranks
    regrouped data 2 x model 2, contiguous (the tokens gathered over data,
-   counted apart) and paged (admission under the mesh): tokens equal to
-   the port's CPU engine's. Printed per case (rank 0): ms a decode step,
+   counted apart) and paged (admission under the mesh; olmo-1b-smoke's
+   also at ``num_vcis`` 1), then both layouts through the GSPMD route:
+   tokens equal to the port's CPU engine's. Printed per case (rank 0): ms a decode step,
    prefill s, tok/s, the rank's ``cache_bytes_resident``, the collectives'
    share of the host clock, the launches. Four ranks time-share one card
    and their collectives cross host memory: the times are not a TP
@@ -333,7 +335,7 @@ Phases, each a check that exits non-zero when it fails:
    step from the same state and batch (on one rank the same math), 2 x 16
    flash launches a step, no collective; ms a step beside phase 9's, peak;
 15b. FSDP on ``GSPMD_WORLD`` = 4 gloo ranks sharing the card (phase 12's
-   pattern): ``olmo-1b`` at full width and 4 layers, in f32 (so that
+   pattern): ``olmo-1b`` at full width and ``GSPMD_LAYERS`` = 2 layers, in f32 (so that
    ``tests/test_torch_train.py``'s f32 rules apply), global batch 8 x
    1,024, 2 steps: every rank's metrics equal, within 1e-5 of a one-rank
    run here on the same batches; every param element within 1e-4 + 2e-5
@@ -344,7 +346,7 @@ Phases, each a check that exits non-zero when it fails:
    (every olmo-1b leaf is sliced), to the byte; a step's all-gathers (7 a
    layer, forward and recompute, and the tied table twice),
    reduce-scatters and all-reduces as predicted, with their bytes;
-15c. checkpoints: the bf16 4-layer FSDP state on the same ranks, saved
+15c. checkpoints: the bf16 2-layer FSDP state on the same ranks, saved
    after step 2 as whole leaves (rank 0 writes), restored on the 4 ranks
    and on one rank here, each equal to the saved state bit for bit (sha256
    of every rank's slices); step 3 after the resume against the
@@ -352,7 +354,37 @@ Phases, each a check that exits non-zero when it fails:
    difference is printed), and on one rank; the directory removed; then
    the CLI at smoke size on the card: ``--steps 4 --ckpt-every 2`` and
    ``--steps 6`` in the same directory, which must print ``resumed from
-   step 4``.
+   step 4``;
+16a. a ``data x model`` mesh, on phase 15's ranks as data 2 x model 2
+   (FSDP over each data line, Megatron tensor parallelism over each model
+   line, each line's collectives on its one group): 15b's f32 config and
+   batches with ``comm="gspmd"``: every rank's loss and grad norm equal,
+   within 1e-5 of 15b's one-rank run; the param elements by 15b's rules
+   against the same run and yardstick; each rank holds 15b's bytes
+   (every olmo-1b leaf divides both axes); the data line's and the model
+   line's collectives a step printed apart;
+16b. the same config and mesh with ``comm="vci"`` post (8 buckets,
+   ``pack="pallas"``): the params whole on every rank, the buckets
+   reduced on VCI groups along the data lines, 8 pack and 1 unpack
+   launches a step; the first loss within 1e-5 of 16a's;
+16c. ``mixtral-8x22b`` at full width, ``AXIS_MOE_LAYERS`` = 1 layer,
+   bf16, ``comm="gspmd"``, global batch ``AXIS_MOE_BATCH`` x
+   ``AXIS_MOE_SEQ`` = 4 x 512, on the same ranks as data 2 x model 2 (4
+   of the 8 experts a data rank, their ff dim over model) and as 4 x 1 (2
+   experts a rank): the expert tables never gathered (the dispatch and
+   combine exchanged by all_to_all over the data lines), 2 steps each,
+   the losses equal on every rank and 2 x 2 within 2^-7 relative of 4 x
+   1, the row gather 5, the gather-sum 1 and flash 2 launches a layer a
+   step; each rank's peak memory;
+16d. the GSPMD serve route (a mesh without a comm plan) in phase 7's
+   world: olmo-1b at full width and depth on data 1 x model 4 from phase
+   7's params (the rule table cuts them as ``serve_param_specs`` does),
+   paged: tokens equal to the manual-TP path's on every rank (the same
+   partial sums), 2 x L + 1 all-reduces and one all-gather a forward call
+   on the model line's one group, printed beside ``ServeCommPlan``'s
+   count by purpose; flash and page-gather launches as phase 7's; and the
+   smoke archs on data 2 x model 2, contiguous and paged: tokens equal to
+   the CPU engine's.
 
 It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Without CUDA, or without the package beside it, it fails and prints no
@@ -440,7 +472,12 @@ MM_TRAIN_BATCH, AUDIO_TRAIN_FRAMES = 4, 1000
 # phase 15: comm="gspmd" training (FSDP over the data ranks) and
 # checkpoints: 15a's steps, 15b/15c's ranks on the one card, layers, steps
 GSPMD_STEPS = 5
-GSPMD_WORLD, GSPMD_LAYERS, GSPMD_RANK_STEPS, GSPMD_TIMEOUT_S = 4, 4, 2, 600
+# (2 layers: the ranks' gloo traffic through host memory is most of the
+# phase's time)
+GSPMD_WORLD, GSPMD_LAYERS, GSPMD_RANK_STEPS, GSPMD_TIMEOUT_S = 4, 2, 2, 600
+# phase 16c: mixtral-8x22b at full width, its depth cut to 1 layer, bf16,
+# 4 x 512 tokens a step on the 4 ranks as data 2 x model 2 and 4 x 1
+AXIS_MOE_LAYERS, AXIS_MOE_BATCH, AXIS_MOE_SEQ = 1, 4, 512
 # phases 14a-14c: the SSD backward and SSM / hybrid training
 SSM_TRAIN_ARCH, HYB_TRAIN_LAYERS = "mamba2-780m", 33
 FP32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -457,7 +494,9 @@ SSD_BWD_CASES = (
 # autograd graph once left 35 GB behind)
 FRESH_MAX_BYTES = 4 << 30
 # phase 7: TP ranks sharing the one card, spawned once
-TP_WORLD, TP_VCIS, TP_TIMEOUT_S = 4, (8, 1), 600
+# (olmo-1b at num_vcis 8 only: the one-VCI fallback is checked on a smoke
+# case, which saves two full-width decode runs of ~25 s each)
+TP_WORLD, TP_VCIS, TP_TIMEOUT_S = 4, (8,), 600
 TP_SMOKE = ("olmo-1b-smoke", "mixtral-8x22b-smoke")
 # tp 4's first-prefill logits against tp 1's, as a share of max |tp 1|:
 # bf16 weights and activations, and each layer's wo / w_down outputs
@@ -3020,6 +3059,41 @@ def _tp_run(eng, plan, reqs) -> dict:
     return out
 
 
+def _gspmd_run(eng, reqs) -> dict:
+    """One measured ``generate`` of a GSPMD-route engine (16d): launches
+    and the Sharders' collectives counted from zero, host clock around
+    each synchronised call."""
+    import torch
+    shards = (eng._prefill.sharder, eng._step.sharder)
+    eng._prefill, eng._step = _Timed(eng._prefill), _Timed(eng._step)
+    for s in shards:
+        s.tally.clear()
+        s.reset_tally()
+    torch.cuda.synchronize()
+    _launch_counts(zero=True)
+    t0 = time.perf_counter()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out = _launch_counts()
+    counts = {}
+    for s in shards:
+        for k, v in s.tally.items():
+            if v and not k.endswith("_bytes"):
+                counts[k] = counts.get(k, 0) + v
+    steps = eng.decode_steps
+    out.update(
+        tokens=[r.generated.tolist() for r in reqs], steps=steps,
+        prefills=eng._prefill.calls, wall_s=dt,
+        tok_s=sum(len(r.generated) for r in reqs) / dt,
+        step_ms=eng._step.seconds / max(steps, 1) * 1e3,
+        prefill_s=eng._prefill.seconds, counts=counts,
+        bytes=eng.cache_bytes_resident,
+        leaked=(int((eng._pages.owner[1:] != -1).sum()) if eng._paged
+                else 0))
+    return out
+
+
 def _tp_serve(cfg, params, mesh, layout: str, num_vcis: int,
               warm: bool) -> dict:
     """The serve requests through a TP engine (phase 5's shapes)."""
@@ -3044,6 +3118,7 @@ def _tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.core.collectives import RankMesh
+    from repro_torch.dist.sharding import Sharder
     from repro_torch.launch.serve import join_ranks
     from repro_torch.models.transformer import Model, init_params
     from repro_torch.serve.comm import ServeCommPlan, shard_params
@@ -3055,7 +3130,7 @@ def _tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device, backend, why = join_ranks(rank, world, "cuda", store)
-    out = dict(backend=backend, why=why, cases={})
+    out = dict(backend=backend, why=why, cases={}, gspmd={})
     try:
         mesh = RankMesh(1, world)
         for arch, layers in ((SERVE_ARCH, None), (MOE_ARCH, MOE_LAYERS)):
@@ -3079,6 +3154,14 @@ def _tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
                         out["cases"][f"{arch} {layout} num_vcis={nv}"] = \
                             _tp_serve(cfg, params, mesh, layout, nv,
                                       warm=nv == TP_VCIS[0])
+                # 16d: the GSPMD route on the same params (the rule table
+                # cuts olmo-1b over model as serve_param_specs does)
+                eng = ServeEngine(cfg, params, batch_size=BATCH,
+                                  max_len=MAX_LEN, device="cuda", mesh=mesh,
+                                  paged=True, page_size=PAGE_SIZE)
+                out["gspmd"][f"{arch} paged"] = _gspmd_run(
+                    eng, _requests(cfg.vocab_size))
+                del eng
             else:
                 out["cases"][f"{arch} paged num_vcis=8"] = _tp_serve(
                     cfg, params, mesh, "paged", 8, warm=True)
@@ -3094,21 +3177,34 @@ def _tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
             del params
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-        # the smoke archs in f32 on the same ranks regrouped data 2 x model 2
+        # the smoke archs in f32 on the same ranks regrouped data 2 x model 2,
+        # through the manual-TP path (olmo's paged also at one VCI: the
+        # fallback) and the GSPMD route (16d)
         mesh = RankMesh(2, world // 2)
         for arch in TP_SMOKE:
             cfg = get_config(arch)
             full = init_params(cfg, 0, device="cpu")
             params = _to(shard_params(cfg, full, mesh.model,
                                       mesh.coords(rank)[1]), "cuda")
-            for layout, kw in (("contiguous", dict(batch_size=4)),
-                               ("paged", dict(batch_size=2, paged=True,
-                                              page_size=8, num_pages=11))):
-                plan = ServeCommPlan(num_vcis=8)
+            layouts = (("contiguous", dict(batch_size=4)),
+                       ("paged", dict(batch_size=2, paged=True,
+                                      page_size=8, num_pages=11)))
+            for layout, kw in layouts:
+                for nv in (8, 1) if (arch, layout) == (
+                        TP_SMOKE[0], "paged") else (8,):
+                    plan = ServeCommPlan(num_vcis=nv)
+                    eng = ServeEngine(cfg, params, max_len=48, device="cuda",
+                                      mesh=mesh, comm_plan=plan, **kw)
+                    vcis = "" if nv == 8 else " num_vcis=1"
+                    out["cases"][f"{arch} {layout}{vcis} data2xmodel2"] = \
+                        _tp_run(eng, plan, _smoke_requests(cfg.vocab_size))
+            params = _to(Sharder(mesh, cfg, rank=rank).shard_params(full),
+                         "cuda")
+            for layout, kw in layouts:
                 eng = ServeEngine(cfg, params, max_len=48, device="cuda",
-                                  mesh=mesh, comm_plan=plan, **kw)
-                out["cases"][f"{arch} {layout} data2xmodel2"] = _tp_run(
-                    eng, plan, _smoke_requests(cfg.vocab_size))
+                                  mesh=mesh, **kw)
+                out["gspmd"][f"{arch} {layout} data2xmodel2"] = _gspmd_run(
+                    eng, _smoke_requests(cfg.vocab_size))
         dist.barrier()
     finally:
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -3260,8 +3356,65 @@ def phase_tp_serve(olmo_runs: dict, moe_runs: dict, card: str) -> dict:
               f"{c['fallback_hits']}; rank 0 launched flash "
               f"{c['flash']}, paged gather {c['gather']}, row gather "
               f"{c['rows']}; {same}", flush=True)
+    _check_gspmd_route(ranks, olmo_runs, smoke_ref, launches)
     shutil.rmtree(out_dir, ignore_errors=True)
     return launches
+
+
+def _check_gspmd_route(ranks, olmo_runs: dict, smoke_ref: dict,
+                       launches: dict) -> None:
+    """16d: the GSPMD route's runs in phase 7's world against the
+    manual-TP path's (olmo-1b: the same params and the same partial sums,
+    so the same tokens) and the CPU engine's (the smoke archs on data 2 x
+    model 2); adds olmo-1b's launches (the main path) to ``launches``."""
+    from repro_torch.configs import get_config
+    r0 = ranks[0]
+    for name in r0["gspmd"]:
+        res = [rk["gspmd"][name] for rk in ranks]
+        c = res[0]
+        arch, layout = name.split()[:2]
+        cfg = get_config(arch)
+        for x in res[1:]:
+            check(x["tokens"] == c["tokens"],
+                  f"gspmd route {name}: ranks disagree on the tokens")
+        check(all(x["leaked"] == 0 for x in res),
+              f"gspmd route {name}: pages leaked")
+        calls = c["prefills"] + c["steps"]
+        if name.endswith("data2xmodel2"):
+            check(c["tokens"] == smoke_ref[arch], f"gspmd route {name}: "
+                  f"tokens {c['tokens']} != the CPU engine's "
+                  f"{smoke_ref[arch]}")
+            tp_counts = r0["cases"][name]["counts"]
+            same = "== the CPU engine's (one rank)"
+        else:
+            tp = r0["cases"][f"{arch} {layout} num_vcis=8"]
+            check(c["tokens"] == tp["tokens"], f"gspmd route {name}: tokens "
+                  f"differ from the manual-TP path's on the same params")
+            want = {"model_all_reduce": (2 * cfg.num_layers + 1) * calls,
+                    "model_all_gather": calls}
+            check(c["counts"] == want, f"gspmd route {name}: collectives "
+                  f"{c['counts']}, want {want}")
+            check(c["flash"] == cfg.num_layers * c["prefills"] and
+                  c["gather"] == 2 * cfg.num_layers * c["steps"],
+                  f"gspmd route {name}: flash {c['flash']}, paged gather "
+                  f"{c['gather']} on rank 0")
+            for k in ("flash", "gather", "rows"):
+                launches[k] += sum(x[k] for x in res)
+            tp_counts = tp["counts"]
+            pairs = [(a, b) for x, y in zip(c["tokens"],
+                                             olmo_runs[layout]["tokens"])
+                     for a, b in zip(x, y)]
+            same = (f"== the manual-TP path's; "
+                    f"{sum(a == b for a, b in pairs) / len(pairs):.4f} of "
+                    f"greedy tokens equal tp 1's")
+        print(f"gspmd route {name}: {c['steps']} decode steps "
+              f"{c['step_ms']:.3f} ms/step, {c['prefills']} prefills "
+              f"{c['prefill_s']:.3f}s, {c['tok_s']:.1f} tok/s, "
+              f"cache_bytes_resident/rank={c['bytes']}; collectives on one "
+              f"group a line {c['counts']} beside ServeCommPlan's by "
+              f"purpose {tp_counts}; rank 0 launched flash {c['flash']}, "
+              f"paged gather {c['gather']}, row gather {c['rows']}; {same}",
+              flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3772,6 +3925,56 @@ def _params_off(got, want) -> tuple:
             int((d > 1e-6 + 2e-5 * w).sum()))
 
 
+def _axis_moe(rank: int, world: int, device) -> dict:
+    """16c on one of phase 15's ranks: mixtral-8x22b at full width,
+    ``AXIS_MOE_LAYERS`` layer(s), bf16, ``comm="gspmd"`` on the ranks as
+    data 2 x model 2 (4 of 8 experts a data rank, their ff dim over
+    model), then as 4 x 1 (2 experts a rank), ``GSPMD_RANK_STEPS`` steps
+    each from the same seed and batches: losses, times, launches, peaks."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.collectives import RankMesh
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gather import row_gather, row_gather_sum
+    from repro_torch.train.trainer import make_train_step, train_state_init
+    from repro_torch.tree import tree_flatten
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              num_layers=AXIS_MOE_LAYERS)
+    batches = [synthetic_batch(cfg, AXIS_MOE_BATCH, AXIS_MOE_SEQ, seed=0,
+                               step=i) for i in range(GSPMD_RANK_STEPS)]
+    out = {}
+    for name, mesh in (("2x2", RankMesh(2, world // 2)),
+                       ("4x1", RankMesh(world, 1))):
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = row_gather.launches = 0
+        row_gather_sum.launches = 0
+        state = train_state_init(cfg, 0, device=device, comm="gspmd",
+                                 mesh=mesh)
+        step = make_train_step(cfg, mesh=mesh)
+        shard = step.sharder()
+        experts = state.params["layers"]["moe"]["w_gate"].shape
+        losses, times = [], []
+        for b in batches:
+            dist.barrier()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = dict(
+            losses=losses, ms=times, tally=dict(step.comm_tally),
+            experts=list(experts), flash=flash_attention.launches,
+            rows=row_gather.launches, rows_sum=row_gather_sum.launches,
+            ep=shard.expert_parallel(("layers", "moe", "w_gate")),
+            param_bytes=sum(t.nbytes for t in tree_flatten(state.params)[0]),
+            peak=torch.cuda.max_memory_allocated())
+        del state, step, shard
+        torch.cuda.empty_cache()
+    return out
+
+
 def _gspmd_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     """One of phase 15's ranks (15b and 15c): join the shared-card group,
     train FSDP in f32 against the one-rank run in ``ref.pt``, then in bf16
@@ -3780,8 +3983,10 @@ def _gspmd_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     import torch
     import torch.distributed as dist
     from repro_torch.checkpoint import load_state, save_state
+    from repro_torch.core.collectives import RankMesh
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.dist.sharding import param_shapes
+    from repro_torch.kernels.bucket_pack import bucket_pack, bucket_unpack
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import join_ranks
     from repro_torch.train.trainer import make_train_step, train_state_init
@@ -3841,6 +4046,64 @@ def _gspmd_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         del state, step, ref
         torch.cuda.empty_cache()
 
+        # 16a: the same f32 run on the ranks as data 2 x model 2 (FSDP over
+        # the data lines, TP over the model lines)
+        mesh = RankMesh(2, world // 2)
+        ref = torch.load(os.path.join(out_dir, "ref.pt"), mmap=True)
+        flash_attention.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        state = train_state_init(f32, 0, device=device, comm="gspmd",
+                                 mesh=mesh)
+        step = make_train_step(f32, mesh=mesh)
+        shard = step.sharder()
+        metrics, tallies, times = [], [], []
+        for b in batches[:GSPMD_RANK_STEPS]:
+            dist.barrier()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            metrics.append([float(m[k]) for k in ("loss", "grad_norm")])
+            times.append((time.perf_counter() - t0) * 1e3)
+            tallies.append(dict(step.comm_tally))
+        close = [_params_off(t, shard.shard_leaf(p, ref[i]).to(device))
+                 for i, (p, t) in enumerate(
+                     tree_flatten_with_paths(state.params))]
+        out["a"] = dict(
+            metrics=metrics, ms=times, tally=tallies,
+            flash=flash_attention.launches,
+            param_bytes=sum(t.nbytes for t in tree_flatten(state.params)[0]),
+            moment_bytes=sum(t.nbytes for t in tree_flatten(
+                (state.opt.m, state.opt.v))[0]),
+            both=sum(shard.split_key(p) == "both"
+                     for p, _ in tree_flatten_with_paths(state.params)),
+            peak=torch.cuda.max_memory_allocated(),
+            worst=max(c[0] for c in close), rule1=all(c[1] for c in close),
+            off=[c[2] for c in close])
+        del state, step, ref, shard
+        torch.cuda.empty_cache()
+
+        # 16b: comm="vci" on the same mesh: the model whole on every rank,
+        # the buckets reduced over the data lines
+        flash_attention.launches = 0
+        bucket_pack.launches = bucket_unpack.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        knobs = dict(comm="vci", pack="pallas", num_streams=8)
+        state = train_state_init(f32, 0, device=device, mesh=mesh, **knobs)
+        step = make_train_step(f32, mesh=mesh, num_vcis=8, **knobs)
+        metrics, times = [], []
+        for b in batches[:GSPMD_RANK_STEPS]:
+            dist.barrier()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            metrics.append([float(m[k]) for k in ("loss", "grad_norm")])
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["vci"] = dict(
+            metrics=metrics, ms=times, flash=flash_attention.launches,
+            packs=bucket_pack.launches, unpacks=bucket_unpack.launches,
+            param_bytes=sum(t.nbytes for t in tree_flatten(state.params)[0]),
+            peak=torch.cuda.max_memory_allocated())
+        del state, step
+        torch.cuda.empty_cache()
+
         # 15c: bf16 FSDP, a checkpoint after step 2, a resume, step 3
         flash_attention.launches = 0
         state = train_state_init(bf16, 0, device=device, comm="gspmd")
@@ -3879,6 +4142,9 @@ def _gspmd_rank(rank: int, world: int, store: str, out_dir: str) -> None:
                             zip(leaves(back), full)),
                         resume_max_diff=max(diffs),
                         flash=flash_attention.launches)
+        del back, full, saved
+        torch.cuda.empty_cache()
+        out["moe"] = _axis_moe(rank, world, device)
         dist.barrier()
     finally:
         with open(os.path.join(out_dir, f"gspmd_rank{rank}.json"), "w") as f:
@@ -3955,7 +4221,8 @@ def phase_gspmd_ranks(card: str) -> dict:
               f"15b: rank {r} holds {b['param_bytes']} B of params and "
               f"{b['moment_bytes']} B of moments, want "
               f"{b['want_param_bytes']} and {b['want_moment_bytes']}")
-        flash += b["flash"] + rk["c"]["flash"]
+        flash += b["flash"] + rk["c"]["flash"] + rk["a"]["flash"] \
+            + rk["vci"]["flash"] + sum(x["flash"] for x in rk["moe"].values())
     for got, want in zip(b0["metrics"], ref_metrics):
         for a, w in zip(got, want):
             check(abs(a - w) <= 1e-5 * abs(w), f"15b: {GSPMD_WORLD} ranks' "
@@ -4046,8 +4313,120 @@ def phase_gspmd_ranks(card: str) -> dict:
     check(math.isfinite(one_loss3) and abs(one_loss3 - c0["loss3"]) <=
           2 ** -7 * abs(c0["loss3"]), f"15c: one rank's step 3 loss "
           f"{one_loss3} vs {GSPMD_WORLD} ranks' {c0['loss3']}")
+    launches = _check_axis(ranks, ref_metrics, yard, total, card)
     _fresh("gspmd ranks, done")
-    return dict(flash=flash, bitwise=bitwise)
+    return dict(flash=flash, bitwise=bitwise, **launches)
+
+
+def _check_axis(ranks, ref_metrics, yard, total: int, card: str) -> dict:
+    """Phase 16a-16c's checks on phase 15's ranks (see the docstring);
+    returns their pack, unpack, row-gather and gather-sum launches, summed
+    over the ranks."""
+    a0, b0 = ranks[0]["a"], ranks[0]["b"]
+    for r, rk in enumerate(ranks):
+        a = rk["a"]
+        check(a["metrics"] == a0["metrics"], f"16a: rank {r}'s metrics "
+              f"{a['metrics']} differ from rank 0's {a0['metrics']}")
+        # every olmo-1b leaf divides both axes: a rank holds a quarter on
+        # 2 x 2 as on 4 x 1
+        check(a["param_bytes"] == b0["want_param_bytes"] and
+              a["moment_bytes"] == b0["want_moment_bytes"],
+              f"16a: rank {r} holds {a['param_bytes']} B of params and "
+              f"{a['moment_bytes']} B of moments, want "
+              f"{b0['want_param_bytes']} and {b0['want_moment_bytes']}")
+        check(rk["vci"]["metrics"] == ranks[0]["vci"]["metrics"],
+              f"16b: rank {r}'s metrics differ from rank 0's")
+    for got, want in zip(a0["metrics"], ref_metrics):
+        for x, w in zip(got, want):
+            check(abs(x - w) <= 1e-5 * abs(w), f"16a: 2 x 2 loss/gnorm "
+                  f"{got} vs one rank's {want} (rtol 1e-5)")
+    off = [sum(rk["a"]["off"][i] for rk in ranks)
+           for i in range(len(a0["off"]))]
+    check(all(rk["a"]["rule1"] for rk in ranks), "16a: a param element off "
+          "the one-rank run by more than 1e-4 + 2e-5 rel")
+    check(sum(off) <= max(total // 10 ** 4, 2 * sum(yard)),
+          f"16a: {sum(off)} of {total} param elements beyond 1e-6 + 2e-5 "
+          f"rel, against {sum(yard)} from another order of the sums")
+    t = a0["tally"][-1]
+    print(f"axis 16a: {TRAIN_ARCH} at full width, {GSPMD_LAYERS} layers, "
+          f"f32, comm=gspmd on {GSPMD_WORLD} ranks of one card ({card}) as "
+          f"data 2 x model 2: loss/gnorm {a0['metrics']} equal on every "
+          f"rank, one rank's {ref_metrics} (rtol 1e-5); params beyond 1e-6 "
+          f"+ 2e-5 rel {off} ({sum(off)} of {total}; yardstick "
+          f"{sum(yard)}), max abs diff "
+          f"{max(rk['a']['worst'] for rk in ranks):.3e}; a rank holds "
+          f"{a0['param_bytes']} B of params and {a0['moment_bytes']} B of "
+          f"moments ({a0['both']} leaves sliced over both axes); a step: "
+          f"data line {t['all_gather']} all-gathers ({t['gather_bytes']} "
+          f"B), {t['reduce_scatter']} reduce-scatters, {t['all_reduce']} "
+          f"all-reduces; model line {t['model_all_reduce']} all-reduces, "
+          f"{t['model_all_gather']} all-gathers; flash launches "
+          f"{a0['flash']} on rank 0; step ms (rank 0) "
+          f"{[round(x, 1) for x in a0['ms']]}; peak a rank "
+          f"{[rk['a']['peak'] for rk in ranks]} B", flush=True)
+    v0 = ranks[0]["vci"]
+    check(abs(v0["metrics"][0][0] - a0["metrics"][0][0]) <=
+          1e-5 * abs(a0["metrics"][0][0]), f"16b: vci loss "
+          f"{v0['metrics'][0][0]} vs 16a's {a0['metrics'][0][0]} (rtol "
+          f"1e-5)")
+    check(v0["param_bytes"] == b0["want_param_bytes"] * GSPMD_WORLD,
+          f"16b: a rank holds {v0['param_bytes']} B of params, not the "
+          f"whole {b0['want_param_bytes'] * GSPMD_WORLD}")
+    check(v0["packs"] == 8 * GSPMD_RANK_STEPS and
+          v0["unpacks"] == GSPMD_RANK_STEPS, f"16b: {v0['packs']} packs, "
+          f"{v0['unpacks']} unpacks on rank 0, want 8 and 1 a step")
+    print(f"axis 16b: the same config, comm=vci post (8 buckets on the data "
+          f"lines' VCIs, pack=pallas) on data 2 x model 2: loss/gnorm "
+          f"{v0['metrics']} equal on every rank (16a's first loss "
+          f"{a0['metrics'][0][0]}); params whole on each rank "
+          f"({v0['param_bytes']} B); rank 0 launched pack {v0['packs']}, "
+          f"unpack {v0['unpacks']}, flash {v0['flash']}; step ms (rank 0) "
+          f"{[round(x, 1) for x in v0['ms']]}; peak a rank "
+          f"{[rk['vci']['peak'] for rk in ranks]} B", flush=True)
+    m0 = ranks[0]["moe"]
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    e = cfg.moe.num_experts
+    for name, want_e, want_ff in (("2x2", e // 2, cfg.d_ff // 2),
+                                  ("4x1", e // GSPMD_WORLD, cfg.d_ff)):
+        x = m0[name]
+        check(all(rk["moe"][name]["losses"] == x["losses"] for rk in ranks),
+              f"16c {name}: the ranks' losses differ")
+        check(all(map(math.isfinite, x["losses"])), f"16c {name}: loss "
+              f"{x['losses']}")
+        check(x["ep"] and x["experts"][1] == want_e and
+              x["experts"][3] == want_ff, f"16c {name}: expert table slice "
+              f"{x['experts']}, want {want_e} experts of ff {want_ff}")
+        n = AXIS_MOE_LAYERS * GSPMD_RANK_STEPS
+        check(x["rows"] == 5 * n and x["rows_sum"] == n and
+              x["flash"] == 2 * n, f"16c {name}: row_gather {x['rows']}, "
+              f"row_gather_sum {x['rows_sum']}, flash {x['flash']} on rank "
+              f"0, want 5, 1 and 2 a layer a step")
+        # dispatch and combine, forward, remat's recompute and backward
+        check(x["tally"]["all_to_all"] == 6 * AXIS_MOE_LAYERS,
+              f"16c {name}: {x['tally']['all_to_all']} all_to_alls a step")
+    a, b = m0["2x2"]["losses"], m0["4x1"]["losses"]
+    check(all(abs(x - y) <= 2 ** -7 * abs(y) for x, y in zip(a, b)),
+          f"16c: 2 x 2 losses {a} vs 4 x 1 {b} (2^-7 rel)")
+    for name in ("2x2", "4x1"):
+        x = m0[name]
+        print(f"axis 16c: {MOE_ARCH} at full width, {AXIS_MOE_LAYERS} "
+              f"layer, bf16, comm=gspmd, global batch {AXIS_MOE_BATCH} x "
+              f"{AXIS_MOE_SEQ}, {name}: losses {x['losses']} (2 x 2 against "
+              f"4 x 1 within 2^-7 rel), expert tables a rank {x['experts']} "
+              f"(never gathered), a step {x['tally']}; rank 0 launched "
+              f"row_gather {x['rows']}, row_gather_sum {x['rows_sum']}, "
+              f"flash {x['flash']}; params a rank {x['param_bytes']} B; step "
+              f"ms (rank 0) {[round(t, 1) for t in x['ms']]}; peak a rank "
+              f"{[rk['moe'][name]['peak'] for rk in ranks]} B "
+              f"({sum(rk['moe'][name]['peak'] for rk in ranks)} B on the "
+              f"card)", flush=True)
+    return dict(
+        packs=sum(rk["vci"]["packs"] for rk in ranks),
+        unpacks=sum(rk["vci"]["unpacks"] for rk in ranks),
+        rows=sum(x["rows"] for rk in ranks for x in rk["moe"].values()),
+        rows_sum=sum(x["rows_sum"] for rk in ranks
+                     for x in rk["moe"].values()))
 
 
 def phase_ckpt_cli() -> None:
@@ -4154,7 +4533,8 @@ def main() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     gspmd_ranks = phase_gspmd_ranks(card)
     phase_ckpt_cli()
-    print(f"phases 15a-15c took {time.time() - t15:.1f}s", flush=True)
+    print(f"phases 15a-15c and 16a-16c took {time.time() - t15:.1f}s",
+          flush=True)
     trained = [moe_train, ssm_train, hyb_train] + list(mm_train.values())
 
     f32 = kern["float32"]
@@ -4186,9 +4566,11 @@ def main() -> None:
     } for name, line, launches in (
         ("bucket_pack", 83, train["launches"][0]
          + zero1["zero1/post"]["packs"] + ranks["packs"]
-         + sum(r["counts"]["bucket_pack"] for r in trained)),
+         + sum(r["counts"]["bucket_pack"] for r in trained)
+         + gspmd_ranks["packs"]),
         ("bucket_unpack", 110, train["launches"][1]
-         + sum(r["counts"]["bucket_unpack"] for r in trained)))] + [{
+         + sum(r["counts"]["bucket_unpack"] for r in trained)
+         + gspmd_ranks["unpacks"]))] + [{
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4213,7 +4595,8 @@ def main() -> None:
         "replaces": "src/repro/kernels/moe_gather.py:29",
         "launches": sum(moe_runs[k]["rows"]
                         for k in ("paged", "contiguous", "long", "window"))
-        + tp["rows"] + moe_train["counts"]["row_gather"],
+        + tp["rows"] + moe_train["counts"]["row_gather"]
+        + gspmd_ranks["rows"],
         "max_abs_err": rows["max_abs_err"],
         "ms": rows["8x1024 dispatch"]["ms"],
         "plain_ms": rows["8x1024 dispatch"]["plain_ms"],
@@ -4228,7 +4611,8 @@ def main() -> None:
         # differentiates the reference's gathers); this is row_gather's
         "replaces": None,
         "backward_of": "src/repro/kernels/moe_gather.py:29",
-        "launches": moe_train["counts"]["row_gather_sum"],
+        "launches": moe_train["counts"]["row_gather_sum"]
+        + gspmd_ranks["rows_sum"],
         "max_abs_err": bwd["max_abs_err"],
         "ms": bwd["dispatch bwd"]["ms"],
         "plain_ms": bwd["dispatch bwd"]["plain_ms"],

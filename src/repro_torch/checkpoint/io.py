@@ -19,9 +19,11 @@ reference cannot read its own bfloat16 leaves back: ``np.load`` gives
 ``'<V2'`` bytes, which its ``astype`` refuses.)
 
 Sharded train states are stored as the global arrays the reference
-stores: :func:`save_state` gathers each FSDP slice (``comm="gspmd"``) and
-each ZeRO-1 bucket shard into its whole leaf, leaf by leaf, and rank 0
-writes it; :func:`load_state` reads back each rank's part of every leaf.
+stores: :func:`save_state` gathers each ``comm="gspmd"`` slice (over the
+data line and over the model line of a ``(data, model)`` mesh) and each
+ZeRO-1 bucket shard (over the data line) into its whole leaf, leaf by
+leaf, and rank 0 writes it; :func:`load_state` reads back each rank's
+part of every leaf. So a state saved on one mesh restores on any other.
 """
 
 from __future__ import annotations
@@ -35,8 +37,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.collectives import _all_gather
 from repro_torch.device import resolve_device
+from repro_torch.dist.tp import line_gather
 from repro_torch.tree import tree_flatten_with_paths, tree_map_with_paths
 
 _SEP = "/"
@@ -172,57 +174,54 @@ def load_checkpoint(directory: str, step: int, like: Any,
 # train states whose leaves are split over the data ranks
 # ---------------------------------------------------------------------------
 
-def _split(path: Tuple[str, ...], opt, shard, world: int
-           ) -> Optional[Tuple[int, int]]:
-    """``(dim, n)``: the dim of the train-state leaf at ``path`` that is
-    split over ``n`` ranks, or ``None`` where every rank holds it whole.
-    FSDP (``shard`` over more than one rank) splits params and AdamW
-    moments by the rule table; ZeRO-1 splits each bucket's m / v / master
-    along its only dim over the default group."""
+def _split(path: Tuple[str, ...], opt, shard, line) -> Optional[tuple]:
+    """How the train-state leaf at ``path`` is split, or ``None`` where
+    every rank holds it whole: ``("shard", leaf path)`` for a
+    ``comm="gspmd"`` param or AdamW moment, sliced by the rule table on
+    ``shard``'s mesh; ``("line",)`` for a ZeRO-1 bucket's m / v / master,
+    split along its only dim over ``line`` (a
+    :class:`repro_torch.train.trainer.DataLine`)."""
     from repro_torch.optim.adamw import ShardedAdamWState
     if path[0] == "opt" and isinstance(opt, ShardedAdamWState):
-        if path[1] in ("m", "v", "master") and world > 1:
-            return 0, world
+        if path[1] in ("m", "v", "master") and line.size > 1:
+            return ("line",)
         return None
-    if shard is None or shard.n == 1:
+    if shard is None or shard.size == 1:
         return None
     if path[0] == "params":
-        dim = shard.sharded_dim(path[1:])
+        p = path[1:]
     elif path[0] == "opt" and path[1] in ("m", "v"):
-        dim = shard.sharded_dim(path[2:])
+        p = path[2:]
     else:
         return None
-    return None if dim is None else (dim, shard.n)
+    return None if shard.split_key(p) is None else ("shard", p)
 
 
-def _split_leaves(state, shard) -> Iterator[Tuple[str, Any, Any]]:
-    world = dist.get_world_size() if dist.is_initialized() else 1
+def _split_leaves(state, shard, mesh) -> Iterator[Tuple[str, Any, Any, Any]]:
+    from repro_torch.train.trainer import DataLine
+    line = DataLine(mesh)
     for path, leaf in tree_flatten_with_paths(state):
-        yield _SEP.join(path), leaf, _split(path, state.opt, shard, world)
-
-
-@torch.no_grad()
-def _gather(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
-    tm = t.movedim(dim, 0).contiguous()
-    out = torch.empty((n * tm.shape[0],) + tuple(tm.shape[1:]),
-                      dtype=tm.dtype, device=tm.device)
-    _all_gather(out.view(-1), tm.view(-1))
-    return out.movedim(0, dim)
+        yield (_SEP.join(path), leaf,
+               _split(path, state.opt, shard, line), line)
 
 
 def save_state(directory: str, step: int, state, *, shard=None,
-               metadata: Optional[dict] = None) -> Optional[str]:
+               metadata: Optional[dict] = None, mesh=None) -> Optional[str]:
     """Write a ``TrainState`` as the reference stores it: every leaf whole.
     Collective over the default group when it has more than one rank:
-    every rank calls it, each split leaf is gathered in turn (FSDP slices
-    with ``shard``, the step's :class:`~repro_torch.dist.sharding.Sharder`;
-    ZeRO-1 bucket shards), rank 0 writes, and all ranks leave together.
-    Returns the step's directory on rank 0, else ``None``."""
+    every rank calls it, each split leaf is gathered in turn (slices with
+    ``shard``, the step's :class:`~repro_torch.dist.sharding.Sharder`;
+    ZeRO-1 bucket shards over the data line of ``mesh``, the step's, by
+    default every rank a data rank), rank 0 writes, and all ranks leave
+    together. Returns the step's directory on rank 0, else ``None``."""
     rank = dist.get_rank() if dist.is_initialized() else 0
     w = _Writer(directory, step, metadata) if rank == 0 else None
-    for p, leaf, split in _split_leaves(state, shard):
+    for p, leaf, split, line in _split_leaves(state, shard, mesh):
         if split is not None:
-            leaf = _gather(leaf, *split)
+            with torch.no_grad():
+                leaf = (line_gather(leaf, 0, line.size, line.group)
+                        if split[0] == "line"
+                        else shard.gather_leaf(split[1], leaf))
         if w is not None:
             w.leaf(p, leaf)
     out = w.close() if w is not None else None
@@ -231,24 +230,25 @@ def save_state(directory: str, step: int, state, *, shard=None,
     return out
 
 
-def load_state(directory: str, step: int, like, *, shard=None):
+def load_state(directory: str, step: int, like, *, shard=None, mesh=None):
     """Restore a ``TrainState`` into ``like`` (this rank's state: its
-    structure, dtypes, devices and slice shapes): every rank reads its own
-    part of each whole leaf. The reference's mismatch errors are raised
-    against the whole leaves' shapes."""
-    flat = list(_split_leaves(like, shard))
-    src, by_path = _manifest(directory, step, [p for p, _, _ in flat])
-    rank = dist.get_rank() if dist.is_initialized() else 0
+    structure, dtypes, devices and slice shapes; ``shard`` and ``mesh`` as
+    :func:`save_state` takes them): every rank reads its own part of each
+    whole leaf. The reference's mismatch errors are raised against the
+    whole leaves' shapes."""
+    flat = list(_split_leaves(like, shard, mesh))
+    src, by_path = _manifest(directory, step, [p for p, _, _, _ in flat])
     leaves = {}
-    for p, lk, split in flat:
+    for p, lk, split, line in flat:
         shape = list(lk.shape)
         index = None
-        if split is not None:
-            dim, n = split
-            size = shape[dim]
-            shape[dim] *= n
-            index = (slice(None),) * dim + (
-                slice(rank * size, (rank + 1) * size),)
+        if split is not None and split[0] == "line":
+            size = shape[0]
+            shape[0] *= line.size
+            index = (slice(line.index * size, (line.index + 1) * size),)
+        elif split is not None:
+            shape = list(shard.global_shape(split[1]))
+            index = shard.leaf_index(split[1], len(shape))
         e = by_path[p]
         _check_shape(p, e, shape)
         t = _read_leaf(os.path.join(src, e["file"]), e["dtype"], index)

@@ -41,6 +41,12 @@ gradient packs that bucket (per-slot copies, never the tile-gather
 kernel, as the reference's boundary) and issues its reduce (or, with
 ``taps``, its reduce_scatter) on the bucket's VCI inside the backward,
 from a fresh runtime a bucket, in :attr:`CommPlan.ready_order`.
+
+On a ``(data, model)`` mesh (a :class:`CommPlan` given ``mesh`` with a
+model axis) the buckets reduce over the data ranks only: each context's
+VCI group spans this rank's data line (``vci_group(i, K, axis="data",
+mesh=...)``), and the model ranks of a line are replicas. On a data-only
+mesh nothing changes: the groups span the default group.
 """
 
 from __future__ import annotations
@@ -52,7 +58,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.collectives import CommRuntime, Request, vci_group
+from repro_torch.core.collectives import (CommRuntime, RankMesh, Request,
+                                          vci_group)
 from repro_torch.core.comm import CommContext, CommWorld
 from repro_torch.kernels.bucket_pack import TILE
 from repro_torch.tree import tree_flatten, tree_unflatten
@@ -298,7 +305,7 @@ class CommPlan:
     def __init__(self, plan: BucketPlan, *, num_vcis: int = 8,
                  vci_policy: str = "fcfs", progress: str = "hybrid",
                  join_every: int = 8, token_impl: str = "barrier",
-                 schedule: str = "post"):
+                 schedule: str = "post", mesh: Optional[RankMesh] = None):
         if schedule not in ("post", "overlap"):
             raise ValueError(f"unknown schedule {schedule!r}")
         self.plan = plan
@@ -310,6 +317,9 @@ class CommPlan:
         self.join_every = join_every
         self.token_impl = token_impl
         self.schedule = schedule
+        # the buckets' groups span the data lines of a mesh with a model
+        # axis, the default group otherwise
+        self.mesh = mesh if mesh is not None and mesh.model > 1 else None
         self._tables = None
         self._device_tables: Dict[torch.device, tuple] = {}
         self._ready_order: Optional[Tuple[int, ...]] = None
@@ -326,7 +336,23 @@ class CommPlan:
         """A fresh per-step runtime bound to the cached world/contexts."""
         return CommRuntime(self.world, progress=self.progress,
                            join_every=self.join_every,
-                           token_impl=self.token_impl)
+                           token_impl=self.token_impl, mesh=self.mesh,
+                           data_axis=None if self.mesh is None else "data")
+
+    @property
+    def data_size(self) -> int:
+        """Ranks the buckets reduce over (this rank's data line)."""
+        return self.mesh.data if self.mesh is not None else \
+            dist.get_world_size()
+
+    def make_groups(self) -> None:
+        """Create every VCI group the contexts can use, now (collective:
+        every rank calls it at the same point)."""
+        k = self.world.pool.num_vcis
+        if self.mesh is None:
+            vci_group(0, k)
+        else:
+            vci_group(k - 1, k, axis="data", mesh=self.mesh)
 
     @property
     def tables(self):
@@ -385,12 +411,12 @@ _PLAN_CACHE_STATS = {"hits": 0, "misses": 0, "builds": 0}
 def comm_plan_key(grads, *, num_streams: int, align: int,
                   slot_align: Optional[int], num_vcis: int, vci_policy: str,
                   progress: str, join_every: int, token_impl: str,
-                  schedule: str = "post"):
+                  schedule: str = "post", mesh: Optional[RankMesh] = None):
     """Hashable cache key: tree structure + leaf shapes/dtypes + knobs."""
     leaves, treedef = tree_flatten(grads)
     shapes = tuple((tuple(l.shape), str(l.dtype)) for l in leaves)
     return (treedef, shapes, num_streams, align, slot_align, num_vcis,
-            vci_policy, progress, join_every, token_impl, schedule)
+            vci_policy, progress, join_every, token_impl, schedule, mesh)
 
 
 def get_comm_plan(grads, *, num_streams: int = 8, align: int = TILE,
@@ -398,17 +424,21 @@ def get_comm_plan(grads, *, num_streams: int = 8, align: int = TILE,
                   vci_policy: str = "fcfs", progress: str = "hybrid",
                   join_every: int = 8, token_impl: str = "barrier",
                   schedule: str = "post",
-                  persistent: bool = True) -> CommPlan:
+                  persistent: bool = True,
+                  mesh: Optional[RankMesh] = None) -> CommPlan:
     """Build (or fetch) the CommPlan for a gradient tree.
     ``persistent=True`` caches on (treedef, shapes, knobs);
     ``persistent=False`` rebuilds every call (the reference's ablation).
-    ``schedule="overlap"`` plans use-order-contiguous buckets."""
+    ``schedule="overlap"`` plans use-order-contiguous buckets. ``mesh``
+    with a model axis puts the buckets' groups on the data lines."""
+    if mesh is not None and mesh.model == 1:
+        mesh = None
     slot_align = align if pack == "pallas" else None
     key = comm_plan_key(grads, num_streams=num_streams, align=align,
                         slot_align=slot_align, num_vcis=num_vcis,
                         vci_policy=vci_policy, progress=progress,
                         join_every=join_every, token_impl=token_impl,
-                        schedule=schedule)
+                        schedule=schedule, mesh=mesh)
     if persistent:
         cached = _PLAN_CACHE.get(key)
         if cached is not None:
@@ -420,7 +450,7 @@ def get_comm_plan(grads, *, num_streams: int = 8, align: int = TILE,
                         slot_align=slot_align, partition=partition)
     cp = CommPlan(plan, num_vcis=num_vcis, vci_policy=vci_policy,
                   progress=progress, join_every=join_every,
-                  token_impl=token_impl, schedule=schedule)
+                  token_impl=token_impl, schedule=schedule, mesh=mesh)
     _PLAN_CACHE_STATS["builds"] += 1
     if persistent:
         _PLAN_CACHE[key] = cp
@@ -667,7 +697,7 @@ class OverlapBoundaries:
         self._next = 0                      # position in cp.ready_order
         self._seen = 0                      # leaf gradients arrived
         self._pending: Dict[int, tuple] = {}
-        self._n = dist.get_world_size()
+        self._n = cp.data_size
         self.issued: List[int] = []
         self.hooks_seen: Dict[int, int] = {}
         # the hooks hold this object and it holds the leaves: wait()
@@ -786,7 +816,7 @@ def overlap_boundaries(cp: CommPlan, params, *,
     if reduction not in ("all_reduce", "reduce_scatter"):
         raise ValueError(f"unknown reduction {reduction!r}")
     if taps is not None:
-        layout = ShardLayout(cp.plan, dist.get_world_size())
+        layout = ShardLayout(cp.plan, cp.data_size)
         if [tuple(t.shape) for t in taps] != \
                 [(s,) for s in layout.shard_sizes]:
             raise ValueError(f"need one f32 tap of shard size a bucket "
@@ -796,7 +826,7 @@ def overlap_boundaries(cp: CommPlan, params, *,
         carry_leaves, carry_def = tree_flatten(carry)
         if carry_def != treedef:
             raise ValueError("carry tree does not match the params tree")
-    vci_group(0, cp.world.pool.num_vcis)   # every VCI group, made now
+    cp.make_groups()                        # every VCI group, made now
     leaves = [p.detach().requires_grad_() for p in leaves]
     return OverlapBoundaries(cp, leaves, treedef, taps=taps,
                              carry=carry_leaves, accum_steps=accum_steps,

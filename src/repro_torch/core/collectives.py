@@ -26,8 +26,10 @@ axis, VCI 0 included, and each rank keeps the group of its own line.
 
 An operation returns a :class:`Request`; its value may be read only after
 :meth:`CommRuntime.wait` (``sendrecv`` waits itself, as MPI_Sendrecv).
-Without ``axis`` the group is ``torch.distributed``'s default group (the
-data group of the training path).
+Without ``axis`` the group is the runtime's data group:
+``torch.distributed``'s default group, or, for a runtime made with
+``data_axis="data"`` on a mesh with a model axis, this rank's data line
+(the training path's buckets, which reduce over the data ranks only).
 
 The point-to-point and window half (``sendrecv``/``isend_recv``,
 ``get``/``put``: ``lax.ppermute`` as one ``batch_isend_irecv``;
@@ -187,15 +189,21 @@ class CommRuntime:
     def __init__(self, world: Optional[CommWorld] = None, *,
                  progress: str = "hybrid", join_every: int = 8,
                  token_impl: str = "barrier",
-                 mesh: Optional[RankMesh] = None):
+                 mesh: Optional[RankMesh] = None,
+                 data_axis: Optional[str] = None):
         self.world = world or CommWorld()
         self.mesh = mesh
+        if data_axis is not None and mesh is None:
+            raise ValueError(f"data_axis={data_axis!r} needs a RankMesh")
+        self.data_axis = data_axis
         self.engine = ProgressEngine(mode=progress, join_every=join_every,
                                      token_impl=token_impl)
 
     @property
     def size(self) -> int:
         """Ranks in the data group."""
+        if self.data_axis is not None:
+            return self.mesh.shape[self.data_axis]
         return dist.get_world_size()
 
     def axis_size(self, axis: Optional[str] = None) -> int:
@@ -207,7 +215,8 @@ class CommRuntime:
                axis: Optional[str] = None, finish=None, *,
                chain: bool = True) -> Request:
         vci = ctx.vci.index
-        group = vci_group(vci, self.world.pool.num_vcis, axis, self.mesh)
+        group = vci_group(vci, self.world.pool.num_vcis,
+                          axis or self.data_axis, self.mesh)
         if chain:
             self.engine.enter(vci)
         pending = Pending(op(group))
@@ -217,6 +226,7 @@ class CommRuntime:
     def _axis_rank(self, axis: Optional[str]) -> int:
         """This rank's index in its group along ``axis``."""
         rank = dist.get_rank()
+        axis = axis or self.data_axis
         if axis is None:
             return rank
         return self.mesh.coords(rank)[0 if axis == "data" else 1]
@@ -237,8 +247,8 @@ class CommRuntime:
                              f"range({n})")
         me = self._axis_rank(axis)
         if x.is_cuda and _cuda_backend(vci_group(
-                ctx.vci.index, self.world.pool.num_vcis, axis,
-                self.mesh)) == "gloo":
+                ctx.vci.index, self.world.pool.num_vcis,
+                axis or self.data_axis, self.mesh)) == "gloo":
             raise RuntimeError(
                 "gloo sends no CUDA tensor point to point (its TCP "
                 "transport writes the device pointer and aborts the rank); "

@@ -18,18 +18,25 @@ divisibility-guarded, so the same rules hold on any mesh: a
 object with ``axis_names`` and a ``shape`` dict. ``model`` is the
 tensor-parallel axis; every other axis is data-parallel.
 
-The reference leaves the gathers to XLA. Here a data-only mesh is the
-default group's ranks: each rank keeps its contiguous ``1/N`` slice of
-every leaf the table shards over data (:meth:`Sharder.shard_params`),
-``materialize`` all-gathers a layer's slices where the layer runs (an
-autograd function whose backward reduce-scatters the gradient back to the
-rank's slice), and the activation hooks are identities, since each rank
-already holds only its own batch rows. Every gather and reduce-scatter goes
-over the data group's fallback VCI, the WORLD group: one communicator,
-chosen by the framework, carries all the gradient traffic. That is the
-conservative baseline the paper measures its VCIs against; ``comm="vci"``
-(:mod:`repro_torch.core.bucketing`) spreads the buckets over many.
-Training on a ``model`` axis above 1 is ROADMAP.md Queue 1 item 14.
+The reference leaves the gathers to XLA. Here a mesh is the default
+group's ranks as a row-major ``(data, model)`` grid: each rank keeps its
+slice of every leaf along both of the table's dims
+(:meth:`Sharder.shard_params`), ``materialize`` all-gathers a layer's
+data slices where the layer runs (an autograd function whose backward
+reduce-scatters the gradient back to the rank's slice) and leaves the
+model slices sliced, and the model code computes tensor parallelism on
+them through the model line's collectives (:mod:`repro_torch.dist.tp`).
+An expert table whose E dim lies over data is never gathered: the MoE
+moves its dispatch buffer to the experts' owners instead
+(:meth:`Sharder.all_to_all`). The activation hooks are identities, since
+each rank already holds only its own batch rows. Every FSDP gather,
+reduce-scatter and exchange goes over the rank's data line's fallback VCI
+(the WORLD group on a data-only mesh), every TP collective over its model
+line's: one communicator a line, chosen by the framework, carries all the
+traffic. That is the conservative baseline the paper measures its VCIs
+against; ``comm="vci"`` (:mod:`repro_torch.core.bucketing`) spreads the
+buckets over many, and the serve path's :class:`repro_torch.serve.comm.
+ServeCommPlan` gives each purpose its own.
 """
 
 from __future__ import annotations
@@ -40,7 +47,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.collectives import _all_gather, _reduce_scatter
+from repro_torch.core.collectives import RankMesh, vci_group
+from repro_torch.dist.tp import LineComm, line_gather, line_scatter
 from repro_torch.tree import tree_flatten_with_paths, tree_map_with_paths
 
 AxisLike = Union[None, str, Tuple[str, ...]]
@@ -202,12 +210,13 @@ def param_specs(cfg: ModelConfig, mesh):
 
 
 # ---------------------------------------------------------------------------
-# the FSDP gather and its reduce-scatter backward
+# the FSDP gather, the expert exchange and the data-line sums (autograd)
 # ---------------------------------------------------------------------------
 
 class _Gather(torch.autograd.Function):
-    """All-gather a leaf's data slices along ``dim``; the backward
-    reduce-scatters (sums) the gradient back to this rank's slice."""
+    """All-gather a leaf's data slices along ``dim`` on the data line; the
+    backward reduce-scatters (sums) the gradient back to this rank's
+    slice."""
 
     @staticmethod
     def forward(ctx, x, dim: int, shard: "Sharder"):
@@ -220,7 +229,7 @@ class _Gather(torch.autograd.Function):
 
 
 class _DataSum(torch.autograd.Function):
-    """Sum over the data ranks; the backward sums the gradient the same
+    """Sum over the data line; the backward sums the gradient the same
     way (every rank's loss reads the sum)."""
 
     @staticmethod
@@ -233,51 +242,105 @@ class _DataSum(torch.autograd.Function):
         return ctx.shard._all_reduce(g.clone()), None
 
 
-class Sharder:
-    """The rule table bound to one (mesh, config) pair, and the collectives
-    of a data-only mesh on the default group.
+class _AllToAll(torch.autograd.Function):
+    """The MoE buffer's exchange over the data line (the GShard
+    all_to_all): ``to_experts`` sends each rank's rows of every expert to
+    the expert's owner; the reverse sends them back. The backward is the
+    other direction."""
 
-    With ``mesh=None`` (or one data rank) every method is the identity, so
-    the same model code runs unsharded. Over more ranks the mesh is the
-    default group's, which must have them; ``rank`` instead names a rank
-    for cutting its slices alone (no collective can run then). ``tally`` counts the collectives
-    issued (``all_gather``, ``reduce_scatter``, ``all_reduce``) and the
-    bytes each kind received or sent."""
+    @staticmethod
+    def forward(ctx, x, to_experts: bool, shard: "Sharder"):
+        ctx.to_experts, ctx.shard = to_experts, shard
+        return shard._all_to_all(x, to_experts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shard._all_to_all(g, not ctx.to_experts), None, None
+
+
+class Sharder:
+    """The rule table bound to one (mesh, config) pair, and the
+    collectives of a ``(data, model)`` mesh of this process's ranks.
+
+    With ``mesh=None`` (or one rank) every method is the identity, so the
+    same model code runs unsharded. Over more ranks the mesh is the
+    default group's, which must have ``data x model`` of them, placed as
+    :meth:`RankMesh.coords` says (row-major); ``rank`` instead names a
+    rank for cutting its slices alone (no collective can run then).
+
+    Each rank stores its slice of every leaf along both of the table's
+    dims: its data index's ``1/data`` of the dim over the data axes, its
+    model index's ``1/model`` of the dim over ``model``. The FSDP traffic
+    (:meth:`materialize`, :meth:`data_sum`, the MoE's :meth:`all_to_all`)
+    runs on this rank's data line, the tensor-parallel traffic
+    (:attr:`tp`, a :class:`~repro_torch.dist.tp.LineComm`) on its model
+    line, each on the line's fallback VCI; on a data-only mesh the data
+    line is the default group. ``tally`` counts the collectives issued:
+    ``all_gather``, ``reduce_scatter``, ``all_reduce``, ``all_to_all`` on
+    the data line (and the bytes the gathers received and the scatters
+    sent), ``model_all_reduce``, ``model_all_gather`` and
+    ``model_reduce_scatter`` on the model line."""
 
     def __init__(self, mesh, cfg: ModelConfig, rank: Optional[int] = None):
-        if _axis_size(mesh, "model") > 1:
-            raise NotImplementedError(
-                "training on a model axis above 1 (GSPMD tensor parallelism, "
-                "with expert-parallel MoE) is ROADMAP.md Queue 1 item 14; the "
-                "ported Sharder takes a data-only mesh")
         self.mesh = mesh
         self.cfg = cfg
         self.dp: Tuple[str, ...] = batch_axes(mesh)
         self.n = _axis_size(mesh, tuple(self.dp))
+        self.tp_size = _axis_size(mesh, "model")
+        self.size = self.n * self.tp_size
         self.rank = 0 if rank is None else rank
-        if self.n > 1 and rank is None:
+        live = self.size > 1 and rank is None
+        if live:
             if not dist.is_initialized() or \
-                    dist.get_world_size() != self.n:
+                    dist.get_world_size() != self.size:
                 raise ValueError(
-                    f"a data mesh of {self.n} needs torch.distributed's "
-                    f"default group of {self.n} ranks")
+                    f"a mesh of {self.size} ranks needs torch.distributed's "
+                    f"default group of {self.size} ranks")
             self.rank = dist.get_rank()
+        # this rank's place on the grid, (data index, model index)
+        self.data_rank, self.model_rank = divmod(self.rank, self.tp_size)
         shapes = dict(tree_flatten_with_paths(param_shapes(cfg)))
         self.specs = param_specs(cfg, mesh)
-        # each leaf's path -> (its data-sharded dim or None, global shape)
-        self._dims: Dict[Tuple[str, ...],
-                         Tuple[Optional[int], Tuple[int, ...]]] = {}
+        # each leaf's path -> (its dim over data, its dim over model, whether
+        # the data dim is an expert table's E dim, its global shape)
+        self._dims: Dict[Tuple[str, ...], Tuple[Optional[int], Optional[int],
+                                                bool, Tuple[int, ...]]] = {}
         dpe = dp_entry(self.dp)
         for path, spec in tree_flatten_with_paths(self.specs,
                                                   is_leaf=is_spec):
             dim = next((i for i, e in enumerate(spec) if e == dpe), None)
-            self._dims[path] = (dim, tuple(shapes[path].shape))
+            mdim = next((i for i, e in enumerate(spec) if e == "model"),
+                        None)
+            expert = (len(path) >= 2 and path[-2] == "moe"
+                      and path[-1] in ("w_gate", "w_up", "w_down")
+                      and dim == (1 if path[0] == "layers" else 0))
+            self._dims[path] = (dim, mdim, expert,
+                                tuple(shapes[path].shape))
         self.tally: Dict[str, int] = {}
         self.reset_tally()
+        # the lines' fallback VCIs: the default group on a data-only mesh
+        self._data_group = None
+        model_group = None
+        if live and self.tp_size > 1:
+            if not isinstance(mesh, RankMesh):
+                raise ValueError(f"a model axis over ranks needs a RankMesh, "
+                                 f"got {mesh!r}")
+            self._data_group = vci_group(0, 1, axis="data", mesh=mesh)
+            model_group = vci_group(0, 1, axis="model", mesh=mesh)
+        self.tp: Optional[LineComm] = (
+            LineComm(model_group, self.tp_size, self.model_rank, self.tally)
+            if self.tp_size > 1 else None)
+        heads, kv = cfg.num_heads, cfg.num_kv_heads
+        # attention is tensor-parallel where the heads divide the axis;
+        # elsewhere its model-sliced leaves are used whole
+        self.attn_tp = self.tp is not None and heads > 0 and \
+            heads % self.tp_size == 0 and kv % self.tp_size == 0
 
     def reset_tally(self) -> None:
         self.tally.update(all_gather=0, reduce_scatter=0, all_reduce=0,
-                          gather_bytes=0, scatter_bytes=0)
+                          all_to_all=0, gather_bytes=0, scatter_bytes=0,
+                          model_all_reduce=0, model_all_gather=0,
+                          model_reduce_scatter=0)
 
     # -- mesh arithmetic -------------------------------------------------
     def _axsize(self, ax: AxisLike) -> int:
@@ -288,41 +351,72 @@ class Sharder:
         sz = self._axsize(ax)
         return sz > 1 and n % sz == 0
 
-    def sharded_dim(self, path: Sequence[str], ndim: Optional[int] = None
-                    ) -> Optional[int]:
-        """The dim of the leaf at ``path`` that is split over the data
-        ranks (``None``: replicated). ``ndim`` — the leaf's rank, one less
-        than the stored leaf's for a layer's slice of a stacked leaf."""
-        dim, shape = self._dims[tuple(path)]
-        if dim is None or self.n == 1:
+    def _rel(self, path, which: int, ndim: Optional[int]) -> Optional[int]:
+        entry = self._dims[tuple(path)]
+        dim, shape = entry[which], entry[3]
+        if dim is None:
             return None
         return dim - (len(shape) - (len(shape) if ndim is None else ndim))
 
+    def sharded_dim(self, path: Sequence[str], ndim: Optional[int] = None
+                    ) -> Optional[int]:
+        """The dim of the leaf at ``path`` that is split over the data
+        ranks (``None``: whole over data). ``ndim`` — the leaf's rank, one
+        less than the stored leaf's for a layer's slice of a stacked
+        leaf."""
+        return None if self.n == 1 else self._rel(path, 0, ndim)
+
+    def model_dim(self, path: Sequence[str], ndim: Optional[int] = None
+                  ) -> Optional[int]:
+        """The dim of the leaf at ``path`` split over ``model`` (``None``:
+        whole over model)."""
+        return None if self.tp_size == 1 else self._rel(path, 1, ndim)
+
+    def expert_parallel(self, path: Sequence[str]) -> bool:
+        """Whether the leaf at ``path`` is an expert table whose E dim is
+        split over the data ranks (the reference keeps it so under
+        ``materialize``: the experts run where they live)."""
+        return self.n > 1 and self._dims[tuple(path)][2]
+
     def global_shape(self, path: Sequence[str]) -> Tuple[int, ...]:
         """The whole leaf's shape at ``path`` (a stored leaf)."""
-        return self._dims[tuple(path)][1]
+        return self._dims[tuple(path)][3]
 
     def local_shape(self, path: Sequence[str]) -> Tuple[int, ...]:
         """The shape of this rank's slice of the stored leaf at ``path``."""
         shape = list(self.global_shape(path))
-        dim = self.sharded_dim(path)
-        if dim is not None:
-            shape[dim] //= self.n
+        for dim, parts in ((self.sharded_dim(path), self.n),
+                           (self.model_dim(path), self.tp_size)):
+            if dim is not None:
+                shape[dim] //= parts
         return tuple(shape)
+
+    def leaf_index(self, path: Sequence[str], ndim: int) -> tuple:
+        """This rank's slice of the whole leaf at ``path``, as an index
+        (a slice a dim)."""
+        index = [slice(None)] * ndim
+        shape = self.global_shape(path)[len(self.global_shape(path)) - ndim:]
+        for dim, parts, at in ((self.sharded_dim(path, ndim), self.n,
+                                self.data_rank),
+                               (self.model_dim(path, ndim), self.tp_size,
+                                self.model_rank)):
+            if dim is not None:
+                size = shape[dim] // parts
+                index[dim] = slice(at * size, (at + 1) * size)
+        return tuple(index)
 
     # -- the rank's slices -----------------------------------------------
     def shard_leaf(self, path: Sequence[str], t: torch.Tensor
                    ) -> torch.Tensor:
-        """This rank's contiguous ``1/N`` of ``t`` along its sharded dim (a
-        copy), or ``t`` itself where it is replicated."""
-        dim = self.sharded_dim(path, t.dim())
-        if dim is None:
+        """This rank's slice of ``t`` along its dims over data and over
+        model (a copy), or ``t`` itself where it is replicated."""
+        if self.sharded_dim(path, t.dim()) is None and \
+                self.model_dim(path, t.dim()) is None:
             return t
-        size = t.shape[dim] // self.n
-        return t.narrow(dim, self.rank * size, size).clone()
+        return t[self.leaf_index(path, t.dim())].clone()
 
     def shard_params(self, params):
-        """A full param tree -> this rank's FSDP tree."""
+        """A full param tree -> this rank's tree."""
         return tree_map_with_paths(self.shard_leaf, params)
 
     @torch.no_grad()
@@ -331,29 +425,87 @@ class Sharder:
         """The whole leaf from every rank's slice (no autograd; collective:
         every rank calls it)."""
         dim = self.sharded_dim(path, t.dim())
-        return t if dim is None else self._gather(t, dim)
+        if dim is not None:
+            t = self._gather(t, dim)
+        mdim = self.model_dim(path, t.dim())
+        if mdim is not None:
+            t = self.tp._gather(t, mdim)
+        return t
 
     def gather_params(self, params):
         return tree_map_with_paths(self.gather_leaf, params)
 
     # -- weights ----------------------------------------------------------
     def materialize(self, p, at: Sequence[str] = ()):
-        """ZeRO/FSDP weight gather: every data-sharded leaf of ``p`` (the
-        subtree at path ``at`` of the param tree, e.g. ``("layers",)`` for
-        a layer's slice) all-gathered along the table's dim, right before
-        use. Its backward reduce-scatters the gradient to this rank's
-        slice; under remat the recompute gathers again."""
+        """ZeRO/FSDP weight gather, the reference's ``fsdp=False`` view:
+        every leaf of ``p`` (the subtree at path ``at`` of the param tree,
+        e.g. ``("layers",)`` for a layer's slice) all-gathered over the
+        data line along its dim over data, right before use; slices over
+        ``model`` stay sliced (the model code computes tensor parallelism
+        on them), and so does an expert table's E dim over data (the
+        experts run where they live: :meth:`all_to_all`). The backward
+        reduce-scatters the gradient to this rank's slice; under remat the
+        recompute gathers again."""
         if self.n == 1:
             return p
         at = tuple(at)
 
         def gather(path, leaf):
-            dim = self.sharded_dim(at + path, leaf.dim())
-            return leaf if dim is None else _Gather.apply(leaf, dim, self)
+            full = at + path
+            dim = self.sharded_dim(full, leaf.dim())
+            if dim is None or self.expert_parallel(full):
+                return leaf
+            return _Gather.apply(leaf, dim, self)
 
         return tree_map_with_paths(gather, p)
 
-    # -- named activation sites (identities on a data-only mesh) ----------
+    def gather_experts(self, t: torch.Tensor) -> torch.Tensor:
+        """A layer's expert table (``(E/N, a, b)``, E over the data line)
+        gathered whole along E, with the reduce-scatter backward."""
+        return _Gather.apply(t, 0, self)
+
+    def model_whole(self, p, at: Sequence[str] = (), summed: bool = False):
+        """Every leaf of ``p`` (at path ``at``) that is sliced over
+        ``model`` gathered whole over the model line, for a site that
+        computes on it replicated over ``model``: every model rank then
+        computes the whole gradient and keeps its slice (``summed``: each
+        computes a part of it, and the backward reduce-scatters)."""
+        if self.tp is None:
+            return p
+        at = tuple(at)
+
+        def gather(path, leaf):
+            dim = self.model_dim(at + path, leaf.dim())
+            if dim is None:
+                return leaf
+            if summed:
+                return self.tp.gather_sum(leaf, dim)
+            return self.tp.all_gather(leaf, gather_axis=dim)
+
+        return tree_map_with_paths(gather, p)
+
+    def tp_sites(self, p, at: Sequence[str] = ()):
+        """A block's params (``attn``, ``ffn``; data dims gathered) and the
+        comm of each site: its :attr:`tp` where the site is
+        tensor-parallel, ``None`` where it computes replicated over
+        ``model`` (attention whose heads do not divide the axis: its
+        model-sliced leaves are gathered whole; an FFN whose d_ff does not
+        divide it is not sliced). ``(p, attn comm, ffn comm)``."""
+        if self.tp is None:
+            return p, None, None
+        at = tuple(at)
+        p = dict(p)
+        attn_c = ffn_c = None
+        if "attn" in p:
+            if self.attn_tp:
+                attn_c = self.tp
+            else:
+                p["attn"] = self.model_whole(p["attn"], at + ("attn",))
+        if "ffn" in p and self.model_dim(at + ("ffn", "w_gate")) is not None:
+            ffn_c = self.tp
+        return p, attn_c, ffn_c
+
+    # -- named activation sites (identities: each rank holds its rows) ----
     def act(self, x, *axes: AxisLike):
         return x
 
@@ -374,39 +526,90 @@ class Sharder:
     def logits(self, logits):
         return logits
 
-    # -- sums over the data ranks -------------------------------------------
+    # -- the MoE exchange and the sums over the data line ----------------
+    def all_to_all(self, x: torch.Tensor, to_experts: bool) -> torch.Tensor:
+        """An expert-major MoE buffer moved over the data line, with its
+        backward: ``to_experts`` takes ``(E, R, d)`` (this rank's ``R``
+        rows of every expert) to ``(E/N, N*R, d)`` (every rank's rows of
+        this rank's experts, in rank order); the reverse takes them back."""
+        return _AllToAll.apply(x, to_experts, self)
+
     def data_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the data ranks, differentiably (the global
+        """``x`` summed over the data line, differentiably (the global
         batch's token sums of the MoE load balance)."""
         return x if self.n == 1 else _DataSum.apply(x, self)
 
     @torch.no_grad()
     def data_sum_(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the data ranks in place (no autograd)."""
+        """``x`` summed over the data line in place (no autograd)."""
         return x if self.n == 1 else self._all_reduce(x)
 
-    # -- the collectives (the WORLD group: the fallback VCI) --------------
+    def split_key(self, path: Sequence[str]) -> Optional[str]:
+        """Over which ranks this rank's stored leaf at ``path`` is a
+        slice: ``"both"``, ``"data"``, ``"model"``, or ``None`` (whole on
+        every rank)."""
+        d = self.sharded_dim(path) is not None
+        m = self.model_dim(path) is not None
+        return {(True, True): "both", (True, False): "data",
+                (False, True): "model"}.get((d, m))
+
+    @torch.no_grad()
+    def norm_sum_(self, parts: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The sum of squares of the sliced leaves over the ranks, each
+        element once (:func:`repro_torch.optim.adamw.global_norm`'s
+        ``psum``; keys of :meth:`split_key`): ``"both"`` over every rank,
+        ``"data"`` over the data line (its model ranks hold the same
+        values), ``"model"`` over the model line. One all-reduce a line."""
+        zero = next(iter(parts.values())).new_zeros(()) if parts else \
+            torch.zeros(())
+        both, data, model = (parts.get(k, zero) for k in
+                             ("both", "data", "model"))
+        if self.tp is None:
+            return self.data_sum_(both + data)
+        sums = self.data_sum_(torch.stack([both, data]))
+        return self.model_sum_(sums[0] + model) + sums[1]
+
+    @torch.no_grad()
+    def model_sum_(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the model line in place (no autograd)."""
+        if self.tp is None:
+            return x
+        dist.all_reduce(x, group=self.tp.group)
+        self.tally["model_all_reduce"] += 1
+        return x
+
+    # -- the data line's collectives (its fallback VCI) --------------------
     def _gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        xm = x.movedim(dim, 0).contiguous()
-        out = torch.empty((self.n * xm.shape[0],) + tuple(xm.shape[1:]),
-                          dtype=xm.dtype, device=xm.device)
-        _all_gather(out.view(-1), xm.view(-1))
-        self.tally["all_gather"] += 1
-        self.tally["gather_bytes"] += out.numel() * out.element_size()
         # laid out as the whole leaf is: a matmul then reads it as it reads
         # the unsharded weight (the same kernel, so the same rounding)
-        return out.movedim(0, dim).contiguous()
+        out = line_gather(x, dim, self.n, self._data_group)
+        self.tally["all_gather"] += 1
+        self.tally["gather_bytes"] += out.numel() * out.element_size()
+        return out
 
     def _scatter(self, g: torch.Tensor, dim: int) -> torch.Tensor:
-        gm = g.movedim(dim, 0).contiguous()
-        out = torch.empty((gm.shape[0] // self.n,) + tuple(gm.shape[1:]),
-                          dtype=gm.dtype, device=gm.device)
-        _reduce_scatter(out.view(-1), gm.view(-1))
         self.tally["reduce_scatter"] += 1
-        self.tally["scatter_bytes"] += gm.numel() * gm.element_size()
-        return out.movedim(0, dim)
+        self.tally["scatter_bytes"] += g.numel() * g.element_size()
+        return line_scatter(g, dim, self.n, self._data_group)
 
     def _all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=self._data_group)
         self.tally["all_reduce"] += 1
         return x
+
+    def _all_to_all(self, x: torch.Tensor, to_experts: bool) -> torch.Tensor:
+        n = self.n
+        if to_experts:               # (E, R, d): block j to rank j
+            send = x.contiguous()
+        else:                        # (E/n, n*R, d): rows of rank j to j
+            e, rows = x.shape[0], x.shape[1] // n
+            send = x.reshape((e, n, rows) + tuple(x.shape[2:])).transpose(
+                0, 1).contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=self._data_group)
+        self.tally["all_to_all"] += 1
+        if not to_experts:           # (n, E/n, R, d) from each owner
+            return recv.reshape((-1,) + tuple(recv.shape[2:]))
+        e, rows = x.shape[0] // n, x.shape[1]
+        return recv.view((n, e, rows) + tuple(x.shape[2:])).transpose(
+            0, 1).reshape((e, n * rows) + tuple(x.shape[2:]))

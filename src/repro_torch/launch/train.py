@@ -7,24 +7,29 @@ The flags are those of ``repro.launch.train`` plus ``--device``: the card
 by default (raises without CUDA), ``--device cpu`` for the plain CPU path.
 ``--mesh N`` starts N data-parallel ranks with ``torch.multiprocessing``
 (gloo on the CPU, NCCL on the card, one card a rank), joined through a
-``FileStore`` in a temporary directory (no network); without it the step
-runs in this process as a group of one. Rank 0 prints.
+``FileStore`` in a temporary directory (no network); ``--mesh DxM`` starts
+D x M ranks as a ``data x model`` mesh (the reference's form; rank ``r``
+at ``(r // M, r % M)``); without it the step runs in this process as a
+group of one. Rank 0 prints.
 
 Every family trains: dense and MoE text (``--arch
 mixtral-8x22b-smoke``), SSM and hybrid (``mamba2-780m-smoke``,
 ``zamba2-7b-smoke``), VLM (``phi-3-vision-4.2b-smoke``; ``--seq`` counts
 the image patches too) and audio (``musicgen-large-smoke``).
-``--comm gspmd`` (the default) is FSDP over the data ranks, every
-collective on the default group (:mod:`repro_torch.dist.sharding`);
-``--comm vci`` is the paper's mode (bucketed VCI gradient reduction),
+``--comm gspmd`` (the default) is FSDP over the data ranks times tensor
+parallelism over the model ranks, each line's collectives on its
+fallback VCI (:mod:`repro_torch.dist.sharding`); ``--comm vci`` is the
+paper's mode (bucketed VCI gradient reduction over the data ranks, the
+model whole on every rank),
 with ``--optimizer zero1`` (ZeRO-1: reduce_scatter, sharded AdamW, param
 all_gather; ``--zero1-wire bfloat16`` sets the wire dtype of both) and
 ``--overlap`` (each bucket's reduce issued inside the backward).
 ``--ckpt-dir`` resumes from the directory's latest step (printing
 ``resumed from step N``), saves every ``--ckpt-every`` steps and at the
 end, in the reference's format (:mod:`repro_torch.checkpoint`; sharded
-states as whole leaves). A 2-D or 3-D ``--mesh`` (a model axis) raises
-``NotImplementedError`` (ROADMAP.md Queue 1 item 14).
+states as whole leaves). A 3-D ``--mesh`` (the reference's pod axis, with
+its launch helpers) raises ``NotImplementedError`` (ROADMAP.md Queue 1
+item 14).
 """
 
 from __future__ import annotations
@@ -34,12 +39,14 @@ import os
 import shutil
 import tempfile
 import time
+from typing import Optional
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.checkpoint.io import latest_step, load_state, save_state
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.collectives import RankMesh
 from repro_torch.data.pipeline import synthetic_batch
 from repro_torch.device import resolve_device
 from repro_torch.optim.schedule import cosine_schedule
@@ -85,22 +92,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def _world_size(mesh: str) -> int:
-    if mesh in ("none", ""):
-        return 1
-    if "x" in mesh:
+def build_mesh(spec: str) -> Optional[RankMesh]:
+    """``--mesh``: ``none``, ``N`` (data) or ``DxM`` (data x model), as
+    the reference's ``build_mesh`` reads it."""
+    if spec in ("none", ""):
+        return None
+    dims = [int(d) for d in spec.split("x")]
+    if len(dims) == 3:
         raise NotImplementedError(
-            f"--mesh {mesh}: only a 1-D data-parallel mesh is ported; "
-            f"training on a model axis is ROADMAP.md Queue 1 item 14")
-    n = int(mesh)
-    if n < 1:
-        raise ValueError(f"--mesh must be >= 1, got {n}")
-    return n
+            f"--mesh {spec}: the pod axis (pod x data x model) and the "
+            f"reference's launch helpers are ROADMAP.md Queue 1 item 14")
+    if len(dims) not in (1, 2) or min(dims) < 1:
+        raise ValueError(f"--mesh must be N or DxM with axes >= 1, got "
+                         f"{spec}")
+    return RankMesh(dims[0], dims[1] if len(dims) == 2 else 1)
+
+
+def _world_size(mesh: str) -> int:
+    m = build_mesh(mesh)
+    return 1 if m is None else m.size
 
 
 def train(args: argparse.Namespace, device: torch.device) -> None:
     """The training loop of one rank (the data group is initialised)."""
     rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = build_mesh(args.mesh)
     cfg = get_config(args.arch)
     if rank == 0:
         print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
@@ -113,7 +129,7 @@ def train(args: argparse.Namespace, device: torch.device) -> None:
 
     schedule = "overlap" if args.overlap else "post"
     step = make_train_step(
-        cfg, lr_fn=lr_fn, comm=args.comm, accum_steps=args.accum,
+        cfg, mesh=mesh, lr_fn=lr_fn, comm=args.comm, accum_steps=args.accum,
         num_streams=args.num_streams, progress=args.progress,
         vci_policy=args.vci_policy, pack=args.pack,
         reduction=args.reduction, persistent_plan=not args.per_step_plan,
@@ -122,18 +138,19 @@ def train(args: argparse.Namespace, device: torch.device) -> None:
     state = train_state_init(cfg, args.seed, optimizer=args.optimizer,
                              device=device, num_streams=args.num_streams,
                              pack=args.pack, schedule=schedule,
-                             comm=args.comm)
-    # the FSDP layout the checkpoint gathers and slices (gspmd only)
+                             comm=args.comm, mesh=mesh)
+    # the layout the checkpoint gathers and slices: the step's Sharder
+    # (gspmd), the mesh's data lines (ZeRO-1)
     shard = step.sharder() if args.comm == "gspmd" else None
     start = 0
     if args.ckpt_dir and (ls := latest_step(args.ckpt_dir)) is not None:
-        state = load_state(args.ckpt_dir, ls, state, shard=shard)
+        state = load_state(args.ckpt_dir, ls, state, shard=shard, mesh=mesh)
         start = ls
         if rank == 0:
             print(f"resumed from step {ls}", flush=True)
 
     def save(n: int) -> None:
-        save_state(args.ckpt_dir, n, state, shard=shard,
+        save_state(args.ckpt_dir, n, state, shard=shard, mesh=mesh,
                    metadata={"arch": cfg.name})
 
     t0 = time.time()

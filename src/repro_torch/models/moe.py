@@ -1,8 +1,9 @@
 """Mixture-of-Experts FFN: top-k router + sort-based capacity dispatch.
 
 Port of ``repro.models.moe``, on one device, under the manual-TP serve
-path (``comm``, see :func:`_moe_experts_comm`), or on the data ranks of a
-``comm="gspmd"`` training step (``shard``, see :func:`moe_ffn`).
+path (``comm``, see :func:`_moe_experts_comm`), or on the ``(data,
+model)`` ranks of a ``comm="gspmd"`` training step or the serve engine's
+GSPMD route (``shard``, see :func:`_experts_shard`).
 Per batch row (group) the token->expert assignments are sorted by expert;
 each assignment's rank within its expert decides whether it fits the
 capacity ``C`` (GShard/Switch dropping). The row moves are two launches of
@@ -97,15 +98,17 @@ def moe_ffn(cfg: ModelConfig, x, p, shard=None, *, inference: bool = False,
     expert tables arrive expert-parallel (E over the axis) or ff-TP
     sharded, and the combine collective rides the ``moe`` VCI stream.
 
-    ``shard`` (a :class:`repro_torch.dist.sharding.Sharder` on a data-only
-    mesh of N ranks): the tables arrive whole (the block's ``materialize``
-    gathered them), so each rank runs every expert on its own batch rows;
-    a group is one row, so routing and dropping are the reference's. The
-    aux losses are the global batch's: ``me`` and ``ce`` are token means
-    over every rank's rows (summed over the data ranks, ``me`` with its
-    gradient) before their product, and each rank returns its share of
-    each term, ``load_balance / N`` and its rows' part of the z-loss mean,
-    so that the shares sum to the global values over the ranks."""
+    ``shard`` (a :class:`repro_torch.dist.sharding.Sharder` on a mesh of
+    N data ranks, with or without a model axis): each rank routes its own
+    batch rows (a group is one row, so routing and dropping are the
+    reference's) and the experts run where the table puts them
+    (:func:`_experts_shard`). The aux losses are the global batch's:
+    ``me`` and ``ce`` are token means over every data rank's rows (summed
+    over the data line, ``me`` with its gradient) before their product,
+    and each rank returns its share of each term, ``load_balance / N`` and
+    its rows' part of the z-loss mean, so that the shares sum to the
+    global values over the data line (the model ranks of a line hold the
+    same rows, and the same values)."""
     if shard is not None and comm is not None:
         raise ValueError("moe_ffn takes shard or comm, not both")
     m = cfg.moe
@@ -130,6 +133,8 @@ def moe_ffn(cfg: ModelConfig, x, p, shard=None, *, inference: bool = False,
     if comm is not None:
         out = _moe_experts_comm(cfg, x.reshape(B * S, d), disp, comb, p,
                                 comm)
+    elif shard is not None and shard.size > 1:
+        out = _experts_shard(cfg, x.reshape(B * S, d), disp, comb, p, shard)
     else:
         # comb is disp's inverse: a large dispatch reads each token row once
         buf = row_gather(x.reshape(B * S, d), disp, comb).view(E, B * C, d)
@@ -164,7 +169,12 @@ def moe_ffn(cfg: ModelConfig, x, p, shard=None, *, inference: bool = False,
         y = shard.hidden(y)
 
     if m.dense_residual:
-        y = y + gated_ffn(cfg, x, p["residual"], comm=comm)
+        rc = comm
+        if shard is not None and shard.model_dim(
+                ("layers", "moe", "residual", "w_gate")) is not None:
+            rc = shard.tp
+        y = y + gated_ffn(cfg, x if rc is None else rc.copy(x),
+                          p["residual"], comm=rc)
     return y, aux
 
 
@@ -174,6 +184,65 @@ def _experts(cfg: ModelConfig, buf, p):
     h = a(torch.bmm(buf, p["w_gate"].to(buf.dtype))) \
         * torch.bmm(buf, p["w_up"].to(buf.dtype))                  # (e,rows,ff)
     return torch.bmm(h, p["w_down"].to(h.dtype))                   # (e,rows,d)
+
+
+def _experts_shard(cfg: ModelConfig, xf, disp, comb, p, shard):
+    """Expert FFNs on a ``(data, model)`` mesh: ``(E, B*C, d)`` of this
+    rank's rows, the reference's cases in its order
+    (``repro/models/moe.py:73-126``):
+
+    * ``moe_dispatch`` with E dividing the model axis (experts over
+      ``model``): the tables are gathered whole (their model slices with a
+      reduce-scatter backward: each model rank computes its own experts'
+      gradients), each model rank dispatches and runs only its experts'
+      slots of its data rank's rows, and the outputs are all-gathered over
+      the model line in expert order;
+    * E dividing the data axes (expert parallelism): each data rank holds
+      ``E/N`` experts (the table's E dim over data, never gathered), the
+      dispatch buffer goes to the experts' owners by an all_to_all over
+      the data line, each rank runs its own experts on every rank's rows,
+      and the outputs come back the same way;
+    * otherwise every rank runs every expert on its own rows (the FSDP
+      fallback: the tables' d_model dim over data, gathered by the
+      block's ``materialize``).
+
+    With a model axis the expert ff dim is tensor-parallel in the last two
+    cases (column ``w_gate`` / ``w_up``, row ``w_down``): the buffer
+    enters through the model line's ``copy`` and the expert outputs are
+    summed over it. The row gathers move the rows on the card either
+    way."""
+    E = cfg.moe.num_experts
+    tp = shard.tp
+    tp_n = 1 if tp is None else tp.size
+    at = ("layers", "moe")
+    rows = disp.shape[0] // E                # B*C slots an expert
+    if "moe_dispatch" in cfg.opts and tp_n > 1 and E % tp_n == 0:
+        w = {k: p[k] for k in ("w_gate", "w_up", "w_down")}
+        if shard.expert_parallel(at + ("w_gate",)):
+            w = {k: shard.gather_experts(v) for k, v in w.items()}
+        w = shard.model_whole(w, at, summed=True)
+        e_loc = E // tp_n
+        lo, hi = tp.rank() * e_loc * rows, (tp.rank() + 1) * e_loc * rows
+        inv = torch.where((comb >= lo) & (comb < hi), comb - lo, -1).to(
+            torch.int32)
+        buf = row_gather(tp.copy(xf), disp[lo:hi], inv).view(e_loc, rows, -1)
+        w = {k: v[tp.rank() * e_loc:(tp.rank() + 1) * e_loc]
+             for k, v in w.items()}
+        return tp.all_gather(_experts(cfg, buf, w), "moe", gather_axis=0)
+    # comb is disp's inverse: a large dispatch reads each token row once
+    buf = row_gather(xf, disp, comb).view(E, rows, -1)
+    ep = shard.expert_parallel(at + ("w_gate",))
+    if ep:
+        buf = shard.all_to_all(buf, to_experts=True)   # (E/N, N*B*C, d)
+    ff_tp = tp is not None and shard.model_dim(at + ("w_gate",)) is not None
+    if ff_tp:
+        buf = tp.copy(buf)
+    out = _experts(cfg, buf, p)
+    if ff_tp:
+        out = tp.psum(out, "moe")
+    if ep:
+        out = shard.all_to_all(out, to_experts=False)  # (E, B*C, d)
+    return out
 
 
 def _moe_experts_comm(cfg: ModelConfig, xf, disp, comb, p, comm):

@@ -32,6 +32,21 @@ embeddings; its decode is text-only after that prefix. The audio family
 (musicgen) sums ``num_codebooks`` token embeddings a position and has one
 LM head a codebook: tokens ``(B, K, S)``, logits ``(B, K, S, V)``. Both
 run the dense attention layers.
+
+Tensor parallelism runs at the same sites under either path: the serve
+path's ``comm`` (a :class:`repro_torch.serve.comm.ServeComm`) or the
+model line of a ``shard`` with a model axis (``shard.tp``, a
+:class:`repro_torch.dist.tp.LineComm`, whose collectives carry their
+backwards). Attention splits its heads (``wq``/``wk``/``wv`` column,
+``wo`` row, ``bo`` after the sum), the gated FFN its d_ff, the embedding
+its vocabulary (a masked lookup, then a sum) and the head its vocabulary
+(the logits gathered); each site's input enters through one ``copy``, so
+the parallel block's attention and FFN share one. Under ``shard`` the
+leaves that the rule table slices over ``model`` but that have no such
+site are gathered whole over ``model`` where they are used and computed
+replicated: the SSM's packed ``in_proj`` and ``out_proj``, the VLM's
+``img_proj`` (its output dim is d_model) and the attention leaves of an
+arch whose heads do not divide the axis (gemma-2b's one KV head).
 """
 
 from __future__ import annotations
@@ -462,11 +477,32 @@ def _prefill_cache(kv: KVCache, k, v) -> KVCache:
 
 def _ffn_apply(cfg: ModelConfig, h, p, inference: bool, comm=None,
                shard=None):
-    """The block's FFN: dense, or MoE with its aux losses. (out, aux)."""
+    """The block's FFN: dense, or MoE with its aux losses. (out, aux).
+    ``h`` enters a tensor-parallel dense FFN already through ``comm.copy``;
+    the MoE takes its own (:func:`repro_torch.models.moe.moe_ffn`)."""
     if cfg.moe is not None:
         return moe_ffn(cfg, h, p["moe"], shard, inference=inference,
-                       comm=comm)
+                       comm=None if shard is not None else comm)
     return gated_ffn(cfg, h, p["ffn"], comm=comm), {}
+
+
+def _sites(comm, shard, p, at):
+    """``(p, attention's comm, the dense FFN's comm)`` of a block: the
+    serve path's ``comm`` at both, or under ``shard`` its model line where
+    each site is tensor-parallel (its fallbacks gathered whole,
+    :meth:`repro_torch.dist.sharding.Sharder.tp_sites`)."""
+    if shard is None:
+        return p, comm, comm
+    return shard.tp_sites(p, at)
+
+
+def _entered(h, *comms):
+    """``h`` through ONE ``copy`` (identity forward, the model line's
+    all-reduce backward) for every column-parallel site it feeds: the
+    parallel block's attention and FFN share it. ``(h for each comm)``."""
+    live = next((c for c in comms if c is not None), None)
+    hc = h if live is None else live.copy(h)
+    return tuple(h if c is None else hc for c in comms)
 
 
 def _dense_block(cfg: ModelConfig, x, p, positions, kv=None, decode=False,
@@ -474,22 +510,31 @@ def _dense_block(cfg: ModelConfig, x, p, positions, kv=None, decode=False,
     """Standard (or parallel) transformer block. Returns (x, new_kv, aux);
     ``aux`` holds the MoE router losses (empty for a dense FFN). ``shard``
     (a :class:`repro_torch.dist.sharding.Sharder`): ``p`` is this rank's
-    FSDP slice of the layer, gathered here right before use."""
+    slice of the layer, its data slices gathered here right before use and
+    its model slices computed tensor-parallel on the model line."""
     if shard is not None:
         p = shard.materialize(p, ("layers",))  # the ZeRO/FSDP weight gather
+    p, attn_c, ffn_c = _sites(comm, shard, p, ("layers",))
+    if cfg.moe is not None:
+        ffn_c = comm if shard is None else None
     inference = decode or kv is not None
     h = apply_norm(cfg, x, p.get("norm1"))
     h = maybe_bf16_grads(cfg, h)  # opt bf16_grads: bf16 cotangents
-    attn_out, new_kv = _attn_apply(cfg, h, p["attn"], positions, kv=kv,
-                                   decode=decode, start=start, comm=comm)
     if cfg.parallel_block:
-        ffn_out, aux = _ffn_apply(cfg, h, p, inference, comm, shard)
+        ha, hf = _entered(h, attn_c, ffn_c)
+    else:
+        (ha,) = _entered(h, attn_c)
+    attn_out, new_kv = _attn_apply(cfg, ha, p["attn"], positions, kv=kv,
+                                   decode=decode, start=start, comm=attn_c)
+    if cfg.parallel_block:
+        ffn_out, aux = _ffn_apply(cfg, hf, p, inference, ffn_c, shard)
         x = x + attn_out + ffn_out
     else:
         x = x + attn_out
         h2 = apply_norm(cfg, x, p.get("norm2"))
         h2 = maybe_bf16_grads(cfg, h2)
-        ffn_out, aux = _ffn_apply(cfg, h2, p, inference, comm, shard)
+        (h2,) = _entered(h2, ffn_c)
+        ffn_out, aux = _ffn_apply(cfg, h2, p, inference, ffn_c, shard)
         x = x + ffn_out
     if shard is not None:
         x = shard.hidden(x)
@@ -504,19 +549,26 @@ def _shared_attn_block(cfg: ModelConfig, x, p, positions, kv=None,
     XLA)."""
     if shard is not None:
         p = shard.materialize(p, ("shared_attn",))
+    p, attn_c, ffn_c = _sites(None, shard, p, ("shared_attn",))
     h = apply_norm(cfg, x, p.get("norm1"))
+    (h,) = _entered(h, attn_c)
     o, new_kv = _attn_apply(cfg, h, p["attn"], positions, kv=kv,
-                            decode=decode)
+                            decode=decode, comm=attn_c)
     x = x + o
     h2 = apply_norm(cfg, x, p.get("norm2"))
-    return x + gated_ffn(cfg, h2, p["ffn"]), new_kv
+    (h2,) = _entered(h2, ffn_c)
+    return x + gated_ffn(cfg, h2, p["ffn"], comm=ffn_c), new_kv
 
 
 def _ssm_block(cfg: ModelConfig, x, p, state: Optional[SSMState] = None,
                decode: bool = False, shard=None):
-    """Pre-norm Mamba2 block with a residual: (x, new_state)."""
+    """Pre-norm Mamba2 block with a residual: (x, new_state). Under a
+    ``shard`` with a model axis the block computes replicated over
+    ``model``: its packed ``in_proj`` (whose column slices do not align
+    with z / x / B / C / dt) and ``out_proj`` are gathered whole there."""
     if shard is not None:
         p = shard.materialize(p, ("layers",))  # the ZeRO/FSDP weight gather
+        p = shard.model_whole(p, ("layers",))
     h = apply_norm(cfg, x, p.get("norm1"))
     if decode:
         out, new_state = mamba2_decode(cfg, h, p["ssm"], state)
@@ -559,22 +611,33 @@ class Model:
         (:func:`repro_torch.serve.comm.serve_param_specs`) and every
         cross-rank exchange is an explicit collective on a per-purpose
         CommContext/VCI stream. ``shard`` — a :class:`repro_torch.dist.
-        sharding.Sharder` on a data-only mesh (the ``comm="gspmd"`` train
-        step): the params are this rank's FSDP slices, each layer's
+        sharding.Sharder` on a ``(data, model)`` mesh (the
+        ``comm="gspmd"`` train step, and the serve engine's GSPMD route):
+        the params are this rank's slices, each layer's data slices
         gathered where it runs (``materialize``), the embedding, final
-        norm and head where they are used; the MoE aux losses and the
-        loss are the global batch's (:func:`repro_torch.models.moe.
-        moe_ffn`, :func:`repro_torch.train.losses.total_loss`)."""
+        norm and head where they are used, and the model slices computed
+        tensor-parallel on the model line (``shard.tp``: the same sites as
+        ``comm``'s, with a backward); the MoE aux losses and the loss are
+        the global batch's (:func:`repro_torch.models.moe.moe_ffn`,
+        :func:`repro_torch.train.losses.total_loss`)."""
         if shard is not None and comm is not None:
             raise ValueError("shard and comm are exclusive")
         self.cfg = cfg
         self.shard = shard
         self.comm = comm
+        # the vocab-parallel embedding and head's comm (either path's)
+        self.tp = comm if shard is None else shard.tp
 
-    def _gathered(self, params, key: str):
-        """``params[key]`` whole: gathered under ``shard``."""
+    def _gathered(self, params, key: str, whole: bool = False):
+        """``params[key]`` with its data slices gathered under ``shard``
+        (``whole``: its model slices too, for a site that computes
+        replicated over ``model``: the VLM's ``img_proj``, whose output
+        dim is d_model)."""
         p = params[key]
-        return p if self.shard is None else self.shard.materialize(p, (key,))
+        if self.shard is None:
+            return p
+        p = self.shard.materialize(p, (key,))
+        return self.shard.model_whole(p, (key,)) if whole else p
 
     # -- embeddings ------------------------------------------------------
     def _tok_embed(self, params, tok) -> torch.Tensor:
@@ -584,18 +647,27 @@ class Model:
         arrives row-sharded over TP."""
         emb = self._gathered(params, "embed")["tok"].to(
             torch_dtype(self.cfg.dtype))
+        tok = tok.long()
+        v_loc = emb.shape[-2]
+        parallel = self.tp is not None and v_loc != self.cfg.vocab_size
+        if parallel:
+            tok = tok - self.tp.rank() * v_loc
+            ok = (tok >= 0) & (tok < v_loc)
+            tok = tok.clamp(0, v_loc - 1)
         if self.cfg.modality == "audio":               # emb: (K,V,d)
             books = torch.arange(emb.shape[0], device=tok.device)
-            return emb[books[:, None], tok.long()].sum(1)
-        if self.comm is not None and emb.shape[0] != self.cfg.vocab_size:
-            v_loc = emb.shape[0]
-            loc = tok.long() - self.comm.rank() * v_loc
-            ok = (loc >= 0) & (loc < v_loc)
-            x = torch.where(ok[..., None], emb[loc.clamp(0, v_loc - 1)],
-                            torch.zeros((), dtype=emb.dtype,
-                                        device=emb.device))
-            return self.comm.psum(x, "sample")
-        return emb[tok.long()]
+            x = emb[books[:, None], tok]                # (B,K,S,d)
+            if parallel:
+                x = torch.where(ok[..., None], x, torch.zeros(
+                    (), dtype=emb.dtype, device=emb.device))
+                return self.tp.psum(x.sum(1), "sample")
+            return x.sum(1)
+        x = emb[tok]
+        if parallel:
+            x = torch.where(ok[..., None], x, torch.zeros(
+                (), dtype=emb.dtype, device=emb.device))
+            return self.tp.psum(x, "sample")
+        return x
 
     def embed(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (x: (B,S,d), positions: (S,)). VLM: the projected image
@@ -604,7 +676,7 @@ class Model:
         x = self._tok_embed(params, tok)
         if self.cfg.modality == "vlm":
             img = batch["image_embeds"].to(x.dtype)            # (B,P,1024)
-            w = self._gathered(params, "img_proj")["w"]
+            w = self._gathered(params, "img_proj", whole=True)["w"]
             x = torch.cat([img @ w.to(x.dtype), x], 1)
         if self.shard is not None:
             x = self.shard.hidden(x)
@@ -614,19 +686,23 @@ class Model:
         """Logits (B,S,V); audio (B,K,S,V), one head a codebook."""
         x = apply_norm(self.cfg, x, None if "final_norm" not in params
                        else self._gathered(params, "final_norm"))
-        if self.cfg.modality == "audio":
-            return torch.einsum("bsd,kdv->bksv", x, self._gathered(
-                params, "lm_head")["w"].to(x.dtype))
         if self.cfg.tie_embeddings:
-            logits = x @ self._gathered(params, "embed")["tok"].to(x.dtype).T
+            w = self._gathered(params, "embed")["tok"].T
         else:
-            logits = x @ self._gathered(params, "lm_head")["w"].to(x.dtype)
+            w = self._gathered(params, "lm_head")["w"]
+        parallel = self.tp is not None and w.shape[-1] != self.cfg.vocab_size
+        if parallel:   # the column-parallel head's entry
+            x = self.tp.copy(x)
+        if self.cfg.modality == "audio":
+            logits = torch.einsum("bsd,kdv->bksv", x, w.to(x.dtype))
+        else:
+            logits = x @ w.to(x.dtype)
         if self.shard is not None:
             logits = self.shard.logits(logits)
-        if self.comm is not None and logits.shape[-1] != self.cfg.vocab_size:
+        if parallel:
             # vocab-parallel logits: gather shards on the sampling stream
-            logits = self.comm.all_gather(logits, "sample",
-                                          gather_axis=logits.dim() - 1)
+            logits = self.tp.all_gather(logits, "sample",
+                                        gather_axis=logits.dim() - 1)
         return logits
 
     # -- full-sequence forward (prefill) ----------------------------------

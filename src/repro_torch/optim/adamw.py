@@ -24,7 +24,7 @@ rank's shard alone).
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,30 +51,33 @@ def adamw_init(params, moment_dtype=torch.float32) -> AdamWState:
                       count=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def global_norm(tree, sharded: Optional[Sequence[bool]] = None,
-                psum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+def global_norm(tree, sharded: Optional[Sequence[Any]] = None,
+                psum: Optional[Callable[[Dict[Any, torch.Tensor]],
+                                        torch.Tensor]] = None
                 ) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32, summed leaf
     by leaf in the reference's leaf order.
 
-    Over FSDP shards (``sharded[i]``: leaf ``i`` is this rank's slice of a
-    leaf split over the data ranks) the sliced leaves' squares are summed
-    over the ranks by ``psum`` and the replicated leaves', equal on every
-    rank, are added once."""
+    Over sliced leaves (``sharded[i]``: falsy where every rank holds leaf
+    ``i`` whole, else a key naming the ranks it is split over, e.g.
+    ``"data"``, ``"model"``, ``"both"``) each key's squares are summed
+    here and ``psum`` takes ``{key: partial sum}`` to the sum of every
+    key's squares over the ranks that split it, each element counted once;
+    the whole leaves' squares, equal on every rank, are added once."""
     leaves = tree_leaves(tree)
     total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     if sharded is None:
         for l in leaves:
             total = total + torch.sum(torch.square(l.float()))
         return torch.sqrt(total)
-    part = torch.zeros_like(total)
+    parts: Dict[Any, torch.Tensor] = {}
     for l, s in zip(leaves, sharded):
         sq = torch.sum(torch.square(l.float()))
         if s:
-            part = part + sq
+            parts[s] = parts.get(s, torch.zeros_like(total)) + sq
         else:
             total = total + sq
-    return torch.sqrt(psum(part) + total)
+    return torch.sqrt(psum(parts) + total)
 
 
 def _chunks(t: torch.Tensor):
@@ -101,10 +104,11 @@ def adamw_update(
     """One AdamW step. Writes the new params and moments into ``params``,
     ``state.m`` and ``state.v`` and returns them with the new count.
 
-    The FSDP update (``comm="gspmd"`` over N data ranks): params, grads
-    and moments are this rank's slices of the leaves that ``sharded``
-    marks, whole copies of the rest; ``psum`` sums a scalar over the ranks
-    for the clip's global norm (:func:`global_norm`). Everything else is
+    The FSDP update (``comm="gspmd"`` over a ``(data, model)`` mesh):
+    params, grads and moments are this rank's slices of the leaves that
+    ``sharded`` marks, whole copies of the rest; ``psum`` sums the sliced
+    leaves' squares over the ranks for the clip's global norm
+    (:func:`global_norm`). Everything else is
     elementwise, and weight decay keeps the leaf's rule (``ndim >= 2``:
     a slice has its leaf's rank)."""
     gnorm = global_norm(grads, sharded, psum)

@@ -122,6 +122,12 @@ class ServeComm:
                                split_axis=split_axis,
                                concat_axis=concat_axis, axis=self.axis)))
 
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """A column-parallel site's entry: the identity (serving takes no
+        gradient; the training path's :class:`repro_torch.dist.tp.
+        LineComm` sums it over the line in the backward)."""
+        return x
+
     def drain(self, x):
         """Order ``x`` after every stream (step-end global progress)."""
         self.rt.barrier()

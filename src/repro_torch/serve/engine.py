@@ -40,8 +40,19 @@ tokens are gathered over ``data`` inside the step, so every rank's loop
 sees the whole batch); a paged pool replicates the batch over ``data``
 and shards only its KV heads, which is what lets mid-stream admission run
 under the mesh. ``cache_bytes_resident`` is then the rank's own cache
-(the reference counts its global arrays). The reference's GSPMD route
-(``mesh`` without a comm plan) is not ported (ROADMAP.md Queue 1 item 14).
+(the reference counts its global arrays).
+
+``mesh`` without a comm plan is the reference's GSPMD route: every rank
+runs ``Model(cfg, Sharder(mesh, cfg))`` on its slice of the params by the
+rule table (:meth:`repro_torch.dist.sharding.Sharder.shard_params`: FSDP
+over data, Megatron over model), each layer's data slices gathered where
+it runs and every tensor-parallel collective on its model line's single
+fallback group (against :class:`ServeCommPlan`'s VCI a purpose); the
+cache lays its rows and KV heads out as on the manual-TP path, and the
+sampled tokens of rows split over data are gathered over the data line.
+It serves the dense and MoE text archs, paged and contiguous; another
+family on a model axis raises ``NotImplementedError`` (ROADMAP.md Queue 1
+item 14).
 
 PyTorch runs eagerly, so the reference's ``jax.jit`` wrappers (and their
 per-width trace caches) have no counterpart; caches are written in place
@@ -61,6 +72,8 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.collectives import RankMesh
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import Sharder
+from repro_torch.dist.tp import line_gather
 from repro_torch.models.attention import (
     KVCache,
     _stored_kv_heads,
@@ -121,12 +134,19 @@ def select_tokens(logits, temps=None, gen: Optional[torch.Generator] = None
     return torch.where(use, sampled.to(torch.int32), greedy)
 
 
-def _no_gspmd(mesh, comm_plan) -> None:
-    if mesh is not None and comm_plan is None:
+def gspmd_validate(cfg: ModelConfig, mesh) -> None:
+    """The GSPMD route's scope: the dense and MoE text archs on a model
+    axis (another family raises, naming ROADMAP.md Queue 1 item 14), at a
+    degree the arch can split."""
+    if not isinstance(mesh, RankMesh):
+        raise ValueError(f"the GSPMD route needs a RankMesh, got {mesh!r}")
+    if mesh.model > 1 and (cfg.family not in ("dense", "moe")
+                           or cfg.modality != "text"):
         raise NotImplementedError(
-            "a mesh without a comm plan is the reference's GSPMD Sharder "
-            "route, not ported (ROADMAP.md Queue 1 item 14); pass "
-            "comm_plan= or num_vcis= for the manual-TP path")
+            f"{cfg.name}: serving family {cfg.family!r} / modality "
+            f"{cfg.modality!r} on a model axis is ROADMAP.md Queue 1 item "
+            f"14; the GSPMD route serves the dense and MoE text archs")
+    serve_tp_validate(cfg, mesh.model)
 
 
 def make_serve_step(cfg: ModelConfig, mesh=None, comm_plan=None,
@@ -134,10 +154,13 @@ def make_serve_step(cfg: ModelConfig, mesh=None, comm_plan=None,
     """Returns ``serve_step(params, tokens, cache, start=None, temps=None,
     gen=None) -> (next_tokens, cache)``; tokens: (B,1) int (audio:
     (B,K,1)). ``comm_plan`` selects the manual-TP VCI-stream path (see
-    :mod:`repro_torch.serve.comm`)."""
-    _no_gspmd(mesh, comm_plan)
+    :mod:`repro_torch.serve.comm`); ``mesh`` without it the GSPMD route
+    (see the module doc; collective: every rank builds it at the same
+    point)."""
     if comm_plan is not None:
         return _make_comm_call(cfg, mesh, comm_plan, lane, prefill=False)
+    if mesh is not None:
+        return _make_gspmd_call(cfg, mesh, prefill=False)
     model = Model(cfg)
 
     def serve_step(params, tokens, cache: DecodeCache, start=None,
@@ -155,10 +178,12 @@ def make_prefill(cfg: ModelConfig, mesh=None, comm_plan=None,
     gen=None) -> (next_tokens, cache)`` sampling the first new token.
     ``batch`` holds ``tokens`` (audio: (B,K,S)), and ``image_embeds``
     (B,P,1024) for a VLM, whose cache then holds P + S_txt positions.
-    ``comm_plan`` selects the manual-TP VCI-stream path."""
-    _no_gspmd(mesh, comm_plan)
+    ``comm_plan`` selects the manual-TP VCI-stream path, ``mesh`` without
+    it the GSPMD route."""
     if comm_plan is not None:
         return _make_comm_call(cfg, mesh, comm_plan, lane, prefill=True)
+    if mesh is not None:
+        return _make_gspmd_call(cfg, mesh, prefill=True)
     model = Model(cfg)
 
     def prefill(params, batch, cache: DecodeCache, start=None, temps=None,
@@ -226,6 +251,41 @@ def _make_comm_call(cfg: ModelConfig, mesh, plan: ServeCommPlan, lane: int,
     return call
 
 
+def _make_gspmd_call(cfg: ModelConfig, mesh, prefill: bool):
+    """The GSPMD route's prefill (``prefill``) or decode step: this rank's
+    rows through ``Model(cfg, Sharder(mesh, cfg))``, rows split over data
+    gathered back over the data line. ``call.sharder`` is the Sharder,
+    whose ``tally`` counts the collectives (the token gathers under
+    ``"tokens"``)."""
+    gspmd_validate(cfg, mesh)
+    shard = Sharder(mesh, cfg)
+    model = Model(cfg, shard)
+
+    def call(params, inp, cache: DecodeCache, start=None, temps=None,
+             gen=None):
+        tokens = inp["tokens"] if prefill else inp
+        rows = _data_rows(cache, tokens.shape[0], mesh)
+        if rows is not None:
+            tokens = tokens[rows]
+            start = None if start is None else start[rows]
+            temps = None if temps is None else temps[rows]
+        if prefill:
+            logits, _, new_cache = model.forward(
+                params, {"tokens": tokens}, cache=cache, start=start)
+            logits = logits[..., -1:, :]
+        else:
+            logits, new_cache = model.decode_step(params, tokens, cache,
+                                                  start=start)
+        nxt = select_tokens(logits, temps, gen)
+        if rows is not None:
+            nxt = line_gather(nxt, 0, mesh.data, shard._data_group)
+            shard.tally["tokens"] = shard.tally.get("tokens", 0) + 1
+        return nxt, new_cache
+
+    call.sharder = shard
+    return call
+
+
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
@@ -281,8 +341,10 @@ class ServeEngine:
     of batched decode steps it ran.
 
     ``mesh`` + ``comm_plan`` (or ``num_vcis``) select the manual-TP decode
-    whose collectives ride per-purpose VCI streams; every rank of the mesh
-    must build its engine at the same point of its program (the streams'
+    whose collectives ride per-purpose VCI streams; ``mesh`` alone the
+    GSPMD route (``params``: this rank's slice by the rule table,
+    ``Sharder(mesh, cfg, rank=r).shard_params(full)``). Every rank of the
+    mesh must build its engine at the same point of its program (the
     process groups are created here) and run the same requests.
     """
 
@@ -303,7 +365,6 @@ class ServeEngine:
                                       vci_policy=vci_policy,
                                       progress=progress,
                                       token_impl=token_impl)
-        _no_gspmd(mesh, comm_plan)
         if comm_plan is not None and not isinstance(mesh, RankMesh):
             raise ValueError(f"comm_plan needs a RankMesh with a 'model' "
                              f"axis, got {mesh!r}")

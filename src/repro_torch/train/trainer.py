@@ -1,12 +1,21 @@
-"""The data-parallel train step (port of ``repro.train.trainer``).
+"""The train step (port of ``repro.train.trainer``).
 
-``comm="vci"`` is the paper's mode: every rank of the data group (the
-default ``torch.distributed`` group, which takes the place of the
-reference's mesh) holds the full params (DDP), computes the gradients of
-its contiguous ``1/N`` of the batch rows (``P(data)``), and the gradient
-tree is partitioned into buckets, each assigned a CommContext -> VCI (its
-own process group) and reduced on independent streams by
-:func:`repro_torch.core.bucketing.reduce_gradients`. ``progress`` /
+The ranks of ``torch.distributed``'s default group take the place of the
+reference's mesh: ``mesh`` (a :class:`~repro_torch.core.collectives.
+RankMesh`) lays them out as a row-major ``data x model`` grid; without it
+they are all data ranks. A rank's *data line* is the ranks that share its
+model index, its *model line* those that share its data index; the ranks
+of a model line train on the same batch rows.
+
+``comm="vci"`` is the paper's mode: every rank holds the full params
+(DDP) and runs the model whole (the reference leaves the model axis to
+GSPMD, which replicates the model over it: ``Model(cfg, None)``, params
+``P()``), computes the gradients of its data line's contiguous ``1/N`` of
+the batch rows (``P(data)``), and the gradient tree is partitioned into
+buckets, each assigned a CommContext -> VCI (its own process group, along
+the data line on a mesh with a model axis) and reduced on independent
+streams by :func:`repro_torch.core.bucketing.reduce_gradients`; the
+metrics are their mean over the data line. ``progress`` /
 ``num_streams`` / ``vci_policy`` / ``pack`` / ``reduction`` / ``staging``
 select the same design space as the reference.
 
@@ -25,24 +34,29 @@ asynchronously on the VCI groups, and AdamW updates params and moments in
 place. With NCCL nothing in the step blocks the host on the card except
 reading metrics, which the caller does.
 
-``comm="gspmd"`` (the reference's default) is FSDP over the data ranks:
-each rank keeps its ``1/N`` slice of every leaf the rule table
-(:mod:`repro_torch.dist.sharding`) shards over data and whole copies of
-the rest (``train_state_init(comm="gspmd")``); each layer's slices are
-all-gathered where the layer runs and its gradient reduce-scattered back
-(``Sharder.materialize``), the replicated leaves' gradients are summed
-by one all-reduce, and AdamW updates the slices (its clip's norm summed
-over the ranks). The loss is the reference's global-batch loss (each
-rank's share, :func:`repro_torch.train.losses.total_loss`), so N ranks
-give the single-device step on the whole batch; with one rank it is that
-step. Every collective of it runs on the default group, the fallback VCI.
+``comm="gspmd"`` (the reference's default) is FSDP over the data ranks
+times tensor parallelism over the model ranks: each rank keeps its slice
+of every leaf along both of the rule table's dims
+(:mod:`repro_torch.dist.sharding`; ``train_state_init(comm="gspmd")``);
+each layer's data slices are all-gathered over the data line where the
+layer runs and their gradient reduce-scattered back
+(``Sharder.materialize``), the model slices compute Megatron tensor
+parallelism on the model line (:mod:`repro_torch.dist.tp`), expert tables
+whose E dim lies over data stay where they are and the MoE moves its rows
+to them (an all_to_all), the gradients of the leaves whole over data are
+summed by one all-reduce a dtype over the data line, and AdamW updates
+the slices (its clip's norm summed so that every element counts once).
+The loss is the reference's global-batch loss (each data rank's share,
+:func:`repro_torch.train.losses.total_loss`), so the mesh gives the
+single-device step on the whole batch; with one rank it is that step.
+Each line's collectives run on its fallback VCI (the default group on a
+data-only mesh).
 
 Every family trains: dense and MoE text (the MoE row moves through the
 row-gather kernels forward and backward, the loss with the router's aux
 terms), SSM and hybrid (the SSD intra-chunk step through its forward and
 backward kernels, plain CE), VLM (image + text labels) and audio (the K
-codebook heads), in both modes. Training on a ``model`` axis is
-ROADMAP.md Queue 1 item 14.
+codebook heads), in both modes and on either mesh.
 """
 
 from __future__ import annotations
@@ -56,7 +70,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import TILE, get_comm_plan, reduce_gradients
 from repro_torch.core.bucketing import (ShardLayout, all_gather_shards,
                                         overlap_boundaries, plan_buckets)
-from repro_torch.core.collectives import RankMesh
+from repro_torch.core.collectives import RankMesh, vci_group
 from repro_torch.device import torch_dtype
 from repro_torch.dist.sharding import Sharder
 from repro_torch.models.transformer import Model, init_params
@@ -65,7 +79,8 @@ from repro_torch.optim.adamw import (adamw_init, adamw_update,
                                      sharded_adamw_update)
 from repro_torch.train.losses import total_loss
 from repro_torch.tree import (tree_flatten, tree_flatten_with_paths,
-                              tree_leaves, tree_unflatten)
+                              tree_leaves, tree_map_with_paths,
+                              tree_unflatten)
 
 METRIC_KEYS = ("ce", "tokens", "load_balance", "router_z", "loss",
                "grad_norm", "lr")
@@ -88,20 +103,50 @@ def _zero1_plan(params_or_grads, *, num_streams: int, align: int, pack: str,
                         else "size")
 
 
-def data_sharder(cfg: ModelConfig) -> Sharder:
-    """The :class:`Sharder` of a ``comm="gspmd"`` step in this process: a
-    data-only mesh over torch.distributed's default group (no mesh, one
-    rank, when the group is not initialised or has one rank)."""
+def default_mesh() -> Optional[RankMesh]:
+    """The mesh of a step given none: every rank of torch.distributed's
+    default group a data rank (``None``: one rank, or no group)."""
     n = dist.get_world_size() if dist.is_initialized() else 1
-    return Sharder(RankMesh(n, 1) if n > 1 else None, cfg)
+    return RankMesh(n, 1) if n > 1 else None
+
+
+def data_sharder(cfg: ModelConfig, mesh: Optional[RankMesh] = None
+                 ) -> Sharder:
+    """The :class:`Sharder` of a ``comm="gspmd"`` step in this process on
+    ``mesh`` (default :func:`default_mesh`). Collective on a mesh with a
+    model axis (it makes the lines' groups): every rank builds it at the
+    same point."""
+    return Sharder(mesh if mesh is not None else default_mesh(), cfg)
+
+
+class DataLine:
+    """This rank's data line of ``mesh``: its ``size`` ranks, this rank's
+    ``index`` on it, and its ``group`` (the line's fallback VCI; ``None``,
+    the default group, on a data-only mesh). Collective on a mesh with a
+    model axis (it makes the lines' groups)."""
+
+    def __init__(self, mesh: Optional[RankMesh] = None):
+        mesh = mesh if mesh is not None else default_mesh()
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        if mesh is None:
+            self.size, self.index, self.group = 1, 0, None
+        else:
+            if not dist.is_initialized() or \
+                    dist.get_world_size() != mesh.size:
+                raise ValueError(f"a mesh of {mesh.size} ranks needs "
+                                 f"torch.distributed's default group of "
+                                 f"{mesh.size} ranks")
+            self.size, self.index = mesh.data, mesh.coords(rank)[0]
+            self.group = (vci_group(0, 1, axis="data", mesh=mesh)
+                          if mesh.model > 1 else None)
 
 
 def train_state_init(cfg: ModelConfig, seed: int = 0, *,
                      optimizer: str = "replicated", device=None,
                      params: Optional[Any] = None, num_streams: int = 8,
                      bucket_align: int = TILE, pack: str = "xla",
-                     schedule: str = "post", comm: str = "vci"
-                     ) -> TrainState:
+                     schedule: str = "post", comm: str = "vci",
+                     mesh: Optional[RankMesh] = None) -> TrainState:
     """Fresh params (``init_params(cfg, seed)`` on ``device``, or the given
     ``params``, e.g. the reference's carried over by ``repro_torch.bridge``)
     and zero AdamW moments in ``cfg.optimizer_dtype``.
@@ -112,11 +157,13 @@ def train_state_init(cfg: ModelConfig, seed: int = 0, *,
     gets, since the bucket plan, and so every buffer's layout, derives
     from them.
 
-    ``comm="gspmd"`` builds this rank's FSDP state over the default group
-    (one rank without it): its slice of every leaf the rule table shards
-    over data (a copy, the full leaf freed), whole copies of the rest, and
-    moments of the slices' shapes. ``comm="vci"`` (the default here)
-    keeps every leaf whole on every rank."""
+    ``comm="gspmd"`` builds this rank's state on ``mesh`` (default: every
+    rank of the default group a data rank; one rank without it): its slice
+    of every leaf along the rule table's dims over data and over model (a
+    copy, the full leaf freed), whole copies of the rest, and moments of
+    the slices' shapes. ``comm="vci"`` (the default here) keeps every
+    leaf whole on every rank; its ZeRO-1 shards split over the data line
+    of ``mesh``."""
     if optimizer not in ("replicated", "zero1"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
     if comm not in ("vci", "gspmd"):
@@ -124,10 +171,18 @@ def train_state_init(cfg: ModelConfig, seed: int = 0, *,
     if comm == "gspmd" and optimizer != "replicated":
         raise ValueError("optimizer='zero1' requires comm='vci' (the "
                          "bucketed reduce_scatter path)")
-    if params is None:
-        params = init_params(cfg, seed, device=device)
     if comm == "gspmd":
-        params = data_sharder(cfg).shard_params(params)
+        shard = data_sharder(cfg, mesh)
+        if params is None:
+            # the text attention archs' leaves are cut as they are made,
+            # so that one whole leaf at a time is on the device
+            params = init_params(cfg, seed, device=device,
+                                 shard=shard.shard_leaf)
+        params = tree_map_with_paths(
+            lambda p, t: t if tuple(t.shape) == shard.local_shape(p)
+            else shard.shard_leaf(p, t), params)
+    elif params is None:
+        params = init_params(cfg, seed, device=device)
     moment_dtype = torch_dtype(cfg.optimizer_dtype)
     if optimizer == "replicated":
         opt = adamw_init(params, moment_dtype=moment_dtype)
@@ -138,9 +193,9 @@ def train_state_init(cfg: ModelConfig, seed: int = 0, *,
                              "first (one rank is a legal group)")
         plan = _zero1_plan(params, num_streams=num_streams,
                            align=bucket_align, pack=pack, schedule=schedule)
+        line = DataLine(mesh)
         opt = sharded_adamw_init(params, plan, moment_dtype,
-                                 axis_size=dist.get_world_size(),
-                                 rank=dist.get_rank())
+                                 axis_size=line.size, rank=line.index)
     return TrainState(params, opt, torch.zeros(
         (), dtype=torch.int32, device=opt.count.device))
 
@@ -157,11 +212,15 @@ def _loss_fn(model: Model, cfg: ModelConfig, params, batch):
     return total_loss(cfg, logits, batch["labels"], aux, shard=model.shard)
 
 
-def _rank_slice(batch, device) -> Dict[str, torch.Tensor]:
+def _rank_slice(batch, device, line: Optional[DataLine] = None
+                ) -> Dict[str, torch.Tensor]:
     """This rank's contiguous ``1/N`` of the global batch's rows, on
-    ``device`` (the reference's ``P(data)`` in_spec)."""
-    return _microbatch_rows(batch, device, dist.get_world_size(),
-                            dist.get_rank(), 1)
+    ``device`` (the reference's ``P(data)`` in_spec): its data line's
+    ``line.index`` of ``line.size``, or, without a line, its rank of the
+    default group's."""
+    n, i = ((dist.get_world_size(), dist.get_rank()) if line is None
+            else (line.size, line.index))
+    return _microbatch_rows(batch, device, n, i, 1)
 
 
 def _microbatch_rows(batch, device, n: int, rank: int, accum: int
@@ -188,6 +247,7 @@ def _microbatch_rows(batch, device, n: int, rank: int, accum: int
 def make_train_step(
     cfg: ModelConfig,
     *,
+    mesh: Optional[RankMesh] = None,
     lr_fn: Optional[Callable] = None,
     comm: str = "gspmd",
     accum_steps: int = 1,
@@ -213,23 +273,27 @@ def make_train_step(
 ) -> Callable[[TrainState, Any], tuple]:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
-    The keywords and their defaults are the reference's, without ``mesh``:
-    the data group is ``torch.distributed``'s default group, which
-    ``comm="vci"`` needs initialised (one rank is a legal group;
-    ``comm="gspmd"`` runs on one rank without it). ``batch`` is the
-    GLOBAL batch (numpy arrays or tensors); each rank trains on its
-    contiguous ``1/N`` of the rows (under ``comm="gspmd"`` with
-    ``accum_steps`` microbatches, its ``1/N`` of each). ``metrics`` are
-    float32 tensors on the params' device, equal on every rank, with the
-    keys of :data:`METRIC_KEYS`: ``comm="vci"`` averages each rank's
-    values over the data group (the reference's ``pmean``),
-    ``comm="gspmd"`` gives the global batch's. The state's params and
-    moments are updated in place.
+    The keywords and their defaults are the reference's. ``mesh`` (a
+    :class:`RankMesh` over the default group's ranks; default: all data
+    ranks) places them; ``comm="vci"`` needs the group initialised (one
+    rank is a legal group; ``comm="gspmd"`` runs on one rank without it).
+    The step builds its groups at its first call, which every rank makes
+    at the same point. ``batch`` is the GLOBAL batch (numpy arrays or
+    tensors); each rank trains on its data line's contiguous ``1/N`` of
+    the rows (under ``comm="gspmd"`` with ``accum_steps`` microbatches,
+    its ``1/N`` of each). ``metrics`` are float32 tensors on the params'
+    device, equal on every rank, with the keys of :data:`METRIC_KEYS`:
+    ``comm="vci"`` averages each rank's values over the data line (the
+    reference's ``pmean``), ``comm="gspmd"`` gives the global batch's. The
+    state's params and moments are updated in place.
 
-    ``comm="gspmd"`` needs a state from ``train_state_init(comm="gspmd")``
-    on the same ranks; ``step.comm_tally`` then holds the last step's
-    count of each collective (``all_gather``, ``reduce_scatter``,
-    ``all_reduce``) and the bytes gathered and scattered.
+    ``comm="gspmd"`` needs a state from ``train_state_init(comm="gspmd",
+    mesh=mesh)`` on the same ranks; ``step.comm_tally`` then holds the
+    last step's count of each collective, the data line's
+    (``all_gather``, ``reduce_scatter``, ``all_reduce``, ``all_to_all``,
+    and the bytes gathered and scattered) apart from the model line's
+    (``model_all_reduce``, ``model_all_gather``,
+    ``model_reduce_scatter``).
 
     ``optimizer="zero1"`` needs a state from ``train_state_init(optimizer=
     "zero1")`` with the same ``num_streams``/``bucket_align``/``pack``/
@@ -260,9 +324,15 @@ def make_train_step(
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if lr_fn is None:
         lr_fn = lambda step: 3e-4  # noqa: E731
-    # the model (and, under gspmd, its Sharder, built at the first step on
-    # the data group of that moment)
-    built: Dict[str, Any] = {"model": Model(cfg), "shard": None}
+    # the model (and, under gspmd, its Sharder; under vci, the data line),
+    # built at the first step on the ranks of that moment
+    built: Dict[str, Any] = {"model": Model(cfg), "shard": None,
+                             "line": None}
+
+    def data_line() -> DataLine:
+        if built["line"] is None:
+            built["line"] = DataLine(mesh)
+        return built["line"]
     wire = torch_dtype(zero1_wire_dtype) if zero1_wire_dtype else \
         torch.float32
 
@@ -351,17 +421,19 @@ def make_train_step(
 
     def data_mean(metrics):
         """The reference's ``pmean`` over the data axis: one all_reduce of
-        the stacked metrics on the default group (not a VCI stream)."""
+        the stacked metrics on the data line's fallback VCI (not a bucket
+        stream)."""
+        line = data_line()
         keys = sorted(metrics)
         stacked = torch.stack([metrics[k].float() for k in keys])
-        dist.all_reduce(stacked)
-        stacked = stacked / dist.get_world_size()
+        dist.all_reduce(stacked, group=line.group)
+        stacked = stacked / line.size
         return {k: stacked[i] for i, k in enumerate(keys)}
 
     def data_sum(x):
         """The global-norm ``psum``: one all_reduce of a scalar on the
-        default group."""
-        dist.all_reduce(x)
+        data line."""
+        dist.all_reduce(x, group=data_line().group)
         return x
 
     def comm_plan(tree):
@@ -372,7 +444,7 @@ def make_train_step(
                              num_vcis=num_vcis, vci_policy=vci_policy,
                              progress=progress, join_every=join_every,
                              token_impl=token_impl, schedule=schedule,
-                             persistent=persistent_plan)
+                             persistent=persistent_plan, mesh=mesh)
 
     masks: Dict[str, Any] = {"plan": None}    # this rank's decay masks
     # the overlap hooks' record of the last step: the bucket issue order,
@@ -384,10 +456,10 @@ def make_train_step(
                      order=None):
         """Sharded AdamW on this rank's shards, then the updated params
         gathered back on each bucket's VCI and written into the params."""
-        layout = ShardLayout(cp.plan, dist.get_world_size())
+        layout = ShardLayout(cp.plan, cp.data_size)
         if masks["plan"] is not cp.plan:
             masks["plan"], masks["shards"] = cp.plan, shard_decay_masks(
-                cp.plan, layout.axis_size, dist.get_rank(),
+                cp.plan, layout.axis_size, data_line().index,
                 device=state.step.device)
         lr = torch.as_tensor(lr_fn(state.step), dtype=torch.float32,
                              device=state.step.device)
@@ -436,7 +508,7 @@ def make_train_step(
         # the shard updates and param gathers then run in ready order
         cp = comm_plan(state.params)
         rt = cp.runtime()
-        layout = ShardLayout(cp.plan, dist.get_world_size())
+        layout = ShardLayout(cp.plan, cp.data_size)
         taps = [torch.zeros((s,), dtype=torch.float32,
                             device=state.step.device)
                 for s in layout.shard_sizes]
@@ -447,8 +519,8 @@ def make_train_step(
 
     def sharder() -> Sharder:
         n = dist.get_world_size() if dist.is_initialized() else 1
-        if built["shard"] is None or built["shard"].n != n:
-            built["shard"] = data_sharder(cfg)
+        if built["shard"] is None or built["shard"].size != n:
+            built["shard"] = data_sharder(cfg, mesh)
             built["model"] = Model(cfg, built["shard"])
         return built["shard"]
 
@@ -460,18 +532,22 @@ def make_train_step(
             if tuple(leaf.shape) != shard.local_shape(path):
                 raise ValueError(
                     f"{'/'.join(path)}: {tuple(leaf.shape)} is not this "
-                    f"rank's FSDP slice {shard.local_shape(path)}; build the "
+                    f"rank's slice {shard.local_shape(path)}; build the "
                     f"state with train_state_init(comm='gspmd') on the same "
-                    f"{shard.n} ranks")
+                    f"{shard.size} ranks and mesh")
         grads, metrics = grads_and_metrics(state.params, _microbatch_rows(
-            batch, state.step.device, shard.n, shard.rank, accum_steps))
+            batch, state.step.device, shard.n, shard.data_rank, accum_steps))
         sharded = None
-        if shard.n > 1:
-            # the sliced leaves' gradients came reduce-scattered out of the
-            # backward; the replicated ones are summed here, one all-reduce
-            # a dtype, and the metrics' shares summed to the global values
-            sharded = [shard.sharded_dim(p) is not None for p in paths]
-            grads = _sum_replicated(grads, sharded, shard)
+        if shard.size > 1:
+            # the gradients of the leaves sliced over data came
+            # reduce-scattered out of the backward (or, for the experts'
+            # tables, summed by the all_to_all's); those whole over data
+            # are summed over the data line here, one all-reduce a dtype,
+            # and the metrics' shares summed to the global values
+            grads = _sum_replicated(
+                grads, [shard.sharded_dim(p) is not None for p in paths],
+                shard)
+            sharded = [shard.split_key(p) for p in paths]
             keys = [k for k in sorted(metrics) if k != "tokens"]
             shares = shard.data_sum_(torch.stack([metrics[k].float()
                                                   for k in keys]))
@@ -482,7 +558,7 @@ def make_train_step(
         new_p, new_opt, om = adamw_update(
             grads, state.opt, state.params, lr=lr,
             max_grad_norm=max_grad_norm, sharded=sharded,
-            psum=shard.data_sum_)
+            psum=shard.norm_sum_)
         comm_tally.clear()
         comm_tally.update(shard.tally)
         metrics = dict(metrics) | om | {"lr": lr}
@@ -505,16 +581,18 @@ def make_train_step(
             raise RuntimeError(
                 "comm='vci' trains over torch.distributed's default group; "
                 "initialise it first (one rank is a legal group)")
-        return inner(state, _rank_slice(batch, state.step.device))
+        return inner(state, _rank_slice(batch, state.step.device,
+                                        data_line()))
 
     step.last_issue = last_issue
     return step
 
 
 def _sum_replicated(grads, sharded, shard: Sharder):
-    """The gradients of the leaves that every rank holds whole, summed over
-    the data ranks (one all-reduce of their concatenation a dtype); the
-    sliced leaves' pass through."""
+    """The gradients of the leaves that every data rank holds whole (or
+    sliced over model only), summed over the data line (one all-reduce of
+    their concatenation a dtype); the leaves sliced over data pass
+    through."""
     leaves, treedef = tree_flatten(grads)
     by_dtype: Dict[torch.dtype, list] = {}
     for i, (g, s) in enumerate(zip(leaves, sharded)):

@@ -226,6 +226,36 @@ def test_gspmd_collectives_a_step(ranks):
         assert tuple(t) == (gathers, gathers, 3), t
 
 
+def test_mixtral_expert_tables_are_not_gathered(ranks):
+    """mixtral-8x22b-smoke on a data-only mesh: its 4 experts divide 2 and
+    4 ranks, so each rank holds its experts' tables whole and runs them on
+    every rank's rows (the dispatch and the combine exchanged over the
+    ranks, forward and backward: 4 all_to_alls a layer) instead of
+    gathering the tables: a step's gathers receive the bytes of the other
+    leaves the table slices over data and none of the experts', and the
+    step still equals the reference's
+    (``test_gspmd_step_matches_reference[mixtral]``)."""
+    n, d = ranks
+    cfg = get_config(CASES["mixtral"][0])
+    out = _out(d, "mixtral", 0)
+    if n == 1:
+        assert int(out["gather_bytes"]) == 0
+        return
+    cut = Sharder(RankMesh(n, 1), cfg, rank=0)
+    experts = others = 0
+    for path, leaf in tree_flatten_with_paths(param_shapes(cfg)):
+        if cut.sharded_dim(path) is None:
+            continue
+        size = leaf.numel() * leaf.element_size()
+        if cut.expert_parallel(path):
+            experts += size
+        else:
+            others += size
+    assert experts > 0
+    assert int(out["gather_bytes"]) == others, (out["gather_bytes"], others)
+    assert int(out["all_to_all"]) == 4 * cfg.num_layers
+
+
 @pytest.mark.parametrize("n", [2, 4])
 def test_materialize_backward_equals_whole_leaf_autograd(tmp_path, n):
     """The reduce-scatter backward of the FSDP gather gives each rank its
@@ -252,10 +282,24 @@ def test_gspmd_keeps_the_references_refusals(knob):
 
 
 def test_a_model_axis_raises_naming_item_14():
-    """Training on a model axis is the next slice (ROADMAP.md Queue 1
-    item 14): the Sharder refuses a model axis above 1."""
+    """Once refused: the Sharder takes a model axis (training on a
+    ``data x model`` mesh is ``tests/test_torch_model_axis.py``); a rank
+    cuts its slices along both of a leaf's dims. What still raises,
+    naming ROADMAP.md Queue 1 item 14, is the launcher's pod axis (a 3-D
+    ``--mesh``, with the reference's launch helpers) and a ``kv_fp8``
+    cache."""
+    from repro_torch.launch.train import build_mesh
+    from repro_torch.models.transformer import init_cache
+    cfg = get_config("olmo-1b-smoke")
+    cut = Sharder(RankMesh(2, 2), cfg, rank=3)
+    path = ("layers", "attn", "wq")
+    assert cut.sharded_dim(path) == 1 and cut.model_dim(path) == 2
+    assert cut.local_shape(path) == (cfg.num_layers, cfg.d_model // 2,
+                                     cfg.q_dim // 2)
     with pytest.raises(NotImplementedError, match="item 14"):
-        Sharder(RankMesh(1, 2), get_config("olmo-1b-smoke"))
+        build_mesh("2x2x2")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        init_cache(cfg.with_opts("kv_fp8"), 1, 8, device="cpu")
 
 
 def _cli(*extra, timeout=300):

@@ -239,7 +239,8 @@ def _close_aux(got, want):
 
 @pytest.mark.parametrize("paged", [False, True])
 @pytest.mark.parametrize("arch", ["olmo-1b-smoke", "gemma-2b-smoke",
-                                  "mixtral-8x22b-smoke", "arctic-480b-smoke"])
+                                  "mixtral-8x22b-smoke", "arctic-480b-smoke",
+                                  "command-r-35b-smoke"])
 def test_model_prefill_and_decode_logits_match(arch, paged):
     """MoE archs route the pad rows of the ragged prefill like real rows,
     and the training forward (no cache) uses the training capacity."""

@@ -31,7 +31,10 @@ and rank 0's gathered params (``tests/test_torch_gspmd.py``);
 ``gather_grad`` holds ``Sharder.materialize``'s backward against
 autograd of the whole leaves; ``ckpt_save`` and ``ckpt_load`` save the
 replicated, ZeRO-1 and FSDP states of ``ckpt.npz`` and restore them on
-another count of ranks (``tests/test_torch_checkpoint.py``).
+another count of ranks (``tests/test_torch_checkpoint.py``);
+``model_axis`` trains each ``axis_<case>.npz`` on a ``(ranks // 2) x 2``
+``data x model`` mesh in both comm modes, checkpoints, restores and
+serves through the GSPMD route (``tests/test_torch_model_axis.py``).
 """
 
 import faulthandler
@@ -439,7 +442,8 @@ def _case_params(cfg, data):
 
 def _case_cfg(data):
     from repro_torch.configs import get_config
-    return get_config(str(data["arch"]))
+    cfg = get_config(str(data["arch"]))
+    return cfg.with_opts(str(data["opts"])) if "opts" in data else cfg
 
 
 def _case_batch(data, i):
@@ -475,6 +479,8 @@ def check_gspmd(rank: int, n: int, out_dir: str) -> None:
                 "all_gather", "reduce_scatter", "all_reduce")])
         shard = step.sharder()
         out = {"metrics": np.asarray(metrics), "tally": np.asarray(tallies),
+               "gather_bytes": step.comm_tally["gather_bytes"],
+               "all_to_all": step.comm_tally["all_to_all"],
                "param_bytes": sum(t.nbytes for t in
                                   tree_flatten(state.params)[0]),
                "moment_bytes": sum(t.nbytes for t in
@@ -596,12 +602,135 @@ def check_ckpt_load(rank: int, n: int, out_dir: str) -> None:
                    shard=shard)
 
 
+_AXIS_MODES = {"gspmd": dict(comm="gspmd"),
+               "vci": dict(comm="vci", num_streams=4, pack="pallas"),
+               "zero1": dict(comm="vci", optimizer="zero1", num_streams=4,
+                             pack="pallas")}
+
+
+def _axis_train(cfg, data, mesh, mode):
+    """``steps`` steps of one mode on ``mesh`` from the case's params:
+    (state, step, metrics a step, the gspmd step's tallies a step)."""
+    from repro_torch.train.trainer import make_train_step, train_state_init
+    kw = _AXIS_MODES[mode]
+    state = train_state_init(cfg, params=_case_params(cfg, data), mesh=mesh,
+                             **kw)
+    step = make_train_step(cfg, mesh=mesh, num_vcis=4, **kw)
+    keys = ("loss", "ce", "grad_norm", "tokens", "load_balance", "router_z",
+            "lr")
+    metrics, tallies = [], []
+    for i in range(int(data["steps"])):
+        state, m = step(state, _case_batch(data, i))
+        metrics.append([float(m[k]) for k in keys])
+        tallies.append(dict(getattr(step, "comm_tally", {})))
+    return state, step, metrics, tallies
+
+
+def _axis_serve(rank, mesh, out_dir):
+    """The GSPMD route (a mesh, no comm plan) on the smoke dense and MoE
+    archs, contiguous and paged: every rank's tokens and collectives."""
+    import json
+    from repro_torch.dist.sharding import Sharder
+    from repro_torch.models.transformer import init_params
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import ServeEngine
+    out = {}
+    for arch in ("olmo-1b-smoke", "mixtral-8x22b-smoke"):
+        cfg = get_config(arch)
+        params = Sharder(mesh, cfg, rank=rank).shard_params(
+            init_params(cfg, 0, device="cpu"))
+        for layout, kw in (("contiguous", dict(batch_size=4)),
+                           ("paged", dict(batch_size=2, paged=True,
+                                          page_size=8, num_pages=11))):
+            eng = ServeEngine(cfg, params, max_len=48, device="cpu",
+                              mesh=mesh, **kw)
+            reqs = _serve_requests(cfg)
+            eng.generate(reqs)
+            out[f"{arch} {layout}"] = dict(
+                tokens=[r.generated.tolist() for r in reqs],
+                tally={k: v for k, v in eng._step.sharder.tally.items() if v})
+    with open(os.path.join(out_dir, f"axis_serve_r{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def check_model_axis(rank: int, n: int, out_dir: str) -> None:
+    """Each ``axis_<case>.npz`` (an arch, its opts, its full params,
+    ``steps`` global batches, its ``modes`` of ``comm="gspmd"``, ``"vci"``
+    and ``"vci"`` + ZeRO-1) trained on a ``(n // 2) x 2`` mesh: every
+    rank writes its
+    metrics, tallies, bytes and which leaves it holds sliced over data
+    and over model to ``axis_out_<case>_<mode>_r<rank>.npz``, rank 0 the
+    whole params. Then olmo's gspmd state after one step is saved on the
+    mesh (``axis_ckpt``; rank 0 writes the whole leaves beside it), and
+    every rank restores it as a data-only ``n x 1`` mesh and checks its
+    slices bit for bit against the whole leaves; then the GSPMD serve
+    route (``_axis_serve``)."""
+    from repro_torch.checkpoint import load_state, save_state
+    from repro_torch.core.collectives import RankMesh
+    from repro_torch.dist.sharding import Sharder
+    from repro_torch.train.trainer import train_state_init
+    from repro_torch.tree import tree_flatten, tree_flatten_with_paths
+    mesh = RankMesh(n // 2, 2)
+    cases = sorted(f[5:-4] for f in os.listdir(out_dir)
+                   if f.startswith("axis_") and f.endswith(".npz")
+                   and "_out_" not in f)
+    for case in cases:
+        data = np.load(os.path.join(out_dir, f"axis_{case}.npz"))
+        cfg = _case_cfg(data)
+        for mode in (str(m) for m in data["modes"]):
+            state, step, metrics, tallies = _axis_train(cfg, data, mesh,
+                                                        mode)
+            out = {"metrics": np.asarray(metrics),
+                   "param_bytes": sum(t.nbytes for t in
+                                      tree_flatten(state.params)[0]),
+                   "moment_bytes": sum(t.nbytes for t in tree_flatten(
+                       (state.opt.m, state.opt.v))[0])}
+            if mode == "gspmd":
+                shard = step.sharder()
+                keys = sorted(tallies[-1])
+                out["tally_keys"] = np.asarray(keys)
+                out["tally"] = np.asarray([[t[k] for k in keys]
+                                           for t in tallies])
+                out["shapes"] = np.asarray(
+                    [str(tuple(t.shape)) for t in
+                     tree_flatten(state.params)[0]])
+                full = tree_flatten(shard.gather_params(state.params))[0]
+            else:
+                full = tree_flatten(state.params)[0]
+            if rank == 0:
+                out.update({f"p{i}": t.numpy() for i, t in enumerate(full)})
+            np.savez(os.path.join(out_dir,
+                                  f"axis_out_{case}_{mode}_r{rank}.npz"),
+                     **out)
+    # a checkpoint saved on the 2-D mesh, restored on a data-only one
+    data = np.load(os.path.join(out_dir, "axis_olmo.npz"))
+    cfg = _case_cfg(data)
+    state, step, _, _ = _axis_train(cfg, {**data, "steps": 1}, mesh,
+                                    "gspmd")
+    ckpt = os.path.join(out_dir, "axis_ckpt")
+    save_state(ckpt, 1, state, shard=step.sharder())
+    whole = {"/".join(p): t.clone() for p, t in tree_flatten_with_paths(
+        step.sharder().gather_params(state.params))}
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "axis_ckpt_whole.npz"),
+                 **{k: v.numpy() for k, v in whole.items()})
+    flat = RankMesh(n, 1)
+    like = train_state_init(cfg, 1, device="cpu", comm="gspmd", mesh=flat)
+    back = load_state(ckpt, 1, like, shard=Sharder(flat, cfg))
+    cut = Sharder(flat, cfg, rank=rank)
+    same = all(torch.equal(t, cut.shard_leaf(p, whole["/".join(p)]))
+               for p, t in tree_flatten_with_paths(back.params))
+    np.save(os.path.join(out_dir, f"axis_ckpt_flat_r{rank}.npy"), same)
+    _axis_serve(rank, mesh, out_dir)
+
+
 CHECKS = {"reduce": check_reduce, "train": check_train,
           "seqshard": check_seqshard, "serve_tp": check_serve_tp,
           "all_to_all": check_all_to_all, "collectives": check_collectives,
           "zero1": check_zero1, "overlap": check_overlap,
           "gspmd": check_gspmd, "gather_grad": check_gather_grad,
-          "ckpt_save": check_ckpt_save, "ckpt_load": check_ckpt_load}
+          "ckpt_save": check_ckpt_save, "ckpt_load": check_ckpt_load,
+          "model_axis": check_model_axis}
 
 
 def _rank_main(rank: int, check: str, n: int, out_dir: str) -> None:

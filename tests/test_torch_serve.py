@@ -180,16 +180,20 @@ def test_cuda_is_the_default_device(olmo, monkeypatch):
 
 
 def test_unported_serve_options_raise(olmo):
-    """The tensor-parallel path is ported (``tests/test_torch_serve_tp.py``);
-    a mesh without a comm plan (the reference's GSPMD route) is not, and
-    the reference's refusals hold: ``num_vcis`` without a model axis, a
-    comm plan without a mesh, and a TP degree the arch cannot split."""
+    """The tensor-parallel path is ported (``tests/test_torch_serve_tp.py``),
+    and so is a mesh without a comm plan (the reference's GSPMD route,
+    ``tests/test_torch_model_axis.py``) for the dense and MoE text archs;
+    another family on its model axis raises naming ROADMAP.md Queue 1
+    item 14, and the reference's refusals hold: ``num_vcis`` without a
+    model axis, a comm plan without a mesh, and a TP degree the arch
+    cannot split."""
     cfg, _, tparams, _ = olmo
+    from repro_torch.configs import get_config
     from repro_torch.core.collectives import RankMesh
     from repro_torch.serve.comm import ServeCommPlan
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tengine.ServeEngine(cfg, tparams, batch_size=1, max_len=16,
-                            device="cpu", mesh=RankMesh(1, 2))
+        tengine.make_serve_step(get_config("mamba2-780m-smoke"),
+                                mesh=RankMesh(1, 2))
     with pytest.raises(ValueError, match="'model' axis >1"):
         tengine.ServeEngine(cfg, tparams, batch_size=1, max_len=16,
                             device="cpu", num_vcis=4)

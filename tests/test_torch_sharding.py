@@ -139,10 +139,33 @@ def test_rank_slices_tile_each_leaf(arch, n):
 
 
 def test_a_model_axis_is_refused_naming_item_14():
+    """Once refused: the Sharder takes a model axis. Each rank of a
+    ``data x model`` mesh (row-major, ``RankMesh.coords``) cuts its slice
+    along both of a leaf's dims, and the four slices tile the leaf; over
+    live ranks a mesh that is not a ``RankMesh`` is refused. What still
+    raises naming item 14 is a ``kv_fp8`` cache."""
     cfg = get_config("olmo-1b-smoke")
-    for mesh in (RankMesh(2, 2), fake_mesh({"data": 2, "model": 4})):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            tsh.Sharder(mesh, cfg)
+    params = init_params(cfg, 0, device="cpu")
+    mesh = RankMesh(2, 2)
+    shards = [tsh.Sharder(mesh, cfg, rank=r) for r in range(4)]
+    both = 0
+    for path, leaf in tree_flatten_with_paths(params):
+        parts = [s.shard_leaf(path, leaf) for s in shards]
+        for s, part in zip(shards, parts):
+            assert tuple(part.shape) == s.local_shape(path)
+        d, m = shards[0].sharded_dim(path), shards[0].model_dim(path)
+        if d is None or m is None:
+            continue
+        both += 1
+        rows = [torch.cat(parts[2 * i:2 * i + 2], m) for i in range(2)]
+        assert torch.equal(torch.cat(rows, d), leaf), path
+        assert shards[0].split_key(path) == "both"
+    assert both > 0
+    with pytest.raises(ValueError):   # no group of 8 ranks here
+        tsh.Sharder(fake_mesh({"data": 2, "model": 4}), cfg)
+    from repro_torch.models.transformer import init_cache
+    with pytest.raises(NotImplementedError, match="item 14"):
+        init_cache(cfg.with_opts("kv_fp8"), 1, 8, device="cpu")
 
 
 def test_one_rank_sharder_is_the_identity():

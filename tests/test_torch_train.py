@@ -166,6 +166,8 @@ def test_lr_schedules_equal_reference():
 _STEP_CASES = [
     pytest.param("olmo-1b-smoke", 32, False, None, id="olmo-1b-smoke"),
     pytest.param("gemma-2b-smoke", 32, False, None, id="gemma-2b-smoke"),
+    pytest.param("command-r-35b-smoke", 32, False, None,
+                 id="command-r-35b-smoke"),
     pytest.param("mixtral-8x22b-smoke", 96, False, None,
                  id="mixtral-8x22b-smoke-seq96"),
     pytest.param("arctic-480b-smoke", 32, False, None,
@@ -416,17 +418,21 @@ def test_later_slices_raise(one_rank, tmp_path):
         "--device", "cpu", "--steps", "1", "--batch", "2", "--seq", "16",
         "--ckpt-dir", str(tmp_path)]), torch.device("cpu"))
     assert os.path.isfile(tmp_path / "step_00000001" / "manifest.json")
+    # training on a model axis was the last refused
+    # (tests/test_torch_model_axis.py); the Sharder takes one
     from repro_torch.core.collectives import RankMesh
     from repro_torch.dist.sharding import Sharder
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Sharder(RankMesh(2, 2), cfg)
+    assert Sharder(RankMesh(2, 2), cfg, rank=0).tp_size == 2
 
 
 def test_a_2d_mesh_refusal_names_item_14():
-    """Training on a model axis is ROADMAP.md Queue 1 item 14 (item 10
-    was tensor-parallel serving, now done)."""
+    """A 2-D ``--mesh`` trains now (``tests/test_torch_model_axis.py``
+    runs ``--mesh 2x2``); the reference's 3-D form (a pod axis, with its
+    launch helpers) is what still raises, naming ROADMAP.md Queue 1 item
+    14."""
     with pytest.raises(NotImplementedError, match="item 14"):
-        train_cli.main(["--device", "cpu", "--mesh", "4x2"])
+        train_cli.main(["--device", "cpu", "--mesh", "2x4x2"])
+    assert train_cli._world_size("4x2") == 8
 
 
 @pytest.mark.parametrize("paged", [False, True])
