@@ -247,12 +247,12 @@ Phases, each a check that exits non-zero when it fails:
    one card, joined by gloo with CUDA tensors (as phase 7; a collective
    gloo refused would raise; the port refuses gloo's point-to-point sends
    of CUDA tensors, which this path does not make); olmo-1b at full width
-   cut to 4 layers, the global batch 8 x 1,024 (2 rows a rank), ZeRO-1
-   post then ZeRO-1 overlap, 3 steps each: every rank's metrics equal,
+   cut to 2 layers, the global batch 8 x 1,024 (2 rows a rank), ZeRO-1
+   post then ZeRO-1 overlap, 2 steps each: every rank's metrics equal,
    its optimizer state exactly a quarter of one rank's (12 B a padded
    element + the count), the pack kernel once a bucket a post step and
    none in overlap, flash twice a layer; overlap's step 1 within 1e-5 of
-   post's and its params after it within one bf16 ulp, its later steps'
+   post's and its params after it within one bf16 ulp, its step 2's
    loss and grad norm within 2^-10 (phase 11's reason); the hooks issue
    every bucket inside the backward in ready order. Four ranks time-share one
    card and their collectives cross host memory: no time here is a
@@ -362,7 +362,10 @@ Phases, each a check that exits non-zero when it fails:
    within 1e-5 of 15b's one-rank run; the param elements by 15b's rules
    against the same run and yardstick; each rank holds 15b's bytes
    (every olmo-1b leaf divides both axes); the data line's and the model
-   line's collectives a step printed apart;
+   line's collectives a step printed apart; then one step on the pod mesh
+   2 x 1 x 2 (pod x data x model: its data line is the two pods, its
+   lines those of 2 x 2) from the same init: its loss and every param
+   leaf's bytes equal 16a's first step on every rank;
 16b. the same config and mesh with ``comm="vci"`` post (8 buckets,
    ``pack="pallas"``): the params whole on every rank, the buckets
    reduced on VCI groups along the data lines, 8 pack and 1 unpack
@@ -384,7 +387,40 @@ Phases, each a check that exits non-zero when it fails:
    on the model line's one group, printed beside ``ServeCommPlan``'s
    count by purpose; flash and page-gather launches as phase 7's; and the
    smoke archs on data 2 x model 2, contiguous and paged: tokens equal to
-   the CPU engine's.
+   the CPU engine's;
+16e. the GSPMD serve route on the SSM and the hybrid in the same world:
+   mamba2-780m-smoke and zamba2-7b-smoke on data 2 x model 2 (grouped,
+   their Mamba2 blocks computed replicated over model): tokens equal to
+   the CPU engine's; then at full width mamba2-780m, cut to
+   ``SSM_GSPMD_LAYERS`` = 2 layers, and zamba2-7b, cut to one group of
+   6 Mamba2 blocks closed by one shared-attention site (tensor-parallel
+   over model), bf16, on data 1 x model 4: 4 prompts of 512 tokens, 8
+   new: the ranks' tokens equal, one SSD launch a layer a prefill, one
+   flash launch a site a prefill, the vocab-parallel lookup's
+   all-reduces on the model line, and at least ``SSM_GSPMD_AGREE`` of
+   the greedy tokens equal to one rank's engine on the card;
+17. ``kv_fp8`` cache storage, ``yi-9b`` at full width and depth (48
+   layers, 8.83 B params, bf16, random from seed 0): (a) the port's
+   cache cast (a clamp to +-448, then torch's cast) of all 65,536 bf16
+   patterns: the card's bytes equal the CPU's on every non-NaN pattern
+   (a NaN gives an fp8 NaN on both, whose sign bit may differ), 466 and
+   inf give 448
+   (torch's own cast is printed beside it: its overflow differs between
+   torch builds); then
+   ``ServeEngine`` with 8 requests (prompts of 512-2,048 tokens, 64 new)
+   on 4 slots of 4,096 positions, pages of 16, four runs: a bf16 cache
+   and ``kv_fp8``, each paged and contiguous: the K/V bytes under
+   ``kv_fp8`` exactly half the bf16 ones (805,306,368 against
+   1,610,612,736 contiguous), paged tokens equal to contiguous under
+   ``kv_fp8``, every logit sampled from finite, 2 x 48 page-gather
+   launches a decode step and 48 flash launches a prefill call; each
+   run's ms a decode step, tok/s, prefill s, ``cache_bytes_resident``,
+   peak memory and the device idle share of one profiled decode step;
+   the fp8 cache's teacher-forced top-1 agreement with the bf16 one
+   (recorded, not gated); (b) the page gather on fp8 pools at yi-9b's
+   decode shape (8 KiB pages): kernel equal to the plain version bit for
+   bit, its time beside the plain version's, ``index_select``'s and the
+   bound at 1 B an element.
 
 It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Without CUDA, or without the package beside it, it fails and prints no
@@ -463,7 +499,7 @@ FLASH_CASES = (
      True),
 )
 # phase 12: ZeRO-1 on ranks sharing the one card, spawned once
-ZERO1_WORLD, ZERO1_LAYERS, ZERO1_STEPS, ZERO1_TIMEOUT_S = 4, 4, 3, 420
+ZERO1_WORLD, ZERO1_LAYERS, ZERO1_STEPS, ZERO1_TIMEOUT_S = 4, 2, 2, 420
 PAIRS = 10                       # alternating kernel / library timings
 # phases 13b and 13c: MoE, VLM and audio training at full width, depth cut
 # to what one card's memory holds (see the docstring)
@@ -481,6 +517,12 @@ AXIS_MOE_LAYERS, AXIS_MOE_BATCH, AXIS_MOE_SEQ = 1, 4, 512
 # phases 14a-14c: the SSD backward and SSM / hybrid training
 SSM_TRAIN_ARCH, HYB_TRAIN_LAYERS = "mamba2-780m", 33
 FP32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+# phase 17: yi-9b at full width and depth through ServeEngine, bf16 cache
+# and kv_fp8, paged and contiguous: 8 requests of 512-2,048 tokens, 64 new,
+# on 4 slots of 4,096 positions, pages of 16; the decode step profiled
+FP8_ARCH, FP8_BATCH, FP8_MAX_LEN, FP8_PAGE, FP8_NEW = "yi-9b", 4, 4096, 16, 64
+FP8_PROMPTS = (512, 2048, 1024, 1536, 768, 1792, 640, 1280)
+FP8_PROFILE_AT = 20
 # name, x/B/C dtype, (b, s, h, p, g, n, chunk), timed
 SSD_BWD_CASES = (
     ("mamba2-780m train", "bfloat16", (8, 1024, 48, 64, 1, 128, 256), True),
@@ -498,6 +540,19 @@ FRESH_MAX_BYTES = 4 << 30
 # case, which saves two full-width decode runs of ~25 s each)
 TP_WORLD, TP_VCIS, TP_TIMEOUT_S = 4, (8,), 600
 TP_SMOKE = ("olmo-1b-smoke", "mixtral-8x22b-smoke")
+# 16e: the GSPMD route on the SSM and the hybrid, their smoke archs on
+# data 2 x model 2 (against the CPU engine) and at full width on 1 x 4
+# (against one rank on the card): mamba2 at 2 layers, zamba2 at its
+# hybrid_attn_every = 6 (one shared-attention site); 4 prompts of 512, 8 new
+GSPMD_SMOKE = ("mamba2-780m-smoke", "zamba2-7b-smoke")
+SSM_GSPMD_LAYERS, SSM_GSPMD_PROMPT, SSM_GSPMD_NEW = 2, 512, 8
+# 16e's 1 x 4 tokens against one rank's: the Mamba2 blocks compute
+# replicated over model and the lookup and head split exactly, but the
+# head's vocab slices (and the site's partial sums) are GEMMs of other
+# shapes, whose rounding can flip a near-tied argmax; one flip in one of
+# the 4 requests moves at most its 8 tokens, a quarter, while a broken
+# route agrees on almost none of them (vocabs of 50,280 and 32,000)
+SSM_GSPMD_AGREE = 0.75
 # tp 4's first-prefill logits against tp 1's, as a share of max |tp 1|:
 # bf16 weights and activations, and each layer's wo / w_down outputs
 # rounded to bf16 as 4 partial sums before their all-reduce (tp 1 rounds
@@ -3001,12 +3056,55 @@ def _launch_counts(zero: bool = False) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.moe_gather import row_gather
     from repro_torch.kernels.paged_kv import paged_gather
+    from repro_torch.kernels.ssd_scan import ssd_chunk
     if zero:
         flash_attention.launches = paged_gather.launches = 0
         row_gather.launches = row_gather.read_once_launches = 0
+        ssd_chunk.launches = 0
     return dict(flash=flash_attention.launches, gather=paged_gather.launches,
                 rows=row_gather.launches,
-                read_once=row_gather.read_once_launches)
+                read_once=row_gather.read_once_launches,
+                ssd=ssd_chunk.launches)
+
+
+def _ssm_gspmd_requests(vocab: int):
+    """16e's full-width requests: 4 prompts of ``SSM_GSPMD_PROMPT``
+    tokens (one group), ``SSM_GSPMD_NEW`` new tokens each."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(16)
+    return [Request(prompt=rng.integers(0, vocab, (SSM_GSPMD_PROMPT,),
+                                        dtype=np.int32),
+                    max_new_tokens=SSM_GSPMD_NEW) for _ in range(4)]
+
+
+def _ssm_gspmd_cfg(arch: str):
+    """16e's full-width config: ``SSM_GSPMD_LAYERS`` Mamba2 blocks, or a
+    hybrid's one group of them with its shared-attention site."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(
+        cfg, num_layers=cfg.hybrid_attn_every or SSM_GSPMD_LAYERS)
+
+
+def _ssm_one_rank_tokens() -> dict:
+    """16e's yardstick: the SSM and the hybrid, cut in depth, through one
+    rank's engine on the card, from the same ``init_params(cfg, 0)``."""
+    import torch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import ServeEngine
+    got = {}
+    for arch in (SSM_ARCH, HYB_ARCH):
+        cfg = _ssm_gspmd_cfg(arch)
+        eng = ServeEngine(cfg, init_params(cfg, 0, device="cuda"),
+                          batch_size=4, device="cuda",
+                          max_len=SSM_GSPMD_PROMPT + SSM_GSPMD_NEW)
+        reqs = _ssm_gspmd_requests(cfg.vocab_size)
+        eng.generate(reqs)
+        got[arch] = [r.generated.tolist() for r in reqs]
+        del eng
+        torch.cuda.empty_cache()
+    return got
 
 
 def _tp_init(cfg, mesh, rank: int):
@@ -3061,14 +3159,13 @@ def _tp_run(eng, plan, reqs) -> dict:
 
 def _gspmd_run(eng, reqs) -> dict:
     """One measured ``generate`` of a GSPMD-route engine (16d): launches
-    and the Sharders' collectives counted from zero, host clock around
+    and the Sharder's collectives counted from zero, host clock around
     each synchronised call."""
     import torch
-    shards = (eng._prefill.sharder, eng._step.sharder)
+    shard = eng._sharder
     eng._prefill, eng._step = _Timed(eng._prefill), _Timed(eng._step)
-    for s in shards:
-        s.tally.clear()
-        s.reset_tally()
+    shard.tally.clear()
+    shard.reset_tally()
     torch.cuda.synchronize()
     _launch_counts(zero=True)
     t0 = time.perf_counter()
@@ -3076,11 +3173,8 @@ def _gspmd_run(eng, reqs) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     out = _launch_counts()
-    counts = {}
-    for s in shards:
-        for k, v in s.tally.items():
-            if v and not k.endswith("_bytes"):
-                counts[k] = counts.get(k, 0) + v
+    counts = {k: v for k, v in shard.tally.items()
+              if v and not k.endswith("_bytes")}
     steps = eng.decode_steps
     out.update(
         tokens=[r.generated.tolist() for r in reqs], steps=steps,
@@ -3205,6 +3299,29 @@ def _tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
                                   mesh=mesh, **kw)
                 out["gspmd"][f"{arch} {layout} data2xmodel2"] = _gspmd_run(
                     eng, _smoke_requests(cfg.vocab_size))
+        # 16e: the GSPMD route on the SSM and the hybrid (grouped, their
+        # blocks computed replicated over model)
+        for arch in GSPMD_SMOKE:
+            cfg = get_config(arch)
+            params = _to(Sharder(mesh, cfg, rank=rank).shard_params(
+                init_params(cfg, 0, device="cpu")), "cuda")
+            eng = ServeEngine(cfg, params, batch_size=4, max_len=48,
+                              device="cuda", mesh=mesh)
+            out["gspmd"][f"{arch} contiguous data2xmodel2"] = _gspmd_run(
+                eng, _smoke_requests(cfg.vocab_size))
+        mesh = RankMesh(1, world)
+        for arch in (SSM_ARCH, HYB_ARCH):
+            cfg = _ssm_gspmd_cfg(arch)
+            params = Sharder(mesh, cfg, rank=rank).shard_params(
+                init_params(cfg, 0, device="cuda"))
+            torch.cuda.empty_cache()
+            eng = ServeEngine(cfg, params, batch_size=4, device="cuda",
+                              max_len=SSM_GSPMD_PROMPT + SSM_GSPMD_NEW,
+                              mesh=mesh)
+            out["gspmd"][f"{arch} contiguous 1x4"] = _gspmd_run(
+                eng, _ssm_gspmd_requests(cfg.vocab_size))
+            del eng, params
+            torch.cuda.empty_cache()
         dist.barrier()
     finally:
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -3219,7 +3336,7 @@ def _cpu_smoke_tokens() -> dict:
     from repro_torch.models.transformer import init_params
     from repro_torch.serve.engine import ServeEngine
     got = {}
-    for arch in TP_SMOKE:
+    for arch in TP_SMOKE + GSPMD_SMOKE:
         cfg = get_config(arch)
         eng = ServeEngine(cfg, init_params(cfg, 0, device="cpu"),
                           batch_size=4, max_len=48, device="cpu")
@@ -3241,6 +3358,7 @@ def phase_tp_serve(olmo_runs: dict, moe_runs: dict, card: str) -> dict:
     from repro_torch.configs import get_config
 
     smoke_ref = _cpu_smoke_tokens()
+    ssm_ref = _ssm_one_rank_tokens()
     torch.cuda.synchronize()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3356,17 +3474,21 @@ def phase_tp_serve(olmo_runs: dict, moe_runs: dict, card: str) -> dict:
               f"{c['fallback_hits']}; rank 0 launched flash "
               f"{c['flash']}, paged gather {c['gather']}, row gather "
               f"{c['rows']}; {same}", flush=True)
-    _check_gspmd_route(ranks, olmo_runs, smoke_ref, launches)
+    launches["ssd"] = 0
+    _check_gspmd_route(ranks, olmo_runs, smoke_ref, ssm_ref, launches)
     shutil.rmtree(out_dir, ignore_errors=True)
     return launches
 
 
 def _check_gspmd_route(ranks, olmo_runs: dict, smoke_ref: dict,
-                       launches: dict) -> None:
-    """16d: the GSPMD route's runs in phase 7's world against the
+                       ssm_ref: dict, launches: dict) -> None:
+    """16d-16e: the GSPMD route's runs in phase 7's world against the
     manual-TP path's (olmo-1b: the same params and the same partial sums,
-    so the same tokens) and the CPU engine's (the smoke archs on data 2 x
-    model 2); adds olmo-1b's launches (the main path) to ``launches``."""
+    so the same tokens), the CPU engine's (the smoke archs on data 2 x
+    model 2, the SSM and the hybrid among them) and one rank's on the card
+    (the SSM and the hybrid at full width, cut in depth, on 1 x 4: at
+    least ``SSM_GSPMD_AGREE`` of the tokens);
+    adds the full-width runs' launches (the main path) to ``launches``."""
     from repro_torch.configs import get_config
     r0 = ranks[0]
     for name in r0["gspmd"]:
@@ -3384,8 +3506,31 @@ def _check_gspmd_route(ranks, olmo_runs: dict, smoke_ref: dict,
             check(c["tokens"] == smoke_ref[arch], f"gspmd route {name}: "
                   f"tokens {c['tokens']} != the CPU engine's "
                   f"{smoke_ref[arch]}")
-            tp_counts = r0["cases"][name]["counts"]
+            tp_counts = r0["cases"].get(name, {}).get("counts")
             same = "== the CPU engine's (one rank)"
+        elif name.endswith("1x4"):
+            cfg = _ssm_gspmd_cfg(arch)
+            sites = (cfg.num_layers // cfg.hybrid_attn_every
+                     if cfg.hybrid_attn_every else 0)
+            check(c["ssd"] == cfg.num_layers * c["prefills"],
+                  f"gspmd route {name}: ssd_chunk launched {c['ssd']} times "
+                  f"on rank 0, want {cfg.num_layers} x {c['prefills']}")
+            check(c["flash"] == sites * c["prefills"],
+                  f"gspmd route {name}: flash launched {c['flash']} times "
+                  f"on rank 0, want {sites} x {c['prefills']}")
+            check(c["counts"].get("model_all_reduce", 0) > 0,
+                  f"gspmd route {name}: no collective on the model line")
+            for k in ("flash", "gather", "rows", "ssd"):
+                launches[k] += sum(x[k] for x in res)
+            tp_counts = None
+            pairs = [(a, b) for x, y in zip(c["tokens"], ssm_ref[arch])
+                     for a, b in zip(x, y)]
+            share = sum(a == b for a, b in pairs) / len(pairs)
+            check(share >= SSM_GSPMD_AGREE, f"gspmd route {name}: "
+                  f"{share:.4f} of greedy tokens equal one rank's on the "
+                  f"card, want >= {SSM_GSPMD_AGREE}")
+            same = (f"{share:.4f} of greedy tokens equal one rank's on the "
+                    f"card (>= {SSM_GSPMD_AGREE})")
         else:
             tp = r0["cases"][f"{arch} {layout} num_vcis=8"]
             check(c["tokens"] == tp["tokens"], f"gspmd route {name}: tokens "
@@ -4064,6 +4209,8 @@ def _gspmd_rank(rank: int, world: int, store: str, out_dir: str) -> None:
             metrics.append([float(m[k]) for k in ("loss", "grad_norm")])
             times.append((time.perf_counter() - t0) * 1e3)
             tallies.append(dict(step.comm_tally))
+            if len(metrics) == 1:   # 16a's first step, for the pod mesh
+                first = [_digest(t) for t in leaves(state.params)]
         close = [_params_off(t, shard.shard_leaf(p, ref[i]).to(device))
                  for i, (p, t) in enumerate(
                      tree_flatten_with_paths(state.params))]
@@ -4079,6 +4226,22 @@ def _gspmd_rank(rank: int, world: int, store: str, out_dir: str) -> None:
             worst=max(c[0] for c in close), rule1=all(c[1] for c in close),
             off=[c[2] for c in close])
         del state, step, ref, shard
+        torch.cuda.empty_cache()
+
+        # 16a on the pod mesh 2 x 1 x 2: the data line is the two pods, the
+        # lines those of 2 x 2, so its first step is 16a's bit for bit
+        pod = RankMesh(2, 1, world // 2)
+        flash_attention.launches = 0
+        state = train_state_init(f32, 0, device=device, comm="gspmd",
+                                 mesh=pod)
+        step = make_train_step(f32, mesh=pod)
+        dist.barrier()
+        state, m = step(state, batches[0])
+        out["a"]["pod"] = dict(
+            loss=float(m["loss"]), loss_2x2=metrics[0][0],
+            same=[_digest(t) for t in leaves(state.params)] == first,
+            flash=flash_attention.launches)
+        del state, step
         torch.cuda.empty_cache()
 
         # 16b: comm="vci" on the same mesh: the model whole on every rank,
@@ -4222,7 +4385,7 @@ def phase_gspmd_ranks(card: str) -> dict:
               f"{b['moment_bytes']} B of moments, want "
               f"{b['want_param_bytes']} and {b['want_moment_bytes']}")
         flash += b["flash"] + rk["c"]["flash"] + rk["a"]["flash"] \
-            + rk["vci"]["flash"] + sum(x["flash"] for x in rk["moe"].values())
+            + rk["a"]["pod"]["flash"] + rk["vci"]["flash"] + sum(x["flash"] for x in rk["moe"].values())
     for got, want in zip(b0["metrics"], ref_metrics):
         for a, w in zip(got, want):
             check(abs(a - w) <= 1e-5 * abs(w), f"15b: {GSPMD_WORLD} ranks' "
@@ -4364,6 +4527,15 @@ def _check_axis(ranks, ref_metrics, yard, total: int, card: str) -> dict:
           f"{a0['flash']} on rank 0; step ms (rank 0) "
           f"{[round(x, 1) for x in a0['ms']]}; peak a rank "
           f"{[rk['a']['peak'] for rk in ranks]} B", flush=True)
+    for r, rk in enumerate(ranks):
+        p = rk["a"]["pod"]
+        check(p["same"] and p["loss"] == p["loss_2x2"], f"16a: rank {r}'s "
+              f"step on 2 x 1 x 2 differs from its 2 x 2 step (loss "
+              f"{p['loss']} vs {p['loss_2x2']}, params bitwise "
+              f"{p['same']})")
+    print(f"axis 16a: one step on the pod mesh 2 x 1 x 2 (pod x data x "
+          f"model) equals the 2 x 2 step bit for bit on every rank: loss "
+          f"{a0['pod']['loss']}, every param leaf's bytes", flush=True)
     v0 = ranks[0]["vci"]
     check(abs(v0["metrics"][0][0] - a0["metrics"][0][0]) <=
           1e-5 * abs(a0["metrics"][0][0]), f"16b: vci loss "
@@ -4463,6 +4635,341 @@ def phase_ckpt_cli() -> None:
           f"{lines}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: kv_fp8 cache storage, yi-9b at full width and depth
+# ---------------------------------------------------------------------------
+
+def phase_fp8_cast() -> int:
+    """17a: the port's cache cast (``to_cache_dtype``: a clamp to +-448,
+    then torch's cast) of all 65,536 bf16 bit patterns to float8_e4m3fn:
+    the card's bytes equal the CPU's on every non-NaN pattern (a NaN gives
+    an fp8 NaN on both; its sign bit may differ), and both saturate (466
+    and inf give 448). torch's own cast is printed beside it, on the card and on this
+    machine's CPU: its overflow differs between torch builds (2.13's CPU
+    cast saturates; 2.11's gives NaN from 466 up), which is why the port
+    clamps first."""
+    import numpy as np
+    import torch
+    from repro_torch.models.attention import to_cache_dtype
+    f8 = torch.float8_e4m3fn
+    bits = torch.from_numpy(np.arange(65536, dtype=np.uint16).view(
+        np.int16).copy()).view(torch.bfloat16)
+    cpu = to_cache_dtype(bits, f8).view(torch.uint8)
+    card = to_cache_dtype(bits.cuda(), f8).view(torch.uint8).cpu()
+    nan = torch.isnan(bits.float())
+    off = int((cpu != card)[~nan].sum())
+    bad = (cpu != card).nonzero().flatten()[:8].tolist()
+    check(off == 0, f"17a: the card's cache cast differs from the CPU's on "
+          f"{off} of {int((~nan).sum())} non-NaN bf16 patterns (first: "
+          f"{[(hex(i), int(cpu[i]), int(card[i])) for i in bad]})")
+    # a NaN input (no finite K/V makes one) gives an fp8 NaN on both; only
+    # its sign bit may differ
+    check(bool(((cpu[nan] & 0x7f) == 0x7f).all() and
+               ((card[nan] & 0x7f) == 0x7f).all()),
+          "17a: a NaN bf16 pattern did not cast to an fp8 NaN")
+    nan_sign = int((cpu != card)[nan].sum())
+    big = torch.tensor([466.0, float("inf"), -466.0], dtype=torch.bfloat16)
+    sat = [float(to_cache_dtype(big[i:i + 1].cuda(), f8).float())
+           for i in range(3)]
+    check(sat == [448.0, 448.0, -448.0], f"17a: the cache cast gives {sat} "
+          f"for 466, inf, -466 on the card, want +-448")
+    raw_off = int((bits.to(f8).view(torch.uint8) != bits.cuda().to(
+        f8).view(torch.uint8).cpu()).sum())
+    raw = [float(big[i:i + 1].cuda().to(f8).float()) for i in range(3)]
+    raw_cpu = [float(big[i:i + 1].to(f8).float()) for i in range(3)]
+    print(f"fp8 cast: the cache cast equals the CPU's on all "
+          f"{int((~nan).sum())} non-NaN bf16 patterns on the card (the "
+          f"{int(nan.sum())} NaN patterns give an fp8 NaN on both, its "
+          f"sign differing on {nan_sign}) and saturates (466, inf, -466 "
+          f"-> {sat}); "
+          f"torch {torch.__version__}'s own cast: card vs CPU differ on "
+          f"{raw_off} of the whole array, and one element of 466, inf, "
+          f"-466 gives {raw} on the card, {raw_cpu} on the CPU", flush=True)
+    return off
+
+
+def phase_fp8_gather() -> dict:
+    """17b: the page gather on fp8 pools at yi-9b's decode shape (pool
+    ``(1 + 4 x 256, 16, 4, 128)``, one 8 KiB page a (slot, logical page);
+    a table of distinct pages, each slot mapped up to a decode run's
+    length: 2,112, 1,600, 1,088 and 576 positions): kernel against
+    ``paged_gather_plain`` bit for bit, timed beside the plain version and
+    ``index_select``; the bound at 1 B an element."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_kv import paged_gather, paged_gather_plain
+
+    cfg = get_config(FP8_ARCH)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    maxp = FP8_MAX_LEN // FP8_PAGE
+    np_ = FP8_BATCH * maxp + 1
+    table = (1 + torch.randperm(np_ - 1, generator=gen, device=dev)).view(
+        FP8_BATCH, maxp).to(torch.int32)
+    for b, n in enumerate((2112, 1600, 1088, 576)):
+        table[b, -(-n // FP8_PAGE):] = -1
+    shape = (np_, FP8_PAGE, cfg.num_kv_heads, cfg.head_dim)
+    pools = torch.randint(0, 256, (COLD_POOLS,) + shape, generator=gen,
+                          device=dev, dtype=torch.uint8)
+    # no NaN pattern (0x7f / 0xff): the cache never holds one (saturating)
+    pools[(pools & 0x7f) == 0x7f] = 0
+    pools = pools.view(torch.float8_e4m3fn)
+    page_bytes = FP8_PAGE * cfg.num_kv_heads * cfg.head_dim
+    check(page_bytes % 16 == 0 and page_bytes == 8192,
+          f"17b: an fp8 page is {page_bytes} B, want 8 KiB (16-byte rule)")
+    got = paged_gather(pools[0], table)
+    want = paged_gather_plain(pools[0], table)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.uint8), want.view(torch.uint8)),
+          "17b: paged_gather kernel != plain version on an fp8 pool")
+    ids = table.long().clamp(0, np_ - 1).reshape(-1)
+    kernel_ms, library_ms, wins = paired_ms(
+        lambda i: paged_gather(pools[i % COLD_POOLS], table),
+        lambda i: pools[i % COLD_POOLS].index_select(0, ids))
+    plain_ms = time_ms(lambda i: paged_gather_plain(pools[i % COLD_POOLS],
+                                                    table))
+    mapped = int(table[table >= 0].unique().numel())
+    nbytes = mapped * page_bytes + table.nbytes + got.nbytes
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"kernel paged_gather float8_e4m3fn at {FP8_ARCH}'s decode shape: "
+          f"pool {shape} table {tuple(table.shape)} "
+          f"({int((table < 0).sum())} unmapped) bitwise equal to plain; "
+          f"kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} "
+          f"library_ms(index_select)={library_ms:.5f} (medians of {PAIRS} "
+          f"alternating pairs, the kernel faster in {wins}) "
+          f"bound_ms={bound_ms:.5f} ({nbytes} B at 1 B an element)",
+          flush=True)
+    del pools
+    return dict(max_abs_err=0.0, ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms)
+
+
+def _fp8_requests(vocab: int):
+    """17's requests: 8 prompts of 512-2,048 tokens (varied), 64 new."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(17)
+    return [Request(prompt=rng.integers(0, vocab, (int(p),), dtype=np.int32),
+                    max_new_tokens=FP8_NEW) for p in FP8_PROMPTS]
+
+
+class _ProfiledStep:
+    """An engine's decode step whose ``at``-th call is also profiled: run
+    once on the host clock, then again under ``torch.profiler`` (a decode
+    step is idempotent: it rewrites the same cache slot from the same
+    inputs). The idle share is that profiled run's: its device busy time
+    over its own wall time (the host clock around the profiled call,
+    profiler overhead included); the unprofiled run's wall is kept beside
+    it."""
+
+    def __init__(self, fn, at: int):
+        self.fn, self.at, self.n, self.idle = fn, at, 0, None
+        self.busy_ms = self.wall_ms = self.plain_wall_ms = None
+        self.extra = 0   # the profiled step's second run
+
+    def __call__(self, *a, **kw):
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        self.n += 1
+        if self.n != self.at:
+            return self.fn(*a, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.fn(*a, **kw)
+        torch.cuda.synchronize()
+        self.plain_wall_ms = (time.perf_counter() - t0) * 1e3
+        self.extra = 1
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = self.fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.wall_ms = (time.perf_counter() - t0) * 1e3
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        self.busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+        if self.busy_ms > 0:
+            self.idle = 1 - self.busy_ms / self.wall_ms
+        return out
+
+
+def _fp8_agreement(cfg, params) -> float:
+    """17's top-1 agreement of a ``kv_fp8`` cache with a bf16 one (the
+    reference's rule, teacher-forced): 4 rows of 256 tokens, the first 224
+    prefilled, then 32 steps fed the true next token; the share of the
+    32 x 4 positions whose argmax agrees. Recorded, not gated."""
+    import torch
+    from repro_torch.models.transformer import Model, init_cache
+    reqs = _fp8_requests(cfg.vocab_size)[:4]
+    toks = torch.stack([torch.from_numpy(r.prompt[:256]) for r in reqs]).to(
+        "cuda")
+    tops = {}
+    for name, c in (("bf16", cfg), ("fp8", cfg.with_opts("kv_fp8"))):
+        model = Model(c)
+        cache = init_cache(c, 4, 257, dtype=torch.bfloat16, device="cuda")
+        out = []
+        with torch.inference_mode():
+            _, _, cache = model.forward(params, {"tokens": toks[:, :224]},
+                                        cache=cache)
+            for t in range(224, 256):
+                lg, cache = model.decode_step(params, toks[:, t:t + 1], cache)
+                out.append(lg.argmax(-1))
+        tops[name] = torch.cat(out, 1)
+    return float((tops["bf16"] == tops["fp8"]).float().mean())
+
+
+def phase_fp8_serve(card: str) -> dict:
+    """17 (see the docstring): yi-9b at full width and depth, random from
+    seed 0, bf16 params, through ``ServeEngine`` with a bf16 cache and
+    with ``kv_fp8``, paged and contiguous; the gates and the measurements
+    (ms a decode step, tok/s, prefill s, ``cache_bytes_resident``, peak
+    memory, one profiled step's idle share)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_kv import paged_gather
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import engine as tengine
+
+    t17 = time.time()
+    _fresh("phase 17")
+    phase_fp8_cast()
+    base = get_config(FP8_ARCH)
+    t0 = time.time()
+    params = init_params(base, 0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"fp8 serve: {base.name} L={base.num_layers} d={base.d_model} "
+          f"H={base.num_heads}/{base.num_kv_heads} hd={base.head_dim} "
+          f"d_ff={base.d_ff} vocab={base.vocab_size} "
+          f"params={base.param_count() / 1e9:.3f}B {base.param_dtype} "
+          f"(init {time.time() - t0:.1f}s, {torch.cuda.memory_allocated()} B "
+          f"on the card) on {card}", flush=True)
+    # every logit the engines sample from is checked finite
+    finite = {"ok": torch.ones((), dtype=torch.bool, device="cuda"), "n": 0}
+    select = tengine.select_tokens
+
+    def checked(logits, *a, **kw):
+        finite["ok"] &= torch.isfinite(logits).all()
+        finite["n"] += 1
+        return select(logits, *a, **kw)
+
+    tengine.select_tokens = checked
+    runs = {}
+    try:
+        for dt in ("bf16", "fp8"):
+            cfg = base.with_opts("kv_fp8") if dt == "fp8" else base
+            for layout in ("paged", "contiguous"):
+                eng = tengine.ServeEngine(
+                    cfg, params, batch_size=FP8_BATCH, max_len=FP8_MAX_LEN,
+                    device="cuda", paged=layout == "paged",
+                    page_size=FP8_PAGE, cache_dtype=torch.bfloat16)
+                if dt == "bf16":   # warm-up (first calls' set-up)
+                    eng.generate([tengine.Request(prompt=r.prompt[:64],
+                                                  max_new_tokens=2)
+                                  for r in _fp8_requests(cfg.vocab_size)[:2]])
+                reqs = _fp8_requests(cfg.vocab_size)
+                eng._prefill = _Timed(eng._prefill)
+                eng._step = _ProfiledStep(_Timed(eng._step), FP8_PROFILE_AT)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                paged_gather.launches = flash_attention.launches = 0
+                t0 = time.perf_counter()
+                eng.generate(reqs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                steps, timed = eng.decode_steps, eng._step.fn
+                n_tok = sum(len(r.generated) for r in reqs)
+                run = dict(
+                    tokens=[r.generated.tolist() for r in reqs],
+                    steps=steps, gather=paged_gather.launches,
+                    flash=flash_attention.launches,
+                    step_ms=timed.seconds / max(steps, 1) * 1e3,
+                    tok_s=n_tok / wall, prefill_s=eng._prefill.seconds,
+                    prefills=eng._prefill.calls,
+                    bytes=eng.cache_bytes_resident,
+                    peak=torch.cuda.max_memory_allocated(),
+                    idle=eng._step.idle, busy_ms=eng._step.busy_ms,
+                    profiled_wall_ms=eng._step.wall_ms,
+                    plain_wall_ms=eng._step.plain_wall_ms)
+                runs[f"{dt} {layout}"] = run
+                for i, r in enumerate(reqs):
+                    check(len(r.generated) == FP8_NEW and bool(
+                        ((r.generated >= 0) & (r.generated < cfg.vocab_size))
+                        .all()), f"17 {dt} {layout}: request {i} made "
+                        f"{r.generated.tolist()[:4]}... ({len(r.generated)})")
+                runs_of_step = steps + eng._step.extra
+                want = 2 * cfg.num_layers * runs_of_step \
+                    if layout == "paged" else 0
+                check(run["gather"] == want, f"17 {dt} {layout}: paged gather "
+                      f"launched {run['gather']} times, want {want} (2 x "
+                      f"{cfg.num_layers} a decode step, {runs_of_step} runs "
+                      f"of the step with the profiled one's second)")
+                check(run["flash"] == cfg.num_layers * run["prefills"],
+                      f"17 {dt} {layout}: flash launched {run['flash']} "
+                      f"times, want {cfg.num_layers} x {run['prefills']}")
+                # K and V of the contiguous cache: its bytes less the two
+                # cursors (the reference's int32 scalars)
+                kv = run["bytes"] - 8 if layout == "contiguous" else None
+                run["kv_bytes"] = kv
+                idle = "not measured" if run["idle"] is None else (
+                    f"wall {run['profiled_wall_ms']:.2f} ms under the "
+                    f"profiler ({run['plain_wall_ms']:.2f} without), device "
+                    f"busy {run['busy_ms']:.2f} ms, idle share of the "
+                    f"profiled run {run['idle']:.4f}")
+                print(f"fp8 serve {cfg.name} {dt} cache {layout}: "
+                      f"{len(reqs)} requests (prompts "
+                      f"{[len(r.prompt) for r in reqs]}), {n_tok} new tokens "
+                      f"in {wall:.3f}s ({run['tok_s']:.1f} tok/s) "
+                      f"decode_steps={steps} ({run['step_ms']:.3f} ms/step) "
+                      f"prefill_s={run['prefill_s']:.3f} ({run['prefills']} "
+                      f"prefills) paged_gather.launches={run['gather']} "
+                      f"flash_attention.launches={run['flash']} "
+                      f"cache_bytes_resident={run['bytes']}"
+                      + (f" (K/V {kv} B)" if kv else "")
+                      + f" peak={run['peak']} B; profiled step "
+                      f"{FP8_PROFILE_AT}: {idle}", flush=True)
+                del eng
+                torch.cuda.empty_cache()
+    finally:
+        tengine.select_tokens = select
+    check(bool(finite["ok"]), f"17: a logit was not finite in "
+          f"{finite['n']} sampling calls")
+    want = 2 * base.num_layers * FP8_BATCH * FP8_MAX_LEN * base.num_kv_heads \
+        * base.head_dim
+    check(runs["bf16 contiguous"]["kv_bytes"] == 2 * want and
+          runs["fp8 contiguous"]["kv_bytes"] == want,
+          f"17: K/V bytes bf16 {runs['bf16 contiguous']['kv_bytes']} / fp8 "
+          f"{runs['fp8 contiguous']['kv_bytes']}, want {2 * want} / {want}")
+    for dt in ("bf16", "fp8"):
+        a, b = runs[f"{dt} paged"]["tokens"], runs[f"{dt} contiguous"]["tokens"]
+        same = a == b
+        if dt == "fp8":
+            check(same, "17: under kv_fp8 paged tokens != contiguous tokens")
+        runs[f"{dt} paged"]["same_as_contiguous"] = same
+    pairs = [(x, y) for p, q in zip(runs["fp8 contiguous"]["tokens"],
+                                    runs["bf16 contiguous"]["tokens"])
+             for x, y in zip(p, q)]
+    gen_agree = sum(x == y for x, y in pairs) / len(pairs)
+    top1 = _fp8_agreement(base, params)
+    print(f"fp8 serve: {finite['n']} sampling calls, every logit finite; "
+          f"K/V bytes fp8 {runs['fp8 contiguous']['kv_bytes']} = half of "
+          f"bf16's {runs['bf16 contiguous']['kv_bytes']}; fp8 paged tokens "
+          f"== contiguous; bf16 paged == contiguous: "
+          f"{runs['bf16 paged']['same_as_contiguous']}; fp8 against bf16 "
+          f"(recorded, not gated): teacher-forced top-1 agreement {top1:.4f} "
+          f"(4 rows x 32 steps), greedy tokens equal at {gen_agree:.4f} of "
+          f"positions", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    gather = phase_fp8_gather()
+    print(f"phase 17 took {time.time() - t17:.1f}s", flush=True)
+    return dict(runs=runs, gather=gather, top1=top1,
+                launches=sum(r["gather"] for r in runs.values()),
+                flash=sum(r["flash"] for r in runs.values()))
+
+
 def _table_bytes() -> int:
     """The page table of phase 5's paged cache: ``BATCH`` rows of
     ``MAX_LEN / PAGE_SIZE`` int32 entries."""
@@ -4487,54 +4994,62 @@ def main() -> None:
           f"allow_tf32=False", flush=True)
 
     t_all = time.time()
-    card = phase_device()
-    phase_build()
-    kern = phase_kernels()
-    rows = phase_row_gather()
-    flash = phase_flash()
+    took: dict = {}
+
+    def timed(fn, *a, name: str = ""):
+        """``fn(*a)``, its wall seconds kept under ``name`` (default the
+        phase function's name)."""
+        t0 = time.time()
+        out = fn(*a)
+        took[name or fn.__name__[len("phase_"):]] = round(
+            time.time() - t0, 1)
+        return out
+
+    card = timed(phase_device)
+    timed(phase_build)
+    kern = timed(phase_kernels)
+    rows = timed(phase_row_gather)
+    flash = timed(phase_flash)
     from repro_torch.configs import get_config
-    runs = phase_serve(get_config(SERVE_ARCH))
-    phase_reference()
-    moe_runs = phase_serve(dataclasses.replace(get_config(MOE_ARCH),
-                                               num_layers=MOE_LAYERS))
-    phase_moe_reference()
-    ssd = phase_ssd()
-    ssm_launches = phase_ssm_serve()
-    phase_ssm_reference()
-    hyb = phase_hybrid_serve()
-    phase_family_references()
-    vlm_flash = phase_vlm_serve()
-    audio_flash = phase_audio_serve()
-    tp = phase_tp_serve(runs, moe_runs, card)
+    runs = timed(phase_serve, get_config(SERVE_ARCH))
+    timed(phase_reference)
+    moe_runs = timed(phase_serve, dataclasses.replace(
+        get_config(MOE_ARCH), num_layers=MOE_LAYERS), name="serve_moe")
+    timed(phase_moe_reference)
+    ssd = timed(phase_ssd)
+    ssm_launches = timed(phase_ssm_serve)
+    timed(phase_ssm_reference)
+    hyb = timed(phase_hybrid_serve)
+    timed(phase_family_references)
+    vlm_flash = timed(phase_vlm_serve)
+    audio_flash = timed(phase_audio_serve)
+    tp = timed(phase_tp_serve, runs, moe_runs, card)
     import torch.distributed as dist
     tmp = init_data_group()
     try:
-        train = phase_train()
-        phase_reference_train()
-        zero1 = phase_train_zero1(train.pop("post"))
+        train = timed(phase_train)
+        timed(phase_reference_train)
+        zero1 = timed(phase_train_zero1, train.pop("post"))
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
-    ranks = phase_zero1_ranks(card)
-    bwd = phase_row_gather_bwd()
+    ranks = timed(phase_zero1_ranks, card)
+    bwd = timed(phase_row_gather_bwd)
     tmp = init_data_group()
     try:
-        moe_train = phase_train_moe()
-        mm_train = phase_train_mm()
-        t14 = time.time()
-        ssd_bwd = phase_ssd_bwd()
-        ssm_train = phase_train_ssm()
-        hyb_train = phase_train_hybrid()
-        print(f"phases 14a-14c took {time.time() - t14:.1f}s", flush=True)
-        t15 = time.time()
-        gspmd = phase_gspmd(train["step_ms"])
+        moe_train = timed(phase_train_moe)
+        mm_train = timed(phase_train_mm)
+        ssd_bwd = timed(phase_ssd_bwd)
+        ssm_train = timed(phase_train_ssm)
+        hyb_train = timed(phase_train_hybrid)
+        gspmd = timed(phase_gspmd, train["step_ms"])
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
-    gspmd_ranks = phase_gspmd_ranks(card)
-    phase_ckpt_cli()
-    print(f"phases 15a-15c and 16a-16c took {time.time() - t15:.1f}s",
-          flush=True)
+    gspmd_ranks = timed(phase_gspmd_ranks, card)
+    timed(phase_ckpt_cli)
+    fp8 = timed(phase_fp8_serve, card)
+    print(f"phase seconds: {json.dumps(took)}", flush=True)
     trained = [moe_train, ssm_train, hyb_train] + list(mm_train.values())
 
     f32 = kern["float32"]
@@ -4544,13 +5059,18 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/paged_gather.cu",
         "replaces": "src/repro/kernels/paged_kv.py:42",
         "launches": runs["paged"]["launches"] + moe_runs["paged"]["launches"]
-        + tp["gather"],
+        + tp["gather"] + fp8["launches"],
         "max_abs_err": max(k["max_abs_err"] for k in kern.values()),
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"],
         "bound_by": "bytes",
         "library_ms": f32["library_ms"],
+        # phase 17's fp8 pool at yi-9b's decode shape (1 B an element)
+        "fp8_ms": fp8["gather"]["ms"],
+        "fp8_plain_ms": fp8["gather"]["plain_ms"],
+        "fp8_bound_ms": fp8["gather"]["bound_ms"],
+        "fp8_library_ms": fp8["gather"]["library_ms"],
     }] + [{
         "name": name,
         "route": "cuda",
@@ -4581,7 +5101,7 @@ def main() -> None:
         + audio_flash + train["flash"] + tp["flash"] + ranks["flash"]
         + sum(r["flash"] for r in zero1.values())
         + sum(r["counts"]["flash_attention"] for r in trained)
-        + gspmd["flash"] + gspmd_ranks["flash"],
+        + gspmd["flash"] + gspmd_ranks["flash"] + fp8["flash"],
         "max_abs_err": flash["max_abs_err"],
         "ms": flash["a"]["ms"],
         "plain_ms": flash["a"]["plain_ms"],
@@ -4624,7 +5144,7 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:56",
-        "launches": ssm_launches + hyb["ssd"]
+        "launches": ssm_launches + hyb["ssd"] + tp["ssd"]
         + sum(r["counts"]["ssd_chunk"] for r in trained),
         "max_abs_err": ssd["max_abs_err"],
         "ms": ssd["serve"]["ms"],

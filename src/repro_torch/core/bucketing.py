@@ -342,7 +342,7 @@ class CommPlan:
     @property
     def data_size(self) -> int:
         """Ranks the buckets reduce over (this rank's data line)."""
-        return self.mesh.data if self.mesh is not None else \
+        return self.mesh.data_size if self.mesh is not None else \
             dist.get_world_size()
 
     def make_groups(self) -> None:

@@ -20,7 +20,8 @@ runtime issues an operation.
 
 A runtime given a :class:`RankMesh` (the ranks as a row-major ``(data,
 model)`` grid, the reference's ``Mesh(devs.reshape(n // tp, tp), ("data",
-"model"))``) also issues over one axis of it (the reference's ``axis=``):
+"model"))``, or ``(pod, data, model)``, whose data lines span ``pod x
+data``) also issues over one axis of it (the reference's ``axis=``):
 for each VCI index there is one group per line of the grid along that
 axis, VCI 0 included, and each rank keeps the group of its own line.
 
@@ -68,38 +69,64 @@ class Request:
     finish: Optional[Callable[[], torch.Tensor]] = None
 
 
-@dataclass(frozen=True)
 class RankMesh:
-    """The ranks of the default group as a row-major ``(data, model)``
-    grid: rank ``r`` sits at ``(r // model, r % model)``."""
+    """The ranks of the default group as a row-major grid: ``RankMesh(data,
+    model)`` (the reference's ``("data", "model")`` mesh) or
+    ``RankMesh(pod, data, model)`` (its ``("pod", "data", "model")``
+    mesh). Every axis but ``model`` is data-parallel, so the data line of
+    a rank is the ``pod x data`` ranks that share its model coordinate, as
+    the reference's ``data_axes`` is ``("pod", "data")``: rank ``r`` sits
+    at ``(r // model, r % model)`` of its ``(data line, model line)``, and
+    ``2 x 1 x 2`` has the lines of ``2 x 2``."""
 
-    data: int
-    model: int
+    def __init__(self, *dims: int):
+        if len(dims) not in (2, 3):
+            raise ValueError(f"a RankMesh is (data, model) or (pod, data, "
+                             f"model), got {dims}")
+        if min(dims) < 1:
+            raise ValueError(f"mesh axes must be >= 1, got {dims}")
+        self.dims = tuple(int(d) for d in dims)
+        self.axis_names = (("pod",) if len(dims) == 3 else ()) + \
+            ("data", "model")
+        self.pod = self.dims[0] if len(dims) == 3 else 1
+        self.data, self.model = self.dims[-2:]
 
-    def __post_init__(self):
-        if self.data < 1 or self.model < 1:
-            raise ValueError(f"mesh axes must be >= 1, got data={self.data} "
-                             f"model={self.model}")
+    def __eq__(self, other) -> bool:
+        return isinstance(other, RankMesh) and other.dims == self.dims
+
+    def __hash__(self) -> int:
+        return hash(self.dims)
+
+    def __repr__(self) -> str:
+        return f"RankMesh{self.dims}"
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": self.data, "model": self.model}
+        return dict(zip(self.axis_names, self.dims))
 
     @property
     def size(self) -> int:
-        return self.data * self.model
+        return self.pod * self.data * self.model
+
+    @property
+    def data_size(self) -> int:
+        """Ranks on a data line: ``pod x data``."""
+        return self.pod * self.data
 
     def coords(self, rank: int) -> Tuple[int, int]:
+        """``(index on the data line, index on the model line)``."""
         return divmod(rank, self.model)
 
     def lines(self, axis: str) -> List[List[int]]:
-        """Every line of the grid along ``axis``, as ascending rank lists
-        (group rank = index along the axis), in one order for all ranks."""
+        """Every line of the grid along ``axis`` (``"data"``: the ``pod x
+        data`` ranks of one model coordinate), as ascending rank lists
+        (group rank = index along the line), in one order for all
+        ranks."""
         if axis == "model":
             return [[d * self.model + m for m in range(self.model)]
-                    for d in range(self.data)]
+                    for d in range(self.data_size)]
         if axis == "data":
-            return [[d * self.model + m for d in range(self.data)]
+            return [[d * self.model + m for d in range(self.data_size)]
                     for m in range(self.model)]
         raise ValueError(f"axis {axis!r} not in ('data', 'model')")
 
@@ -160,7 +187,8 @@ def vci_group(index: int, num_vcis: int, axis: Optional[str] = None,
     if mesh is None or mesh.size != dist.get_world_size():
         raise ValueError(f"axis {axis!r} needs a RankMesh over the "
                          f"{dist.get_world_size()} ranks, got {mesh}")
-    mine = reg["axes"].setdefault((mesh.data, mesh.model, axis), [])
+    mine = reg["axes"].setdefault((mesh.data_size, mesh.model, axis),
+                                   [])
     rank = dist.get_rank()
     if not 0 <= index < num_vcis:
         raise ValueError(f"VCI {index} outside a pool of {num_vcis}")

@@ -3,15 +3,22 @@
 The token stream is a *learnable* noisy successor process — token[t+1] =
 (token[t] + stride) mod V with probability 1-noise. Batches are numpy, so
 the conformance tests feed the same batch to the reference and the port.
+:func:`batch_spec` gives every input's shape and dtype (the dry-run's),
+:func:`batch_shardings` its rows over a mesh's data line, and
+:func:`place_batch` puts this rank's rows on its device.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from dataclasses import dataclass
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models.transformer import IMG_EMBED_DIM
 
 PAD_LABEL = -1
@@ -57,3 +64,95 @@ def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, *,
     toks = _succ_tokens(rng, (batch, seq + 1), cfg.vocab_size)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
+
+
+def synthetic_batches(cfg: ModelConfig, batch: int, seq: int, *,
+                      seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """The endless stream of :func:`synthetic_batch` steps 0, 1, ..."""
+    step = 0
+    while True:
+        yield synthetic_batch(cfg, batch, seq, seed=seed, step=step)
+        step += 1
+
+
+# ---------------------------------------------------------------------------
+# dry-run specs + per-rank placement
+# ---------------------------------------------------------------------------
+
+def batch_spec(cfg: ModelConfig, shape: InputShape, mesh=None
+               ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """``{name: (shape, dtype)}`` of every model input of ``shape``: the
+    reference's ``ShapeDtypeStruct``s (``image_embeds`` bf16, the rest
+    int32). ``mesh`` is unused, as there."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind == "decode":
+        if cfg.modality == "audio":
+            return {"tokens": ((b, cfg.num_codebooks, 1), i32)}
+        return {"tokens": ((b, 1), i32)}
+    spec: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
+    if cfg.modality == "audio":
+        spec["tokens"] = ((b, cfg.num_codebooks, s), i32)
+        if shape.kind == "train":
+            spec["labels"] = ((b, cfg.num_codebooks, s), i32)
+    elif cfg.modality == "vlm":
+        spec["tokens"] = ((b, s - cfg.num_patches), i32)
+        spec["image_embeds"] = ((b, cfg.num_patches, IMG_EMBED_DIM),
+                                torch.bfloat16)
+        if shape.kind == "train":
+            spec["labels"] = ((b, s), i32)
+    else:
+        spec["tokens"] = ((b, s), i32)
+        if shape.kind == "train":
+            spec["labels"] = ((b, s), i32)
+    return spec
+
+
+@dataclass(frozen=True)
+class RowSplit:
+    """One input's layout over a mesh: its rows in ``parts`` blocks over
+    the data line (``pod x data``), or whole (``parts == 1``). ``spec``
+    is the reference's ``PartitionSpec`` entry for entry."""
+
+    spec: Tuple
+    parts: int
+    model: int
+
+    def rows(self, rank: int, n: int) -> slice:
+        """Rank ``rank``'s rows of ``n``: its data index's block."""
+        if self.parts == 1:
+            return slice(0, n)
+        per = n // self.parts
+        d = rank // self.model
+        return slice(d * per, (d + 1) * per)
+
+
+def batch_shardings(cfg: ModelConfig, shape: InputShape, mesh
+                    ) -> Dict[str, RowSplit]:
+    """Each input's :class:`RowSplit` on ``mesh`` (a
+    :class:`~repro_torch.core.collectives.RankMesh` or an object with
+    ``axis_names`` and a ``shape`` dict): rows over every axis but
+    ``model`` when they divide, as the reference's ``batch_shardings``."""
+    names = tuple(getattr(mesh, "axis_names", dict(mesh.shape)))
+    sizes = dict(mesh.shape)
+    dp = tuple(a for a in names if a in ("pod", "data"))
+    dpn = int(np.prod([sizes[a] for a in dp])) if dp else 1
+    out = {}
+    for k, (shp, _) in batch_spec(cfg, shape, mesh).items():
+        split = shp[0] % dpn == 0 and shp[0] >= dpn
+        lead = (dp[0] if len(dp) == 1 else dp) if split else None
+        out[k] = RowSplit((lead,) + (None,) * (len(shp) - 1),
+                          dpn if split else 1, sizes.get("model", 1))
+    return out
+
+
+def place_batch(batch: Dict[str, np.ndarray],
+                shardings: Dict[str, RowSplit], *, rank: Optional[int] = None,
+                device=None) -> Dict[str, torch.Tensor]:
+    """This rank's rows of every input of ``batch`` as tensors on
+    ``device`` (``rank``: torch.distributed's, or 0 without a group)."""
+    if rank is None:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(v[shardings[k].rows(rank, v.shape[0])]).to(
+        dev) for k, v in batch.items()}

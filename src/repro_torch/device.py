@@ -15,7 +15,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     ``None`` means the card: ``cuda`` when CUDA is available, otherwise a
     ``RuntimeError`` — the port never falls back to the CPU on its own. A
     caller that wants the CPU (the conformance tests) passes
-    ``device="cpu"``. An explicit CUDA device is checked as well.
+    ``device="cpu"``. An explicit CUDA device is checked as well. The
+    ``meta`` device (shapes and dtypes, no memory: the dry-run,
+    :mod:`repro_torch.launch.dryrun`) is taken when it is named.
     """
     if device is None:
         if not torch.cuda.is_available():
@@ -26,7 +28,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
 

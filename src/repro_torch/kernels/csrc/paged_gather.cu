@@ -3,7 +3,7 @@
 // Replaces repro/kernels/paged_kv.py::paged_gather_pallas, the TPU
 // scalar-prefetch kernel that DMAs one pool page per grid step.
 //
-//   pool  (NP, PS, KV, hd)   one layer's page pool, any 2- or 4-byte dtype
+//   pool  (NP, PS, KV, hd)   one layer's page pool, any 1-, 2- or 4-byte dtype
 //   table (B, MAXP) int32    pool page id per (slot, logical page); < 0 unmapped
 //   out   (B, MAXP*PS, KV, hd)
 //

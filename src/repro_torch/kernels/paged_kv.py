@@ -10,14 +10,18 @@ page table; decode attention needs each slot's pages in sequence order.
   There is no fallback: a CUDA call launches the kernel or raises.
 * :func:`paged_gather_plain` — one ``index_select`` of the clipped ids and
   an unmapped-page mask (``paged_gather_take`` in the reference); the CPU
-  path, and what the kernel is held against on the card.
+  path, and what the kernel is held against on the card. A
+  ``float8_e4m3fn`` pool (a ``kv_fp8`` cache) is gathered through its
+  ``uint8`` view: the op moves bytes, and the view needs no fp8 kernel of
+  ``index_select`` or ``where`` on either device.
 """
 
 from __future__ import annotations
 
 import torch
 
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16,
+                  torch.float8_e4m3fn)
 
 
 def paged_gather_plain(pool: torch.Tensor, table: torch.Tensor
@@ -25,6 +29,9 @@ def paged_gather_plain(pool: torch.Tensor, table: torch.Tensor
     """pool: (NP, PS, KV, hd); table: (B, MAXP) int pool page ids (< 0
     unmapped). Returns (B, MAXP*PS, KV, hd): ids clipped to [0, NP-1], then
     pages whose table entry is negative zero-filled."""
+    if pool.dtype == torch.float8_e4m3fn:   # zero bytes are +0.0 there
+        return paged_gather_plain(pool.view(torch.uint8), table).view(
+            pool.dtype)
     b, maxp = table.shape
     ps = pool.shape[1]
     ids = table.long().clamp(0, pool.shape[0] - 1).reshape(-1)

@@ -9,7 +9,9 @@ by default (raises without CUDA), ``--device cpu`` for the plain CPU path.
 (gloo on the CPU, NCCL on the card, one card a rank), joined through a
 ``FileStore`` in a temporary directory (no network); ``--mesh DxM`` starts
 D x M ranks as a ``data x model`` mesh (the reference's form; rank ``r``
-at ``(r // M, r % M)``); without it the step runs in this process as a
+at ``(r // M, r % M)``), and ``--mesh PxDxM`` P x D x M ranks as a ``pod x
+data x model`` mesh, whose data lines span ``pod x data`` (so ``2x1x2``
+trains as ``2x2`` does); without it the step runs in this process as a
 group of one. Rank 0 prints.
 
 Every family trains: dense and MoE text (``--arch
@@ -27,9 +29,7 @@ all_gather; ``--zero1-wire bfloat16`` sets the wire dtype of both) and
 ``--ckpt-dir`` resumes from the directory's latest step (printing
 ``resumed from step N``), saves every ``--ckpt-every`` steps and at the
 end, in the reference's format (:mod:`repro_torch.checkpoint`; sharded
-states as whole leaves). A 3-D ``--mesh`` (the reference's pod axis, with
-its launch helpers) raises ``NotImplementedError`` (ROADMAP.md Queue 1
-item 14).
+states as whole leaves).
 """
 
 from __future__ import annotations
@@ -64,7 +64,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="none",
-                    help='data-parallel ranks, e.g. "4" ("none": one rank '
+                    help='data-parallel ranks "N", "DxM" (data x model) or '
+                         '"PxDxM" (pod x data x model) ("none": one rank '
                          'in this process)')
     ap.add_argument("--comm", choices=("gspmd", "vci"), default="gspmd")
     ap.add_argument("--progress", choices=("global", "per_vci", "hybrid"),
@@ -93,19 +94,16 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def build_mesh(spec: str) -> Optional[RankMesh]:
-    """``--mesh``: ``none``, ``N`` (data) or ``DxM`` (data x model), as
-    the reference's ``build_mesh`` reads it."""
+    """``--mesh``: ``none``, ``N`` (data), ``DxM`` (data x model) or
+    ``PxDxM`` (pod x data x model), as the reference's ``build_mesh``
+    reads it."""
     if spec in ("none", ""):
         return None
     dims = [int(d) for d in spec.split("x")]
-    if len(dims) == 3:
-        raise NotImplementedError(
-            f"--mesh {spec}: the pod axis (pod x data x model) and the "
-            f"reference's launch helpers are ROADMAP.md Queue 1 item 14")
-    if len(dims) not in (1, 2) or min(dims) < 1:
-        raise ValueError(f"--mesh must be N or DxM with axes >= 1, got "
-                         f"{spec}")
-    return RankMesh(dims[0], dims[1] if len(dims) == 2 else 1)
+    if len(dims) not in (1, 2, 3) or min(dims) < 1:
+        raise ValueError(f"--mesh must be N, DxM or PxDxM with axes >= 1, "
+                         f"got {spec}")
+    return RankMesh(dims[0], 1) if len(dims) == 1 else RankMesh(*dims)
 
 
 def _world_size(mesh: str) -> int:

@@ -78,6 +78,23 @@ def is_ring(cfg: ModelConfig, max_len: int) -> bool:
     return w is not None and w < max_len
 
 
+# the largest finite float8_e4m3fn
+FP8_MAX = 448.0
+
+
+def to_cache_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` cast to a cache's ``dtype``: every K/V write goes through it.
+    A ``float8_e4m3fn`` cache (``kv_fp8``) saturates: a value past e4m3's
+    range stores +-448 on every device and torch build. torch's own cast
+    does not agree across builds (2.13's CPU cast saturates; 2.11's, on
+    the CPU and on a card, gives NaN from 466 up, as the reference's
+    ``ml_dtypes`` cast does), so the clamp comes first; within the range
+    the clamp changes nothing and the cast rounds as everywhere."""
+    if dtype == torch.float8_e4m3fn and x.dtype != dtype:
+        x = x.clamp(-FP8_MAX, FP8_MAX)
+    return x.to(dtype)
+
+
 def kv_cache_shape(cfg: ModelConfig, batch: int, max_len: int):
     """``(B, S_cache, KV, hd)``: ``S_cache`` is the window for a ring
     cache (:func:`is_ring`), else ``max_len``."""
@@ -114,8 +131,8 @@ def cache_update_decode(cache: KVCache, k_new, v_new) -> KVCache:
     s_cache = cache.k.shape[1]
     pos = (cache.length % s_cache if cache.ring
            else min(cache.length, s_cache - 1))
-    cache.k[:, pos] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, pos] = v_new[:, 0].to(cache.v.dtype)
+    cache.k[:, pos] = to_cache_dtype(k_new[:, 0], cache.k.dtype)
+    cache.v[:, pos] = to_cache_dtype(v_new[:, 0], cache.v.dtype)
     return KVCache(cache.k, cache.v, cache.length + 1, cache.ring)
 
 
@@ -211,8 +228,8 @@ def paged_update_decode(layer: PagedKVLayer, k_new, v_new) -> PagedKVLayer:
     v_new = _expand_to_cache(layer, v_new)
     pos = layer.length
     ids = _paged_write_ids(layer.table, pos, ps)               # (B,)
-    layer.k[ids, pos % ps] = k_new[:, 0].to(layer.k.dtype)
-    layer.v[ids, pos % ps] = v_new[:, 0].to(layer.v.dtype)
+    layer.k[ids, pos % ps] = to_cache_dtype(k_new[:, 0], layer.k.dtype)
+    layer.v[ids, pos % ps] = to_cache_dtype(v_new[:, 0], layer.v.dtype)
     return PagedKVLayer(layer.k, layer.v, layer.table, pos + 1, ps)
 
 
@@ -234,8 +251,8 @@ def paged_prefill_update(layer: PagedKVLayer, k_new, v_new) -> PagedKVLayer:
     vp = v_new.reshape((b, npg, ps) + tuple(v_new.shape[2:]))
     ids = layer.table[:, :npg].long()
     ids = torch.where(ids >= 0, ids, 0)                        # (B, npg)
-    layer.k[ids] = kp.to(layer.k.dtype)
-    layer.v[ids] = vp.to(layer.v.dtype)
+    layer.k[ids] = to_cache_dtype(kp, layer.k.dtype)
+    layer.v[ids] = to_cache_dtype(vp, layer.v.dtype)
     return PagedKVLayer(layer.k, layer.v, layer.table, layer.length + s, ps)
 
 
@@ -253,8 +270,10 @@ def paged_splice(cache: PagedKVCache, slot: int, dest: int, k_rows, v_rows
     ids = cache.table[slot][pos // ps].long()
     ids = torch.where(ids >= 0, ids, 0)
     flat = ids * ps + pos % ps                                 # (S,)
-    cache.k.view(ll, np_ * ps, kv, hd)[:, flat] = k_rows.to(cache.k.dtype)
-    cache.v.view(ll, np_ * ps, kv, hd)[:, flat] = v_rows.to(cache.v.dtype)
+    cache.k.view(ll, np_ * ps, kv, hd)[:, flat] = to_cache_dtype(
+        k_rows, cache.k.dtype)
+    cache.v.view(ll, np_ * ps, kv, hd)[:, flat] = to_cache_dtype(
+        v_rows, cache.v.dtype)
     return cache
 
 

@@ -201,12 +201,18 @@ def mamba2_decode(cfg: ModelConfig, x, p, state: SSMState
 
     zxbcdt = x[:, 0] @ p["in_proj"].to(x.dtype)              # (b, proj)
     z, xbc, dt = _split_proj(cfg, zxbcdt)
-    # conv over [state ; new]
-    window = torch.cat([state.conv, xbc[:, None].to(state.conv.dtype)],
+    # conv over [state ; new], in the wider of the two dtypes as the
+    # reference's concatenate promotes (an fp8 tail, which the reference
+    # cannot promote, is read in the activations' dtype); the new tail is
+    # stored back in the cache's dtype
+    cdt = state.conv.dtype
+    wdt = xbc.dtype if cdt == torch.float8_e4m3fn else \
+        torch.promote_types(cdt, xbc.dtype)
+    window = torch.cat([state.conv.to(wdt), xbc[:, None].to(wdt)],
                        dim=1)                                 # (b,w,ch)
     w = p["conv_w"].float()
     xbc = F.silu(torch.einsum("bwc,wc->bc", window.float(), w)).to(x.dtype)
-    new_conv = window[:, 1:]
+    new_conv = window[:, 1:].to(cdt)
 
     xv, B, C = torch.split(xbc, [d_in, c.ngroups * c.d_state,
                                  c.ngroups * c.d_state], dim=-1)

@@ -79,6 +79,7 @@ from repro_torch.models.attention import (
     paged_decode_attention,
     paged_prefill_update,
     paged_update_decode,
+    to_cache_dtype,
 )
 from repro_torch.models.layers import (
     apply_norm,
@@ -320,6 +321,16 @@ class DecodeCache:
         return n
 
 
+def cache_dtype(cfg: ModelConfig, dtype) -> torch.dtype:
+    """The dtype a cache asked for in ``dtype`` stores: ``float8_e4m3fn``
+    under ``kv_fp8`` when ``dtype`` is bf16 (the reference's OPT(kv_fp8):
+    half the decode step's cache bytes, upcast to the query's dtype at
+    every read), else ``dtype``."""
+    if "kv_fp8" in cfg.opts and dtype == torch.bfloat16:
+        return torch.float8_e4m3fn
+    return dtype
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None,
                kv_heads: Optional[int] = None) -> DecodeCache:
@@ -331,8 +342,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     on the ``L // hybrid_attn_every`` shared-attention sites. A prefill
     re-types the conv tail to the activations' dtype, as the reference's
     does (:meth:`Model.forward`). ``kv_heads`` — a tensor-parallel rank's
-    local count — replaces the stored KV heads."""
+    local count — replaces the stored KV heads. Under ``kv_fp8`` a bf16
+    cache stores ``float8_e4m3fn`` (:func:`cache_dtype`), the conv tail
+    included, as the reference types it before the KV cache."""
     dev = resolve_device(device)
+    dtype = cache_dtype(cfg, dtype)
     kv = ssm = None
     n_kv = cfg.num_layers
     if cfg.family in ("ssm", "hybrid"):
@@ -342,9 +356,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         n_kv = (cfg.num_layers // cfg.hybrid_attn_every
                 if cfg.family == "hybrid" else 0)
     if n_kv:
-        if "kv_fp8" in cfg.opts:
-            raise NotImplementedError("kv_fp8 cache storage is not ported "
-                                      "yet (ROADMAP.md Queue 1 item 14)")
         shape = (n_kv,) + kv_cache_shape(cfg, batch, max_len)
         if kv_heads is not None:
             shape = shape[:3] + (kv_heads,) + shape[4:]
@@ -377,9 +388,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         raise ValueError(f"need page_size >= 1 and num_pages >= 2 "
                          f"(page 0 is the trash page), got "
                          f"{page_size}/{num_pages}")
-    if "kv_fp8" in cfg.opts:
-        raise NotImplementedError("kv_fp8 cache storage is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 14)")
+    dtype = cache_dtype(cfg, dtype)    # kv_fp8: see init_cache
     max_pages = -(-max_len // page_size)
     shape = (cfg.num_layers, num_pages, page_size,
              _stored_kv_heads(cfg) if kv_heads is None else kv_heads,
@@ -470,8 +479,8 @@ def _prefill_cache(kv: KVCache, k, v) -> KVCache:
         if shift:
             k, v = torch.roll(k, shift, 1), torch.roll(v, shift, 1)
     n = min(s, s_cache)
-    kv.k[:, :n] = k[:, :n].to(kv.k.dtype)
-    kv.v[:, :n] = v[:, :n].to(kv.v.dtype)
+    kv.k[:, :n] = to_cache_dtype(k[:, :n], kv.k.dtype)
+    kv.v[:, :n] = to_cache_dtype(v[:, :n], kv.v.dtype)
     return KVCache(kv.k, kv.v, kv.length + s, kv.ring)
 
 

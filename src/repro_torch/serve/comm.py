@@ -185,7 +185,7 @@ class ServeCommPlan:
         one order on every rank: ``new_group`` is collective."""
         vci_group(max(self.vci_map().values()), self.world.pool.num_vcis,
                   TP_AXIS, mesh)
-        if mesh.data > 1:
+        if mesh.data_size > 1:
             vci_group(0, self.world.pool.num_vcis, "data", mesh)
 
     def gather_tokens(self, x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
@@ -195,7 +195,7 @@ class ServeCommPlan:
         rt = self.runtime(mesh)
         flat = self.tally.run("tokens", x, lambda: rt.wait(rt.all_gather(
             x.contiguous(), self.world.world, axis="data")))
-        return flat.view((mesh.data * x.shape[0],) + tuple(x.shape[1:]))
+        return flat.view((mesh.data_size * x.shape[0],) + tuple(x.shape[1:]))
 
     @property
     def stats(self):
@@ -336,5 +336,8 @@ def serve_cache_specs(paged: bool, batch: int, kv_heads: int, tp: int,
 
 
 def local_size(n: int, axis: Optional[str], mesh: RankMesh) -> int:
-    """A dim of ``n`` on one rank when sharded over ``axis``."""
-    return n if axis is None else n // mesh.shape[axis]
+    """A dim of ``n`` on one rank when sharded over ``axis`` (``"data"``:
+    the data line, ``pod x data``)."""
+    if axis is None:
+        return n
+    return n // (mesh.data_size if axis == "data" else mesh.shape[axis])

@@ -47,12 +47,17 @@ runs ``Model(cfg, Sharder(mesh, cfg))`` on its slice of the params by the
 rule table (:meth:`repro_torch.dist.sharding.Sharder.shard_params`: FSDP
 over data, Megatron over model), each layer's data slices gathered where
 it runs and every tensor-parallel collective on its model line's single
-fallback group (against :class:`ServeCommPlan`'s VCI a purpose); the
-cache lays its rows and KV heads out as on the manual-TP path, and the
-sampled tokens of rows split over data are gathered over the data line.
-It serves the dense and MoE text archs, paged and contiguous; another
-family on a model axis raises ``NotImplementedError`` (ROADMAP.md Queue 1
-item 14).
+fallback group (against :class:`ServeCommPlan`'s VCI a purpose). It
+serves every family the engine serves (dense and MoE text, paged and
+contiguous; SSM, hybrid and audio grouped), and ``make_prefill`` /
+``make_serve_step`` serve a VLM too. A contiguous cache splits its rows
+over the data line where they divide (the sampled tokens are gathered back
+over it) and its KV heads over ``model`` where the attention is
+tensor-parallel; KV heads that do not divide the model axis (gemma's one,
+yi-9b's four at model 8) stay whole there, as the rule table leaves their
+projections, and so does an SSM's state, whose block computes replicated
+over ``model`` (:func:`gspmd_cache_layout`). A mesh may have a pod axis: its data
+line is ``pod x data``.
 
 PyTorch runs eagerly, so the reference's ``jax.jit`` wrappers (and their
 per-width trace caches) have no counterpart; caches are written in place
@@ -135,22 +140,40 @@ def select_tokens(logits, temps=None, gen: Optional[torch.Generator] = None
 
 
 def gspmd_validate(cfg: ModelConfig, mesh) -> None:
-    """The GSPMD route's scope: the dense and MoE text archs on a model
-    axis (another family raises, naming ROADMAP.md Queue 1 item 14), at a
-    degree the arch can split."""
+    """The GSPMD route's scope. The rule table guards every split by
+    divisibility (a dim that does not divide an axis stays whole over it,
+    and the model computes that site replicated), so every family and
+    degree serves; what is refused is a mesh that is not a
+    :class:`RankMesh` (the route needs its ranks' places)."""
     if not isinstance(mesh, RankMesh):
         raise ValueError(f"the GSPMD route needs a RankMesh, got {mesh!r}")
-    if mesh.model > 1 and (cfg.family not in ("dense", "moe")
-                           or cfg.modality != "text"):
-        raise NotImplementedError(
-            f"{cfg.name}: serving family {cfg.family!r} / modality "
-            f"{cfg.modality!r} on a model axis is ROADMAP.md Queue 1 item "
-            f"14; the GSPMD route serves the dense and MoE text archs")
-    serve_tp_validate(cfg, mesh.model)
+
+
+def gspmd_cache_layout(cfg: ModelConfig, sharder: Sharder, batch: int,
+                       paged: bool = False) -> Tuple[int, int]:
+    """(rows, KV heads) of a GSPMD rank's cache for a ``batch``: its rows
+    split over the data line where they divide (a paged pool is shared by
+    every slot, so it keeps them all), its KV heads over ``model`` where
+    ``sharder``'s attention is tensor-parallel (:attr:`Sharder.attn_tp`),
+    whole where not; an SSM state whole over ``model``."""
+    n = sharder.n
+    rows = batch if paged or n <= 1 or batch % n else batch // n
+    kvh = _stored_kv_heads(cfg)
+    return rows, kvh // sharder.tp_size if sharder.attn_tp else kvh
+
+
+def gspmd_cache(cfg: ModelConfig, sharder: Sharder, batch: int, max_len: int,
+                *, dtype=torch.bfloat16, device=None) -> DecodeCache:
+    """This rank's contiguous decode cache on the GSPMD route of
+    ``sharder``'s mesh, laid out by :func:`gspmd_cache_layout`."""
+    rows, kvh = gspmd_cache_layout(cfg, sharder, batch)
+    return init_cache(cfg, rows, max_len, dtype=dtype, device=device,
+                      kv_heads=kvh)
 
 
 def make_serve_step(cfg: ModelConfig, mesh=None, comm_plan=None,
-                    lane: int = 0) -> Callable[..., Tuple]:
+                    lane: int = 0, sharder: Optional[Sharder] = None
+                    ) -> Callable[..., Tuple]:
     """Returns ``serve_step(params, tokens, cache, start=None, temps=None,
     gen=None) -> (next_tokens, cache)``; tokens: (B,1) int (audio:
     (B,K,1)). ``comm_plan`` selects the manual-TP VCI-stream path (see
@@ -160,7 +183,7 @@ def make_serve_step(cfg: ModelConfig, mesh=None, comm_plan=None,
     if comm_plan is not None:
         return _make_comm_call(cfg, mesh, comm_plan, lane, prefill=False)
     if mesh is not None:
-        return _make_gspmd_call(cfg, mesh, prefill=False)
+        return _make_gspmd_call(cfg, mesh, False, sharder)
     model = Model(cfg)
 
     def serve_step(params, tokens, cache: DecodeCache, start=None,
@@ -173,7 +196,8 @@ def make_serve_step(cfg: ModelConfig, mesh=None, comm_plan=None,
 
 
 def make_prefill(cfg: ModelConfig, mesh=None, comm_plan=None,
-                 lane: int = 0) -> Callable[..., Tuple]:
+                 lane: int = 0, sharder: Optional[Sharder] = None
+                 ) -> Callable[..., Tuple]:
     """Returns ``prefill(params, batch, cache, start=None, temps=None,
     gen=None) -> (next_tokens, cache)`` sampling the first new token.
     ``batch`` holds ``tokens`` (audio: (B,K,S)), and ``image_embeds``
@@ -183,7 +207,7 @@ def make_prefill(cfg: ModelConfig, mesh=None, comm_plan=None,
     if comm_plan is not None:
         return _make_comm_call(cfg, mesh, comm_plan, lane, prefill=True)
     if mesh is not None:
-        return _make_gspmd_call(cfg, mesh, prefill=True)
+        return _make_gspmd_call(cfg, mesh, True, sharder)
     model = Model(cfg)
 
     def prefill(params, batch, cache: DecodeCache, start=None, temps=None,
@@ -209,9 +233,14 @@ def _data_rows(cache: DecodeCache, batch: int, mesh: RankMesh
     rows over ``data`` (the cache holds fewer rows than the batch), else
     ``None`` (a paged pool, or a batch replicated over data)."""
     kv = cache.kv
-    if not isinstance(kv, KVCache) or kv.k.shape[1] == batch:
+    if isinstance(kv, KVCache):
+        b = kv.k.shape[1]
+    elif kv is None and cache.ssm is not None:   # SSM: (L, B, W-1, CH)
+        b = cache.ssm.conv.shape[1]
+    else:                                        # a paged pool
         return None
-    b = kv.k.shape[1]
+    if b == batch:
+        return None
     d = mesh.coords(dist.get_rank())[0]
     return slice(d * b, (d + 1) * b)
 
@@ -251,34 +280,36 @@ def _make_comm_call(cfg: ModelConfig, mesh, plan: ServeCommPlan, lane: int,
     return call
 
 
-def _make_gspmd_call(cfg: ModelConfig, mesh, prefill: bool):
+def _make_gspmd_call(cfg: ModelConfig, mesh, prefill: bool,
+                     shard: Optional[Sharder] = None):
     """The GSPMD route's prefill (``prefill``) or decode step: this rank's
     rows through ``Model(cfg, Sharder(mesh, cfg))``, rows split over data
-    gathered back over the data line. ``call.sharder`` is the Sharder,
-    whose ``tally`` counts the collectives (the token gathers under
-    ``"tokens"``)."""
+    gathered back over the data line. ``shard`` (default a new one) is
+    the Sharder, also ``call.sharder``; its ``tally`` counts the
+    collectives (the token gathers under ``"tokens"``)."""
     gspmd_validate(cfg, mesh)
-    shard = Sharder(mesh, cfg)
+    if shard is None:
+        shard = Sharder(mesh, cfg)
     model = Model(cfg, shard)
 
     def call(params, inp, cache: DecodeCache, start=None, temps=None,
              gen=None):
-        tokens = inp["tokens"] if prefill else inp
-        rows = _data_rows(cache, tokens.shape[0], mesh)
+        batch = inp if prefill else {"tokens": inp}
+        rows = _data_rows(cache, batch["tokens"].shape[0], mesh)
         if rows is not None:
-            tokens = tokens[rows]
+            batch = {k: v[rows] for k, v in batch.items()}
             start = None if start is None else start[rows]
             temps = None if temps is None else temps[rows]
         if prefill:
-            logits, _, new_cache = model.forward(
-                params, {"tokens": tokens}, cache=cache, start=start)
+            logits, _, new_cache = model.forward(params, batch, cache=cache,
+                                                 start=start)
             logits = logits[..., -1:, :]
         else:
-            logits, new_cache = model.decode_step(params, tokens, cache,
-                                                  start=start)
+            logits, new_cache = model.decode_step(params, batch["tokens"],
+                                                  cache, start=start)
         nxt = select_tokens(logits, temps, gen)
         if rows is not None:
-            nxt = line_gather(nxt, 0, mesh.data, shard._data_group)
+            nxt = line_gather(nxt, 0, mesh.data_size, shard._data_group)
             shard.tally["tokens"] = shard.tally.get("tokens", 0) + 1
         return nxt, new_cache
 
@@ -381,8 +412,16 @@ class ServeEngine:
         self.mesh = mesh
         self.comm_plan = comm_plan
         self.temperature = temperature
-        self._prefill = make_prefill(cfg, mesh, comm_plan)
-        self._step = make_serve_step(cfg, mesh, comm_plan)
+        # the GSPMD route's rule table, shared by its prefill and decode
+        # step and laying out its caches (None on one rank or under a plan)
+        self._sharder = None
+        if mesh is not None and comm_plan is None:
+            gspmd_validate(cfg, mesh)
+            self._sharder = Sharder(mesh, cfg)
+        self._prefill = make_prefill(cfg, mesh, comm_plan,
+                                     sharder=self._sharder)
+        self._step = make_serve_step(cfg, mesh, comm_plan,
+                                     sharder=self._sharder)
         if comm_plan is not None:
             comm_plan.create_groups(mesh)
         self._cache_dtype = cache_dtype
@@ -456,13 +495,15 @@ class ServeEngine:
 
     def _local_cache(self, paged: bool, batch: int) -> Tuple[int, int]:
         """(rows, KV heads) of this rank's cache for a ``batch``: all of
-        both on one rank; under a mesh, as :func:`serve_cache_specs`
-        shards them."""
+        both on one rank; on the GSPMD route, :func:`gspmd_cache_layout`;
+        under a comm plan, as :func:`serve_cache_specs` shards them."""
         kvh = _stored_kv_heads(self.cfg)
         if self.mesh is None:
             return batch, kvh
+        if self._sharder is not None:
+            return gspmd_cache_layout(self.cfg, self._sharder, batch, paged)
         spec = serve_cache_specs(paged, batch, kvh, _mesh_tp(self.mesh),
-                                 self.mesh.data)["kv"]
+                                 self.mesh.data_size)["kv"]
         rows = batch if paged else local_size(batch, spec[1], self.mesh)
         return rows, local_size(kvh, spec[3], self.mesh)
 

@@ -136,7 +136,7 @@ class DataLine:
                 raise ValueError(f"a mesh of {mesh.size} ranks needs "
                                  f"torch.distributed's default group of "
                                  f"{mesh.size} ranks")
-            self.size, self.index = mesh.data, mesh.coords(rank)[0]
+            self.size, self.index = mesh.data_size, mesh.coords(rank)[0]
             self.group = (vci_group(0, 1, axis="data", mesh=mesh)
                           if mesh.model > 1 else None)
 

@@ -53,6 +53,25 @@ def test_kernel_matches_plain(cuda_device, dtype, shape):
     assert torch.equal(_bits(got), _bits(want))
 
 
+@pytest.mark.parametrize("shape", [(1025, 16, 4, 128), (13, 16, 2, 64),
+                                   (5, 4, 1, 8)])
+def test_kernel_matches_plain_on_fp8_pools(cuda_device, shape):
+    """A ``kv_fp8`` pool (1-byte pages; yi-9b's decode shape first, 8 KiB
+    a page): the kernel moves its bytes as the plain version does."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    table = torch.randint(-1, shape[0] + 2, (4, 16), generator=gen,
+                          device=cuda_device, dtype=torch.int32)
+    pool = torch.randint(0, 256, shape, generator=gen, device=cuda_device,
+                         dtype=torch.uint8).view(torch.float8_e4m3fn)
+    n0 = paged_kv.paged_gather.launches
+    got = paged_kv.paged_gather(pool, table)
+    torch.cuda.synchronize()
+    assert paged_kv.paged_gather.launches == n0 + 1
+    want = paged_kv.paged_gather_plain(pool, table)
+    assert got.dtype == want.dtype == torch.float8_e4m3fn
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
 def test_kernel_rejects_what_it_cannot_take(cuda_device):
     pool = torch.zeros((4, 2, 1, 8), device=cuda_device)
     table = torch.zeros((1, 2), dtype=torch.int32, device=cuda_device)

@@ -284,10 +284,11 @@ def test_gspmd_keeps_the_references_refusals(knob):
 def test_a_model_axis_raises_naming_item_14():
     """Once refused: the Sharder takes a model axis (training on a
     ``data x model`` mesh is ``tests/test_torch_model_axis.py``); a rank
-    cuts its slices along both of a leaf's dims. What still raises,
-    naming ROADMAP.md Queue 1 item 14, is the launcher's pod axis (a 3-D
-    ``--mesh``, with the reference's launch helpers) and a ``kv_fp8``
-    cache."""
+    cuts its slices along both of a leaf's dims. The launcher's pod axis
+    and a ``kv_fp8`` cache, the last refusals that named ROADMAP.md Queue
+    1 item 14, are taken too: a 3-D ``--mesh`` cuts like the 2-D mesh of
+    its data line (``2x2x2`` as ``4x2``: specs over ``("pod", "data")``),
+    and the cache stores fp8. A 4-D ``--mesh`` still raises."""
     from repro_torch.launch.train import build_mesh
     from repro_torch.models.transformer import init_cache
     cfg = get_config("olmo-1b-smoke")
@@ -296,10 +297,20 @@ def test_a_model_axis_raises_naming_item_14():
     assert cut.sharded_dim(path) == 1 and cut.model_dim(path) == 2
     assert cut.local_shape(path) == (cfg.num_layers, cfg.d_model // 2,
                                      cfg.q_dim // 2)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        build_mesh("2x2x2")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        init_cache(cfg.with_opts("kv_fp8"), 1, 8, device="cpu")
+    pod, flat = build_mesh("2x2x2"), build_mesh("4x2")
+    for r in range(8):
+        a, b = Sharder(pod, cfg, rank=r), Sharder(flat, cfg, rank=r)
+        assert a.specs["layers"]["attn"]["wq"] == \
+            (None, ("pod", "data"), "model")
+        assert (a.data_rank, a.model_rank) == (b.data_rank, b.model_rank)
+        assert a.local_shape(path) == b.local_shape(path)
+        assert a.leaf_index(path, 3) == b.leaf_index(path, 3)
+    assert pod.lines("data") == flat.lines("data")
+    assert pod.lines("model") == flat.lines("model")
+    with pytest.raises(ValueError, match="PxDxM"):
+        build_mesh("2x2x2x2")
+    c = init_cache(cfg.with_opts("kv_fp8"), 1, 8, device="cpu")
+    assert c.kv.k.dtype == torch.float8_e4m3fn
 
 
 def _cli(*extra, timeout=300):

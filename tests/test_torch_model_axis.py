@@ -25,7 +25,9 @@ gspmd also gemma (one KV head: attention replicated over model) and the
 MoE with ``moe_dispatch`` (its experts over model).
 Tolerances are ``tests/test_torch_train.py``'s (its module doc): metrics
 rtol 1e-5, params by its rules, the VLM's with its noise rule. The same
-world also checkpoints, restores and serves.
+world also checkpoints and restores, trains olmo on the pod mesh ``2 x 1
+x 2`` (bit for bit the ``2 x 2`` step: the same lines), and serves every
+family through the GSPMD route.
 """
 
 import json
@@ -37,6 +39,7 @@ from types import SimpleNamespace
 import jax
 import numpy as np
 import pytest
+import torch
 
 import _torch_cpu  # noqa: F401  (warms torch.exp: see its docstring)
 from repro.configs import get_config as jax_get_config
@@ -49,6 +52,8 @@ from repro_torch.core.collectives import RankMesh
 from repro_torch.dist.sharding import Sharder, is_spec, param_shapes
 from repro_torch.tree import tree_flatten_with_paths
 
+from test_torch_ranks import (AXIS_FP8, AXIS_SERVE, axis_serve_requests,
+                              axis_vlm_tokens)
 from test_torch_train import METRIC_RTOL, _assert_params_close
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -292,29 +297,90 @@ def test_2x2_checkpoint_restores_on_one_and_on_4x1(world):
         assert bool(np.load(d / f"axis_ckpt_flat_r{r}.npy")), r
 
 
-@pytest.mark.parametrize("layout", ["contiguous", "paged"])
-@pytest.mark.parametrize("arch", ["olmo-1b-smoke", "mixtral-8x22b-smoke"])
-def test_gspmd_serve_route_tokens_equal_single_device(world, arch, layout):
+SERVE_CASES = [pytest.param(a, lay, "", id=f"{a}-{lay}")
+               for a, lays in AXIS_SERVE.items() for lay in lays] + [
+    pytest.param(AXIS_FP8, lay, "kv_fp8", id=f"{AXIS_FP8}-{lay}-kv_fp8")
+    for lay in ("contiguous", "paged")]
+
+
+@pytest.mark.parametrize("arch,layout,opt", SERVE_CASES)
+def test_gspmd_serve_route_tokens_equal_single_device(world, arch, layout,
+                                                      opt):
     """The GSPMD route (a 2 x 2 mesh without a comm plan: FSDP weights
     gathered over data where they run, TP collectives on the model line's
-    one group) gives the single-device engine's greedy tokens on every
-    rank, paged and contiguous, dense and MoE."""
+    one group) gives the single-device contiguous engine's greedy tokens
+    (batch 4) on every rank, and a paged run also the single-device paged
+    engine's (batch 2, the same pool): dense and MoE paged and contiguous,
+    gemma's one KV head (its attention and cache whole over model), yi-9b
+    (its heads split), the SSM, the hybrid and audio on the grouped path,
+    and yi-9b under ``kv_fp8`` with a bf16 cache (fp8 over the same
+    splits)."""
     from repro_torch.models.transformer import init_params
     from repro_torch.serve.engine import ServeEngine
-    from test_torch_ranks import _serve_requests
     _, d = world
     cfg = get_config(arch)
-    eng = ServeEngine(cfg, init_params(cfg, 0, device="cpu"), batch_size=4,
-                      max_len=48, device="cpu")
-    reqs = _serve_requests(cfg)
-    eng.generate(reqs)
-    want = [r.generated.tolist() for r in reqs]
+    params = init_params(cfg, 0, device="cpu")
+    kw = {}
+    if opt:
+        cfg = cfg.with_opts(opt)
+        kw["cache_dtype"] = torch.bfloat16
+    layouts = [dict(batch_size=4)]
+    if layout == "paged":
+        layouts.append(dict(batch_size=2, paged=True, page_size=8,
+                            num_pages=11))
+    wants = []
+    for lay in layouts:
+        eng = ServeEngine(cfg, params, max_len=48, device="cpu", **kw, **lay)
+        reqs = axis_serve_requests(cfg)
+        eng.generate(reqs)
+        wants.append([r.generated.tolist() for r in reqs])
     for r in range(N):
         got = json.load(open(d / f"axis_serve_r{r}.json"))[
-            f"{arch} {layout}"]
-        assert got["tokens"] == want, (r, got["tokens"])
+            f"{arch} {layout} {opt}".strip()]
+        for want in wants:
+            assert got["tokens"] == want, (r, got["tokens"], want)
         assert got["tally"]["model_all_reduce"] > 0
         assert ("tokens" in got["tally"]) == (layout == "contiguous")
+
+
+def test_gspmd_serve_route_vlm_tokens_equal_single_device(world):
+    """phi-3-vision through ``make_prefill`` (tokens and image embeddings)
+    and ``make_serve_step`` on the 2 x 2 GSPMD route: its single-device
+    greedy tokens on every rank (its ``img_proj`` gathered whole over
+    model, its batch rows split over data)."""
+    from repro_torch.models.transformer import init_params
+    _, d = world
+    cfg = get_config("phi-3-vision-4.2b-smoke")
+    want = axis_vlm_tokens(cfg, init_params(cfg, 0, device="cpu"))
+    for r in range(N):
+        got = json.load(open(d / f"axis_serve_r{r}.json"))[cfg.name]
+        assert got["tokens"] == want, (r, got["tokens"])
+
+
+def test_2x1x2_gspmd_step_and_checkpoint_equal_2x2_bit_for_bit(world):
+    """The pod axis: on ``2 x 1 x 2`` (pod x data x model) the data line is
+    the two pods, the ranks and their lines are those of ``2 x 2``, so
+    olmo's two gspmd steps give 2 x 2's metrics and params bit for bit on
+    every rank, and its checkpoint after one step 2 x 2's files byte for
+    byte."""
+    _, d = world
+    for r in range(N):
+        got, want = (np.load(d / f"axis_out_pod_r{r}.npz"),
+                     _out(d, "olmo", "gspmd", r))
+        np.testing.assert_array_equal(got["metrics"], want["metrics"])
+    got, want = np.load(d / "axis_out_pod_r0.npz"), _out(d, "olmo",
+                                                          "gspmd", 0)
+    n = len([k for k in want.files if k[0] == "p" and k[1:].isdigit()])
+    assert n and n == len([k for k in got.files
+                           if k[0] == "p" and k[1:].isdigit()])
+    for i in range(n):
+        np.testing.assert_array_equal(got[f"p{i}"], want[f"p{i}"])
+    a, b = d / "axis_ckpt" / "step_00000001", \
+        d / "axis_ckpt_pod" / "step_00000001"
+    names = sorted(os.listdir(a))
+    assert names == sorted(os.listdir(b)) and len(names) > 2
+    for name in names:
+        assert (a / name).read_bytes() == (b / name).read_bytes(), name
 
 
 def _cli(*extra, timeout=300):

@@ -203,12 +203,13 @@ def test_paged_splice_and_decode_attention_match():
 def test_unported_cache_layouts_raise():
     """The ring cache, the hybrid family and KV heads stored per TP rank
     (``decode_kv_expand``) are ported (``tests/test_torch_ring.py``,
-    ``tests/test_torch_hybrid.py``, ``tests/test_torch_serve_tp.py``); fp8
-    cache storage is not, and a VLM has no paged layout, as in the
-    reference."""
+    ``tests/test_torch_hybrid.py``, ``tests/test_torch_serve_tp.py``), and
+    so is fp8 cache storage, once refused here (``tests/
+    test_torch_kv_fp8.py``): a bf16 cache stores ``float8_e4m3fn``. A VLM
+    has no paged layout, as in the reference."""
     cfg = get_config("gemma-2b-smoke")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.init_cache(cfg.with_opts("kv_fp8"), 1, 128, device="cpu")
+    c = ttf.init_cache(cfg.with_opts("kv_fp8"), 1, 128, device="cpu")
+    assert c.kv.k.dtype == c.kv.v.dtype == torch.float8_e4m3fn
     with pytest.raises(NotImplementedError, match="modality='vlm'"):
         ttf.init_paged_cache(get_config("phi-3-vision-4.2b-smoke"), 1, 128,
                              page_size=16, num_pages=9, device="cpu")

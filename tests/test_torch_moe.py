@@ -486,15 +486,15 @@ def test_moe_ffn_refuses_shard_and_comm(moe_layer):
     with pytest.raises(ValueError, match="shard or comm"):
         tmoe.moe_ffn(cfg, x, tp, shard=Sharder(None, cfg), comm=object())
     # a model axis is taken now (tests/test_torch_model_axis.py trains
-    # mixtral on 2 x 2: experts over data, their ff dim over model); what
-    # still raises naming item 14 is a kv_fp8 cache
+    # mixtral on 2 x 2: experts over data, their ff dim over model), and so
+    # is a kv_fp8 cache, once refused naming item 14
     cut = Sharder(RankMesh(2, 2), cfg, rank=1)
     assert cut.expert_parallel(("layers", "moe", "w_gate"))
     assert cut.model_dim(("layers", "moe", "w_gate")) == 3
     from repro_torch.models.transformer import init_paged_cache
-    with pytest.raises(NotImplementedError, match="item 14"):
-        init_paged_cache(cfg.with_opts("kv_fp8"), 1, 8, page_size=4,
+    c = init_paged_cache(cfg.with_opts("kv_fp8"), 1, 8, page_size=4,
                          num_pages=3, device="cpu")
+    assert c.kv.k.dtype == torch.float8_e4m3fn
 
 
 def test_moe_params_match_reference_layout():

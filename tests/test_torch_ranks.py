@@ -626,29 +626,102 @@ def _axis_train(cfg, data, mesh, mode):
     return state, step, metrics, tallies
 
 
+# the GSPMD route's serve cases: arch -> layouts (the grouped families
+# serve contiguous only), and the arch served under kv_fp8
+AXIS_SERVE = {"olmo-1b-smoke": ("contiguous", "paged"),
+              "mixtral-8x22b-smoke": ("contiguous", "paged"),
+              "gemma-2b-smoke": ("contiguous", "paged"),
+              "yi-9b-smoke": ("contiguous", "paged"),
+              "mamba2-780m-smoke": ("contiguous",),
+              "zamba2-7b-smoke": ("contiguous",),
+              "musicgen-large-smoke": ("contiguous",)}
+AXIS_FP8 = "yi-9b-smoke"
+
+
+def axis_serve_requests(cfg):
+    """The engine's requests of a case: ``_serve_requests``' mixed lengths
+    for the left-padded families; the grouped ones (SSM, hybrid, audio)
+    two equal-length groups of prompts of 3+ tokens (the reference's
+    ``_causal_conv`` is not causal below 3)."""
+    from repro_torch.serve.engine import Request
+    if cfg.family in ("dense", "moe") and cfg.modality == "text":
+        return _serve_requests(cfg)
+    rng = np.random.default_rng(7)
+    shape = (cfg.num_codebooks,) if cfg.modality == "audio" else ()
+    return [Request(prompt=rng.integers(0, cfg.vocab_size, shape + (plen,),
+                                        dtype=np.int32), max_new_tokens=4)
+            for plen in (5, 5, 7)]
+
+
+def axis_vlm_batch(cfg):
+    """The VLM case's prefill batch (2 rows, image + 6 text tokens)."""
+    rng = np.random.default_rng(8)
+    return {"tokens": rng.integers(0, cfg.vocab_size, (2, 6),
+                                   dtype=np.int32),
+            "image_embeds": rng.standard_normal(
+                (2, cfg.num_patches, 1024)).astype(np.float32)}
+
+
+def axis_vlm_tokens(cfg, params, mesh=None, steps=4):
+    """phi-3-vision through ``make_prefill`` and ``make_serve_step`` (the
+    engine serves no VLM): greedy tokens ``(2, 1 + steps)``."""
+    from repro_torch.serve.engine import (gspmd_cache, make_prefill,
+                                          make_serve_step)
+    from repro_torch.models.transformer import init_cache
+    batch = {k: torch.from_numpy(v) for k, v in axis_vlm_batch(cfg).items()}
+    max_len = cfg.num_patches + 6 + steps
+    prefill = make_prefill(cfg, mesh)
+    if mesh is None:
+        cache = init_cache(cfg, 2, max_len, dtype=torch.float32,
+                           device="cpu")
+    else:
+        cache = gspmd_cache(cfg, prefill.sharder, 2, max_len,
+                            dtype=torch.float32, device="cpu")
+    with torch.inference_mode():
+        nxt, cache = prefill(params, batch, cache)
+        out = [nxt]
+        step = make_serve_step(cfg, mesh, sharder=getattr(
+            prefill, "sharder", None))
+        for _ in range(steps):
+            nxt, cache = step(params, nxt, cache)
+            out.append(nxt)
+    return torch.cat(out, 1).tolist()
+
+
 def _axis_serve(rank, mesh, out_dir):
-    """The GSPMD route (a mesh, no comm plan) on the smoke dense and MoE
-    archs, contiguous and paged: every rank's tokens and collectives."""
+    """The GSPMD route (a mesh, no comm plan) on every family: the engine's
+    cases of :data:`AXIS_SERVE` (and :data:`AXIS_FP8` under ``kv_fp8``
+    with a bf16 cache), the VLM through ``make_prefill`` and the serve
+    step: every rank's tokens and collectives."""
     import json
     from repro_torch.dist.sharding import Sharder
     from repro_torch.models.transformer import init_params
     from repro_torch.configs import get_config
     from repro_torch.serve.engine import ServeEngine
     out = {}
-    for arch in ("olmo-1b-smoke", "mixtral-8x22b-smoke"):
+    cases = [(a, lay, "") for a, lays in AXIS_SERVE.items() for lay in lays]
+    cases += [(AXIS_FP8, lay, "kv_fp8") for lay in ("contiguous", "paged")]
+    for arch, layout, opt in cases:
         cfg = get_config(arch)
         params = Sharder(mesh, cfg, rank=rank).shard_params(
             init_params(cfg, 0, device="cpu"))
-        for layout, kw in (("contiguous", dict(batch_size=4)),
-                           ("paged", dict(batch_size=2, paged=True,
-                                          page_size=8, num_pages=11))):
-            eng = ServeEngine(cfg, params, max_len=48, device="cpu",
-                              mesh=mesh, **kw)
-            reqs = _serve_requests(cfg)
-            eng.generate(reqs)
-            out[f"{arch} {layout}"] = dict(
-                tokens=[r.generated.tolist() for r in reqs],
-                tally={k: v for k, v in eng._step.sharder.tally.items() if v})
+        kw = (dict(batch_size=4) if layout == "contiguous" else
+              dict(batch_size=2, paged=True, page_size=8, num_pages=11))
+        if opt:
+            cfg = cfg.with_opts(opt)
+            kw["cache_dtype"] = torch.bfloat16
+        eng = ServeEngine(cfg, params, max_len=48, device="cpu", mesh=mesh,
+                          **kw)
+        reqs = axis_serve_requests(cfg)
+        eng.generate(reqs)
+        out[f"{arch} {layout} {opt}".strip()] = dict(
+            tokens=[r.generated.tolist() for r in reqs],
+            tally={k: v for k, v in eng._sharder.tally.items() if v})
+    cfg = get_config("phi-3-vision-4.2b-smoke")
+    params = Sharder(mesh, cfg, rank=rank).shard_params(
+        init_params(cfg, 0, device="cpu"))
+    out["phi-3-vision-4.2b-smoke"] = dict(
+        tokens=axis_vlm_tokens(cfg, params, mesh))
     with open(os.path.join(out_dir, f"axis_serve_r{rank}.json"), "w") as f:
         json.dump(out, f)
 
@@ -663,8 +736,10 @@ def check_model_axis(rank: int, n: int, out_dir: str) -> None:
     whole params. Then olmo's gspmd state after one step is saved on the
     mesh (``axis_ckpt``; rank 0 writes the whole leaves beside it), and
     every rank restores it as a data-only ``n x 1`` mesh and checks its
-    slices bit for bit against the whole leaves; then the GSPMD serve
-    route (``_axis_serve``)."""
+    slices bit for bit against the whole leaves; then olmo's gspmd steps
+    and checkpoint on the pod mesh ``2 x (n // 4) x 2``
+    (``axis_out_pod_r<rank>.npz``, ``axis_ckpt_pod``); then the GSPMD
+    serve route (``_axis_serve``)."""
     from repro_torch.checkpoint import load_state, save_state
     from repro_torch.core.collectives import RankMesh
     from repro_torch.dist.sharding import Sharder
@@ -721,6 +796,18 @@ def check_model_axis(rank: int, n: int, out_dir: str) -> None:
     same = all(torch.equal(t, cut.shard_leaf(p, whole["/".join(p)]))
                for p, t in tree_flatten_with_paths(back.params))
     np.save(os.path.join(out_dir, f"axis_ckpt_flat_r{rank}.npy"), same)
+    # the pod axis: 2 x 1 x 2 has 2 x 2's lines, so its gspmd steps and
+    # its checkpoint are 2 x 2's bit for bit
+    pod = RankMesh(2, n // 4, 2)
+    state, step, metrics, _ = _axis_train(cfg, data, pod, "gspmd")
+    out = {"metrics": np.asarray(metrics)}
+    full = tree_flatten(step.sharder().gather_params(state.params))[0]
+    if rank == 0:   # (the gather is collective: every rank calls it)
+        out.update({f"p{i}": t.numpy() for i, t in enumerate(full)})
+    np.savez(os.path.join(out_dir, f"axis_out_pod_r{rank}.npz"), **out)
+    state, step, _, _ = _axis_train(cfg, {**data, "steps": 1}, pod, "gspmd")
+    save_state(os.path.join(out_dir, "axis_ckpt_pod"), 1, state,
+               shard=step.sharder())
     _axis_serve(rank, mesh, out_dir)
 
 

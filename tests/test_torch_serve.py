@@ -182,18 +182,22 @@ def test_cuda_is_the_default_device(olmo, monkeypatch):
 def test_unported_serve_options_raise(olmo):
     """The tensor-parallel path is ported (``tests/test_torch_serve_tp.py``),
     and so is a mesh without a comm plan (the reference's GSPMD route,
-    ``tests/test_torch_model_axis.py``) for the dense and MoE text archs;
-    another family on its model axis raises naming ROADMAP.md Queue 1
-    item 14, and the reference's refusals hold: ``num_vcis`` without a
-    model axis, a comm plan without a mesh, and a TP degree the arch
-    cannot split."""
+    ``tests/test_torch_model_axis.py``) for every family: the last
+    refusal that named ROADMAP.md Queue 1 item 14 is gone, and the route
+    refuses only a mesh that is not a ``RankMesh`` (and, over live ranks,
+    a world of another size). The reference's refusals hold: ``num_vcis``
+    without a model axis, a comm plan without a mesh, and a TP degree the
+    arch cannot split."""
     cfg, _, tparams, _ = olmo
     from repro_torch.configs import get_config
     from repro_torch.core.collectives import RankMesh
     from repro_torch.serve.comm import ServeCommPlan
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="default group of 2 ranks"):
         tengine.make_serve_step(get_config("mamba2-780m-smoke"),
                                 mesh=RankMesh(1, 2))
+    with pytest.raises(ValueError, match="needs a RankMesh"):
+        tengine.make_serve_step(get_config("mamba2-780m-smoke"),
+                                mesh=object())
     with pytest.raises(ValueError, match="'model' axis >1"):
         tengine.ServeEngine(cfg, tparams, batch_size=1, max_len=16,
                             device="cpu", num_vcis=4)

@@ -7,8 +7,8 @@ on the meta device, the reference with ``jax.eval_shape``) on the meshes
 ``tests/test_sharding.py`` uses and on the 1-D data meshes the port trains
 on; likewise ``zero1_opt_specs`` of a ZeRO-1 state, ``batch_axes``,
 ``data_axes`` and ``dp_entry``. The Sharder's slices tile each leaf, its
-gather restores it, and a model axis is refused, naming ROADMAP.md Queue 1
-item 14.
+gather restores it, and a model axis cuts each leaf along both of its
+dims.
 """
 
 from types import SimpleNamespace
@@ -143,7 +143,7 @@ def test_a_model_axis_is_refused_naming_item_14():
     ``data x model`` mesh (row-major, ``RankMesh.coords``) cuts its slice
     along both of a leaf's dims, and the four slices tile the leaf; over
     live ranks a mesh that is not a ``RankMesh`` is refused. What still
-    raises naming item 14 is a ``kv_fp8`` cache."""
+    raised naming item 14, a ``kv_fp8`` cache, stores fp8."""
     cfg = get_config("olmo-1b-smoke")
     params = init_params(cfg, 0, device="cpu")
     mesh = RankMesh(2, 2)
@@ -164,8 +164,8 @@ def test_a_model_axis_is_refused_naming_item_14():
     with pytest.raises(ValueError):   # no group of 8 ranks here
         tsh.Sharder(fake_mesh({"data": 2, "model": 4}), cfg)
     from repro_torch.models.transformer import init_cache
-    with pytest.raises(NotImplementedError, match="item 14"):
-        init_cache(cfg.with_opts("kv_fp8"), 1, 8, device="cpu")
+    c = init_cache(cfg.with_opts("kv_fp8"), 1, 8, device="cpu")
+    assert c.kv.k.dtype == torch.float8_e4m3fn
 
 
 def test_one_rank_sharder_is_the_identity():

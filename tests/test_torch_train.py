@@ -426,25 +426,40 @@ def test_later_slices_raise(one_rank, tmp_path):
 
 
 def test_a_2d_mesh_refusal_names_item_14():
-    """A 2-D ``--mesh`` trains now (``tests/test_torch_model_axis.py``
-    runs ``--mesh 2x2``); the reference's 3-D form (a pod axis, with its
-    launch helpers) is what still raises, naming ROADMAP.md Queue 1 item
-    14."""
-    with pytest.raises(NotImplementedError, match="item 14"):
-        train_cli.main(["--device", "cpu", "--mesh", "2x4x2"])
+    """Once refused: a 2-D ``--mesh`` trains (``tests/test_torch_model_axis.
+    py`` runs ``--mesh 2x2``), and so does the reference's 3-D form, the
+    pod axis (``2x1x2`` there): its data lines span ``pod x data``. What
+    still raises is a mesh of another rank count of axes."""
+    mesh = train_cli.build_mesh("2x4x2")
+    assert mesh.axis_names == ("pod", "data", "model")
+    assert (mesh.pod, mesh.data, mesh.model, mesh.data_size) == (2, 4, 2, 8)
+    assert train_cli._world_size("2x4x2") == 16
     assert train_cli._world_size("4x2") == 8
+    with pytest.raises(ValueError, match="PxDxM"):
+        train_cli.main(["--device", "cpu", "--mesh", "2x2x2x2"])
 
 
 @pytest.mark.parametrize("paged", [False, True])
 def test_kv_fp8_refusals_name_item_14(paged):
+    """Once refused: a ``kv_fp8`` cache is made (``tests/
+    test_torch_kv_fp8.py`` holds it against the reference). A bf16 cache
+    stores ``float8_e4m3fn``, any other dtype stays as asked, as in the
+    reference; what still refuses is a paged cache of an arch that has
+    none (an SSM's)."""
     from repro_torch.models.transformer import init_cache, init_paged_cache
     cfg = get_config("olmo-1b-smoke").with_opts("kv_fp8")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    for dt, want in ((torch.bfloat16, torch.float8_e4m3fn),
+                     (torch.float32, torch.float32)):
         if paged:
-            init_paged_cache(cfg, 2, 32, page_size=8, num_pages=9,
-                             device="cpu")
+            c = init_paged_cache(cfg, 2, 32, page_size=8, num_pages=9,
+                                 dtype=dt, device="cpu")
         else:
-            init_cache(cfg, 2, 32, device="cpu")
+            c = init_cache(cfg, 2, 32, dtype=dt, device="cpu")
+        assert c.kv.k.dtype == c.kv.v.dtype == want
+    if paged:
+        with pytest.raises(NotImplementedError, match="attention arch"):
+            init_paged_cache(get_config("mamba2-780m-smoke").with_opts(
+                "kv_fp8"), 2, 32, page_size=8, num_pages=9, device="cpu")
 
 
 @pytest.mark.parametrize("remat,calls", [("none", 1), ("block", 2),
