@@ -279,7 +279,9 @@ class Sharder:
     ``all_gather``, ``reduce_scatter``, ``all_reduce``, ``all_to_all`` on
     the data line (and the bytes the gathers received and the scatters
     sent), ``model_all_reduce``, ``model_all_gather`` and
-    ``model_reduce_scatter`` on the model line."""
+    ``model_reduce_scatter`` on the model line, ``world_all_gather`` over
+    every rank (:attr:`world`: a decode cache whose sequence is split over
+    the whole mesh)."""
 
     def __init__(self, mesh, cfg: ModelConfig, rank: Optional[int] = None):
         self.mesh = mesh
@@ -330,6 +332,10 @@ class Sharder:
         self.tp: Optional[LineComm] = (
             LineComm(model_group, self.tp_size, self.model_rank, self.tally)
             if self.tp_size > 1 else None)
+        # every rank of the mesh (the default group), as one line
+        self.world: Optional[LineComm] = (
+            LineComm(None, self.size, self.rank, self.tally, line="world")
+            if self.size > 1 else None)
         heads, kv = cfg.num_heads, cfg.num_kv_heads
         # attention is tensor-parallel where the heads divide the axis;
         # elsewhere its model-sliced leaves are used whole
@@ -340,7 +346,7 @@ class Sharder:
         self.tally.update(all_gather=0, reduce_scatter=0, all_reduce=0,
                           all_to_all=0, gather_bytes=0, scatter_bytes=0,
                           model_all_reduce=0, model_all_gather=0,
-                          model_reduce_scatter=0)
+                          model_reduce_scatter=0, world_all_gather=0)
 
     # -- mesh arithmetic -------------------------------------------------
     def _axsize(self, ax: AxisLike) -> int:

@@ -96,15 +96,18 @@ class LineComm:
     """The collectives of a model line of a ``(data, model)`` mesh:
     ``size`` ranks, this rank at ``index``, on ``group`` (``None``: the
     default group). ``tally`` (shared with the owner) counts each
-    collective under ``model_<kind>``."""
+    collective under ``<line>_<kind>`` (``line`` the line's name,
+    ``model`` by default; ``world`` for every rank of the mesh)."""
 
     def __init__(self, group, size: int, index: int,
-                 tally: Optional[Dict[str, int]] = None):
+                 tally: Optional[Dict[str, int]] = None,
+                 line: str = "model"):
         self.group, self.size, self.index = group, size, index
         self.tally = {} if tally is None else tally
+        self.line = line
 
     def _count(self, kind: str) -> None:
-        key = "model_" + kind
+        key = f"{self.line}_{kind}"
         self.tally[key] = self.tally.get(key, 0) + 1
 
     def _all_reduce(self, x: torch.Tensor) -> torch.Tensor:

@@ -235,7 +235,7 @@ def _run_step(cfg, shape, mesh: RankMesh, rec: CollectiveRecorder) -> None:
         cfg, mesh)
     rec.bind(fn.sharder)
     params = I.rank_params(cfg, mesh)
-    cache = I.cache_struct(cfg, shape, mesh)
+    cache = I.cache_struct(cfg, shape, mesh, sharder=fn.sharder)
     with torch.inference_mode(), rec.active(), meta_kernels():
         if shape.kind == "prefill":
             batch = {k: torch.empty(s, dtype=d, device="meta")

@@ -11,22 +11,20 @@ params and optimizer state, the batch's rows over the data line, and the
 decode cache in the port's layout (:func:`repro_torch.serve.engine.
 gspmd_cache`). :func:`argument_bytes` sums them, exactly.
 
-The port's cache layout differs from the reference's ``cache_shardings``
-in two places, and :func:`cache_layout` says so for a row: where the KV
-heads do not divide the model axis the reference splits the sequence
-over ``model`` and the port keeps the cache whole there (its attention
-runs replicated over ``model``); and where the batch does not divide the
-data line (``long_500k``, batch 1) the reference splits the sequence over
-every axis, a sequence-split decode the port does not run (its
-``partial_attention`` / ``combine_partials`` are the pieces of one). The
-reference also splits an SSM state's channels and heads over ``model``;
-the port's Mamba2 block computes replicated over ``model`` and keeps its
-state whole.
+The port lays out a decode cache by the reference's ``cache_shardings``
+rule (:func:`repro_torch.serve.engine.gspmd_cache_layout`): where the KV
+heads do not divide the model axis the sequence goes over ``model``, and
+where the batch does not divide the data line (``long_500k``, batch 1)
+over every axis, each rank attending its slice and combining the slices'
+partial attention. :func:`cache_layout` sets both side by side for a
+row; they differ in one place: the reference splits an SSM state's
+channels and heads over ``model``, and the port's Mamba2 block computes
+replicated over ``model`` and keeps its state whole.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,8 +39,9 @@ from repro_torch.dist.sharding import (
     dp_entry,
     param_shapes,
 )
+from repro_torch.models.attention import _stored_kv_heads
 from repro_torch.models.transformer import DecodeCache
-from repro_torch.serve.engine import gspmd_cache
+from repro_torch.serve.engine import gspmd_cache, gspmd_cache_layout
 from repro_torch.tree import (
     tree_flatten,
     tree_flatten_with_paths,
@@ -118,11 +117,16 @@ def decode_token_struct(cfg: ModelConfig, shape: InputShape, mesh,
 # ---------------------------------------------------------------------------
 
 def cache_struct(cfg: ModelConfig, shape: InputShape, mesh,
-                 dtype=torch.bfloat16, rank: int = 0) -> DecodeCache:
+                 dtype=torch.bfloat16, rank: int = 0,
+                 sharder: Optional[Sharder] = None) -> DecodeCache:
     """This rank's decode cache of ``shape`` in the port's layout, on the
-    meta device (``kv_fp8`` stores a bf16 cache as fp8)."""
-    return gspmd_cache(cfg, Sharder(mesh, cfg, rank=rank), shape.global_batch,
-                       shape.seq_len, dtype=dtype, device="meta")
+    meta device (``kv_fp8`` stores a bf16 cache as fp8). ``sharder`` (a
+    step's live Sharder) carries a split sequence's gathers; by default
+    the mesh's rank ``rank`` cut without process groups (shapes only)."""
+    if sharder is None:
+        sharder = Sharder(mesh, cfg, rank=rank)
+    return gspmd_cache(cfg, sharder, shape.global_batch, shape.seq_len,
+                       dtype=dtype, device="meta")
 
 
 def _dp(mesh, cfg) -> Tuple[Tuple[str, ...], int]:
@@ -135,15 +139,20 @@ def port_cache_specs(cfg: ModelConfig, shape: InputShape, mesh
                      ) -> Dict[str, PartitionSpec]:
     """The port's layout of the stacked cache's leaves (``kv``: ``(L, B,
     S, KV, hd)``, ``conv``: ``(L, B, W-1, CH)``, ``ssd``: ``(L, B, H, N,
-    P)``), as specs: rows over the data line where they divide, KV heads
-    over ``model`` where the attention is tensor-parallel."""
+    P)``), as specs, read off :func:`gspmd_cache_layout`: rows over the
+    data line where they divide, KV heads or the sequence over ``model``,
+    or the sequence over every axis; an SSM state's rows only."""
     dp, dpn = _dp(mesh, cfg)
     b = shape.global_batch
-    lead = dp_entry(dp) if dpn > 1 and b % dpn == 0 else None
+    lead = dp_entry(dp) if b % dpn == 0 else None
     out = {}
     if cfg.num_heads and cfg.family != "ssm":
-        head = "model" if Sharder(mesh, cfg, rank=0).attn_tp else None
-        out["kv"] = P(None, lead, None, head, None)
+        lay = gspmd_cache_layout(cfg, Sharder(mesh, cfg, rank=0), b,
+                                 shape.seq_len)
+        head = "model" if lay.kv_heads < _stored_kv_heads(cfg) else None
+        seq = {"model": "model", "mesh": tuple(dp) + ("model",)
+               }.get(lay.seq)
+        out["kv"] = P(None, lead, seq, head, None)
     if cfg.ssm is not None:
         out["conv"] = P(None, lead, None, None)
         out["ssd"] = P(None, lead, None, None, None)

@@ -11,10 +11,13 @@ three decode cache layouts:
   context length;
 * the paged cache (page pool + per-slot page table).
 
-:func:`partial_attention` and :func:`combine_partials` are the
-flash-decode combine over a sequence-sharded cache (the long-context
-layout): each shard returns ``(out, max, sum-exp)`` and the shards combine
-exactly.
+A contiguous or ring cache may hold one rank's slice of the sequence
+(:class:`SeqSplit`, the GSPMD serve route's layout where the KV heads do
+not divide the model axis or the batch does not divide the data line):
+the rank writes only the positions its slice holds and attends them with
+:func:`partial_attention`; one gather of every shard's ``(out, max,
+sum-exp)`` a layer and :func:`combine_partials` give the attention over
+the whole sequence.
 
 Caches are updated IN PLACE (``index_put_`` / slice assignment into the
 cache tensors) where the reference returns new arrays from donated inputs;
@@ -30,7 +33,8 @@ cache's count before every write, a pure layout change.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,16 +63,42 @@ def attention(cfg: ModelConfig, q, k, v, *,
 # contiguous KV cache
 # ---------------------------------------------------------------------------
 
+@dataclass(frozen=True)
+class SeqSplit:
+    """A cache whose sequence is split into ``count`` equal slices over
+    ranks: this rank holds slice ``index`` (positions ``[index * n,
+    (index + 1) * n)`` of the cache's ``S``, ``n`` its local length).
+    ``comm`` joins one tensor of every slice's rank along a dim, in slice
+    order (``all_gather(x, gather_axis=)``, a
+    :class:`repro_torch.dist.tp.LineComm`)."""
+
+    index: int
+    count: int
+    comm: Any
+
+
 class KVCache:
     """KV cache ``(B, S_cache, KV, hd)`` (or layer-stacked ``(L, B,
     S_cache, KV, hd)``) with a host write cursor. ``S_cache`` is
-    ``max_len``, or the window ``W`` of a ``ring`` cache."""
+    ``max_len``, or the window ``W`` of a ``ring`` cache; under ``split``
+    (a :class:`SeqSplit`) the tensors hold this rank's ``S_cache /
+    split.count`` of it."""
 
-    def __init__(self, k, v, length: int, ring: bool = False):
+    def __init__(self, k, v, length: int, ring: bool = False,
+                 split: Optional[SeqSplit] = None):
         self.k = k
         self.v = v
         self.length = int(length)   # tokens written so far (absolute)
         self.ring = bool(ring)
+        self.split = split
+
+    def span(self) -> Tuple[int, int]:
+        """``(lo, S_cache)``: the first cache position this rank holds, and
+        the whole cache's length (over every slice)."""
+        n = self.k.shape[-3]
+        if self.split is None:
+            return 0, n
+        return self.split.index * n, n * self.split.count
 
 
 def is_ring(cfg: ModelConfig, max_len: int) -> bool:
@@ -125,15 +155,19 @@ def _expand_to_cache(cache, k_new):
 
 def cache_update_decode(cache: KVCache, k_new, v_new) -> KVCache:
     """Append ONE token (k_new/v_new: (B,1,KV,hd)) in place: at ``length
-    % W`` in a ring cache, else at ``min(length, S - 1)``."""
+    % W`` in a ring cache, else at ``min(length, S - 1)``; under a
+    :class:`SeqSplit` only the rank whose slice holds that position
+    writes."""
     k_new = _expand_to_cache(cache, k_new)
     v_new = _expand_to_cache(cache, v_new)
-    s_cache = cache.k.shape[1]
+    lo, s_cache = cache.span()
     pos = (cache.length % s_cache if cache.ring
-           else min(cache.length, s_cache - 1))
-    cache.k[:, pos] = to_cache_dtype(k_new[:, 0], cache.k.dtype)
-    cache.v[:, pos] = to_cache_dtype(v_new[:, 0], cache.v.dtype)
-    return KVCache(cache.k, cache.v, cache.length + 1, cache.ring)
+           else min(cache.length, s_cache - 1)) - lo
+    if 0 <= pos < cache.k.shape[1]:
+        cache.k[:, pos] = to_cache_dtype(k_new[:, 0], cache.k.dtype)
+        cache.v[:, pos] = to_cache_dtype(v_new[:, 0], cache.v.dtype)
+    return KVCache(cache.k, cache.v, cache.length + 1, cache.ring,
+                   cache.split)
 
 
 def decode_attention(cfg: ModelConfig, q, cache: KVCache,
@@ -151,22 +185,30 @@ def decode_attention(cfg: ModelConfig, q, cache: KVCache,
     slots are reused, so a per-row offset means nothing there; the engine
     serves ring archs by equal prompt length) — the reference ignores one,
     the port raises.
+
+    Under a :class:`SeqSplit` each rank attends its slice
+    (:func:`partial_attention`, validity computed at the slots' whole-cache
+    positions), the slices' ``(out, m, l)`` are gathered once over the
+    split's ranks and combined (:func:`combine_partials`).
     """
     if cache.ring and start is not None:
         raise ValueError("a ring cache takes no start offsets: its slots "
                          "are reused modulo the window")
     b, _, h, hd = q.shape
-    s_cache = cache.k.shape[1]
+    s_loc = cache.k.shape[1]
+    lo, s_cache = cache.span()
+    idx = lo + torch.arange(s_loc, device=q.device)
+    valid = (idx < min(cache.length, s_cache) if cache.ring
+             else idx < cache.length).expand(b, s_loc)
+    if start is not None:
+        valid = valid & (idx[None, :] >= start[:, None])
+    if cache.split is not None:
+        return _split_attention(q, cache, valid)
     n_rep = h // cache.k.shape[2]
     k = repeat_kv(cache.k, n_rep).to(q.dtype)
     v = repeat_kv(cache.v, n_rep).to(q.dtype)
     scale = 1.0 / math.sqrt(hd)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
-    idx = torch.arange(s_cache, device=q.device)
-    valid = (idx < min(cache.length, s_cache) if cache.ring
-             else idx < cache.length).expand(b, s_cache)
-    if start is not None:
-        valid = valid & (idx[None, :] >= start[:, None])
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
@@ -299,16 +341,18 @@ def paged_decode_attention(cfg: ModelConfig, q, layer: PagedKVLayer,
 def partial_attention(q, k, v, valid
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention of q ``(B,Q,H,hd)`` over one sequence SHARD k/v ``(B,S,KV,
-    hd)`` whose key ``j`` counts where ``valid[j]`` (``(S,)`` bool).
-    Returns ``(out, m, l)``: the unnormalised ``out`` ``(B,Q,H,hd)`` in q's
-    dtype, the f32 row max ``m`` and sum of exponentials ``l``, both
-    ``(B,H,Q,1)``, so that shards combine exactly
+    hd)`` whose key ``j`` counts where ``valid[j]`` (``(S,)`` bool, or
+    ``(B,S)`` a row's own). Returns ``(out, m, l)``: the unnormalised
+    ``out`` ``(B,Q,H,hd)`` in q's dtype, the f32 row max ``m`` and sum of
+    exponentials ``l``, both ``(B,H,Q,1)``, so that shards combine exactly
     (:func:`combine_partials`)."""
     hd = q.shape[-1]
     n_rep = q.shape[2] // k.shape[2]
     k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(hd)
-    logits = torch.where(valid[None, None, None, :], logits, NEG_INF)
+    if valid.dim() == 1:
+        valid = valid[None]
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
     m = logits.amax(dim=-1, keepdim=True)                     # (B,H,Q,1)
     p = torch.exp(logits - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -326,3 +370,23 @@ def combine_partials(outs, ms, ls) -> torch.Tensor:
     out = (outs.float() * alpha.transpose(2, 3)).sum(dim=0)   # (B,Q,H,hd)
     l_o = l_glob.transpose(1, 2)                              # (B,Q,H,1)
     return (out / l_o.clamp(min=1e-30)).to(outs.dtype)
+
+
+def _split_attention(q, cache: KVCache, valid) -> torch.Tensor:
+    """One-token attention over a sequence-split cache: this rank's slice
+    through :func:`partial_attention`, every slice's ``(out, m, l)`` packed
+    into one f32 tensor ``(B, H, hd + 2)`` and gathered once over the
+    split's ranks, then :func:`combine_partials`. A row with no valid key
+    in any slice gets the uniform mean, as the whole cache gives it."""
+    b, _, h, hd = q.shape
+    split = cache.split
+    out, m, l = partial_attention(q, cache.k.to(q.dtype),
+                                  cache.v.to(q.dtype), valid)
+    packed = torch.cat([out.float().reshape(b, h, hd), m.reshape(b, h, 1),
+                        l.reshape(b, h, 1)], -1)
+    got = split.comm.all_gather(packed[None], gather_axis=0)
+    n = split.count
+    outs = got[..., :hd].reshape(n, b, 1, h, hd)
+    ms = got[..., hd].reshape(n, b, h, 1, 1)
+    ls = got[..., hd + 1].reshape(n, b, h, 1, 1)
+    return combine_partials(outs, ms, ls).to(q.dtype)

@@ -138,12 +138,30 @@ def apply_rope(x, positions, theta: float):
 # init (seeded torch.Generator; generated in float32 on the target device)
 # ---------------------------------------------------------------------------
 
+# a narrower leaf of more elements than this is drawn in pieces of this
+# many: its float32 draw then never needs a float32 copy of the whole leaf
+# on the card (a 4.46 B-element bf16 expert table would need 17.8 GB)
+_DRAW_CHUNK = 1 << 28
+
+
 def _trunc_normal(gen: torch.Generator, shape: Sequence[int], std: float,
                   dtype, device) -> torch.Tensor:
-    t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
-                                generator=gen)
-    return t.mul_(std).to(dtype)
+    shape = tuple(shape)
+    n = math.prod(shape)
+    if n <= _DRAW_CHUNK or dtype == torch.float32:
+        t = torch.empty(shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
+                                    generator=gen)
+        return t.mul_(std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for i in range(0, n, _DRAW_CHUNK):
+        t = torch.empty((min(_DRAW_CHUNK, n - i),), dtype=torch.float32,
+                        device=device)
+        torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
+                                    generator=gen)
+        flat[i:i + t.numel()].copy_(t.mul_(std))
+    return out
 
 
 def dense_init(gen: torch.Generator, shape, in_axis: int = -2,

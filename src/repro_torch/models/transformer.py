@@ -69,6 +69,7 @@ from repro_torch.models.attention import (
     KVCache,
     PagedKVCache,
     PagedKVLayer,
+    SeqSplit,
     _expand_to_cache,
     _stored_kv_heads,
     attention,
@@ -333,7 +334,8 @@ def cache_dtype(cfg: ModelConfig, dtype) -> torch.dtype:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None,
-               kv_heads: Optional[int] = None) -> DecodeCache:
+               kv_heads: Optional[int] = None,
+               seq_split: Optional[SeqSplit] = None) -> DecodeCache:
     """KV cache ``(L, B, S, KV, hd)`` of zeros on ``device`` (CUDA unless
     ``"cpu"`` is asked for): ``S = max_len``, or the window for a ring
     cache. SSM archs: an :class:`SSMState` stacked on ``L`` instead (conv
@@ -342,7 +344,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     on the ``L // hybrid_attn_every`` shared-attention sites. A prefill
     re-types the conv tail to the activations' dtype, as the reference's
     does (:meth:`Model.forward`). ``kv_heads`` — a tensor-parallel rank's
-    local count — replaces the stored KV heads. Under ``kv_fp8`` a bf16
+    local count — replaces the stored KV heads; ``seq_split`` (a
+    :class:`~repro_torch.models.attention.SeqSplit`) keeps this rank's
+    slice of ``S``. Under ``kv_fp8`` a bf16
     cache stores ``float8_e4m3fn`` (:func:`cache_dtype`), the conv tail
     included, as the reference types it before the KV cache."""
     dev = resolve_device(device)
@@ -359,9 +363,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         shape = (n_kv,) + kv_cache_shape(cfg, batch, max_len)
         if kv_heads is not None:
             shape = shape[:3] + (kv_heads,) + shape[4:]
+        if seq_split is not None:
+            if shape[2] % seq_split.count:
+                raise ValueError(f"a cache of {shape[2]} positions does not "
+                                 f"split into {seq_split.count} slices")
+            shape = shape[:2] + (shape[2] // seq_split.count,) + shape[3:]
         kv = KVCache(torch.zeros(shape, dtype=dtype, device=dev),
                      torch.zeros(shape, dtype=dtype, device=dev), 0,
-                     ring=is_ring(cfg, max_len))
+                     ring=is_ring(cfg, max_len), split=seq_split)
     return DecodeCache(kv, 0, ssm)
 
 
@@ -408,14 +417,14 @@ def _layer_kv(kv, l: int):
     if isinstance(kv, PagedKVCache):
         return PagedKVLayer(kv.k[l], kv.v[l], kv.table, kv.length,
                             kv.page_size)
-    return KVCache(kv.k[l], kv.v[l], kv.length, kv.ring)
+    return KVCache(kv.k[l], kv.v[l], kv.length, kv.ring, kv.split)
 
 
 def _advanced(kv, n: int):
     """The stacked cache with its cursor moved by ``n`` (same tensors)."""
     if isinstance(kv, PagedKVCache):
         return PagedKVCache(kv.k, kv.v, kv.table, kv.length + n, kv.page_size)
-    return KVCache(kv.k, kv.v, kv.length + n, kv.ring)
+    return KVCache(kv.k, kv.v, kv.length + n, kv.ring, kv.split)
 
 
 # ---------------------------------------------------------------------------
@@ -443,10 +452,23 @@ def _attn_apply(cfg: ModelConfig, x, p, positions, kv=None,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     new_kv = None
+    # a cache of every KV head beside tensor-parallel heads (the GSPMD
+    # route's layout for a batch too small for the data line): the heads
+    # are gathered over model where they are written, and a decode attends
+    # every head and keeps this rank's
+    whole = (comm is not None and isinstance(kv, KVCache)
+             and k.shape[2] < cfg.num_kv_heads
+             and kv.k.shape[-2] == _stored_kv_heads(cfg))
     if decode:
         if isinstance(kv, PagedKVLayer):
             new_kv = paged_update_decode(kv, k, v)
             o = paged_decode_attention(cfg, q, new_kv, start=start)
+        elif whole:
+            hl = q.shape[2]
+            q_all, k_all, v_all = _heads_gathered(comm, q, k, v)
+            new_kv = cache_update_decode(kv, k_all, v_all)
+            o = decode_attention(cfg, q_all, new_kv, start=start)
+            o = o[:, :, comm.rank() * hl:(comm.rank() + 1) * hl]
         else:
             new_kv = cache_update_decode(kv, k, v)
             o = decode_attention(cfg, q, new_kv, start=start)
@@ -454,6 +476,8 @@ def _attn_apply(cfg: ModelConfig, x, p, positions, kv=None,
         o = attention(cfg, q, k, v, start=start)
         if isinstance(kv, PagedKVLayer):  # prefill: write the page pool
             new_kv = paged_prefill_update(kv, k, v)
+        elif whole:
+            new_kv = _prefill_cache(kv, *_heads_gathered(comm, k, v))
         elif kv is not None:              # prefill: write the cache
             new_kv = _prefill_cache(kv, k, v)
     o = o.reshape(b, s, -1) @ p["wo"].to(x.dtype)
@@ -464,24 +488,36 @@ def _attn_apply(cfg: ModelConfig, x, p, positions, kv=None,
     return o, new_kv
 
 
+def _heads_gathered(comm, *xs):
+    """Each of ``xs`` (``(B, S, heads, hd)``, this rank's heads) with the
+    model line's heads joined in rank order, by one gather."""
+    b, s, _, hd = xs[0].shape
+    n = [x.shape[2] for x in xs]
+    got = comm.all_gather(torch.cat(xs, 2), "tp_attn", gather_axis=2)
+    got = got.reshape(b, s, -1, sum(n), hd)
+    return tuple(t.reshape(b, s, -1, hd) for t in got.split(n, dim=3))
+
+
 def _prefill_cache(kv: KVCache, k, v) -> KVCache:
     """Write a prefill's K/V at positions ``[0, S)`` of a contiguous cache.
     A ring cache shorter than the prompt keeps its last ``W`` positions,
     rolled by ``S % W`` so that slot ``i`` holds the newest position
-    congruent to ``i`` modulo ``W``."""
+    congruent to ``i`` modulo ``W``. A sequence-split cache keeps the
+    slots of its slice."""
     k = _expand_to_cache(kv, k)
     v = _expand_to_cache(kv, v)
     s = k.shape[1]
-    s_cache = kv.k.shape[1]
+    lo, s_cache = kv.span()
     if kv.ring and s > s_cache:
         k, v = k[:, -s_cache:], v[:, -s_cache:]
         shift = s % s_cache
         if shift:
             k, v = torch.roll(k, shift, 1), torch.roll(v, shift, 1)
-    n = min(s, s_cache)
-    kv.k[:, :n] = to_cache_dtype(k[:, :n], kv.k.dtype)
-    kv.v[:, :n] = to_cache_dtype(v[:, :n], kv.v.dtype)
-    return KVCache(kv.k, kv.v, kv.length + s, kv.ring)
+    n = min(s, lo + kv.k.shape[1]) - lo
+    if n > 0:
+        kv.k[:, :n] = to_cache_dtype(k[:, lo:lo + n], kv.k.dtype)
+        kv.v[:, :n] = to_cache_dtype(v[:, lo:lo + n], kv.v.dtype)
+    return KVCache(kv.k, kv.v, kv.length + s, kv.ring, kv.split)
 
 
 def _ffn_apply(cfg: ModelConfig, h, p, inference: bool, comm=None,

@@ -53,11 +53,17 @@ contiguous; SSM, hybrid and audio grouped), and ``make_prefill`` /
 ``make_serve_step`` serve a VLM too. A contiguous cache splits its rows
 over the data line where they divide (the sampled tokens are gathered back
 over it) and its KV heads over ``model`` where the attention is
-tensor-parallel; KV heads that do not divide the model axis (gemma's one,
-yi-9b's four at model 8) stay whole there, as the rule table leaves their
-projections, and so does an SSM's state, whose block computes replicated
-over ``model`` (:func:`gspmd_cache_layout`). A mesh may have a pod axis: its data
-line is ``pod x data``.
+tensor-parallel. Where the KV heads do not divide the model axis (gemma's
+one, yi-9b's four at model 8) it splits the sequence over ``model``
+instead, and where the batch does not divide the data line (one long
+request) over the data line and ``model`` together: the reference's
+``cache_shardings`` rule (:func:`gspmd_cache_layout`). Each rank then
+writes and attends its slice of the positions, and one gather a layer
+combines the slices (:mod:`repro_torch.models.attention`). A paged pool
+keeps every slot on every rank, so a layout that would split its sequence
+is refused; an SSM's state stays whole over ``model``, where its block
+computes replicated. A mesh may have a pod axis: its data line is ``pod x
+data``.
 
 PyTorch runs eagerly, so the reference's ``jax.jit`` wrappers (and their
 per-width trace caches) have no counterpart; caches are written in place
@@ -67,7 +73,7 @@ instead of being donated.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,8 +87,10 @@ from repro_torch.dist.sharding import Sharder
 from repro_torch.dist.tp import line_gather
 from repro_torch.models.attention import (
     KVCache,
+    SeqSplit,
     _stored_kv_heads,
     is_ring,
+    kv_cache_shape,
     paged_splice,
 )
 from repro_torch.models.transformer import (
@@ -149,26 +157,87 @@ def gspmd_validate(cfg: ModelConfig, mesh) -> None:
         raise ValueError(f"the GSPMD route needs a RankMesh, got {mesh!r}")
 
 
+class CacheLayout(NamedTuple):
+    """A GSPMD rank's part of a decode cache: its ``rows`` and stored
+    ``kv_heads``, and the mesh axes its sequence is split over: ``None``
+    (whole), ``"model"``, or ``"mesh"`` (the data line and ``model``
+    together, slice ``rank``)."""
+
+    rows: int
+    kv_heads: int
+    seq: Optional[str]
+
+
 def gspmd_cache_layout(cfg: ModelConfig, sharder: Sharder, batch: int,
-                       paged: bool = False) -> Tuple[int, int]:
-    """(rows, KV heads) of a GSPMD rank's cache for a ``batch``: its rows
-    split over the data line where they divide (a paged pool is shared by
-    every slot, so it keeps them all), its KV heads over ``model`` where
-    ``sharder``'s attention is tensor-parallel (:attr:`Sharder.attn_tp`),
-    whole where not; an SSM state whole over ``model``."""
-    n = sharder.n
-    rows = batch if paged or n <= 1 or batch % n else batch // n
+                       max_len: int, paged: bool = False) -> CacheLayout:
+    """This rank's part of a ``batch`` x ``max_len`` decode cache on the
+    GSPMD route of ``sharder``'s mesh, by the reference's
+    ``cache_shardings`` rule (``S`` is the window of a ring cache):
+
+    * the rows over the data line where the batch divides it; then the KV
+      heads over ``model`` where the attention is tensor-parallel
+      (:attr:`Sharder.attn_tp`), else the sequence over ``model`` where
+      ``S`` divides it, else whole;
+    * a batch that does not divide the data line keeps its rows and splits
+      the sequence over the data line and ``model`` together where ``S``
+      divides their product, else over ``model``, else keeps it whole.
+
+    Whole KV heads beside a tensor-parallel attention (a batch too small
+    for the data line) are gathered over ``model`` where they are written
+    (:mod:`repro_torch.models.transformer`). A paged pool (``paged``) is
+    shared by every slot, so it keeps all rows and every position, and
+    its KV heads over ``model`` where the attention is tensor-parallel: a
+    layout that would split its sequence raises. An SSM state stays whole
+    over ``model``. (Under ``decode_kv_expand`` the reference may split
+    stored heads whose attention is not tensor-parallel here; the port
+    splits the sequence instead.)"""
+    n, tp = sharder.n, sharder.tp_size
     kvh = _stored_kv_heads(cfg)
-    return rows, kvh // sharder.tp_size if sharder.attn_tp else kvh
+    s = kv_cache_shape(cfg, 1, max_len)[1]
+    rows, seq = batch, None
+    if batch % n == 0:
+        rows = batch // n
+        if sharder.attn_tp:
+            kvh //= tp
+        elif tp > 1 and s % tp == 0:
+            seq = "model"
+    elif s % (n * tp) == 0:
+        seq = "mesh"
+    elif tp > 1 and s % tp == 0:
+        seq = "model"
+    if paged:
+        kvh = _stored_kv_heads(cfg) // (tp if sharder.attn_tp else 1)
+        if seq is not None:
+            raise ValueError(
+                f"{cfg.name}: a paged pool keeps every slot on every rank, "
+                f"but this mesh ({n} data x {tp} model ranks, batch {batch}, "
+                f"{_stored_kv_heads(cfg)} KV heads) splits the cache's "
+                f"sequence over {seq!r}: serve it on the contiguous route "
+                f"(paged=False), whose cache splits its sequence")
+        rows = batch
+    return CacheLayout(rows, kvh, seq)
+
+
+def _seq_split(sharder: Sharder, seq: Optional[str]) -> Optional[SeqSplit]:
+    """The :class:`SeqSplit` of a cache split over ``seq``'s axes on
+    ``sharder``'s mesh (its model line, or every rank)."""
+    if seq is None:
+        return None
+    if seq == "model":
+        return SeqSplit(sharder.model_rank, sharder.tp_size, sharder.tp)
+    return SeqSplit(sharder.rank, sharder.size, sharder.world)
 
 
 def gspmd_cache(cfg: ModelConfig, sharder: Sharder, batch: int, max_len: int,
                 *, dtype=torch.bfloat16, device=None) -> DecodeCache:
     """This rank's contiguous decode cache on the GSPMD route of
-    ``sharder``'s mesh, laid out by :func:`gspmd_cache_layout`."""
-    rows, kvh = gspmd_cache_layout(cfg, sharder, batch)
-    return init_cache(cfg, rows, max_len, dtype=dtype, device=device,
-                      kv_heads=kvh)
+    ``sharder``'s mesh, laid out by :func:`gspmd_cache_layout` (a split
+    sequence gathers its slices' partial attention on ``sharder``'s
+    lines: build it with the step's Sharder)."""
+    lay = gspmd_cache_layout(cfg, sharder, batch, max_len)
+    return init_cache(cfg, lay.rows, max_len, dtype=dtype, device=device,
+                      kv_heads=lay.kv_heads,
+                      seq_split=_seq_split(sharder, lay.seq))
 
 
 def make_serve_step(cfg: ModelConfig, mesh=None, comm_plan=None,
@@ -442,6 +511,10 @@ class ServeEngine:
         if self._paged and self._num_pages < 2:
             raise ValueError(f"num_pages must be >= 2 (page 0 is the trash "
                              f"page), got {self._num_pages}")
+        if self._paged and self._sharder is not None:
+            # a pool whose sequence this mesh would split is refused here
+            gspmd_cache_layout(cfg, self._sharder, batch_size, max_len,
+                               paged=True)
         self._pages = None        # PageState (host), paged mode
         # mid-stream admission re-prefills single requests. The contiguous
         # splice is single-rank only (B=1 doesn't shard over data); the
@@ -495,20 +568,26 @@ class ServeEngine:
 
     def _local_cache(self, paged: bool, batch: int) -> Tuple[int, int]:
         """(rows, KV heads) of this rank's cache for a ``batch``: all of
-        both on one rank; on the GSPMD route, :func:`gspmd_cache_layout`;
+        both on one rank; on the GSPMD route, :func:`gspmd_cache_layout`'s;
         under a comm plan, as :func:`serve_cache_specs` shards them."""
         kvh = _stored_kv_heads(self.cfg)
         if self.mesh is None:
             return batch, kvh
         if self._sharder is not None:
-            return gspmd_cache_layout(self.cfg, self._sharder, batch, paged)
+            lay = gspmd_cache_layout(self.cfg, self._sharder, batch,
+                                     self.max_len, paged)
+            return lay.rows, lay.kv_heads
         spec = serve_cache_specs(paged, batch, kvh, _mesh_tp(self.mesh),
                                  self.mesh.data_size)["kv"]
         rows = batch if paged else local_size(batch, spec[1], self.mesh)
         return rows, local_size(kvh, spec[3], self.mesh)
 
     def _new_cache(self, batch: int, max_len: int) -> DecodeCache:
-        """A contiguous cache for ``batch`` rows (this rank's part)."""
+        """A contiguous cache for ``batch`` rows (this rank's part; on the
+        GSPMD route laid out by :func:`gspmd_cache`)."""
+        if self._sharder is not None:
+            return gspmd_cache(self.cfg, self._sharder, batch, max_len,
+                               dtype=self._cache_dtype, device=self.device)
         rows, kvh = self._local_cache(False, batch)
         return init_cache(self.cfg, rows, max_len, dtype=self._cache_dtype,
                           device=self.device, kv_heads=kvh)
@@ -771,7 +850,12 @@ class ServeEngine:
         tokens = np.zeros((1, p_adm), np.int32)
         tokens[0, p_adm - plen:] = r.prompt
         dest = cur - p_adm
-        tmp = self._new_cache(1, p_adm)
+        if self._paged:   # one row of the pool's layout, every position
+            tmp = init_cache(self.cfg, 1, p_adm, dtype=self._cache_dtype,
+                             device=self.device,
+                             kv_heads=cache.kv.k.shape[-2])
+        else:
+            tmp = self._new_cache(1, p_adm)
         nxt, tmp = self._prefill(
             self.params, {"tokens": self._dev(tokens)}, tmp,
             self._dev(np.asarray([p_adm - plen], np.int32)),

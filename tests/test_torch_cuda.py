@@ -229,6 +229,9 @@ _FLASH_CASES = [  # hd, b, sq, skv, h, kv, causal, window, start
     (128, 4, 64, 64, 4, 4, True, None, [0, 9, 33, 63]),
     (128, 8, 1024, 1024, 12, 2, True, None, None),
     (128, 4, 64, 64, 12, 2, True, None, [0, 9, 33, 63]),
+    # gemma-2b's short prefill (chip_smoke phase 18a): head_dim 256 on one
+    # KV head, the variant for Sq <= 64, with pad rows
+    (256, 4, 64, 64, 8, 1, True, None, [0, 9, 33, 63]),
 ]
 
 

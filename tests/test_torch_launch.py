@@ -211,3 +211,54 @@ def test_dryrun_pairs_and_report_without_a_card(tmp_path, capsys):
     assert "| model | all-reduce |" in table
     json.dumps(rows)
     assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_cache_slices_on_production_meshes_equal_reference_specs(arch):
+    """Every decode and prefill cache of ``arch`` on ``32x8`` and
+    ``2x32x8``, on the meta device: the port's layout
+    (``gspmd_cache_layout``) gives the reference's ``cache_shardings``
+    spec of the KV cache (``reference_cache_specs``: KV heads over model,
+    else the sequence over model, and a batch too small for the data line
+    the sequence over every axis), and a rank's cache has the slice shape
+    that spec gives. Only an SSM state's split over model differs."""
+    from repro_torch.models.transformer import init_cache
+    for multi_pod in (False, True):
+        m = tmesh.make_production_mesh(multi_pod=multi_pod)
+        for shape, sh in INPUT_SHAPES.items():
+            if sh.kind == "train":
+                continue
+            cfg = config_for_shape(arch, shape)
+            lay = inputs.cache_layout(cfg, sh, m)
+            assert lay["differs"] == (["conv", "ssd"] if cfg.ssm is not None
+                                      else []), (shape, lay)
+            ref = inputs.reference_cache_specs(cfg, sh, m)
+            if "kv" not in ref:
+                continue
+            whole = init_cache(cfg, sh.global_batch, sh.seq_len,
+                               device="meta").kv.k.shape
+            want = _ref_slice_shape(ref["kv"], whole, m.shape)
+            for rank in (0, m.size - 1):
+                got = inputs.cache_struct(cfg, sh, m, rank=rank).kv.k.shape
+                assert tuple(got) == want, (shape, multi_pod, rank, ref)
+
+
+def test_dryrun_gemma_decode_row_splits_the_sequence(tmp_path, capsys):
+    """gemma-2b's one KV head divides no model axis: its ``decode_32k``
+    row lays the cache out as the reference does (the sequence over
+    model), so ``cache_layout`` differs nowhere, and the decode step
+    gathers the slices' partial attention over the model line."""
+    out = tmp_path / "rows"
+    with pytest.raises(SystemExit) as done:
+        dryrun.main(["--arch", "gemma-2b", "--shape", "decode_32k", "--out",
+                     str(out)])
+    assert done.value.code == 0
+    (row,) = report.load(str(out))
+    assert row["status"] == "ok"
+    assert row["cache_layout"]["differs"] == []
+    assert row["cache_layout"]["port"]["kv"] == \
+        "P(None, 'data', 'model', None, None)"
+    gathers = row["collectives"]["_by_line"]["model"]["all-gather"]
+    assert gathers["count"] >= config_for_shape("gemma-2b",
+                                                "decode_32k").num_layers
+    assert not torch.distributed.is_initialized()

@@ -52,8 +52,10 @@ from repro_torch.core.collectives import RankMesh
 from repro_torch.dist.sharding import Sharder, is_spec, param_shapes
 from repro_torch.tree import tree_flatten_with_paths
 
-from test_torch_ranks import (AXIS_FP8, AXIS_SERVE, axis_serve_requests,
-                              axis_vlm_tokens)
+from test_torch_ranks import (AXIS_FP8, AXIS_SERVE, AXIS_SPLIT,
+                              AXIS_SPLIT_LOGITS, axis_serve_requests,
+                              axis_split_cfg, axis_split_logits,
+                              axis_split_requests, axis_vlm_tokens)
 from test_torch_train import METRIC_RTOL, _assert_params_close
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -311,13 +313,21 @@ def test_gspmd_serve_route_tokens_equal_single_device(world, arch, layout,
     one group) gives the single-device contiguous engine's greedy tokens
     (batch 4) on every rank, and a paged run also the single-device paged
     engine's (batch 2, the same pool): dense and MoE paged and contiguous,
-    gemma's one KV head (its attention and cache whole over model), yi-9b
-    (its heads split), the SSM, the hybrid and audio on the grouped path,
-    and yi-9b under ``kv_fp8`` with a bf16 cache (fp8 over the same
-    splits)."""
+    gemma's one KV head (its attention whole over model, its contiguous
+    cache's sequence split over model; its paged pool, which keeps every
+    position, is refused by name), yi-9b (its heads split), the SSM, the
+    hybrid and audio on the grouped path, and yi-9b under ``kv_fp8`` with
+    a bf16 cache (fp8 over the same splits)."""
     from repro_torch.models.transformer import init_params
     from repro_torch.serve.engine import ServeEngine
     _, d = world
+    key = f"{arch} {layout} {opt}".strip()
+    if (arch, layout) == ("gemma-2b-smoke", "paged"):
+        for r in range(N):
+            got = json.load(open(d / f"axis_serve_r{r}.json"))[key]
+            assert "paged pool" in got["refused"], got
+            assert "contiguous route" in got["refused"], got
+        return
     cfg = get_config(arch)
     params = init_params(cfg, 0, device="cpu")
     kw = {}
@@ -335,12 +345,81 @@ def test_gspmd_serve_route_tokens_equal_single_device(world, arch, layout,
         eng.generate(reqs)
         wants.append([r.generated.tolist() for r in reqs])
     for r in range(N):
-        got = json.load(open(d / f"axis_serve_r{r}.json"))[
-            f"{arch} {layout} {opt}".strip()]
+        got = json.load(open(d / f"axis_serve_r{r}.json"))[key]
         for want in wants:
             assert got["tokens"] == want, (r, got["tokens"], want)
         assert got["tally"]["model_all_reduce"] > 0
         assert ("tokens" in got["tally"]) == (layout == "contiguous")
+
+
+def _jax_engine_tokens(cfg, params, batch, reqs):
+    """The reference's single-device engine's greedy tokens for ``reqs``,
+    from the port's ``params`` (the same tree, carried over as arrays)."""
+    import jax.numpy as jnp
+    from repro.serve import engine as jengine
+
+    def arrays(t):
+        return {k: arrays(v) for k, v in t.items()} if isinstance(t, dict) \
+            else jnp.asarray(t.numpy())
+
+    jcfg = jax_get_config(cfg.name.split("-swa")[0])
+    if cfg.sliding_window is not None:
+        jcfg = jcfg.with_sliding_window(cfg.sliding_window)
+    eng = jengine.ServeEngine(jcfg, arrays(params), batch_size=batch,
+                              max_len=48)
+    done = eng.generate([jengine.Request(prompt=r.prompt,
+                                         max_new_tokens=r.max_new_tokens)
+                         for r in reqs])
+    return [np.asarray(r.generated).tolist() for r in done]
+
+
+@pytest.mark.parametrize("case", list(AXIS_SPLIT))
+def test_gspmd_split_cache_tokens_equal_reference(world, case):
+    """The GSPMD route's sequence-split decode cache gives the reference's
+    single-device engine's greedy tokens on every rank: gemma-2b and
+    yi-9b (one and two KV heads) on 1 x 4 split the sequence over model,
+    one request on 2 x 2 over all four ranks (olmo: its tensor-parallel
+    KV heads gathered whole into the cache), gemma's ring of 16 slots over
+    model on 2 x 2. Each rank holds its slice: ``1/N`` of the cache's
+    positions and of its bytes; a decode step gathers the slices' partial
+    attention once a layer, on the line that holds the split."""
+    from repro_torch.models.attention import kv_cache_shape
+    from repro_torch.models.transformer import init_params
+    _, d = world
+    arch, dims, batch, window = AXIS_SPLIT[case]
+    cfg = axis_split_cfg(case)
+    params = init_params(cfg, 0, device="cpu")
+    reqs = axis_split_requests(case, cfg)
+    want = _jax_engine_tokens(cfg, params, batch, reqs)
+    n = dims[1] if batch % dims[0] == 0 else dims[0] * dims[1]
+    s_cache = kv_cache_shape(cfg, 1, 48)[1]
+    line = "model" if n == dims[1] else "world"
+    for r in range(N):
+        got = json.load(open(d / f"axis_split_r{r}.json"))[case]
+        assert got["tokens"] == want, (r, got["tokens"], want)
+        # (layers, rows, S / n, every KV head, hd), f32 K and V
+        for shape in got["shapes"]:
+            assert shape[0] == cfg.num_layers and shape[2] * n == s_cache \
+                and shape[3:] == [cfg.num_kv_heads, cfg.head_dim], got
+        assert got["bytes"] - 8 == max(
+            2 * 4 * int(np.prod(x)) for x in got["shapes"]), got
+        assert got["tally"][f"{line}_all_gather"] >= \
+            cfg.num_layers * got["steps"], got["tally"]
+
+
+@pytest.mark.parametrize("case", AXIS_SPLIT_LOGITS)
+def test_gspmd_split_cache_logits_match_whole_cache(world, case):
+    """f32 logits of a prefill and 4 greedy decode steps through the
+    sequence-split cache (gemma on 1 x 4: over model; one row on 2 x 2:
+    over every rank) lie within 1e-4 of the port's whole-cache decode."""
+    from repro_torch.models.transformer import init_params
+    _, d = world
+    cfg = axis_split_cfg(case)
+    want = axis_split_logits(case, cfg, init_params(cfg, 0, device="cpu"))
+    for r in range(N):
+        got = np.load(d / f"axis_split_{case.replace(' ', '_')}_r{r}.npy")
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=0,
+                                   err_msg=f"rank {r}")
 
 
 def test_gspmd_serve_route_vlm_tokens_equal_single_device(world):

@@ -636,6 +636,18 @@ AXIS_SERVE = {"olmo-1b-smoke": ("contiguous", "paged"),
               "zamba2-7b-smoke": ("contiguous",),
               "musicgen-large-smoke": ("contiguous",)}
 AXIS_FP8 = "yi-9b-smoke"
+# the GSPMD route's sequence-split decode cache: case -> (arch, mesh (data,
+# model), engine batch, sliding window). gemma's one KV head and yi's two
+# do not divide model 4: the sequence goes over model; one request (a batch
+# of 1 on 2 x 2) splits it over all four ranks (olmo's attention stays
+# tensor-parallel: the cache keeps every KV head, gathered over model);
+# gemma with a window of 16 splits its ring over model
+AXIS_SPLIT = {"gemma 1x4": ("gemma-2b-smoke", (1, 4), 4, None),
+              "yi 1x4": ("yi-9b-smoke", (1, 4), 4, None),
+              "olmo batch1": ("olmo-1b-smoke", (2, 2), 1, None),
+              "gemma ring": ("gemma-2b-smoke", (2, 2), 4, 16)}
+# cases whose f32 logits are held against the whole cache's decode
+AXIS_SPLIT_LOGITS = ("gemma 1x4", "olmo batch1")
 
 
 def axis_serve_requests(cfg):
@@ -651,6 +663,98 @@ def axis_serve_requests(cfg):
     return [Request(prompt=rng.integers(0, cfg.vocab_size, shape + (plen,),
                                         dtype=np.int32), max_new_tokens=4)
             for plen in (5, 5, 7)]
+
+
+def axis_split_cfg(case):
+    """A split case's config (its window, where it has one)."""
+    from repro_torch.configs import get_config
+    arch, _, _, window = AXIS_SPLIT[case]
+    cfg = get_config(arch)
+    return cfg if window is None else cfg.with_sliding_window(window)
+
+
+def axis_split_requests(case, cfg):
+    """A split case's requests: the engine's mixed lengths; the ring's
+    prompts longer than its window, decoding past it again."""
+    from repro_torch.serve.engine import Request
+    if AXIS_SPLIT[case][3] is None:
+        return _serve_requests(cfg)
+    rng = np.random.default_rng(9)
+    return [Request(prompt=rng.integers(0, cfg.vocab_size, (plen,),
+                                        dtype=np.int32), max_new_tokens=10)
+            for plen in (20, 20, 12, 12)]
+
+
+def axis_split_logits(case, cfg, params, mesh=None, steps=4):
+    """f32 logits of a split case's model, straight through ``Model``: a
+    prefill of the case's batch of 10-token prompts (its rows whole on
+    every rank: data 1, or one row) and ``steps`` greedy decode steps,
+    into the GSPMD route's cache on ``mesh``, or the whole cache."""
+    from repro_torch.dist.sharding import Sharder
+    from repro_torch.models.transformer import Model, init_cache
+    from repro_torch.serve.engine import gspmd_cache
+    b = min(2, AXIS_SPLIT[case][2])
+    rng = np.random.default_rng(10)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 10),
+                                           dtype=np.int32))
+    if mesh is None:
+        model = Model(cfg)
+        cache = init_cache(cfg, b, 48, dtype=torch.float32, device="cpu")
+    else:
+        shard = Sharder(mesh, cfg)
+        model = Model(cfg, shard)
+        cache = gspmd_cache(cfg, shard, b, 48, dtype=torch.float32,
+                            device="cpu")
+    out = []
+    with torch.inference_mode():
+        logits, _, cache = model.forward(params, {"tokens": tokens},
+                                         cache=cache)
+        out.append(logits[:, -1:])
+        for _ in range(steps):
+            nxt = out[-1].argmax(-1).to(torch.int32)
+            logits, cache = model.decode_step(params, nxt, cache)
+            out.append(logits)
+    return torch.cat(out, 1).numpy()
+
+
+def _axis_split(rank, out_dir):
+    """The split cases on the world's ranks: each engine's tokens,
+    collectives, cache bytes and its caches' local shapes, and the f32
+    logits of :data:`AXIS_SPLIT_LOGITS`."""
+    import json
+    from repro_torch.core.collectives import RankMesh
+    from repro_torch.dist.sharding import Sharder
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import ServeEngine
+    out = {}
+    for case, (arch, dims, batch, _) in AXIS_SPLIT.items():
+        cfg = axis_split_cfg(case)
+        mesh = RankMesh(*dims)
+        params = Sharder(mesh, cfg, rank=rank).shard_params(
+            init_params(cfg, 0, device="cpu"))
+        eng = ServeEngine(cfg, params, max_len=48, device="cpu", mesh=mesh,
+                          batch_size=batch)
+        shapes = []
+
+        def new_cache(b, n, make=eng._new_cache):
+            cache = make(b, n)
+            shapes.append(list(cache.kv.k.shape))
+            return cache
+
+        eng._new_cache = new_cache
+        reqs = axis_split_requests(case, cfg)
+        eng.generate(reqs)
+        out[case] = dict(
+            tokens=[r.generated.tolist() for r in reqs],
+            tally={k: v for k, v in eng._sharder.tally.items() if v},
+            bytes=eng.cache_bytes_resident, shapes=shapes,
+            steps=eng.decode_steps)
+        if case in AXIS_SPLIT_LOGITS:
+            np.save(os.path.join(out_dir, f"axis_split_{case.replace(' ', '_')}"
+                                          f"_r{rank}.npy"),
+                    axis_split_logits(case, cfg, params, mesh))
+    with open(os.path.join(out_dir, f"axis_split_r{rank}.json"), "w") as f:
+        json.dump(out, f)
 
 
 def axis_vlm_batch(cfg):
@@ -692,7 +796,8 @@ def _axis_serve(rank, mesh, out_dir):
     """The GSPMD route (a mesh, no comm plan) on every family: the engine's
     cases of :data:`AXIS_SERVE` (and :data:`AXIS_FP8` under ``kv_fp8``
     with a bf16 cache), the VLM through ``make_prefill`` and the serve
-    step: every rank's tokens and collectives."""
+    step: every rank's tokens and collectives, or the refusal of a paged
+    pool whose sequence the mesh would split."""
     import json
     from repro_torch.dist.sharding import Sharder
     from repro_torch.models.transformer import init_params
@@ -710,8 +815,12 @@ def _axis_serve(rank, mesh, out_dir):
         if opt:
             cfg = cfg.with_opts(opt)
             kw["cache_dtype"] = torch.bfloat16
-        eng = ServeEngine(cfg, params, max_len=48, device="cpu", mesh=mesh,
-                          **kw)
+        try:
+            eng = ServeEngine(cfg, params, max_len=48, device="cpu",
+                              mesh=mesh, **kw)
+        except ValueError as e:   # a pool whose sequence would split
+            out[f"{arch} {layout} {opt}".strip()] = dict(refused=str(e))
+            continue
         reqs = axis_serve_requests(cfg)
         eng.generate(reqs)
         out[f"{arch} {layout} {opt}".strip()] = dict(
@@ -809,6 +918,7 @@ def check_model_axis(rank: int, n: int, out_dir: str) -> None:
     save_state(os.path.join(out_dir, "axis_ckpt_pod"), 1, state,
                shard=step.sharder())
     _axis_serve(rank, mesh, out_dir)
+    _axis_split(rank, out_dir)
 
 
 CHECKS = {"reduce": check_reduce, "train": check_train,
