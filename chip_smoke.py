@@ -96,8 +96,10 @@ Phases, each a check that exits non-zero when it fails:
    (b 4, s 256: one chunk) and in f32 with g 2, 3 heads a group and s = 2
    chunks (the FFMA path), and at zamba2-7b's serve prefill ("hybrid": b
    4, s 1,024, h 112, p 64, g 1, n 64, chunk 256; 112 heads on one
-   group); a second launch gives equal bits; kernel, plain and bound
-   times at the three serve shapes (no single PyTorch call computes it:
+   group), and at a model rank's share of 16e's full-width mamba2-780m
+   prefill ("rank tp4": b 4, s 512, h 12 of 48, the block split over
+   model 4); a second launch gives equal bits; kernel, plain and bound
+   times at the four serve shapes (no single PyTorch call computes it:
    library "none");
 6e. SSM serve: mamba2-780m at full width (d 1,536, 48 heads of 64,
    d_state 128, chunk 256, vocab 50,280, tied; bf16 params from a seed),
@@ -301,12 +303,14 @@ Phases, each a check that exits non-zero when it fails:
    the tensor cores, ``csrc/ssd_chunk_bwd_tc.cu``, f32 on FFMA,
    ``csrc/ssd_chunk_bwd.cu``): at the mamba2-780m training shape (b 8,
    s 1,024, h 48, p 64, g 1, n 128, chunk 256, x/B/C bf16, dy and dst f32),
-   the zamba2-7b one (b 4, h 112, n 64), an f32 case, a g = 2 case and the
+   the zamba2-7b one (b 4, h 112, n 64), a model rank's share of 16e's
+   mamba2-780m training run ("rank tp2": b 4, h 24 of 48, the block split
+   over model 2), an f32 case, a g = 2 case and the
    overflow case in f32 and in bf16 (one chunk of 256, dt 0.1, A =
    -linspace(1, 16, 4): above the diagonal exp would overflow): f32
    outputs within 2e-5 x max(1, max|plain|), bf16 outputs within one bf16
    ulp of the plain f32 result plus that term; a second launch gives equal
-   bits and each launch is counted on its route; at the two training
+   bits and each launch is counted on its route; at the three training
    shapes the tensor-core and FFMA routes' times as ten alternating pairs,
    and plain against the tensor cores as four (medians), beside the bound
    (bytes: inputs once, outputs once; the same count of work whichever
@@ -396,17 +400,32 @@ Phases, each a check that exits non-zero when it fails:
    count by purpose; flash and page-gather launches as phase 7's; and the
    smoke archs on data 2 x model 2, contiguous and paged: tokens equal to
    the CPU engine's;
-16e. the GSPMD serve route on the SSM and the hybrid in the same world:
-   mamba2-780m-smoke and zamba2-7b-smoke on data 2 x model 2 (grouped,
-   their Mamba2 blocks computed replicated over model): tokens equal to
-   the CPU engine's; then at full width mamba2-780m, cut to
+16e. the GSPMD serve route on the SSM and the hybrid in the same world,
+   their Mamba2 blocks tensor-parallel over model (a rank projects,
+   convolves and scans its heads and conv channels, gathers the conv
+   output once, sums the gated norm's squares and out_proj's partial
+   sums; its decode state is its slice): mamba2-780m-smoke and
+   zamba2-7b-smoke on data 2 x model 2 (grouped): tokens equal to the
+   CPU engine's; then at full width mamba2-780m, cut to
    ``SSM_GSPMD_LAYERS`` = 2 layers, and zamba2-7b, cut to one group of
    6 Mamba2 blocks closed by one shared-attention site (tensor-parallel
    over model), bf16, on data 1 x model 4: 4 prompts of 512 tokens, 8
-   new: the ranks' tokens equal, one SSD launch a layer a prefill, one
-   flash launch a site a prefill, the vocab-parallel lookup's
-   all-reduces on the model line, and at least ``SSM_GSPMD_AGREE`` of
-   the greedy tokens equal to one rank's engine on the card;
+   new: the ranks' tokens equal, and at least ``SSM_GSPMD_AGREE`` of
+   them equal to one rank's engine on the card; a rank's state
+   ``(L, 4, 3, CH/4)`` and ``(L, 4, H/4, N, P)``, its bytes a quarter of
+   one rank's; one SSD launch a layer a prefill, every one at H/4 heads;
+   one flash launch a site a prefill; a decode step's collectives on the
+   model line as predicted (2 gathers and 2 all-reduces a block, the
+   lookup's all-reduce and the logits' gather, 2 all-reduces a site); the
+   first prefill's last-position logits within ``SSM_TP_LOGIT_TOL`` of
+   one rank's (the replicated block's) on the card. Then, on phase 15's
+   ranks after 16c, mamba2-780m at full width, ``SSM_AXIS_LAYERS`` = 2
+   layers, bf16, ``remat="block"``, ``comm="gspmd"`` on data 2 x model 2,
+   phase 9's global batch (8 x 1,024), 2 steps: the losses equal on every
+   rank, the first within 2^-7 relative of one rank's gspmd step here;
+   ``ssd_chunk`` 2 and ``ssd_chunk_bwd`` 1 launches a layer a step, every
+   one at 24 heads and the backward's on the tensor cores; each rank's
+   peak memory;
 16f. the GSPMD route's sequence-split decode cache in the same world:
    gemma-2b-smoke (one KV head) f32 on data 1 x model 4, its cache's
    sequence over model: tokens equal to the CPU engine's; then gemma-2b
@@ -482,6 +501,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -527,6 +547,8 @@ SSD_CASES = (
     ("second call", "bfloat16", (4, 256, 48, 64, 1, 128, 256), True),
     ("f32 g2", "float32", (2, 512, 6, 64, 2, 128, 256), False),
     ("hybrid", "bfloat16", (4, 1024, 112, 64, 1, 64, 256), True),
+    # a model rank's heads of 16e's mamba2-780m prefill at tp 4
+    ("rank tp4", "bfloat16", (4, 512, 12, 64, 1, 128, 256), True),
 )
 TRAIN_ARCH = "olmo-1b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
@@ -576,6 +598,9 @@ GSPMD_WORLD, GSPMD_LAYERS, GSPMD_RANK_STEPS, GSPMD_TIMEOUT_S = 4, 2, 2, 600
 # phase 16c: mixtral-8x22b at full width, its depth cut to 1 layer, bf16,
 # 4 x 512 tokens a step on the 4 ranks as data 2 x model 2 and 4 x 1
 AXIS_MOE_LAYERS, AXIS_MOE_BATCH, AXIS_MOE_SEQ = 1, 4, 512
+# 16e's training run: mamba2-780m at full width, 2 layers, on the same
+# ranks as data 2 x model 2 (24 of 48 heads a model rank)
+SSM_AXIS_LAYERS = 2
 # phases 14a-14c: the SSD backward and SSM / hybrid training
 SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS, HYB_TRAIN_LAYERS = "mamba2-780m", 24, 15
 FP32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -613,6 +638,9 @@ SPLIT_LAYERS, SPLIT_PROMPT, SPLIT_NEW, SPLIT_LONG_NEW = 2, 4000, 16, 2
 SSD_BWD_CASES = (
     ("mamba2-780m train", "bfloat16", (8, 1024, 48, 64, 1, 128, 256), True),
     ("zamba2-7b train", "bfloat16", (4, 1024, 112, 64, 1, 64, 256), True),
+    # a model rank's heads of 16e's mamba2-780m training run at tp 2 (a
+    # data rank's 4 rows)
+    ("rank tp2", "bfloat16", (4, 1024, 24, 64, 1, 128, 256), True),
     ("f32", "float32", (2, 512, 8, 64, 1, 128, 256), False),
     ("g2", "bfloat16", (2, 512, 8, 64, 2, 64, 256), False),
     ("overflow", "float32", (1, 256, 4, 64, 1, 128, 256), False),
@@ -632,13 +660,21 @@ TP_SMOKE = ("olmo-1b-smoke", "mixtral-8x22b-smoke")
 # hybrid_attn_every = 6 (one shared-attention site); 4 prompts of 512, 8 new
 GSPMD_SMOKE = ("mamba2-780m-smoke", "zamba2-7b-smoke")
 SSM_GSPMD_LAYERS, SSM_GSPMD_PROMPT, SSM_GSPMD_NEW = 2, 512, 8
-# 16e's 1 x 4 tokens against one rank's: the Mamba2 blocks compute
-# replicated over model and the lookup and head split exactly, but the
-# head's vocab slices (and the site's partial sums) are GEMMs of other
-# shapes, whose rounding can flip a near-tied argmax; one flip in one of
-# the 4 requests moves at most its 8 tokens, a quarter, while a broken
-# route agrees on almost none of them (vocabs of 50,280 and 32,000)
+# 16e's 1 x 4 tokens against one rank's: the lookup and head split
+# exactly, but each Mamba2 block's out_proj partial sums (and the site's)
+# are rounded to bf16 before their all-reduce and the head's vocab slices
+# are GEMMs of other shapes, which can flip a near-tied argmax; one flip
+# in one of the 4 requests moves at most its 8 tokens, a quarter, while a
+# broken route agrees on almost none of them (vocabs of 50,280 and
+# 32,000)
 SSM_GSPMD_AGREE = 0.75
+# 16e's tp 4 first-prefill logits against one rank's, as a share of max
+# |one rank|: bf16 weights and activations; the ranks' out_proj partial
+# sums are rounded to bf16 before their all-reduce (one rank rounds one
+# f32-accumulated sum), and the gated norm's sum of squares is summed in
+# another order, so each block's output moves by a few bf16 ulps, as
+# phase 7's TP_LOGIT_TOL allows over 16 layers
+SSM_TP_LOGIT_TOL = 0.05
 # tp 4's first-prefill logits against tp 1's, as a share of max |tp 1|:
 # bf16 weights and activations, and each layer's wo / w_down outputs
 # rounded to bf16 as 4 partial sums before their all-reduce (tp 1 rounds
@@ -3187,22 +3223,81 @@ def _ssm_gspmd_cfg(arch: str):
         cfg, num_layers=cfg.hybrid_attn_every or SSM_GSPMD_LAYERS)
 
 
-def _ssm_one_rank_tokens() -> dict:
-    """16e's yardstick: the SSM and the hybrid, cut in depth, through one
-    rank's engine on the card, from the same ``init_params(cfg, 0)``."""
+def _ssm_states(eng) -> list:
+    """Records each decode cache ``eng`` makes: its SSM state's conv and
+    SSD shapes and their bytes as made (16e)."""
+    states = []
+
+    def new_cache(b, n, make=eng._new_cache):
+        cache = make(b, n)
+        st = cache.ssm
+        states.append(dict(conv=list(st.conv.shape), ssd=list(st.ssd.shape),
+                           bytes=st.conv.nbytes + st.ssd.nbytes))
+        return cache
+
+    eng._new_cache = new_cache
+    return states
+
+
+@contextlib.contextmanager
+def _ssd_heads():
+    """The head counts that the Mamba2 blocks hand the SSD kernel while
+    the context is open (16e)."""
+    from repro_torch.models import ssm
+    seen, kernel = set(), ssm.ssd_chunk
+
+    def record(x, *a, **kw):
+        seen.add(int(x.shape[2]))
+        return kernel(x, *a, **kw)
+
+    ssm.ssd_chunk = record
+    try:
+        yield seen
+    finally:
+        ssm.ssd_chunk = kernel
+
+
+def _ssm_first_logits(cfg, model, params, cache):
+    """Last-position logits (f32, on the host) of the prefill of 16e's 4
+    prompts through ``model`` into ``cache``."""
+    import numpy as np
     import torch
-    from repro_torch.models.transformer import init_params
+    tokens = np.stack([r.prompt for r in _ssm_gspmd_requests(
+        cfg.vocab_size)])
+    with torch.inference_mode():
+        logits, _, _ = model.forward(
+            params, {"tokens": torch.as_tensor(tokens, device="cuda")},
+            cache=cache)
+    out = logits[:, -1].float().cpu().numpy()
+    del logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ssm_one_rank() -> dict:
+    """16e's yardstick: the SSM and the hybrid, cut in depth, through one
+    rank's engine on the card (the block replicated, the state whole),
+    from the same ``init_params(cfg, 0)``: tokens, state bytes and the
+    first prefill's logits."""
+    import torch
+    from repro_torch.models.transformer import Model, init_cache, init_params
     from repro_torch.serve.engine import ServeEngine
     got = {}
     for arch in (SSM_ARCH, HYB_ARCH):
         cfg = _ssm_gspmd_cfg(arch)
-        eng = ServeEngine(cfg, init_params(cfg, 0, device="cuda"),
-                          batch_size=4, device="cuda",
-                          max_len=SSM_GSPMD_PROMPT + SSM_GSPMD_NEW)
+        max_len = SSM_GSPMD_PROMPT + SSM_GSPMD_NEW
+        params = init_params(cfg, 0, device="cuda")
+        eng = ServeEngine(cfg, params, batch_size=4, device="cuda",
+                          max_len=max_len)
+        states = _ssm_states(eng)
         reqs = _ssm_gspmd_requests(cfg.vocab_size)
         eng.generate(reqs)
-        got[arch] = [r.generated.tolist() for r in reqs]
-        del eng
+        logits = _ssm_first_logits(cfg, Model(cfg), params, init_cache(
+            cfg, 4, max_len, dtype=torch.float32, device="cuda"))
+        got[arch] = dict(tokens=[r.generated.tolist() for r in reqs],
+                         state_bytes=max(x["bytes"] for x in states),
+                         logits=logits)
+        del eng, params
         torch.cuda.empty_cache()
     return got
 
@@ -3378,7 +3473,7 @@ def _tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     from repro_torch.launch.serve import join_ranks
     from repro_torch.models.transformer import Model, init_params
     from repro_torch.serve.comm import ServeCommPlan, shard_params
-    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.engine import Request, ServeEngine, gspmd_cache
 
     # the ranks' caches hand freed blocks back between the cases
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
@@ -3474,14 +3569,24 @@ def _tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         mesh = RankMesh(1, world)
         for arch in (SSM_ARCH, HYB_ARCH):
             cfg = _ssm_gspmd_cfg(arch)
+            max_len = SSM_GSPMD_PROMPT + SSM_GSPMD_NEW
             params = Sharder(mesh, cfg, rank=rank).shard_params(
                 init_params(cfg, 0, device="cuda"))
             torch.cuda.empty_cache()
             eng = ServeEngine(cfg, params, batch_size=4, device="cuda",
-                              max_len=SSM_GSPMD_PROMPT + SSM_GSPMD_NEW,
-                              mesh=mesh)
-            out["gspmd"][f"{arch} contiguous 1x4"] = _gspmd_run(
-                eng, _ssm_gspmd_requests(cfg.vocab_size))
+                              max_len=max_len, mesh=mesh)
+            states = _ssm_states(eng)
+            with _ssd_heads() as heads:
+                run = _gspmd_run(eng, _ssm_gspmd_requests(cfg.vocab_size))
+            run.update(states=states, heads=sorted(heads))
+            out["gspmd"][f"{arch} contiguous 1x4"] = run
+            logits = _ssm_first_logits(
+                cfg, Model(cfg, eng._sharder), params, gspmd_cache(
+                    cfg, eng._sharder, 4, max_len, dtype=torch.float32,
+                    device="cuda"))
+            if rank == 0:
+                np.save(os.path.join(out_dir, f"ssm_logits_{arch}.npy"),
+                        logits)
             del eng, params
             torch.cuda.empty_cache()
         # 16f: the sequence-split decode cache: gemma-2b-smoke f32 on 1 x 4
@@ -3544,7 +3649,7 @@ def phase_tp_serve(olmo_runs: dict, moe_runs: dict, card: str) -> dict:
     from repro_torch.configs import get_config
 
     smoke_ref = _cpu_smoke_tokens()
-    ssm_ref = _ssm_one_rank_tokens()
+    ssm_ref = _ssm_one_rank()
     ssm_ref.update(_split_one_rank())
     torch.cuda.synchronize()
     gc.collect()
@@ -3662,7 +3767,8 @@ def phase_tp_serve(olmo_runs: dict, moe_runs: dict, card: str) -> dict:
               f"{c['flash']}, paged gather {c['gather']}, row gather "
               f"{c['rows']}; {same}", flush=True)
     launches["ssd"] = 0
-    _check_gspmd_route(ranks, olmo_runs, smoke_ref, ssm_ref, launches)
+    _check_gspmd_route(ranks, olmo_runs, smoke_ref, ssm_ref, launches,
+                       out_dir)
     shutil.rmtree(out_dir, ignore_errors=True)
     return launches
 
@@ -3707,14 +3813,77 @@ def _check_split(name: str, c: dict, res: list, smoke_ref: dict,
             f"{c['bytes']} B of cache, one rank {ref['bytes']} B")
 
 
+def _check_ssm_tp(name: str, c: dict, ref: dict, out_dir: str) -> str:
+    """16e at full width on 1 x 4 (``c``: rank 0's run) against one rank's
+    on the card (``ref``): tokens, the state's slices and bytes, the SSD
+    launches and their heads, flash, a decode step's collectives on the
+    model line, the first prefill's logits. Returns what it printed."""
+    import numpy as np
+    arch = name.split()[0]
+    cfg = _ssm_gspmd_cfg(arch)
+    sc, L = cfg.ssm, cfg.num_layers
+    d_in = sc.d_inner(cfg.d_model)
+    ch, h = d_in + 2 * sc.ngroups * sc.d_state, sc.num_heads(cfg.d_model)
+    sites = L // cfg.hybrid_attn_every if cfg.hybrid_attn_every else 0
+    tp = TP_WORLD
+    check(c["ssd"] == L * c["prefills"] and c["heads"] == [h // tp],
+          f"gspmd route {name}: ssd_chunk launched {c['ssd']} times at "
+          f"heads {c['heads']} on rank 0, want {L} x {c['prefills']} at "
+          f"{h // tp}")
+    check(c["flash"] == sites * c["prefills"],
+          f"gspmd route {name}: flash launched {c['flash']} times on rank "
+          f"0, want {sites} x {c['prefills']}")
+    for st in c["states"]:
+        b = st["conv"][1]
+        check(st["conv"] == [L, b, sc.conv_width - 1, ch // tp] and
+              st["ssd"] == [L, b, h // tp, sc.d_state, sc.head_dim],
+              f"gspmd route {name}: a rank's state {st}, want conv (L, B, "
+              f"{sc.conv_width - 1}, {ch // tp}) and ssd (L, B, {h // tp}, "
+              f"{sc.d_state}, {sc.head_dim})")
+    state = max(st["bytes"] for st in c["states"])
+    check(tp * state == ref["state_bytes"], f"gspmd route {name}: a rank "
+          f"holds {state} B of SSM state, one rank {ref['state_bytes']} B")
+    # a Mamba2 block: in_proj and the conv output gathered, the gated
+    # norm's sum of squares and out_proj all-reduced; the vocab-parallel
+    # lookup's all-reduce and the logits' gather; a site's attention and
+    # FFN all-reduced
+    step = c["step_counts"]
+    want = dict(model_all_gather=2 * L + 1,
+                model_all_reduce=2 * L + 1 + 2 * sites)
+    check(all(step.get(k) == v for k, v in want.items()) and
+          not step.get("model_reduce_scatter"),
+          f"gspmd route {name}: a decode step's collectives {step}, want "
+          f"{want}")
+    got = np.load(os.path.join(out_dir, f"ssm_logits_{arch}.npy"))
+    err = float(np.abs(got - ref["logits"]).max())
+    tol = SSM_TP_LOGIT_TOL * float(np.abs(ref["logits"]).max())
+    check(err <= tol, f"gspmd route {name}: first prefill's logits off one "
+          f"rank's by {err} > {tol}")
+    pairs = [(a, b) for x, y in zip(c["tokens"], ref["tokens"])
+             for a, b in zip(x, y)]
+    share = sum(a == b for a, b in pairs) / len(pairs)
+    check(share >= SSM_GSPMD_AGREE, f"gspmd route {name}: {share:.4f} of "
+          f"greedy tokens equal one rank's on the card, want >= "
+          f"{SSM_GSPMD_AGREE}")
+    return (f"{share:.4f} of greedy tokens equal one rank's on the card "
+            f"(>= {SSM_GSPMD_AGREE}); a rank's state {c['states'][0]['conv']}"
+            f" + {c['states'][0]['ssd']}, {state} B against one rank's "
+            f"{ref['state_bytes']} B; ssd_chunk at {c['heads']} heads; a "
+            f"decode step's model-line collectives as predicted {want}; "
+            f"first prefill's last-position logits max |diff| {err:.5f} "
+            f"from one rank's (tol {tol:.5f} = {SSM_TP_LOGIT_TOL} x max "
+            f"|one rank|)")
+
+
 def _check_gspmd_route(ranks, olmo_runs: dict, smoke_ref: dict,
-                       ssm_ref: dict, launches: dict) -> None:
+                       ssm_ref: dict, launches: dict, out_dir: str) -> None:
     """16d-16e: the GSPMD route's runs in phase 7's world against the
     manual-TP path's (olmo-1b: the same params and the same partial sums,
     so the same tokens), the CPU engine's (the smoke archs on data 2 x
     model 2, the SSM and the hybrid among them) and one rank's on the card
     (the SSM and the hybrid at full width, cut in depth, on 1 x 4: at
-    least ``SSM_GSPMD_AGREE`` of the tokens);
+    least ``SSM_GSPMD_AGREE`` of the tokens, a quarter of the state, the
+    first prefill's logits within ``SSM_TP_LOGIT_TOL``: :func:`_check_ssm_tp`);
     adds the full-width runs' launches (the main path) to ``launches``."""
     from repro_torch.configs import get_config
     r0 = ranks[0]
@@ -3739,28 +3908,10 @@ def _check_gspmd_route(ranks, olmo_runs: dict, smoke_ref: dict,
             tp_counts = r0["cases"].get(name, {}).get("counts")
             same = "== the CPU engine's (one rank)"
         elif name.endswith("1x4"):
-            cfg = _ssm_gspmd_cfg(arch)
-            sites = (cfg.num_layers // cfg.hybrid_attn_every
-                     if cfg.hybrid_attn_every else 0)
-            check(c["ssd"] == cfg.num_layers * c["prefills"],
-                  f"gspmd route {name}: ssd_chunk launched {c['ssd']} times "
-                  f"on rank 0, want {cfg.num_layers} x {c['prefills']}")
-            check(c["flash"] == sites * c["prefills"],
-                  f"gspmd route {name}: flash launched {c['flash']} times "
-                  f"on rank 0, want {sites} x {c['prefills']}")
-            check(c["counts"].get("model_all_reduce", 0) > 0,
-                  f"gspmd route {name}: no collective on the model line")
             for k in ("flash", "gather", "rows", "ssd"):
                 launches[k] += sum(x[k] for x in res)
             tp_counts = None
-            pairs = [(a, b) for x, y in zip(c["tokens"], ssm_ref[arch])
-                     for a, b in zip(x, y)]
-            share = sum(a == b for a, b in pairs) / len(pairs)
-            check(share >= SSM_GSPMD_AGREE, f"gspmd route {name}: "
-                  f"{share:.4f} of greedy tokens equal one rank's on the "
-                  f"card, want >= {SSM_GSPMD_AGREE}")
-            same = (f"{share:.4f} of greedy tokens equal one rank's on the "
-                    f"card (>= {SSM_GSPMD_AGREE})")
+            same = _check_ssm_tp(name, c, ssm_ref[arch], out_dir)
         else:
             tp = r0["cases"][f"{arch} {layout} num_vcis=8"]
             check(c["tokens"] == tp["tokens"], f"gspmd route {name}: tokens "
@@ -4358,6 +4509,53 @@ def _axis_moe(rank: int, world: int, device) -> dict:
     return out
 
 
+def _ssm_axis_cfg():
+    """16e's training config: mamba2-780m at full width,
+    ``SSM_AXIS_LAYERS`` layers, bf16, ``remat="block"``."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(SSM_ARCH), remat="block",
+                               num_layers=SSM_AXIS_LAYERS)
+
+
+def _axis_ssm(rank: int, world: int, device) -> dict:
+    """16e's training run on one of phase 15's ranks: mamba2-780m
+    (:func:`_ssm_axis_cfg`), ``comm="gspmd"`` on the ranks as data 2 x
+    model 2 (the Mamba2 blocks tensor-parallel: 24 of 48 heads a rank),
+    ``GSPMD_RANK_STEPS`` steps of phase 9's global batch: losses, times,
+    the SSD launches and their heads, the step's collectives, peak."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.collectives import RankMesh
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_bwd
+    from repro_torch.train.trainer import make_train_step, train_state_init
+
+    cfg = _ssm_axis_cfg()
+    mesh = RankMesh(2, world // 2)
+    torch.cuda.reset_peak_memory_stats()
+    ssd_chunk.launches = 0
+    ssd_chunk_bwd.launches = ssd_chunk_bwd.tc_launches = 0
+    state = train_state_init(cfg, 0, device=device, comm="gspmd", mesh=mesh)
+    step = make_train_step(cfg, mesh=mesh)
+    losses, times = [], []
+    with _ssd_heads() as heads:
+        for i in range(GSPMD_RANK_STEPS):
+            b = synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=i)
+            dist.barrier()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+    out = dict(losses=losses, ms=times, tally=dict(step.comm_tally),
+               heads=sorted(heads), ssd=ssd_chunk.launches,
+               ssd_bwd=ssd_chunk_bwd.launches,
+               ssd_bwd_tc=ssd_chunk_bwd.tc_launches,
+               peak=torch.cuda.max_memory_allocated())
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
 def _gspmd_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     """One of phase 15's ranks (15b and 15c): join the shared-card group,
     train FSDP in f32 against the one-rank run in ``ref.pt``, then in bf16
@@ -4546,6 +4744,7 @@ def _gspmd_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         del back, full, saved
         torch.cuda.empty_cache()
         out["moe"] = _axis_moe(rank, world, device)
+        out["ssm"] = _axis_ssm(rank, world, device)
         dist.barrier()
     finally:
         with open(os.path.join(out_dir, f"gspmd_rank{rank}.json"), "w") as f:
@@ -4593,6 +4792,14 @@ def phase_gspmd_ranks(card: str) -> dict:
     flash = flash_attention.launches
     del state, step, alt, astep
     _fresh("gspmd ranks, after the one-rank run")
+    # 16e's yardstick: the mamba2 training run's first step on one rank
+    ssm_cfg = _ssm_axis_cfg()
+    state = train_state_init(ssm_cfg, 0, device="cuda", comm="gspmd")
+    _, m = make_train_step(ssm_cfg)(state, synthetic_batch(
+        ssm_cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=0))
+    ssm_loss = float(m["loss"])
+    del state, m
+    _fresh("gspmd ranks, after 16e's one-rank step")
 
     t0 = time.time()
     ctx = torch.multiprocessing.start_processes(
@@ -4715,6 +4922,7 @@ def phase_gspmd_ranks(card: str) -> dict:
           2 ** -7 * abs(c0["loss3"]), f"15c: one rank's step 3 loss "
           f"{one_loss3} vs {GSPMD_WORLD} ranks' {c0['loss3']}")
     launches = _check_axis(ranks, ref_metrics, yard, total, card)
+    launches.update(_check_axis_ssm(ranks, ssm_loss, card))
     _fresh("gspmd ranks, done")
     return dict(flash=flash, bitwise=bitwise, **launches)
 
@@ -4837,6 +5045,44 @@ def _check_axis(ranks, ref_metrics, yard, total: int, card: str) -> dict:
         rows=sum(x["rows"] for rk in ranks for x in rk["moe"].values()),
         rows_sum=sum(x["rows_sum"] for rk in ranks
                      for x in rk["moe"].values()))
+
+
+def _check_axis_ssm(ranks, one_loss: float, card: str) -> dict:
+    """16e's training run on phase 15's ranks (see the docstring) against
+    one rank's first loss ``one_loss``; returns its SSD forward and
+    backward launches, summed over the ranks."""
+    cfg = _ssm_axis_cfg()
+    L = cfg.num_layers
+    h = cfg.ssm.num_heads(cfg.d_model) // (GSPMD_WORLD // 2)
+    x = ranks[0]["ssm"]
+    check(all(rk["ssm"]["losses"] == x["losses"] for rk in ranks),
+          "16e train: the ranks' losses differ")
+    check(all(map(math.isfinite, x["losses"])), f"16e train: loss "
+          f"{x['losses']}")
+    check(abs(x["losses"][0] - one_loss) <= 2 ** -7 * abs(one_loss),
+          f"16e train: 2 x 2 first loss {x['losses'][0]} vs one rank's "
+          f"{one_loss} (2^-7 rel)")
+    n = L * GSPMD_RANK_STEPS
+    for r, rk in enumerate(ranks):
+        y = rk["ssm"]
+        check(y["ssd"] == 2 * n and y["ssd_bwd"] == n and
+              y["ssd_bwd_tc"] == n and y["heads"] == [h],
+              f"16e train: rank {r} launched ssd_chunk {y['ssd']}, "
+              f"ssd_chunk_bwd {y['ssd_bwd']} ({y['ssd_bwd_tc']} on the "
+              f"tensor cores) at heads {y['heads']}, want 2, 1 and 1 a "
+              f"layer a step at {h}")
+    print(f"axis 16e train: {SSM_ARCH} at full width, {L} layers, bf16, "
+          f"remat=block, comm=gspmd, global batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, data 2 x model 2 on one card ({card}): the Mamba2 "
+          f"blocks tensor-parallel ({h} heads a rank); losses {x['losses']} "
+          f"equal on every rank, first against one rank's {one_loss} "
+          f"(2^-7 rel); rank 0 launched ssd_chunk {x['ssd']}, "
+          f"ssd_chunk_bwd {x['ssd_bwd']} (tensor cores {x['ssd_bwd_tc']}) "
+          f"at {x['heads']} heads; a step {x['tally']}; step ms (rank 0) "
+          f"{[round(t, 1) for t in x['ms']]}; peak a rank "
+          f"{[rk['ssm']['peak'] for rk in ranks]} B", flush=True)
+    return dict(ssd=sum(rk["ssm"]["ssd"] for rk in ranks),
+                ssd_bwd=sum(rk["ssm"]["ssd_bwd"] for rk in ranks))
 
 
 def phase_ckpt_cli() -> None:
@@ -5705,13 +5951,18 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:56",
         "launches": ssm_launches + hyb["ssd"] + tp["ssd"]
-        + sum(r["counts"]["ssd_chunk"] for r in trained),
+        + sum(r["counts"]["ssd_chunk"] for r in trained)
+        + gspmd_ranks["ssd"],
         "max_abs_err": ssd["max_abs_err"],
         "ms": ssd["serve"]["ms"],
         "plain_ms": ssd["serve"]["plain_ms"],
         "bound_ms": ssd["serve"]["bound_ms"],
         "bound_by": ssd["serve"]["bound_by"],
         "library_ms": None,
+        # a model rank's 12 of 48 heads (16e's prefill at tp 4)
+        "rank_ms": ssd["rank tp4"]["ms"],
+        "rank_plain_ms": ssd["rank tp4"]["plain_ms"],
+        "rank_bound_ms": ssd["rank tp4"]["bound_ms"],
     }, {
         "name": "ssd_chunk_bwd",
         "route": "cuda",
@@ -5723,7 +5974,8 @@ def main() -> None:
         # differentiates the reference's einsums); this is ssd_chunk's
         "replaces": None,
         "backward_of": "src/repro/kernels/ssd_scan.py:56",
-        "launches": sum(r["counts"]["ssd_chunk_bwd"] for r in trained),
+        "launches": sum(r["counts"]["ssd_chunk_bwd"] for r in trained)
+        + gspmd_ranks["ssd_bwd"],
         "max_abs_err": ssd_bwd["max_abs_err"],
         "ms": ssd_bwd["mamba2-780m train"]["ms"],
         "ffma_ms": ssd_bwd["mamba2-780m train"]["ffma_ms"],
@@ -5731,6 +5983,10 @@ def main() -> None:
         "bound_ms": ssd_bwd["mamba2-780m train"]["bound_ms"],
         "bound_by": ssd_bwd["mamba2-780m train"]["bound_by"],
         "library_ms": None,
+        # a model rank's 24 of 48 heads (16e's training run at tp 2)
+        "rank_ms": ssd_bwd["rank tp2"]["ms"],
+        "rank_plain_ms": ssd_bwd["rank tp2"]["plain_ms"],
+        "rank_bound_ms": ssd_bwd["rank tp2"]["bound_ms"],
     }]}
     print(f"row_gather on the main path: {line['kernels'][4]['launches']} "
           f"launches, {moe_runs['long']['read_once']} (long prompts) + "

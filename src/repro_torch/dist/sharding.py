@@ -193,6 +193,21 @@ def _leaf_spec(mesh, keys: Sequence[str], shape: Tuple[int, ...], *,
     return P(*spec)
 
 
+def ssm_divides(cfg: ModelConfig, tp: int) -> bool:
+    """Whether a Mamba2 block splits over ``tp`` model ranks: its heads
+    and its conv channels divide ``tp``, and a rank's heads read whole
+    B/C groups or share one (every config has one group)."""
+    c = cfg.ssm
+    if c is None or tp <= 1:
+        return False
+    h = c.num_heads(cfg.d_model)
+    ch = c.d_inner(cfg.d_model) + 2 * c.ngroups * c.d_state
+    if h % tp or ch % tp:
+        return False
+    local, rep = h // tp, h // c.ngroups
+    return local % rep == 0 or rep % local == 0
+
+
 def param_shapes(cfg: ModelConfig):
     """``init_params(cfg)``'s tree on the meta device: every leaf's shape
     and dtype, no memory (a full-width arch costs nothing)."""
@@ -341,6 +356,8 @@ class Sharder:
         # elsewhere its model-sliced leaves are used whole
         self.attn_tp = self.tp is not None and heads > 0 and \
             heads % self.tp_size == 0 and kv % self.tp_size == 0
+        # so is a Mamba2 block where its heads and its conv channels do
+        self.ssm_tp = self.tp is not None and ssm_divides(cfg, self.tp_size)
 
     def reset_tally(self) -> None:
         self.tally.update(all_gather=0, reduce_scatter=0, all_reduce=0,
@@ -489,6 +506,32 @@ class Sharder:
             return self.tp.all_gather(leaf, gather_axis=dim)
 
         return tree_map_with_paths(gather, p)
+
+    def ssm_site(self, p, at: Sequence[str] = ()):
+        """A Mamba2 layer's params (``ssm``, ``norm1``; data dims gathered)
+        and its block's comm: :attr:`tp` where the block is
+        tensor-parallel (:attr:`ssm_tp`), ``None`` where it computes
+        replicated over ``model`` (its model-sliced leaves gathered
+        whole). On the tensor-parallel block a model rank computes its own
+        heads and conv channels (:mod:`repro_torch.models.ssm`), so it
+        reads every ``ssm`` leaf but ``out_proj`` in part: a leaf sliced
+        over ``model`` (``in_proj``) is gathered whole with a
+        reduce-scatter backward, a replicated one goes through ``copy``
+        (its backward sums the ranks' partial gradients over the line),
+        and ``out_proj``'s row slice stays this rank's. ``(p, comm)``."""
+        if not self.ssm_tp:
+            return self.model_whole(p, at), None
+        at = tuple(at) + ("ssm",)
+        s = {}
+        for name, leaf in p["ssm"].items():
+            dim = self.model_dim(at + (name,), leaf.dim())
+            if dim is None:
+                s[name] = self.tp.copy(leaf)
+            elif name == "out_proj":
+                s[name] = leaf
+            else:
+                s[name] = self.tp.gather_sum(leaf, dim)
+        return {**p, "ssm": s}, self.tp
 
     def tp_sites(self, p, at: Sequence[str] = ()):
         """A block's params (``attn``, ``ffn``; data dims gathered) and the

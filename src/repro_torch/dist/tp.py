@@ -15,9 +15,10 @@ the paper's baseline against the serve path's per-purpose VCIs):
   logits, and the leaves that are sliced over ``model`` but used whole
   (every model rank then computes the same thing, so each holds the whole
   gradient and keeps its slice of it);
-* ``gather_sum`` — all-gather forward, reduce-scatter backward: a leaf
+* ``gather_sum`` — all-gather forward, reduce-scatter backward: a tensor
   used whole where each model rank computes a different part of its
-  gradient (the MoE's experts over ``model``).
+  gradient (the MoE's experts over ``model``; a tensor-parallel Mamba2
+  block's ``in_proj`` and its conv output).
 
 :class:`LineComm` exposes them through the small interface the model
 code calls on :class:`repro_torch.serve.comm.ServeComm` (``psum``,

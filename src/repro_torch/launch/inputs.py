@@ -16,10 +16,10 @@ rule (:func:`repro_torch.serve.engine.gspmd_cache_layout`): where the KV
 heads do not divide the model axis the sequence goes over ``model``, and
 where the batch does not divide the data line (``long_500k``, batch 1)
 over every axis, each rank attending its slice and combining the slices'
-partial attention. :func:`cache_layout` sets both side by side for a
-row; they differ in one place: the reference splits an SSM state's
-channels and heads over ``model``, and the port's Mamba2 block computes
-replicated over ``model`` and keeps its state whole.
+partial attention; an SSM state's conv channels and heads go over
+``model``, where the port's Mamba2 block is tensor-parallel.
+:func:`cache_layout` sets both side by side for a row, and they agree on
+every production row.
 """
 
 from __future__ import annotations
@@ -141,21 +141,23 @@ def port_cache_specs(cfg: ModelConfig, shape: InputShape, mesh
     S, KV, hd)``, ``conv``: ``(L, B, W-1, CH)``, ``ssd``: ``(L, B, H, N,
     P)``), as specs, read off :func:`gspmd_cache_layout`: rows over the
     data line where they divide, KV heads or the sequence over ``model``,
-    or the sequence over every axis; an SSM state's rows only."""
+    or the sequence over every axis; an SSM state's conv channels and
+    heads over ``model`` where its block is tensor-parallel."""
     dp, dpn = _dp(mesh, cfg)
     b = shape.global_batch
+    lay = gspmd_cache_layout(cfg, Sharder(mesh, cfg, rank=0), b,
+                             shape.seq_len)
     lead = dp_entry(dp) if b % dpn == 0 else None
     out = {}
     if cfg.num_heads and cfg.family != "ssm":
-        lay = gspmd_cache_layout(cfg, Sharder(mesh, cfg, rank=0), b,
-                                 shape.seq_len)
         head = "model" if lay.kv_heads < _stored_kv_heads(cfg) else None
         seq = {"model": "model", "mesh": tuple(dp) + ("model",)
                }.get(lay.seq)
         out["kv"] = P(None, lead, seq, head, None)
     if cfg.ssm is not None:
-        out["conv"] = P(None, lead, None, None)
-        out["ssd"] = P(None, lead, None, None, None)
+        split = "model" if lay.ssm_parts > 1 else None
+        out["conv"] = P(None, lead, None, split)
+        out["ssd"] = P(None, lead, split, None, None)
     return out
 
 

@@ -41,12 +41,15 @@ backwards). Attention splits its heads (``wq``/``wk``/``wv`` column,
 ``wo`` row, ``bo`` after the sum), the gated FFN its d_ff, the embedding
 its vocabulary (a masked lookup, then a sum) and the head its vocabulary
 (the logits gathered); each site's input enters through one ``copy``, so
-the parallel block's attention and FFN share one. Under ``shard`` the
-leaves that the rule table slices over ``model`` but that have no such
-site are gathered whole over ``model`` where they are used and computed
-replicated: the SSM's packed ``in_proj`` and ``out_proj``, the VLM's
-``img_proj`` (its output dim is d_model) and the attention leaves of an
-arch whose heads do not divide the axis (gemma-2b's one KV head).
+the parallel block's attention and FFN share one. Under ``shard`` a
+Mamba2 block splits its heads and conv channels over ``model`` too
+(:func:`_ssm_block`), its decode state a rank's slice. The leaves that
+the rule table slices over ``model`` but whose site is not
+tensor-parallel are gathered whole over ``model`` where they are used and
+computed replicated: the VLM's ``img_proj`` (its output dim is d_model),
+the attention leaves of an arch whose heads do not divide the axis
+(gemma-2b's one KV head) and a Mamba2 block's whose heads or channels do
+not.
 """
 
 from __future__ import annotations
@@ -335,7 +338,8 @@ def cache_dtype(cfg: ModelConfig, dtype) -> torch.dtype:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None,
                kv_heads: Optional[int] = None,
-               seq_split: Optional[SeqSplit] = None) -> DecodeCache:
+               seq_split: Optional[SeqSplit] = None,
+               ssm_parts: int = 1) -> DecodeCache:
     """KV cache ``(L, B, S, KV, hd)`` of zeros on ``device`` (CUDA unless
     ``"cpu"`` is asked for): ``S = max_len``, or the window for a ring
     cache. SSM archs: an :class:`SSMState` stacked on ``L`` instead (conv
@@ -346,7 +350,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     does (:meth:`Model.forward`). ``kv_heads`` — a tensor-parallel rank's
     local count — replaces the stored KV heads; ``seq_split`` (a
     :class:`~repro_torch.models.attention.SeqSplit`) keeps this rank's
-    slice of ``S``. Under ``kv_fp8`` a bf16
+    slice of ``S``; ``ssm_parts`` — the model ranks a tensor-parallel
+    Mamba2 block splits over — keeps one rank's ``CH / ssm_parts`` conv
+    channels and ``H / ssm_parts`` SSD heads. Under ``kv_fp8`` a bf16
     cache stores ``float8_e4m3fn`` (:func:`cache_dtype`), the conv tail
     included, as the reference types it before the KV cache."""
     dev = resolve_device(device)
@@ -354,7 +360,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     kv = ssm = None
     n_kv = cfg.num_layers
     if cfg.family in ("ssm", "hybrid"):
-        st = SSMState.init(cfg, batch, dtype=dtype, device=dev)
+        st = SSMState.init(cfg, batch, dtype=dtype, device=dev,
+                           parts=ssm_parts)
         ssm = SSMState(*(t.expand((cfg.num_layers,) + t.shape).clone()
                          for t in st))
         n_kv = (cfg.num_layers // cfg.hybrid_attn_every
@@ -608,18 +615,27 @@ def _shared_attn_block(cfg: ModelConfig, x, p, positions, kv=None,
 def _ssm_block(cfg: ModelConfig, x, p, state: Optional[SSMState] = None,
                decode: bool = False, shard=None):
     """Pre-norm Mamba2 block with a residual: (x, new_state). Under a
-    ``shard`` with a model axis the block computes replicated over
-    ``model``: its packed ``in_proj`` (whose column slices do not align
-    with z / x / B / C / dt) and ``out_proj`` are gathered whole there."""
+    ``shard`` with a model axis whose size divides the block's heads and
+    conv channels (:attr:`repro_torch.dist.sharding.Sharder.ssm_tp`) the
+    block is tensor-parallel over ``model``: the normed input enters
+    through one ``copy``, each model rank projects, convolves and scans
+    its own heads and channels (``in_proj`` gathered whole over the model
+    line, the conv output gathered once), sums the gated norm's squares
+    and its row-parallel ``out_proj`` over the line, and ``state`` is its
+    slice (:func:`repro_torch.models.ssm.mamba2_forward`). Elsewhere the
+    block computes replicated: ``in_proj`` and ``out_proj`` gathered
+    whole over ``model``, the state whole."""
+    comm = None
     if shard is not None:
         p = shard.materialize(p, ("layers",))  # the ZeRO/FSDP weight gather
-        p = shard.model_whole(p, ("layers",))
+        p, comm = shard.ssm_site(p, ("layers",))
     h = apply_norm(cfg, x, p.get("norm1"))
+    (h,) = _entered(h, comm)
     if decode:
-        out, new_state = mamba2_decode(cfg, h, p["ssm"], state)
+        out, new_state = mamba2_decode(cfg, h, p["ssm"], state, comm=comm)
     else:
         out, new_state = mamba2_forward(cfg, h, p["ssm"], shard,
-                                        initial=state)
+                                        initial=state, comm=comm)
     x = x + out
     if shard is not None:
         x = shard.hidden(x)

@@ -61,9 +61,10 @@ request) over the data line and ``model`` together: the reference's
 writes and attends its slice of the positions, and one gather a layer
 combines the slices (:mod:`repro_torch.models.attention`). A paged pool
 keeps every slot on every rank, so a layout that would split its sequence
-is refused; an SSM's state stays whole over ``model``, where its block
-computes replicated. A mesh may have a pod axis: its data line is ``pod x
-data``.
+is refused. A Mamba2 block is tensor-parallel where its heads and conv
+channels divide ``model``, and its state then holds a rank's channels and
+heads, as the reference's rule splits them. A mesh may have a pod axis:
+its data line is ``pod x data``.
 
 PyTorch runs eagerly, so the reference's ``jax.jit`` wrappers (and their
 per-width trace caches) have no counterpart; caches are written in place
@@ -159,13 +160,16 @@ def gspmd_validate(cfg: ModelConfig, mesh) -> None:
 
 class CacheLayout(NamedTuple):
     """A GSPMD rank's part of a decode cache: its ``rows`` and stored
-    ``kv_heads``, and the mesh axes its sequence is split over: ``None``
+    ``kv_heads``, the mesh axes its sequence is split over: ``None``
     (whole), ``"model"``, or ``"mesh"`` (the data line and ``model``
-    together, slice ``rank``)."""
+    together, slice ``rank``), and the slices its SSM state's conv
+    channels and heads are split into over ``model`` (``ssm_parts``; 1:
+    whole)."""
 
     rows: int
     kv_heads: int
     seq: Optional[str]
+    ssm_parts: int = 1
 
 
 def gspmd_cache_layout(cfg: ModelConfig, sharder: Sharder, batch: int,
@@ -187,10 +191,14 @@ def gspmd_cache_layout(cfg: ModelConfig, sharder: Sharder, batch: int,
     (:mod:`repro_torch.models.transformer`). A paged pool (``paged``) is
     shared by every slot, so it keeps all rows and every position, and
     its KV heads over ``model`` where the attention is tensor-parallel: a
-    layout that would split its sequence raises. An SSM state stays whole
-    over ``model``. (Under ``decode_kv_expand`` the reference may split
-    stored heads whose attention is not tensor-parallel here; the port
-    splits the sequence instead.)"""
+    layout that would split its sequence raises. An SSM state keeps its
+    rows as the KV cache does, and splits its conv channels ``(L, B, W-1,
+    CH)`` and its SSD heads ``(L, B, H, N, P)`` over ``model`` where the
+    Mamba2 block is tensor-parallel (:attr:`Sharder.ssm_tp`: both divide
+    the axis), else keeps them whole with the replicated block. (Under
+    ``decode_kv_expand`` the reference may split stored heads whose
+    attention is not tensor-parallel here; the port splits the sequence
+    instead.)"""
     n, tp = sharder.n, sharder.tp_size
     kvh = _stored_kv_heads(cfg)
     s = kv_cache_shape(cfg, 1, max_len)[1]
@@ -215,7 +223,7 @@ def gspmd_cache_layout(cfg: ModelConfig, sharder: Sharder, batch: int,
                 f"sequence over {seq!r}: serve it on the contiguous route "
                 f"(paged=False), whose cache splits its sequence")
         rows = batch
-    return CacheLayout(rows, kvh, seq)
+    return CacheLayout(rows, kvh, seq, tp if sharder.ssm_tp else 1)
 
 
 def _seq_split(sharder: Sharder, seq: Optional[str]) -> Optional[SeqSplit]:
@@ -237,7 +245,8 @@ def gspmd_cache(cfg: ModelConfig, sharder: Sharder, batch: int, max_len: int,
     lay = gspmd_cache_layout(cfg, sharder, batch, max_len)
     return init_cache(cfg, lay.rows, max_len, dtype=dtype, device=device,
                       kv_heads=lay.kv_heads,
-                      seq_split=_seq_split(sharder, lay.seq))
+                      seq_split=_seq_split(sharder, lay.seq),
+                      ssm_parts=lay.ssm_parts)
 
 
 def make_serve_step(cfg: ModelConfig, mesh=None, comm_plan=None,
@@ -304,7 +313,7 @@ def _data_rows(cache: DecodeCache, batch: int, mesh: RankMesh
     kv = cache.kv
     if isinstance(kv, KVCache):
         b = kv.k.shape[1]
-    elif kv is None and cache.ssm is not None:   # SSM: (L, B, W-1, CH)
+    elif kv is None and cache.ssm is not None:   # SSM: (L, B, W-1, CH/n)
         b = cache.ssm.conv.shape[1]
     else:                                        # a paged pool
         return None

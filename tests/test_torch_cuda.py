@@ -1019,6 +1019,45 @@ def test_ssd_op_backward_launches_the_kernel_once(cuda_device, monkeypatch):
         _ssd_bwd_close(a, w)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [12, 24])
+def test_ssd_kernels_at_a_model_ranks_heads(cuda_device, dtype, heads):
+    """A tensor-parallel Mamba2 block's scan on one model rank: mamba2-780m
+    splits its 48 heads of 64 over model 4 (12) and 2 (24). The rank's
+    heads are cut out of the gathered conv output as the block cuts them
+    (x a contiguous copy of rank 1's channels, B and C views of the
+    whole), then the forward and the backward run against their plain
+    versions; in bf16 the backward takes the tensor-core route."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, p, g, n, chunk, whole, r = 2, 512, 64, 1, 128, 256, 48, 1
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    xbc = torch.randn((b, s, whole * p + 2 * g * n), generator=gen,
+                      device=cuda_device).to(dtype)
+    x = xbc[..., r * heads * p:(r + 1) * heads * p].contiguous().reshape(
+        b, s, heads, p)
+    B = xbc[..., whole * p:whole * p + g * n].reshape(b, s, g, n)
+    C = xbc[..., whole * p + g * n:].reshape(b, s, g, n)
+    dt = 1e-3 + 0.099 * torch.rand((b, s, heads), generator=gen,
+                                   device=cuda_device)
+    A = -1.0 - 15.0 * torch.rand((heads,), generator=gen, device=cuda_device)
+    cum = (dt * A).reshape(b, s // chunk, chunk, heads).cumsum(2).reshape(
+        b, s, heads)
+    n0 = ssd_scan.ssd_chunk.launches
+    y, st = ssd_scan.ssd_chunk(x, dt, cum, B, C, chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.ssd_chunk.launches == n0 + 1
+    wy, wst = ssd_scan.ssd_chunk_plain(x, dt, cum, B, C, chunk)
+    _ssd_close(y, wy)
+    _ssd_close(st, wst)
+    dy, dst = _ssd_grads(cuda_device, b, s, heads, p, n, chunk)
+    want = "tc" if dtype == torch.bfloat16 else "ffma"
+    assert ssd_scan.bwd_route(x, B, C, dy, dst, chunk) == want
+    tc0 = ssd_scan.ssd_chunk_bwd.tc_launches
+    _ssd_bwd_check(x, dt, cum, B, C, dy, dst, chunk)
+    assert ssd_scan.ssd_chunk_bwd.tc_launches - tc0 == \
+        (2 if want == "tc" else 0)
+
+
 def test_ssd_bwd_kernel_rejects_what_it_cannot_take(cuda_device):
     x, dt, cum, B, C = _ssd_inputs(cuda_device, torch.float32, 1, 64, 2, 8,
                                    1, 200, 32)

@@ -218,10 +218,11 @@ def test_cache_slices_on_production_meshes_equal_reference_specs(arch):
     """Every decode and prefill cache of ``arch`` on ``32x8`` and
     ``2x32x8``, on the meta device: the port's layout
     (``gspmd_cache_layout``) gives the reference's ``cache_shardings``
-    spec of the KV cache (``reference_cache_specs``: KV heads over model,
+    spec of every leaf (``reference_cache_specs``: KV heads over model,
     else the sequence over model, and a batch too small for the data line
-    the sequence over every axis), and a rank's cache has the slice shape
-    that spec gives. Only an SSM state's split over model differs."""
+    the sequence over every axis; an SSM state's conv channels and SSD
+    heads over model), and a rank's cache has the slice shape that spec
+    gives, its KV cache, conv tail and SSD state alike."""
     from repro_torch.models.transformer import init_cache
     for multi_pod in (False, True):
         m = tmesh.make_production_mesh(multi_pod=multi_pod)
@@ -230,17 +231,20 @@ def test_cache_slices_on_production_meshes_equal_reference_specs(arch):
                 continue
             cfg = config_for_shape(arch, shape)
             lay = inputs.cache_layout(cfg, sh, m)
-            assert lay["differs"] == (["conv", "ssd"] if cfg.ssm is not None
-                                      else []), (shape, lay)
+            assert lay["differs"] == [], (shape, lay)
             ref = inputs.reference_cache_specs(cfg, sh, m)
-            if "kv" not in ref:
-                continue
             whole = init_cache(cfg, sh.global_batch, sh.seq_len,
-                               device="meta").kv.k.shape
-            want = _ref_slice_shape(ref["kv"], whole, m.shape)
+                               device="meta")
+            leaves = {"kv": lambda c: c.kv.k, "conv": lambda c: c.ssm.conv,
+                      "ssd": lambda c: c.ssm.ssd}
+            assert set(ref) <= set(leaves) and ref, (shape, ref)
             for rank in (0, m.size - 1):
-                got = inputs.cache_struct(cfg, sh, m, rank=rank).kv.k.shape
-                assert tuple(got) == want, (shape, multi_pod, rank, ref)
+                got = inputs.cache_struct(cfg, sh, m, rank=rank)
+                for leaf, spec in ref.items():
+                    want = _ref_slice_shape(spec, leaves[leaf](whole).shape,
+                                            m.shape)
+                    assert tuple(leaves[leaf](got).shape) == want, (
+                        shape, multi_pod, rank, leaf, spec)
 
 
 def test_dryrun_gemma_decode_row_splits_the_sequence(tmp_path, capsys):

@@ -34,7 +34,8 @@ replicated, ZeRO-1 and FSDP states of ``ckpt.npz`` and restore them on
 another count of ranks (``tests/test_torch_checkpoint.py``);
 ``model_axis`` trains each ``axis_<case>.npz`` on a ``(ranks // 2) x 2``
 ``data x model`` mesh in both comm modes, checkpoints, restores and
-serves through the GSPMD route (``tests/test_torch_model_axis.py``).
+serves through the GSPMD route, the tensor-parallel Mamba2 block on
+``2 x 2`` and ``1 x 4`` among it (``tests/test_torch_model_axis.py``).
 """
 
 import faulthandler
@@ -685,18 +686,19 @@ def axis_split_requests(case, cfg):
             for plen in (20, 20, 12, 12)]
 
 
-def axis_split_logits(case, cfg, params, mesh=None, steps=4):
-    """f32 logits of a split case's model, straight through ``Model``: a
-    prefill of the case's batch of 10-token prompts (its rows whole on
-    every rank: data 1, or one row) and ``steps`` greedy decode steps,
-    into the GSPMD route's cache on ``mesh``, or the whole cache."""
+def axis_logits(cfg, params, b, mesh=None, steps=4):
+    """f32 logits of a case's model straight through ``Model``: a prefill
+    of ``b`` rows of 10-token prompts and ``steps`` greedy decode steps,
+    into the GSPMD route's cache on ``mesh`` (this rank's rows, where they
+    split over data), or the whole cache on one rank. ``(logits, the
+    rank's first row, the collectives of the last decode step)``."""
     from repro_torch.dist.sharding import Sharder
     from repro_torch.models.transformer import Model, init_cache
-    from repro_torch.serve.engine import gspmd_cache
-    b = min(2, AXIS_SPLIT[case][2])
+    from repro_torch.serve.engine import _data_rows, gspmd_cache
     rng = np.random.default_rng(10)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 10),
                                            dtype=np.int32))
+    shard, rows = None, None
     if mesh is None:
         model = Model(cfg)
         cache = init_cache(cfg, b, 48, dtype=torch.float32, device="cpu")
@@ -705,16 +707,29 @@ def axis_split_logits(case, cfg, params, mesh=None, steps=4):
         model = Model(cfg, shard)
         cache = gspmd_cache(cfg, shard, b, 48, dtype=torch.float32,
                             device="cpu")
-    out = []
+        rows = _data_rows(cache, b, mesh)
+        tokens = tokens if rows is None else tokens[rows]
+    out, step = [], {}
     with torch.inference_mode():
         logits, _, cache = model.forward(params, {"tokens": tokens},
                                          cache=cache)
         out.append(logits[:, -1:])
         for _ in range(steps):
             nxt = out[-1].argmax(-1).to(torch.int32)
+            before = {} if shard is None else dict(shard.tally)
             logits, cache = model.decode_step(params, nxt, cache)
+            if shard is not None:
+                step = {k: v - before[k] for k, v in shard.tally.items()
+                        if v != before.get(k, 0)}
             out.append(logits)
-    return torch.cat(out, 1).numpy()
+    first = 0 if rows is None else rows.start
+    return torch.cat(out, 1).numpy(), first, step
+
+
+def axis_split_rows(case):
+    """The rows of a split case's logits: its engine batch, at most 2
+    (one row: data 1, or a batch of one)."""
+    return min(2, AXIS_SPLIT[case][2])
 
 
 def _axis_split(rank, out_dir):
@@ -752,8 +767,57 @@ def _axis_split(rank, out_dir):
         if case in AXIS_SPLIT_LOGITS:
             np.save(os.path.join(out_dir, f"axis_split_{case.replace(' ', '_')}"
                                           f"_r{rank}.npy"),
-                    axis_split_logits(case, cfg, params, mesh))
+                    axis_logits(cfg, params, axis_split_rows(case), mesh)[0])
     with open(os.path.join(out_dir, f"axis_split_r{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+# the GSPMD route's tensor-parallel Mamba2 block: case -> (arch, mesh (data,
+# model)); the smoke archs' 16 heads and 544 conv channels split over model
+# 2 and 4 (zamba2's two KV heads do not divide 4: on 1 x 4 its shared
+# attention computes replicated and its cache splits the sequence)
+AXIS_SSM = {"mamba2 2x2": ("mamba2-780m-smoke", (2, 2)),
+            "mamba2 1x4": ("mamba2-780m-smoke", (1, 4)),
+            "zamba2 2x2": ("zamba2-7b-smoke", (2, 2)),
+            "zamba2 1x4": ("zamba2-7b-smoke", (1, 4))}
+
+
+def _axis_ssm(rank, out_dir):
+    """The SSM cases on the world's ranks: each engine's tokens, cache
+    bytes and its caches' local state shapes, then the f32 logits of 2
+    rows and a decode step's collectives (:func:`axis_logits`)."""
+    import json
+    from repro_torch.core.collectives import RankMesh
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import Sharder
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import ServeEngine
+    out = {}
+    for case, (arch, dims) in AXIS_SSM.items():
+        cfg = get_config(arch)
+        mesh = RankMesh(*dims)
+        params = Sharder(mesh, cfg, rank=rank).shard_params(
+            init_params(cfg, 0, device="cpu"))
+        eng = ServeEngine(cfg, params, max_len=48, device="cpu", mesh=mesh,
+                          batch_size=4)
+        shapes = []
+
+        def new_cache(b, n, make=eng._new_cache):
+            cache = make(b, n)
+            shapes.append([list(cache.ssm.conv.shape),
+                           list(cache.ssm.ssd.shape)])
+            return cache
+
+        eng._new_cache = new_cache
+        reqs = axis_serve_requests(cfg)
+        eng.generate(reqs)
+        logits, first, step = axis_logits(cfg, params, 2, mesh)
+        np.save(os.path.join(out_dir, f"axis_ssm_{case.replace(' ', '_')}"
+                                      f"_r{rank}.npy"), logits)
+        out[case] = dict(tokens=[r.generated.tolist() for r in reqs],
+                         bytes=eng.cache_bytes_resident, shapes=shapes,
+                         first=first, step=step)
+    with open(os.path.join(out_dir, f"axis_ssm_r{rank}.json"), "w") as f:
         json.dump(out, f)
 
 
@@ -919,6 +983,7 @@ def check_model_axis(rank: int, n: int, out_dir: str) -> None:
                shard=step.sharder())
     _axis_serve(rank, mesh, out_dir)
     _axis_split(rank, out_dir)
+    _axis_ssm(rank, out_dir)
 
 
 CHECKS = {"reduce": check_reduce, "train": check_train,
