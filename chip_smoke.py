@@ -493,6 +493,21 @@ Phases, each a check that exits non-zero when it fails:
    bf16 ulp of a moment a step). ``init_params`` draws a bf16 leaf of
    more than 2^28 elements in pieces (``models/layers.py``): drawn as one
    float32 tensor a leaf, command-r-35b's init does not fit the card.
+19. the examples (``examples_torch/``) on the card, each kernel's count
+   zeroed just before and read just after: (a) ``train_e2e.py`` at its
+   full size (``olmo-100m``: 12 layers, d 768, f32, ``remat="none"``; vci
+   buckets, ``pack="pallas"``), 200 steps of 8 x 256 and its checkpoint:
+   ce at step 200 below step 1's, flash L a step, the packs and one
+   unpack a step; ce first -> last, tok/s, peak memory, checkpoint
+   bytes; (b) ``quickstart.py`` (gemma-2b-smoke, 30 steps, then 4
+   requests of 12 tokens) and (c) ``serve_batch.py`` (the smoke archs of
+   yi-9b, mamba2-780m, zamba2-7b and musicgen-large), every request its
+   tokens, flash (and SSD for the SSM and hybrid) launched; (d) the
+   paper's applications as a user runs them, on spawned gloo ranks that
+   share the card (``EXAMPLE_APPS``): the stencil on 4 ranks, EBMS and
+   BSPMM on 8; each must print ``OK``, its error within the example's
+   tolerance, its host staging copies, its collective count and critical
+   depth at the values the CPU tests hold, and its seconds.
 
 It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Without CUDA, or without the package beside it, it fails and prints no
@@ -649,6 +664,10 @@ SSD_BWD_CASES = (
 # what a phase 13 may find still allocated when it starts (a leaked
 # autograd graph once left 35 GB behind)
 FRESH_MAX_BYTES = 4 << 30
+# phase 19: the paper's applications, (script, ranks, timeout s)
+EXAMPLE_APPS = (("stencil_halo", 4, 300), ("ebms_bands", 8, 300),
+                ("bspmm_accumulate", 8, 300))
+E2E_STEPS = 200
 # phase 7: TP ranks sharing the one card, spawned once
 # (olmo-1b at num_vcis 8 only: the one-VCI fallback is checked on a smoke
 # case, which saves two full-width decode runs of ~25 s each)
@@ -5754,6 +5773,177 @@ def phase_smoke_train() -> None:
     _fresh("18, done")
 
 
+def _example(name: str):
+    """``examples_torch/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", os.path.join(HERE, "examples_torch",
+                                               f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _example_counts(reset: bool = False) -> dict:
+    """The launch counts of the kernels the examples' paths run (zeroed
+    with ``reset``)."""
+    from repro_torch.kernels.bucket_pack import bucket_pack, bucket_unpack
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_kv import paged_gather
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_bwd
+    kernels = {"bucket_pack": bucket_pack, "bucket_unpack": bucket_unpack,
+               "flash_attention": flash_attention,
+               "paged_gather": paged_gather, "ssd_chunk": ssd_chunk,
+               "ssd_chunk_bwd": ssd_chunk_bwd}
+    if reset:
+        for fn in kernels.values():
+            fn.launches = 0
+    return {k: fn.launches for k, fn in kernels.items()}
+
+
+def phase_examples_train() -> dict:
+    """19a: ``train_e2e.py`` at its full size."""
+    import torch
+    from repro_torch.core import get_comm_plan
+    _fresh("19a")
+    e2e = _example("train_e2e")
+    cfg = e2e.config_100m()
+    import tempfile
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_e2e_")
+    _example_counts(reset=True)
+    t0 = time.time()
+    try:
+        res = e2e.train(cfg, torch.device("cuda"), steps=E2E_STEPS, batch=8,
+                        seq=256, ckpt_dir=ckpt,
+                        log=lambda m: print(f"19a {m}", flush=True))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    seconds = time.time() - t0
+    counts = _example_counts()
+    n_buckets = get_comm_plan(res["state"].params, num_streams=8,
+                              num_vcis=8, pack="pallas").plan.num_buckets
+    ces = res["ce"]
+    check(all(math.isfinite(c) for c in ces), f"19a: ce {ces}")
+    check(ces[-1] < ces[0], f"19a: ce at step {E2E_STEPS} {ces[-1]} not "
+          f"below step 1's {ces[0]}")
+    want = {"bucket_pack": n_buckets * E2E_STEPS,
+            "bucket_unpack": E2E_STEPS,
+            "flash_attention": cfg.num_layers * E2E_STEPS,
+            "paged_gather": 0, "ssd_chunk": 0, "ssd_chunk_bwd": 0}
+    check(counts == want, f"19a: launched {counts}, want {want}")
+    out = dict(ce_first=ces[0], ce_last=ces[-1], tok_s=res["tok_s"],
+               peak=res["peak_bytes"], ckpt_bytes=res["ckpt_bytes"],
+               seconds=seconds, counts=counts,
+               params=cfg.param_count())
+    print(f"19a train_e2e {cfg.name} ({cfg.param_count() / 1e6:.1f}M "
+          f"params, f32, remat none): {E2E_STEPS} steps x 8 x 256, ce "
+          f"{ces[0]:.4f} -> {ces[-1]:.4f}, tok/s {res['tok_s']:.1f}, "
+          f"max_memory_allocated {res['peak_bytes']} B, checkpoint "
+          f"{res['ckpt_bytes']} B, {seconds:.1f}s; launches {counts} "
+          f"({n_buckets} buckets)", flush=True)
+    del res
+    _fresh("19a, done")
+    return out
+
+
+def phase_examples_one_rank() -> dict:
+    """19b-c: ``quickstart.py`` and ``serve_batch.py``."""
+    import torch
+    cuda = torch.device("cuda")
+    say = lambda m: print(f"19 {m}", flush=True)  # noqa: E731
+    _example_counts(reset=True)
+    t0 = time.time()
+    res = _example("quickstart").quickstart(cuda, log=say)
+    losses = res["losses"]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"19b: quickstart losses {losses}")
+    check([r.generated.shape for r in res["requests"]] == [(12,)] * 4,
+          "19b: quickstart did not serve 4 x 12 tokens")
+    quick = dict(counts=_example_counts(), seconds=time.time() - t0,
+                 loss_first=losses[0], loss_last=losses[-1])
+    check(quick["counts"]["flash_attention"] > 0,
+          f"19b: quickstart launched {quick['counts']}")
+    print(f"19b quickstart: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"{quick['seconds']:.1f}s, launches {quick['counts']}",
+          flush=True)
+    sb = _example("serve_batch")
+    served = {}
+    for arch in sb.ARCHS:
+        _example_counts(reset=True)
+        t0 = time.time()
+        done = sb.demo(arch, cuda, log=say)
+        k = 4 if arch == "musicgen-large" else 1
+        check(sb.tokens_of(done) == 4 * 16 * k,
+              f"19c {arch}: {sb.tokens_of(done)} tokens")
+        counts = _example_counts()
+        ssm = arch in ("mamba2-780m", "zamba2-7b")
+        check(counts["ssd_chunk"] > 0 if ssm else counts["ssd_chunk"] == 0,
+              f"19c {arch}: launched {counts}")
+        check(counts["flash_attention"] > 0 or arch == "mamba2-780m",
+              f"19c {arch}: launched {counts}")
+        served[arch] = dict(counts=counts, seconds=time.time() - t0)
+    print(f"19c serve_batch: {json.dumps(served)}", flush=True)
+    _fresh("19c, done")
+    return {"quickstart": quick, "serve": served}
+
+
+def phase_examples_apps() -> dict:
+    """19d: the paper's applications on spawned gloo ranks sharing the
+    card, each run as a user runs it."""
+    import tempfile
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(HERE, "src") + os.pathsep + \
+        env.get("PYTHONPATH", "")
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_apps_")
+    try:
+        for name, ranks, limit in EXAMPLE_APPS:
+            path = os.path.join(tmp, f"{name}.json")
+            t0 = time.time()
+            r = subprocess.run(
+                [sys.executable, os.path.join(HERE, "examples_torch",
+                                              f"{name}.py"),
+                 "--ranks", str(ranks), "--json", path],
+                capture_output=True, text=True, timeout=limit, env=env)
+            wall = time.time() - t0
+            for ln in r.stdout.strip().splitlines():
+                print(f"19d {name}: {ln}", flush=True)
+            check(r.returncode == 0 and "\nOK" in "\n" + r.stdout,
+                  f"19d {name} failed ({r.returncode}): "
+                  f"{r.stderr[-3000:]}")
+            with open(path) as f:
+                out[name] = json.load(f)
+            out[name + " wall"] = wall
+            print(f"19d {name}: {ranks} ranks, {wall:.1f}s wall (spawn "
+                  f"included)", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    st = out["stencil_halo"]
+    steps = st["steps"]
+    check(st["err"] < 1e-4 and st["copies"] == 8 * steps
+          and (st["collective_count"], st["critical_depth"])
+          == (4 * steps, steps), f"19d stencil: {st}")
+    for res in out["ebms_bands"]:
+        check(res["err"] == 0 and res["copies"] == 8
+              and (res["collective_count"], res["critical_depth"]) == (4, 1),
+              f"19d ebms: {res}")
+    bs = out["bspmm_accumulate"]
+    for ordering, depth in (("rar", 6), ("none", 3)):
+        d = bs[ordering]
+        check(d["copies"] == 24 and d["err"] <= 1e-5 * bs["scale"]
+              and (d["collective_count"], d["critical_depth"])
+              == (12, depth), f"19d bspmm {ordering}: {d}")
+    return out
+
+
+def phase_examples() -> dict:
+    """Phase 19 (see the docstring)."""
+    out = {"train_e2e": phase_examples_train()}
+    out.update(phase_examples_one_rank())
+    out["apps"] = phase_examples_apps()
+    return out
+
+
 def _table_bytes() -> int:
     """The page table of phase 5's paged cache: ``BATCH`` rows of
     ``MAX_LEN / PAGE_SIZE`` int32 entries."""
@@ -5842,6 +6032,9 @@ def main() -> None:
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
+    ex = timed(phase_examples)
+    ex_counts = [ex["train_e2e"]["counts"], ex["quickstart"]["counts"]] + \
+        [r["counts"] for r in ex["serve"].values()]
     print(f"phase seconds: {json.dumps(took)}", flush=True)
     trained = [moe_train, ssm_train, hyb_train] + list(mm_train.values()) \
         + [archs[k] for k in ("gemma train", "command-r train", "yi train")]
@@ -5856,7 +6049,8 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/paged_gather.cu",
         "replaces": "src/repro/kernels/paged_kv.py:42",
         "launches": runs["paged"]["launches"] + moe_runs["paged"]["launches"]
-        + tp["gather"] + fp8["launches"] + sum(r["gather"] for r in served),
+        + tp["gather"] + fp8["launches"] + sum(r["gather"] for r in served)
+        + sum(c["paged_gather"] for c in ex_counts),
         "max_abs_err": max(k["max_abs_err"] for k in kern.values()),
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -5884,10 +6078,11 @@ def main() -> None:
         ("bucket_pack", 83, train["launches"][0]
          + zero1["zero1/post"]["packs"] + ranks["packs"]
          + sum(r["counts"]["bucket_pack"] for r in trained)
-         + gspmd_ranks["packs"]),
+         + gspmd_ranks["packs"] + sum(c["bucket_pack"] for c in ex_counts)),
         ("bucket_unpack", 110, train["launches"][1]
          + sum(r["counts"]["bucket_unpack"] for r in trained)
-         + gspmd_ranks["unpacks"]))] + [{
+         + gspmd_ranks["unpacks"]
+         + sum(c["bucket_unpack"] for c in ex_counts)))] + [{
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -5901,7 +6096,8 @@ def main() -> None:
         + gspmd["flash"] + gspmd_ranks["flash"] + fp8["flash"]
         + sum(r["flash"] for r in served) + grad["flash"]
         + sum(archs[k]["gspmd"]["flash"] for k in
-              ("gemma train", "command-r train", "yi train")),
+              ("gemma train", "command-r train", "yi train"))
+        + sum(c["flash_attention"] for c in ex_counts),
         "max_abs_err": flash["max_abs_err"],
         "ms": flash["a"]["ms"],
         "plain_ms": flash["a"]["plain_ms"],
@@ -5952,7 +6148,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/ssd_scan.py:56",
         "launches": ssm_launches + hyb["ssd"] + tp["ssd"]
         + sum(r["counts"]["ssd_chunk"] for r in trained)
-        + gspmd_ranks["ssd"],
+        + gspmd_ranks["ssd"] + sum(c["ssd_chunk"] for c in ex_counts),
         "max_abs_err": ssd["max_abs_err"],
         "ms": ssd["serve"]["ms"],
         "plain_ms": ssd["serve"]["plain_ms"],
@@ -5975,7 +6171,7 @@ def main() -> None:
         "replaces": None,
         "backward_of": "src/repro/kernels/ssd_scan.py:56",
         "launches": sum(r["counts"]["ssd_chunk_bwd"] for r in trained)
-        + gspmd_ranks["ssd_bwd"],
+        + gspmd_ranks["ssd_bwd"] + sum(c["ssd_chunk_bwd"] for c in ex_counts),
         "max_abs_err": ssd_bwd["max_abs_err"],
         "ms": ssd_bwd["mamba2-780m train"]["ms"],
         "ffma_ms": ssd_bwd["mamba2-780m train"]["ffma_ms"],

@@ -239,16 +239,19 @@ class CommRuntime:
         return self.size if axis is None else self.mesh.shape[axis]
 
     # -- plumbing ------------------------------------------------------
-    def _issue(self, ctx: CommContext, value: torch.Tensor, op,
-               axis: Optional[str] = None, finish=None, *,
-               chain: bool = True) -> Request:
+    def _issue(self, ctx: CommContext, src: torch.Tensor,
+               value: torch.Tensor, op, axis: Optional[str] = None,
+               finish=None, *, chain: bool = True) -> Request:
+        """Issue ``op`` (reading ``src``, its result in ``value``) on the
+        context's VCI stream."""
         vci = ctx.vci.index
         group = vci_group(vci, self.world.pool.num_vcis,
                           axis or self.data_axis, self.mesh)
         if chain:
             self.engine.enter(vci)
         pending = Pending(op(group))
-        self.engine.complete(vci, pending, chained=chain)
+        self.engine.complete(vci, pending, chained=chain, reads=(src,),
+                             writes=(value,))
         return Request(value, ctx, pending, finish)
 
     def _axis_rank(self, axis: Optional[str]) -> int:
@@ -300,7 +303,7 @@ class CommRuntime:
                 out.copy_(x)
             return dist.batch_isend_irecv(ops) if ops else None
 
-        return self._issue(ctx, out, op, axis, chain=chain)
+        return self._issue(ctx, x, out, op, axis, chain=chain)
 
     def wait(self, req: Request) -> torch.Tensor:
         """MPI_Wait: the operation's result, ordered after it completes."""
@@ -311,7 +314,7 @@ class CommRuntime:
     def all_reduce(self, x: torch.Tensor, ctx: CommContext, *,
                    axis: Optional[str] = None) -> Request:
         """Sum over the group along ``axis``, IN PLACE on ``x``."""
-        return self._issue(ctx, x, lambda g: dist.all_reduce(
+        return self._issue(ctx, x, x, lambda g: dist.all_reduce(
             x, group=g, async_op=True), axis)
 
     def reduce_scatter(self, x: torch.Tensor, ctx: CommContext, *,
@@ -325,7 +328,7 @@ class CommRuntime:
                              f"{n} ranks")
         if out is None:
             out = torch.empty(x.numel() // n, dtype=x.dtype, device=x.device)
-        return self._issue(ctx, out, lambda g: _reduce_scatter(
+        return self._issue(ctx, x, out, lambda g: _reduce_scatter(
             out, x.reshape(-1), group=g, async_op=True))
 
     def all_gather(self, x: torch.Tensor, ctx: CommContext, *,
@@ -337,7 +340,7 @@ class CommRuntime:
             out = torch.empty(x.numel() * self.axis_size(axis),
                               dtype=x.dtype, device=x.device)
         flat = x.reshape(-1)
-        return self._issue(ctx, out, lambda g: _all_gather(
+        return self._issue(ctx, x, out, lambda g: _all_gather(
             out, flat, group=g, async_op=True), axis)
 
     def all_to_all(self, x: torch.Tensor, ctx: CommContext, *,
@@ -361,8 +364,10 @@ class CommRuntime:
             return torch.cat([p.movedim(0, split_axis) for p in parts],
                              dim=concat_axis)
 
-        return self._issue(ctx, recv, lambda g: dist.all_to_all_single(
-            recv, send, group=g, async_op=True), axis, blocks)
+        return self._issue(ctx, send, recv,
+                           lambda g: dist.all_to_all_single(
+                               recv, send, group=g, async_op=True),
+                           axis, blocks)
 
     # -- two-sided (communicator) ops ------------------------------------
     def isend_recv(self, x: torch.Tensor, ctx: CommContext, *,
@@ -409,7 +414,7 @@ class CommRuntime:
         if ctx.kind != "rma":
             raise ValueError("accumulate() requires an rma context (window)")
         buf = x.clone()
-        return self._issue(ctx, buf, lambda g: dist.all_reduce(
+        return self._issue(ctx, x, buf, lambda g: dist.all_reduce(
             buf, group=g, async_op=True), axis,
             chain=ctx.accumulate_ordering != "none")
 

@@ -27,12 +27,18 @@ conformance tests compare them.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence
 
 PROGRESS_MODES = ("global", "per_vci", "hybrid")
 TOKEN_IMPLS = ("barrier", "data")
 
 GLOBAL_STREAM = -1  # stream key used by the `global` mode
+
+# The recorders whose ``with`` block is open
+# (:class:`repro_torch.launch.roofline.CollectiveDepth`): every engine
+# tells each of them what it orders. Empty outside those blocks, where an
+# issue pays only the loop over an empty list.
+RECORDERS: List[Any] = []
 
 
 class Pending:
@@ -93,12 +99,17 @@ class ProgressEngine:
             last.wait()
 
     def complete(self, vci_index: int, op: Pending, *,
-                 chained: bool = True) -> None:
+                 chained: bool = True, reads: Sequence[Any] = (),
+                 writes: Sequence[Any] = ()) -> None:
         """Record ``op`` as the stream's last operation (lock release). An
         op issued without :meth:`enter` (``chained=False``) joins the
         stream's earlier last operation instead of replacing it, as the
-        reference's token after an un-chained op depends on both."""
+        reference's token after an un-chained op depends on both.
+        ``reads`` and ``writes`` (the op's input and result tensors) are
+        for the recorders alone."""
         key = self._key(vci_index)
+        for rec in RECORDERS:
+            rec.complete(self, key, chained, reads, writes)
         last = self._last.get(key)
         self._last[key] = op if chained or last is None else \
             Pending([last, op])
@@ -112,6 +123,8 @@ class ProgressEngine:
         global-progress round)."""
         for k in sorted(self._last):
             self._last[k].wait()
+        for rec in RECORDERS:
+            rec.join(self)
         self._issued_since_join = 0
         self.joins += 1
 

@@ -31,14 +31,25 @@ collective a rank's step issues (its op, its line, its payload) and
 all-reduce 2(n-1)/n x the buffer, all-gather (n-1) x the shard (that is
 (n-1)/n x the gathered buffer), reduce-scatter and all-to-all (n-1)/n x
 the buffer, permute 1x.
+
+:class:`CollectiveDepth` is the port's ``collective_critical_depth``: the
+reference reads the longest chain of collectives from the HLO's def-use
+graph, the port records the issue graph of an eager run.
 """
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional, Sequence
+
+import torch
+from torch.overrides import TorchFunctionMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.core import progress
 
 # one H100 SXM card and its node (see the module doc for the sources)
 PEAK_FLOPS = 989e12        # bf16 FLOP/s a card
@@ -99,6 +110,125 @@ def collective_summary(ops: List[CollectiveOp]
             d["link_bytes"] += op.link_bytes
     out["_by_line"] = lines
     return out
+
+
+class _DepthMode(TorchFunctionMode):
+    """Carries a depth through every torch op: an output's depth is the
+    largest of its inputs' (kept in ``depths``; a tensor not in it has
+    depth 0)."""
+
+    def __init__(self, depths: WeakTensorKeyDictionary):
+        super().__init__()
+        self.depths = depths
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        d = max((self.depths.get(t, 0) for t in tree_leaves((args, kwargs))
+                 if isinstance(t, torch.Tensor)), default=0)
+        if d:
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor) and self.depths.get(t, 0) < d:
+                    self.depths[t] = d
+        return out
+
+
+class CollectiveDepth(Mapping):
+    """Longest dependency chain of the collectives issued inside a ``with``
+    block: the port's counterpart of the reference's
+    ``collective_critical_depth`` (``repro/launch/roofline.py``), with its
+    definition and its keys. The reference reads the def-use graph of the
+    compiled HLO; an eager step has none, so this records the issue graph
+    as the step runs::
+
+        with CollectiveDepth() as d:
+            step()
+        d["critical_depth"], dict(d)
+
+    An issued op's depth is one more than the largest among
+
+    * its ordering predecessor, from the progress engine
+      (:mod:`repro_torch.core.progress`): a chained issue (``enter``)
+      follows its stream's last op; an un-chained one (``complete(
+      chained=False)``) follows none and joins that op; a global round
+      (``global_round``, so every hybrid round, ``drain`` and
+      ``barrier``) leaves each stream's last op at the depth of the
+      deepest;
+    * its input: a tensor's depth is that of the op whose result it came
+      from, through any torch ops (an output takes the largest of its
+      inputs' depths).
+
+    ``collective_count`` is the number of ops issued, ``critical_depth``
+    the largest depth, ``parallelism`` their ratio (1.0 at depth 0): the
+    speed-up an ideal network could take from this schedule. A global
+    critical section chains every op (depth == count).
+
+    Only the block pays: the engine tells the open recorders what it
+    orders, and the block's :class:`~torch.overrides.TorchFunctionMode`
+    carries the depths through the torch ops run inside it."""
+
+    def __init__(self):
+        self.collective_count = 0
+        self.critical_depth = 0
+        self._depths = WeakTensorKeyDictionary()
+        self._streams: Dict[int, Dict[int, int]] = {}
+        self._engines: List[object] = []   # keeps the ids in _streams live
+        self._mode: Optional[_DepthMode] = None
+
+    def __enter__(self) -> "CollectiveDepth":
+        self._mode = _DepthMode(self._depths)
+        self._mode.__enter__()
+        progress.RECORDERS.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        progress.RECORDERS.remove(self)
+        self._mode.__exit__(*exc)
+        self._mode = None
+
+    def depth_of(self, t: torch.Tensor) -> int:
+        """The depth of the collective ``t`` came from (0: none)."""
+        return self._depths.get(t, 0)
+
+    def _stream(self, engine) -> Dict[int, int]:
+        if id(engine) not in self._streams:
+            self._engines.append(engine)
+            self._streams[id(engine)] = {}
+        return self._streams[id(engine)]
+
+    # -- told by ProgressEngine --------------------------------------------
+    def complete(self, engine, key: int, chained: bool,
+                 reads: Sequence[torch.Tensor],
+                 writes: Sequence[torch.Tensor]) -> None:
+        last = self._stream(engine)
+        d = 1 + max([last.get(key, 0) if chained else 0]
+                    + [self.depth_of(t) for t in reads])
+        last[key] = d if chained else max(last.get(key, 0), d)
+        for t in writes:
+            self._depths[t] = d
+        self.collective_count += 1
+        self.critical_depth = max(self.critical_depth, d)
+
+    def join(self, engine) -> None:
+        last = self._stream(engine)
+        deepest = max(last.values(), default=0)
+        for k in last:
+            last[k] = deepest
+
+    # -- the reference's dict ----------------------------------------------
+    def _summary(self) -> Dict[str, float]:
+        n, d = self.collective_count, self.critical_depth
+        return {"collective_count": n, "critical_depth": d,
+                "parallelism": n / d if d else 1.0}
+
+    def __getitem__(self, key: str) -> float:
+        return self._summary()[key]
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._summary())
+
+    def __len__(self) -> int:
+        return 3
 
 
 # ---------------------------------------------------------------------------

@@ -81,7 +81,7 @@ import os
 import shutil
 import tempfile
 import time
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
@@ -90,6 +90,7 @@ import torch.distributed as dist
 from repro_torch.configs import get_config
 from repro_torch.core.collectives import RankMesh
 from repro_torch.device import resolve_device
+from repro_torch.launch.ranks import join_ranks
 from repro_torch.models.transformer import init_params
 from repro_torch.serve.comm import (
     ServeCommPlan,
@@ -97,31 +98,6 @@ from repro_torch.serve.comm import (
     serve_tp_validate,
 )
 from repro_torch.serve.engine import Request, ServeEngine, check_servable
-
-
-def join_ranks(rank: int, world: int, device_type: str,
-               store_path: Optional[str] = None
-               ) -> Tuple[torch.device, str, str]:
-    """Join the default group as ``rank`` of ``world`` (a ``FileStore`` at
-    ``store_path``, else ``torchrun``'s environment) on the backend the
-    layout asks for: gloo on the CPU, NCCL with a card a rank of this
-    host, gloo when ranks share a card. Returns (device, backend, why)."""
-    local_rank = int(os.environ.get("LOCAL_RANK", rank))
-    local_ranks = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-    device, backend, why = torch.device("cpu"), "gloo", "CPU ranks"
-    if device_type == "cuda":
-        cards = torch.cuda.device_count()
-        device = torch.device("cuda", local_rank % cards)
-        torch.cuda.set_device(device)
-        if cards >= local_ranks:
-            backend, why = "nccl", f"{local_ranks} rank(s), a card each"
-        else:
-            why = (f"{local_ranks} ranks share {cards} card(s); NCCL "
-                   f"refuses two ranks on one device")
-    store = None if store_path is None else dist.FileStore(store_path, world)
-    dist.init_process_group(backend, store=store, rank=rank,
-                            world_size=world)
-    return device, backend, why
 
 
 def _parse(argv=None) -> argparse.Namespace:

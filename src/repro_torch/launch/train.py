@@ -35,9 +35,6 @@ states as whole leaves).
 from __future__ import annotations
 
 import argparse
-import os
-import shutil
-import tempfile
 import time
 from typing import Optional
 
@@ -49,6 +46,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.collectives import RankMesh
 from repro_torch.data.pipeline import synthetic_batch
 from repro_torch.device import resolve_device
+from repro_torch.launch.ranks import local_group, spawn_ranks
 from repro_torch.optim.schedule import cosine_schedule
 from repro_torch.train.trainer import make_train_step, train_state_init
 
@@ -175,24 +173,6 @@ def train(args: argparse.Namespace, device: torch.device) -> None:
             print(f"checkpoint -> {args.ckpt_dir}", flush=True)
 
 
-def _rank_main(rank: int, args: argparse.Namespace, device_type: str,
-               world: int, store_path: str) -> None:
-    """One rank: join the data group, train, leave."""
-    device = torch.device(device_type)
-    if device_type == "cuda":
-        torch.cuda.set_device(rank)
-        device = torch.device("cuda", rank)
-    else:
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    dist.init_process_group(
-        "nccl" if device_type == "cuda" else "gloo",
-        store=dist.FileStore(store_path, world), rank=rank, world_size=world)
-    try:
-        train(args, device)
-    finally:
-        dist.destroy_process_group()
-
-
 def main(argv=None) -> None:
     args = parse_args(argv)
     device = resolve_device(args.device)
@@ -200,17 +180,16 @@ def main(argv=None) -> None:
     if device.type == "cuda" and world > torch.cuda.device_count():
         raise ValueError(f"--mesh {world} needs {world} cards, "
                          f"{torch.cuda.device_count()} visible")
-    tmp = tempfile.mkdtemp(prefix="repro_torch_train_")
-    store = os.path.join(tmp, "store")
-    try:
-        if world == 1:
-            _rank_main(0, args, device.type, 1, store)
-        else:
-            torch.multiprocessing.start_processes(
-                _rank_main, args=(args, device.type, world, store),
-                nprocs=world, start_method="spawn")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    if world == 1:
+        with local_group(device):
+            train(args, device)
+    else:
+        spawn_ranks(_train_rank, world, device, args)
+
+
+def _train_rank(device: torch.device, args: argparse.Namespace) -> None:
+    """One spawned rank (its group joined): train."""
+    train(args, device)
 
 
 if __name__ == "__main__":

@@ -7,6 +7,8 @@ one-rank gloo group in this process (the 4-rank numerics are in
 ``tests/test_torch_ranks.py``).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,9 +27,10 @@ from repro_torch.core import bucketing as tbk
 from repro_torch.core import vci as tvci
 from repro_torch.tree import tree_flatten, tree_unflatten
 
-from test_torch_ranks import run_ranks
+from test_torch_ranks import APP_DEPTHS, PROGRESS, example, run_ranks
 
 TILE = tbk.TILE
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ["olmo-1b-smoke", "gemma-2b-smoke"]
 
 
@@ -230,16 +233,27 @@ def _jax_window_ops(ordered):
     return ops
 
 
-def test_collectives_and_window_ops_over_8_ranks_match_reference(tmp_path):
+@pytest.fixture(scope="module")
+def collectives_world(tmp_path_factory):
+    """The 8 spawned gloo ranks of ``test_torch_ranks.py collectives``,
+    run once for the tests below: their return and rank 0's results."""
+    out_dir = tmp_path_factory.mktemp("collectives")
+    r = run_ranks("collectives", out_dir, n=8)
+    out = (np.load(out_dir / "out_collectives.npz")
+           if r.returncode == 0 else None)
+    return r, out
+
+
+def test_collectives_and_window_ops_over_8_ranks_match_reference(
+        collectives_world):
     """8 spawned gloo ranks (``test_torch_ranks.py collectives``): the
     analogues of ``check_collectives_numerics`` and
     ``check_accumulate_relaxed_matches_ordered`` for each progress mode,
     plus get/put on an ordered and an un-ordered window and a flush; each
     value against numpy on the ranks, and each runtime's (issued, joins)
     equal to the reference engine's for the same sequence."""
-    r = run_ranks("collectives", tmp_path, n=8)
+    r, out = collectives_world
     assert r.returncode == 0, r.stdout + r.stderr
-    out = np.load(tmp_path / "out_collectives.npz")
     for progress in ("global", "per_vci", "hybrid"):
         want = _jax_op_counts(progress, _jax_numerics_ops)
         assert tuple(out[f"{progress}/numerics"]) == want, progress
@@ -247,6 +261,54 @@ def test_collectives_and_window_ops_over_8_ranks_match_reference(tmp_path):
             want = _jax_op_counts(progress, _jax_window_ops(ordered))
             assert tuple(out[f"{progress}/window/{ordered}"]) == want, \
                 (progress, ordered)
+
+
+def _reference_example(name):
+    """``examples/<name>.py``, the reference's application, as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_{name}", os.path.join(REPO, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("progress", PROGRESS)
+@pytest.mark.parametrize("app", sorted(APP_DEPTHS))
+def test_example_depth_over_8_ranks(collectives_world, app, progress):
+    """The paper's applications (``examples_torch/``) on the 8 ranks: each
+    run held its result on the ranks, and its ``CollectiveDepth`` is the
+    count and depth of ``APP_DEPTHS``."""
+    r, out = collectives_world
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert tuple(out[f"{app}/{progress}"]) == APP_DEPTHS[app][progress]
+
+
+def test_stencil_over_8_ranks_matches_reference_solver(collectives_world):
+    """The stencil's grid from 2 x 4 ranks (hybrid progress) against the
+    reference's own single-device solver, ``reference()`` of
+    ``examples/stencil_halo.py``, within the reference's 1e-4."""
+    r, out = collectives_world
+    assert r.returncode == 0, r.stdout + r.stderr
+    stencil = example("stencil_halo")
+    rows, cols = stencil.grid(8)
+    want = np.asarray(_reference_example("stencil_halo").reference(
+        jnp.asarray(stencil.initial_grid(rows, cols)), stencil.STEPS))
+    assert out["stencil/grid"].shape == want.shape
+    assert np.abs(out["stencil/grid"] - want).max() < stencil.TOL
+
+
+@pytest.mark.parametrize("progress", PROGRESS)
+def test_bspmm_over_8_ranks_is_the_closed_form(collectives_world, progress):
+    """BSPMM's C on 8 ranks equals ``8 · Σ_w A_w B_w`` (rtol 1e-5 of its
+    largest element)."""
+    r, out = collectives_world
+    assert r.returncode == 0, r.stdout + r.stderr
+    bspmm = example("bspmm_accumulate")
+    want = bspmm.closed_form(*bspmm.tiles(), 8)
+    np.testing.assert_allclose(out[f"bspmm/{progress}/C"], want,
+                               rtol=bspmm.RTOL,
+                               atol=bspmm.RTOL * np.abs(want).max())
 
 
 def test_reduce_gradients_over_4_ranks_equals_mean(tmp_path):

@@ -1,5 +1,5 @@
-"""The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX, anything of the JAX package ``repro``, or
+"""The port stands alone: no module of ``src/repro_torch/``, no script of
+``examples_torch/`` and not ``chip_smoke.py`` imports JAX, anything of the JAX package ``repro``, or
 ``ml_dtypes`` (the card's machine has none; the checkpoint reads and
 writes bfloat16 itself). Only the tests import them."""
 
@@ -10,12 +10,15 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
+EXAMPLES = os.path.join(REPO, "examples_torch")
 
 
 def _port_files():
     out = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, files in os.walk(PORT):
-        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for top in (PORT, EXAMPLES):
+        for root, _, files in os.walk(top):
+            out += [os.path.join(root, f) for f in files
+                    if f.endswith(".py")]
     return sorted(out)
 
 
@@ -54,5 +57,8 @@ def test_port_package_is_scanned():
                  "dist/sharding.py", "dist/tp.py", "checkpoint/io.py",
                  "launch/dryrun.py", "launch/inputs.py", "launch/mesh.py",
                  "launch/report.py", "launch/roofline.py",
-                 "data/pipeline.py"):
+                 "launch/ranks.py", "data/pipeline.py"):
         assert must in rel
+    for name in sorted(os.listdir(os.path.join(REPO, "examples"))):
+        if name.endswith(".py"):
+            assert os.path.join("..", "..", "examples_torch", name) in rel

@@ -22,6 +22,9 @@ each rank's tokens and plan statistics to ``<dir>/out_<rank>.npz``;
 ``all_to_all`` holds ``CommRuntime.all_to_all`` on a mesh axis and on the
 data group against numpy; ``collectives`` holds the runtime's collectives
 and its window/p2p ops against numpy and writes their op counts;
+``collectives`` also runs the paper's applications of ``examples_torch/``
+(stencil, EBMS, BSPMM) under each progress mode and writes rank 0's
+results and their collective depths (``tests/test_torch_bucketing.py``);
 ``zero1`` and ``overlap`` train 5 steps from ``in.npz`` as ZeRO-1 and
 replicated, and post and overlap for both optimizers, and write rank 0's
 results (``tests/test_torch_zero1.py``, ``tests/test_torch_overlap.py``);
@@ -49,6 +52,40 @@ import torch.distributed as dist
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 1e-5, 1e-6   # tests/_multidev_checks.py reduce tolerances
+PROGRESS = ("global", "per_vci", "hybrid")
+
+# (collective_count, critical_depth) of the paper's applications in
+# examples_torch/ (CollectiveDepth), by progress mode; the issue graph does
+# not depend on the number of ranks. The stencil's halos of a step read the
+# last step's block, so every mode but `global` (one chain of all 4 x 50)
+# is 50 deep. The EBMS gets are one level apart from `global`'s chain. A
+# BSPMM worker's two gets share its window, which is ordered (FIFO, the
+# default), so the second waits on the first: depth 2 before the product,
+# then "rar" chains the 4 accumulates (6) where "none" leaves each at 3;
+# under `global` the next worker's gets follow the last accumulate, so
+# both orderings make one chain of 12.
+APP_DEPTHS = {
+    "stencil": {"global": (200, 200), "per_vci": (200, 50),
+                "hybrid": (200, 50)},
+    "ebms": {"global": (4, 4), "per_vci": (4, 1), "hybrid": (4, 1)},
+    "bspmm/rar": {"global": (12, 12), "per_vci": (12, 6),
+                  "hybrid": (12, 6)},
+    "bspmm/none": {"global": (12, 12), "per_vci": (12, 3),
+                   "hybrid": (12, 3)},
+}
+
+
+def example(name: str):
+    """``examples_torch/<name>.py`` as a module (the folder is no
+    package)."""
+    import importlib.util
+    mod = f"examples_torch_{name}"
+    if mod not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            mod, os.path.join(REPO, "examples_torch", f"{name}.py"))
+        sys.modules[mod] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[mod])
+    return sys.modules[mod]
 
 
 def _rank_tree(n: int, rank: int):
@@ -365,9 +402,46 @@ def check_collectives(rank: int, n: int, out_dir: str) -> None:
     got = rt.sendrecv(x, ctx, perm=[(0, 0), (1, 2)])
     want = {0: full[0:1], 2: full[1:2]}.get(rank, np.zeros((1, 4)))
     np.testing.assert_array_equal(got.numpy(), want)
+    out.update(_examples(rank, n))
     if rank == 0:
         np.savez(os.path.join(out_dir, "out_collectives.npz"),
                  **{k: np.asarray(v) for k, v in out.items()})
+
+
+def _examples(rank: int, n: int) -> dict:
+    """The paper's applications on these ranks under each progress mode
+    (each holds its own result: the stencil within 1e-4 of the single-rank
+    solver, the bands equal to their owner's, C equal across orderings and
+    to the closed form), with each run's ``(collective_count,
+    critical_depth)``; the stencil's whole grid gathered from the hybrid
+    run, and rank 0's C."""
+    cpu = torch.device("cpu")
+    stencil, ebms, bspmm = (example(e) for e in
+                            ("stencil_halo", "ebms_bands",
+                             "bspmm_accumulate"))
+    out = {}
+
+    def depth(res):
+        return (res["collective_count"], res["critical_depth"])
+    for progress in PROGRESS:
+        res = stencil.run(cpu, progress=progress)
+        assert res["err"] < stencil.TOL, (progress, res["err"])
+        out[f"stencil/{progress}"] = depth(res)
+        if progress == "hybrid":
+            blocks = [torch.empty_like(torch.from_numpy(res["block"]))
+                      for _ in range(n)]
+            dist.all_gather(blocks, torch.from_numpy(res["block"]))
+            rows, cols = res["grid"]
+            out["stencil/grid"] = torch.cat(
+                [torch.cat(blocks[r * cols:(r + 1) * cols], dim=1)
+                 for r in range(rows)], dim=0).numpy()
+        res = ebms.run(cpu, progress=progress)
+        out[f"ebms/{progress}"] = depth(res)
+        res = bspmm.run(cpu, progress=progress)
+        for ordering in bspmm.ORDERINGS:
+            out[f"bspmm/{ordering}/{progress}"] = depth(res[ordering])
+        out[f"bspmm/{progress}/C"] = res["C"]
+    return out
 
 
 def _train_runs(out_dir: str, runs, name: str) -> None:
