@@ -185,12 +185,15 @@ Phases, each a check that exits non-zero when it fails:
    one device), with CUDA tensors in every collective
    (``launch/serve.py::join_ranks``; a refusal raises); they build nothing (phase 2 built
    the kernels). Each rank makes ``init_params``' leaves one at a time and
-   cuts each to its shard (the ranks take turns). olmo-1b at full width
-   and depth (phase 5's requests, f32 cache) paged and contiguous at
-   ``num_vcis`` 8, then paged through the GSPMD route (16d, below);
+   cuts each to its shard (the ranks take turns). olmo-1b at full width,
+   ``TP_SERVE_LAYERS`` = 2 of its 16 layers (phase 5's requests, f32
+   cache), paged and contiguous at ``num_vcis`` 8, then paged through the
+   GSPMD route (16d, below);
    mixtral-8x22b at full width, 4 layers,
    expert-parallel (2 experts a rank), paged at ``num_vcis`` 8, then phase
-   6b's 8 x 1,024-token prefill call. Held against tp 1 (phases 5 and 6b):
+   6b's 8 x 1,024-token prefill call. Held against tp 1 (olmo-1b at the
+   same depth, served in this phase as phase 5 serves it, without the
+   profile, while the ranks start; the MoE phase 6b's):
    the first prefill's last-position logits within ``TP_LOGIT_TOL`` x max
    |tp 1| (the share of equal greedy tokens printed); each rank's paged
    pool exactly 1/4 of tp 1's; no page leaked; every forward call 2 x L +
@@ -234,7 +237,7 @@ Phases, each a check that exits non-zero when it fails:
    the CPU from the same params and batches: loss and grad norm within rtol 1e-5, params within rtol 2e-5 /
    atol 1e-4 with at most 1 element in 10^4 outside atol 1e-6 (AdamW turns
    summation-order noise in a near-zero gradient into an update of up to
-   ``lr``; ``tests/test_torch_train.py`` states the same tolerance);
+   ``lr``; ``tests/_torch_train.py`` states the same tolerance);
 11. ZeRO-1 and overlap training: phase 9's olmo-1b step (same seed,
    batches and knobs, one-rank NCCL group) as ZeRO-1 post, replicated
    overlap and ZeRO-1 overlap, a warm-up and 5 timed steps each, the
@@ -339,7 +342,7 @@ Phases, each a check that exits non-zero when it fails:
    archs: one whose gradient, at the first step that reaches it, is within
    the noise of zero (under 1e-5 of its leaf's largest on the CPU);
    AdamW's first update is then about ``lr`` times the sign of that noise,
-   so it is held to ``3 x lr`` (``tests/test_torch_train.py`` states the
+   so it is held to ``3 x lr`` (``tests/_torch_train.py`` states the
    same rule);
 15a. ``comm="gspmd"`` on one rank: full-width ``olmo-1b`` (phase 9's
    config, batch and ``remat="block"``), a warm-up and 5 timed steps; the
@@ -347,10 +350,11 @@ Phases, each a check that exits non-zero when it fails:
    step from the same state and batch (on one rank the same math), 2 x 16
    flash launches a step, no collective; ms a step beside phase 9's, peak;
 15b. FSDP on ``GSPMD_WORLD`` = 4 gloo ranks sharing the card (phase 12's
-   pattern): ``olmo-1b`` at full width and ``GSPMD_LAYERS`` = 2 layers, in f32 (so that
-   ``tests/test_torch_train.py``'s f32 rules apply), global batch 8 x
-   1,024, 2 steps: every rank's metrics equal, within 1e-5 of a one-rank
-   run here on the same batches; every param element within 1e-4 + 2e-5
+   pattern; they start while this process makes their yardsticks):
+   ``olmo-1b`` at full width and ``GSPMD_LAYERS`` = 1 layer, in f32 (so
+   that ``tests/_torch_train.py``'s f32 rules apply), global batch 8 x
+   1,024, ``GSPMD_RANK_STEPS`` = 2 steps: every rank's metrics equal,
+   within 1e-5 of a one-rank run here on the same batches; every param element within 1e-4 + 2e-5
    relative of the one-rank run's, and the count beyond 1e-6 + 2e-5
    relative no more than the tests' one in 10^4 or twice what another
    order of the same sums gives (the one-rank run with the ranks' rows as
@@ -358,7 +362,7 @@ Phases, each a check that exits non-zero when it fails:
    (every olmo-1b leaf is sliced), to the byte; a step's all-gathers (7 a
    layer, forward and recompute, and the tied table twice),
    reduce-scatters and all-reduces as predicted, with their bytes;
-15c. checkpoints: the bf16 2-layer FSDP state on the same ranks, saved
+15c. checkpoints: the bf16 1-layer FSDP state on the same ranks, saved
    after step 2 as whole leaves (rank 0 writes), restored on the 4 ranks
    and on one rank here, each equal to the saved state bit for bit (sha256
    of every rank's slices); step 3 after the resume against the
@@ -392,8 +396,8 @@ Phases, each a check that exits non-zero when it fails:
    1, the row gather 5, the gather-sum 1 and flash 2 launches a layer a
    step; each rank's peak memory;
 16d. the GSPMD serve route (a mesh without a comm plan) in phase 7's
-   world: olmo-1b at full width and depth on data 1 x model 4 from phase
-   7's params (the rule table cuts them as ``serve_param_specs`` does),
+   world: olmo-1b at full width and phase 7's depth on data 1 x model 4
+   from phase 7's params (the rule table cuts them as ``serve_param_specs`` does),
    paged: tokens equal to the manual-TP path's on every rank (the same
    partial sums), 2 x L + 1 all-reduces and one all-gather a forward call
    on the model line's one group, printed beside ``ServeCommPlan``'s
@@ -503,11 +507,15 @@ Phases, each a check that exits non-zero when it fails:
    requests of 12 tokens) and (c) ``serve_batch.py`` (the smoke archs of
    yi-9b, mamba2-780m, zamba2-7b and musicgen-large), every request its
    tokens, flash (and SSD for the SSM and hybrid) launched; (d) the
-   paper's applications as a user runs them, on spawned gloo ranks that
-   share the card (``EXAMPLE_APPS``): the stencil on 4 ranks, EBMS and
-   BSPMM on 8; each must print ``OK``, its error within the example's
-   tolerance, its host staging copies, its collective count and critical
-   depth at the values the CPU tests hold, and its seconds.
+   paper's applications at their command lines' defaults, on spawned
+   gloo ranks that share the card: ``APP_CLI`` (the stencil, 2 x 2 ranks)
+   through its command line as a user runs it (``main`` ->
+   ``spawn_ranks`` on the card), then ``APPS_SHARED`` (EBMS and BSPMM)
+   one after another on one world of the 8 ranks their command lines ask
+   for, each rank body given what its parser gives by default; each must
+   print ``OK``, its error within the example's tolerance,
+   its host staging copies, its collective count and critical depth at
+   the values the CPU tests hold, and its seconds.
 
 It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Without CUDA, or without the package beside it, it fails and prints no
@@ -607,9 +615,10 @@ MM_TRAIN_BATCH, AUDIO_TRAIN_FRAMES = 4, 1000
 # phase 15: comm="gspmd" training (FSDP over the data ranks) and
 # checkpoints: 15a's steps, 15b/15c's ranks on the one card, layers, steps
 GSPMD_STEPS = 5
-# (2 layers: the ranks' gloo traffic through host memory is most of the
-# phase's time)
-GSPMD_WORLD, GSPMD_LAYERS, GSPMD_RANK_STEPS, GSPMD_TIMEOUT_S = 4, 2, 2, 600
+# (1 layer: the ranks' gloo traffic through host memory is most of the
+# phase's time; 2 steps, so that the second step's loss and the params
+# after it see a sharded update)
+GSPMD_WORLD, GSPMD_LAYERS, GSPMD_RANK_STEPS, GSPMD_TIMEOUT_S = 4, 1, 2, 600
 # phase 16c: mixtral-8x22b at full width, its depth cut to 1 layer, bf16,
 # 4 x 512 tokens a step on the 4 ranks as data 2 x model 2 and 4 x 1
 AXIS_MOE_LAYERS, AXIS_MOE_BATCH, AXIS_MOE_SEQ = 1, 4, 512
@@ -664,14 +673,21 @@ SSD_BWD_CASES = (
 # what a phase 13 may find still allocated when it starts (a leaked
 # autograd graph once left 35 GB behind)
 FRESH_MAX_BYTES = 4 << 30
-# phase 19: the paper's applications, (script, ranks, timeout s)
-EXAMPLE_APPS = (("stencil_halo", 4, 300), ("ebms_bands", 8, 300),
-                ("bspmm_accumulate", 8, 300))
+# phase 19d: the paper's applications at their command lines' defaults:
+# one through its command line (spawn_ranks on the card, 4 ranks), the
+# other two one after another on one world of the 8 ranks they ask for
+APP_CLI, APPS_SHARED = "stencil_halo", ("ebms_bands", "bspmm_accumulate")
+APPS_TIMEOUT_S = 300
 E2E_STEPS = 200
 # phase 7: TP ranks sharing the one card, spawned once
 # (olmo-1b at num_vcis 8 only: the one-VCI fallback is checked on a smoke
 # case, which saves two full-width decode runs of ~25 s each)
 TP_WORLD, TP_VCIS, TP_TIMEOUT_S = 4, (8,), 600
+# olmo-1b's depth in phase 7 (and 16d), of its 16 layers: its ranks spend
+# most of a decode step in the 2 gloo all-reduces a layer, so the full
+# depth took ~67 of the phase's ~150 s; its tp 1 yardstick runs at the
+# same depth in the phase
+TP_SERVE_LAYERS = 2
 TP_SMOKE = ("olmo-1b-smoke", "mixtral-8x22b-smoke")
 # 16e: the GSPMD route on the SSM and the hybrid, their smoke archs on
 # data 2 x model 2 (against the CPU engine) and at full width on 1 x 4
@@ -711,6 +727,46 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+@contextlib.contextmanager
+def start_world(fn, world: int, out_dir: str):
+    """``fn(rank, world, store, out_dir)`` on ``world`` spawned ranks that
+    share the card, running while the block does (it waits for them with
+    :func:`wait_world`): yields (the context, the spawn's time); kills the
+    ranks if the block raises."""
+    import torch
+    ctx = torch.multiprocessing.start_processes(
+        fn, args=(world, os.path.join(out_dir, "store"), out_dir),
+        nprocs=world, start_method="spawn", join=False)
+    try:
+        yield ctx, time.time()
+    except BaseException:
+        for proc in ctx.processes:
+            proc.kill()
+        raise
+
+
+def wait_world(ctx, t0: float, limit: float, what: str) -> None:
+    """Wait for :func:`start_world`'s ranks: fails if one raised (its
+    traceback is in stderr) or they ran past ``limit`` s."""
+    try:
+        while not ctx.join(timeout=5):
+            if time.time() - t0 > limit:
+                for proc in ctx.processes:
+                    proc.kill()
+                fail(f"{what}: the ranks ran past {limit} s")
+    except Exception as e:
+        fail(f"{what}: a rank failed: {e}")
+
+
+def wait_for(path: str, limit: float = 600) -> None:
+    """A rank's wait for the file the parent writes at ``path``."""
+    t0 = time.time()
+    while not os.path.exists(path):
+        if time.time() - t0 > limit:
+            raise TimeoutError(f"{path} did not appear in {limit} s")
+        time.sleep(0.05)
 
 
 def time_ms(fn, n_iter: int = 100, reps: int = 5) -> float:
@@ -1121,9 +1177,10 @@ class _Timed:
         return out
 
 
-def phase_serve(cfg) -> dict:
+def phase_serve(cfg, profile: bool = True) -> dict:
     """``cfg`` at full width through ``ServeEngine``, paged then contiguous
-    (see the docstring: phase 5 for olmo-1b, 6b for the MoE)."""
+    (see the docstring: phase 5 for olmo-1b, 6b for the MoE; phase 7's tp 1
+    yardstick of olmo-1b cut in depth, without the profile)."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.moe_gather import row_gather
@@ -1217,7 +1274,8 @@ def phase_serve(cfg) -> dict:
           flush=True)
     if moe:
         runs["long"] = serve_moe_long(cfg, params)
-    profile_decode(cfg, params)
+    if profile:
+        profile_decode(cfg, params)
     if moe:
         runs["window"] = serve_moe_window(cfg, params)
     del params
@@ -2973,7 +3031,7 @@ def phase_reference_train(arch: str = "olmo-1b-smoke") -> None:
     off = total = first = 0
     pworst = nworst = 0.0
     # bf16 moments (arctic): one bf16 ulp of a moment moves a step's update
-    # by up to 2^-8 lr, carried once a step (tests/test_torch_train.py)
+    # by up to 2^-8 lr, carried once a step (tests/_torch_train.py)
     atol = 1e-6 + (3 * 2 ** -8 * 3e-4 if cfg.optimizer_dtype == "bfloat16"
                    else 0.0)
     for i, (c, a) in enumerate(zip(runs["cuda"][1], runs["cpu"][1])):
@@ -3107,19 +3165,8 @@ def phase_zero1_ranks(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_zero1_")
-    t0 = time.time()
-    ctx = torch.multiprocessing.start_processes(
-        _zero1_rank, args=(ZERO1_WORLD, os.path.join(out_dir, "store"),
-                           out_dir),
-        nprocs=ZERO1_WORLD, start_method="spawn", join=False)
-    try:
-        while not ctx.join(timeout=5):
-            if time.time() - t0 > ZERO1_TIMEOUT_S:
-                for proc in ctx.processes:
-                    proc.kill()
-                fail(f"phase 12: the ranks ran past {ZERO1_TIMEOUT_S} s")
-    except Exception as e:   # a rank raised: its traceback is in stderr
-        fail(f"phase 12: a rank failed: {e}")
+    with start_world(_zero1_rank, ZERO1_WORLD, out_dir) as (ctx, t0):
+        wait_world(ctx, t0, ZERO1_TIMEOUT_S, "phase 12")
     ranks = []
     for r in range(ZERO1_WORLD):
         with open(os.path.join(out_dir, f"zero1_rank{r}.json")) as f:
@@ -3371,6 +3418,16 @@ def _split_one_rank() -> dict:
     return got
 
 
+def _tp_cfg(arch: str):
+    """Phase 7's config of ``arch``: olmo-1b at ``TP_SERVE_LAYERS``, the
+    MoE at ``MOE_LAYERS`` (phase 6b's), the smoke archs whole."""
+    from repro_torch.configs import get_config
+    layers = {SERVE_ARCH: TP_SERVE_LAYERS, MOE_ARCH: MOE_LAYERS}.get(arch)
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(
+        cfg, num_layers=layers)
+
+
 def _tp_init(cfg, mesh, rank: int):
     """This rank's shard of ``init_params(cfg, 0)`` on the card, each leaf
     cut as it is made; the ranks take turns, so one full leaf (and its f32
@@ -3500,13 +3557,12 @@ def _tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device, backend, why = join_ranks(rank, world, "cuda", store)
-    out = dict(backend=backend, why=why, cases={}, gspmd={})
+    out = dict(backend=backend, why=why, cases={}, gspmd={},
+               joined=time.time())
     try:
         mesh = RankMesh(1, world)
-        for arch, layers in ((SERVE_ARCH, None), (MOE_ARCH, MOE_LAYERS)):
-            cfg = get_config(arch)
-            if layers:
-                cfg = dataclasses.replace(cfg, num_layers=layers)
+        for arch in (SERVE_ARCH, MOE_ARCH):
+            cfg = _tp_cfg(arch)
             t0 = time.time()
             params = _tp_init(cfg, mesh, rank)
             out[f"{arch} init_s"] = time.time() - t0
@@ -3518,7 +3574,7 @@ def _tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
                 kv_heads=cfg.num_kv_heads // world)
             if rank == 0:
                 np.save(os.path.join(out_dir, f"logits_{arch}.npy"), logits)
-            if layers is None:
+            if arch == SERVE_ARCH:
                 for nv in TP_VCIS:
                     for layout in ("paged", "contiguous"):
                         out["cases"][f"{arch} {layout} num_vcis={nv}"] = \
@@ -3656,20 +3712,17 @@ def _cpu_smoke_tokens() -> dict:
     return got
 
 
-def phase_tp_serve(olmo_runs: dict, moe_runs: dict, card: str) -> dict:
+def phase_tp_serve(moe_runs: dict, card: str) -> dict:
     """Phase 7 (see the docstring): ``TP_WORLD`` ranks on the one card
     (``card``: its name and power limit), spawned once, every case inside
-    them; held against phases 5 and 6b (tp 1) and the CPU engine. Returns
-    the launches of the olmo-1b and mixtral-8x22b runs summed over ranks
-    (the smoke archs' cross-checks are not the main path)."""
+    them; held against tp 1 (olmo-1b at ``TP_SERVE_LAYERS`` here, the MoE
+    phase 6b's) and the CPU engine. Returns the launches of the olmo-1b
+    and mixtral-8x22b runs summed over ranks (the smoke archs'
+    cross-checks are not the main path)."""
     import tempfile
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
 
-    smoke_ref = _cpu_smoke_tokens()
-    ssm_ref = _ssm_one_rank()
-    ssm_ref.update(_split_one_rank())
     torch.cuda.synchronize()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3679,26 +3732,27 @@ def phase_tp_serve(olmo_runs: dict, moe_runs: dict, card: str) -> dict:
           f"{torch.cuda.memory_reserved()} B reserved; the card has {free} "
           f"of {total} B free", flush=True)
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
-    t0 = time.time()
-    ctx = torch.multiprocessing.start_processes(
-        _tp_rank, args=(TP_WORLD, os.path.join(out_dir, "store"), out_dir),
-        nprocs=TP_WORLD, start_method="spawn", join=False)
-    try:
-        while not ctx.join(timeout=5):
-            if time.time() - t0 > TP_TIMEOUT_S:
-                for proc in ctx.processes:
-                    proc.kill()
-                fail(f"phase 7: the ranks ran past {TP_TIMEOUT_S} s")
-    except Exception as e:   # a rank raised: its traceback is in stderr
-        fail(f"phase 7: a rank failed: {e}")
+    with start_world(_tp_rank, TP_WORLD, out_dir) as (ctx, t0):
+        # the yardsticks while the ranks start (they need none of them)
+        olmo_runs = phase_serve(_tp_cfg(SERVE_ARCH), profile=False)
+        smoke_ref = _cpu_smoke_tokens()
+        ssm_ref = _ssm_one_rank()
+        ssm_ref.update(_split_one_rank())
+        print(f"tp serve: the yardsticks (tp 1 olmo-1b at "
+              f"{TP_SERVE_LAYERS} layers, the CPU engine, one rank's SSM "
+              f"and split runs) took {time.time() - t0:.1f}s beside the "
+              f"ranks", flush=True)
+        wait_world(ctx, t0, TP_TIMEOUT_S, "phase 7")
     ranks = []
     for r in range(TP_WORLD):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
     r0 = ranks[0]
     print(f"tp serve: {TP_WORLD} ranks on one card ({card}) in "
-          f"{time.time() - t0:.1f}s (spawned once), backend="
-          f"{r0['backend']} ({r0['why']}), CUDA tensors", flush=True)
+          f"{time.time() - t0:.1f}s (spawned once; the last joined its "
+          f"group {max(r['joined'] for r in ranks) - t0:.1f}s after the "
+          f"spawn), backend={r0['backend']} ({r0['why']}), CUDA tensors",
+          flush=True)
     for arch, tp1 in ((SERVE_ARCH, olmo_runs), (MOE_ARCH, moe_runs)):
         got = np.load(os.path.join(out_dir, f"logits_{arch}.npy"))
         want = tp1["first_logits"]
@@ -3721,9 +3775,7 @@ def phase_tp_serve(olmo_runs: dict, moe_runs: dict, card: str) -> dict:
         res = [rk["cases"][name] for rk in ranks]
         c = res[0]
         arch, layout = name.split()[:2]
-        cfg = get_config(arch)
-        if arch == MOE_ARCH:
-            cfg = dataclasses.replace(cfg, num_layers=MOE_LAYERS)
+        cfg = _tp_cfg(arch)
         if not name.endswith("data2xmodel2"):  # the main path's runs
             for k in ("flash", "gather", "rows"):
                 launches[k] += sum(x[k] for x in res)
@@ -3904,13 +3956,12 @@ def _check_gspmd_route(ranks, olmo_runs: dict, smoke_ref: dict,
     least ``SSM_GSPMD_AGREE`` of the tokens, a quarter of the state, the
     first prefill's logits within ``SSM_TP_LOGIT_TOL``: :func:`_check_ssm_tp`);
     adds the full-width runs' launches (the main path) to ``launches``."""
-    from repro_torch.configs import get_config
     r0 = ranks[0]
     for name in r0["gspmd"]:
         res = [rk["gspmd"][name] for rk in ranks]
         c = res[0]
         arch, layout = name.split()[:2]
-        cfg = get_config(arch)
+        cfg = _tp_cfg(arch)
         for x in res[1:]:
             check(x["tokens"] == c["tokens"],
                   f"gspmd route {name}: ranks disagree on the tokens")
@@ -4468,7 +4519,7 @@ def _gspmd_cfgs():
 
 
 def _params_off(got, want) -> tuple:
-    """``tests/test_torch_train.py``'s parameter rules on one leaf (or a
+    """``tests/_torch_train.py``'s parameter rules on one leaf (or a
     rank's slice of it): (the largest difference, whether every element
     lies within 1e-4 + 2e-5 relative, the count beyond 1e-6 + 2e-5
     relative, which the tests allow in one element of 10^4)."""
@@ -4600,12 +4651,13 @@ def _gspmd_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device, backend, why = join_ranks(rank, world, "cuda", store)
-    out = dict(backend=backend, why=why)
+    out = dict(backend=backend, why=why, joined=time.time())
     try:
         f32, bf16 = _gspmd_cfgs()
         batches = [synthetic_batch(f32, TRAIN_BATCH, TRAIN_SEQ, seed=0,
                                    step=i) for i in range(3)]
         # 15b: FSDP in f32 against the one-rank run
+        wait_for(os.path.join(out_dir, "ref.pt"))
         ref = torch.load(os.path.join(out_dir, "ref.pt"), mmap=True)
         flash_attention.launches = 0
         state = train_state_init(f32, 0, device=device, comm="gspmd")
@@ -4788,51 +4840,45 @@ def phase_gspmd_ranks(card: str) -> dict:
     _fresh("gspmd ranks")
     f32, bf16 = _gspmd_cfgs()
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_gspmd_")
-    batches = [synthetic_batch(f32, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=i)
-               for i in range(3)]
-    # the one-rank run (no group: one rank) the ranks are held against
-    flash_attention.launches = 0
-    state = train_state_init(f32, 0, device="cuda", comm="gspmd")
-    step = make_train_step(f32)
-    ref_metrics = []
-    for b in batches[:GSPMD_RANK_STEPS]:
-        state, m = step(state, b)
-        ref_metrics.append([float(m["loss"]), float(m["grad_norm"])])
-    torch.save([t.cpu() for t in tree_flatten(state.params)[0]],
-               os.path.join(out_dir, "ref.pt"))
-    # the yardstick: the same math with another order of the same sums,
-    # one rank taking the ranks' rows as GSPMD_WORLD microbatches
-    alt = train_state_init(f32, 0, device="cuda", comm="gspmd")
-    astep = make_train_step(f32, accum_steps=GSPMD_WORLD)
-    for b in batches[:GSPMD_RANK_STEPS]:
-        alt, _ = astep(alt, b)
-    order = [_params_off(a, w) for a, w in zip(
-        tree_flatten(alt.params)[0], tree_flatten(state.params)[0])]
-    flash = flash_attention.launches
-    del state, step, alt, astep
-    _fresh("gspmd ranks, after the one-rank run")
-    # 16e's yardstick: the mamba2 training run's first step on one rank
-    ssm_cfg = _ssm_axis_cfg()
-    state = train_state_init(ssm_cfg, 0, device="cuda", comm="gspmd")
-    _, m = make_train_step(ssm_cfg)(state, synthetic_batch(
-        ssm_cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=0))
-    ssm_loss = float(m["loss"])
-    del state, m
-    _fresh("gspmd ranks, after 16e's one-rank step")
-
-    t0 = time.time()
-    ctx = torch.multiprocessing.start_processes(
-        _gspmd_rank, args=(GSPMD_WORLD, os.path.join(out_dir, "store"),
-                           out_dir),
-        nprocs=GSPMD_WORLD, start_method="spawn", join=False)
-    try:
-        while not ctx.join(timeout=5):
-            if time.time() - t0 > GSPMD_TIMEOUT_S:
-                for proc in ctx.processes:
-                    proc.kill()
-                fail(f"phase 15: the ranks ran past {GSPMD_TIMEOUT_S} s")
-    except Exception as e:   # a rank raised: its traceback is in stderr
-        fail(f"phase 15: a rank failed: {e}")
+    # the ranks start while this process makes their yardsticks; they
+    # wait for ref.pt
+    with start_world(_gspmd_rank, GSPMD_WORLD, out_dir) as (ctx, t0):
+        batches = [synthetic_batch(f32, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                                   step=i) for i in range(3)]
+        # the one-rank run (no group: one rank) the ranks are held against
+        flash_attention.launches = 0
+        state = train_state_init(f32, 0, device="cuda", comm="gspmd")
+        step = make_train_step(f32)
+        ref_metrics = []
+        for b in batches[:GSPMD_RANK_STEPS]:
+            state, m = step(state, b)
+            ref_metrics.append([float(m["loss"]), float(m["grad_norm"])])
+        ref = [t.cpu() for t in tree_flatten(state.params)[0]]
+        # the yardstick: the same math with another order of the same sums,
+        # one rank taking the ranks' rows as GSPMD_WORLD microbatches
+        alt = train_state_init(f32, 0, device="cuda", comm="gspmd")
+        astep = make_train_step(f32, accum_steps=GSPMD_WORLD)
+        for b in batches[:GSPMD_RANK_STEPS]:
+            alt, _ = astep(alt, b)
+        order = [_params_off(a, w) for a, w in zip(
+            tree_flatten(alt.params)[0], tree_flatten(state.params)[0])]
+        flash = flash_attention.launches
+        del state, step, alt, astep
+        _fresh("gspmd ranks, after the one-rank run")
+        # 16e's yardstick: the mamba2 training run's first step on one rank
+        ssm_cfg = _ssm_axis_cfg()
+        state = train_state_init(ssm_cfg, 0, device="cuda", comm="gspmd")
+        _, m = make_train_step(ssm_cfg)(state, synthetic_batch(
+            ssm_cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=0))
+        ssm_loss = float(m["loss"])
+        del state, m
+        _fresh("gspmd ranks, after 16e's one-rank step")
+        # the ranks start their runs once this process is done with the card
+        torch.save(ref, os.path.join(out_dir, "ref.pt.part"))
+        os.replace(os.path.join(out_dir, "ref.pt.part"),
+                   os.path.join(out_dir, "ref.pt"))
+        del ref
+        wait_world(ctx, t0, GSPMD_TIMEOUT_S, "phase 15")
     ranks = []
     for r in range(GSPMD_WORLD):
         with open(os.path.join(out_dir, f"gspmd_rank{r}.json")) as f:
@@ -4876,7 +4922,9 @@ def phase_gspmd_ranks(card: str) -> dict:
           b0["want_param_bytes"], "15b: nothing was sliced")
     tally = b0["tally"][-1]
     print(f"gspmd ranks: {GSPMD_WORLD} ranks on one card ({card}) in "
-          f"{spawn_s:.1f}s, backend={ranks[0]['backend']} "
+          f"{spawn_s:.1f}s (the last joined its group "
+          f"{max(rk['joined'] for rk in ranks) - t0:.1f}s after the "
+          f"spawn), backend={ranks[0]['backend']} "
           f"({ranks[0]['why']}), CUDA tensors; 15b: {TRAIN_ARCH} at full "
           f"width, {GSPMD_LAYERS} layers, f32, global batch {TRAIN_BATCH} x "
           f"{TRAIN_SEQ}, {GSPMD_RANK_STEPS} steps: loss/gnorm {b0['metrics']}"
@@ -5887,9 +5935,44 @@ def phase_examples_one_rank() -> dict:
     return {"quickstart": quick, "serve": served}
 
 
+def _apps_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One of 19d's shared ranks: join the shared-card group as each app's
+    ``spawn_ranks`` does (``join_ranks``), run each of ``APPS_SHARED``'s
+    rank bodies with what its command line gives them by default (its
+    ``--json`` in ``out_dir``), and keep what rank 0 printed and each app's
+    seconds in ``out_dir/<app>.txt``."""
+    import io
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.ranks import join_ranks
+    device, _, _ = join_ranks(rank, world, "cuda", store)
+    try:
+        with open(os.path.join(out_dir, f"joined{rank}"), "w") as f:
+            f.write(repr(time.time()))
+        for name in APPS_SHARED:
+            mod = _example(name)
+            args = mod.parser().parse_args(
+                ["--json", os.path.join(out_dir, f"{name}.json")])
+            buf = io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(buf):
+                mod._rank(device, *mod.rank_args(args))
+            torch.cuda.synchronize()
+            dist.barrier()
+            if rank == 0:
+                with open(os.path.join(out_dir, f"{name}.txt"), "w") as f:
+                    f.write(buf.getvalue())
+                    f.write(f"seconds {time.time() - t0!r}\n")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
 def phase_examples_apps() -> dict:
     """19d: the paper's applications on spawned gloo ranks sharing the
-    card, each run as a user runs it."""
+    card: ``APP_CLI`` through its command line as a user runs it, then
+    ``APPS_SHARED`` one after another on one world of the ranks their
+    command lines ask for by default."""
     import tempfile
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(HERE, "src") + os.pathsep + \
@@ -5897,25 +5980,47 @@ def phase_examples_apps() -> dict:
     out = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_apps_")
     try:
-        for name, ranks, limit in EXAMPLE_APPS:
-            path = os.path.join(tmp, f"{name}.json")
-            t0 = time.time()
-            r = subprocess.run(
-                [sys.executable, os.path.join(HERE, "examples_torch",
-                                              f"{name}.py"),
-                 "--ranks", str(ranks), "--json", path],
-                capture_output=True, text=True, timeout=limit, env=env)
-            wall = time.time() - t0
-            for ln in r.stdout.strip().splitlines():
+        path = os.path.join(tmp, f"{APP_CLI}.json")
+        t0 = time.time()
+        r = subprocess.run(
+            [sys.executable, os.path.join(HERE, "examples_torch",
+                                          f"{APP_CLI}.py"), "--json", path],
+            capture_output=True, text=True, timeout=APPS_TIMEOUT_S, env=env)
+        wall = time.time() - t0
+        for ln in r.stdout.strip().splitlines():
+            print(f"19d {APP_CLI}: {ln}", flush=True)
+        check(r.returncode == 0 and "\nOK" in "\n" + r.stdout,
+              f"19d {APP_CLI} failed ({r.returncode}): {r.stderr[-3000:]}")
+        with open(path) as f:
+            out[APP_CLI] = json.load(f)
+        print(f"19d {APP_CLI}: its command line's "
+              f"{_example(APP_CLI).parser().parse_args([]).ranks} ranks, "
+              f"{wall:.1f}s wall (spawn included)", flush=True)
+
+        world = {_example(n).parser().parse_args([]).ranks
+                 for n in APPS_SHARED}
+        check(len(world) == 1, f"19d: {APPS_SHARED} ask for {world} ranks")
+        world = world.pop()
+        with start_world(_apps_rank, world, tmp) as (ctx, t0):
+            wait_world(ctx, t0, APPS_TIMEOUT_S, "19d")
+        wall = time.time() - t0
+        joined = max(float(open(os.path.join(tmp, f"joined{r}")).read())
+                     for r in range(world)) - t0
+        for name in APPS_SHARED:
+            with open(os.path.join(tmp, f"{name}.txt")) as f:
+                text = f.read()
+            lines = text.strip().splitlines()
+            for ln in lines[:-1]:
                 print(f"19d {name}: {ln}", flush=True)
-            check(r.returncode == 0 and "\nOK" in "\n" + r.stdout,
-                  f"19d {name} failed ({r.returncode}): "
-                  f"{r.stderr[-3000:]}")
-            with open(path) as f:
+            check("\nOK" in "\n" + text, f"19d {name} printed no OK: {text}")
+            with open(os.path.join(tmp, f"{name}.json")) as f:
                 out[name] = json.load(f)
-            out[name + " wall"] = wall
-            print(f"19d {name}: {ranks} ranks, {wall:.1f}s wall (spawn "
-                  f"included)", flush=True)
+            out[name + " seconds"] = float(lines[-1].split()[1])
+        print(f"19d: {world} ranks on one card spawned once for "
+              f"{len(APPS_SHARED)} apps: {wall:.1f}s wall, the last rank "
+              f"joined its group {joined:.1f}s after the spawn; "
+              + ", ".join(f"{n} {out[n + ' seconds']:.1f}s"
+                          for n in APPS_SHARED), flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     st = out["stencil_halo"]
@@ -5997,7 +6102,7 @@ def main() -> None:
     timed(phase_family_references)
     vlm_flash = timed(phase_vlm_serve)
     audio_flash = timed(phase_audio_serve)
-    tp = timed(phase_tp_serve, runs, moe_runs, card)
+    tp = timed(phase_tp_serve, moe_runs, card)
     import torch.distributed as dist
     tmp = init_data_group()
     try:

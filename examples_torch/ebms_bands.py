@@ -114,17 +114,25 @@ def _rank(device: torch.device, modes, json_path: str) -> None:
           f"{dist.get_backend()})", flush=True)
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ranks", type=int, default=8)
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--json", default="",
                     help="rank 0 writes its numbers here")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def rank_args(args) -> tuple:
+    """What :func:`_rank` takes after the device, from the command line."""
+    return ("per_vci", "hybrid"), args.json
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
     device = resolve_device(args.device)
-    spawn_ranks(_rank, args.ranks, device, ("per_vci", "hybrid"),
-                args.json)
+    spawn_ranks(_rank, args.ranks, device, *rank_args(args))
 
 
 if __name__ == "__main__":

@@ -160,7 +160,7 @@ def _rank(device: torch.device, progress: str, steps: int,
           flush=True)
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--steps", type=int, default=STEPS)
@@ -170,10 +170,18 @@ def main(argv=None):
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--json", default="",
                     help="rank 0 writes its numbers here")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def rank_args(args) -> tuple:
+    """What :func:`_rank` takes after the device, from the command line."""
+    return args.progress, args.steps, args.json
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
     device = resolve_device(args.device)
-    spawn_ranks(_rank, args.ranks, device, args.progress, args.steps,
-                args.json)
+    spawn_ranks(_rank, args.ranks, device, *rank_args(args))
 
 
 if __name__ == "__main__":

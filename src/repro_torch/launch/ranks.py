@@ -48,11 +48,21 @@ def join_ranks(rank: int, world: int, device_type: str,
     return device, backend, why
 
 
+def rank_threads(parent_threads: int, world: int) -> int:
+    """Intra-op threads of each of ``world`` CPU ranks that a process on
+    ``parent_threads`` starts: an equal share of the parent's, at least
+    one. A spawned process starts on PyTorch's default (every core), so the
+    parent passes its count: a CLI run keeps the machine's cores, a parent
+    pinned to one thread (a test) keeps its ranks on one each."""
+    return max(1, parent_threads // world)
+
+
 def _spawned(rank: int, fn: Callable, world: int, device_type: str,
-             store_path: str, args: tuple) -> None:
-    """One spawned rank: join, run ``fn(device, *args)``, leave together."""
+             store_path: str, threads: int, args: tuple) -> None:
+    """One spawned rank: join, run ``fn(device, *args)``, leave together
+    (``threads``: the parent's intra-op threads)."""
     if device_type == "cpu":
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        torch.set_num_threads(rank_threads(threads, world))
     device, _, _ = join_ranks(rank, world, device_type, store_path)
     try:
         fn(device, *args)
@@ -71,7 +81,8 @@ def spawn_ranks(fn: Callable, world: int, device: torch.device,
     try:
         torch.multiprocessing.start_processes(
             _spawned, args=(fn, world, device.type,
-                            os.path.join(tmp, "store"), args),
+                            os.path.join(tmp, "store"),
+                            torch.get_num_threads(), args),
             nprocs=world, start_method="spawn")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

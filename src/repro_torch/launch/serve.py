@@ -90,7 +90,7 @@ import torch.distributed as dist
 from repro_torch.configs import get_config
 from repro_torch.core.collectives import RankMesh
 from repro_torch.device import resolve_device
-from repro_torch.launch.ranks import join_ranks
+from repro_torch.launch.ranks import join_ranks, rank_threads
 from repro_torch.models.transformer import init_params
 from repro_torch.serve.comm import (
     ServeCommPlan,
@@ -203,10 +203,11 @@ def serve(args: argparse.Namespace, device: torch.device,
 
 
 def _rank_main(rank: int, args: argparse.Namespace, device_type: str,
-               world: int, store_path: Optional[str]) -> None:
-    """One TP rank: join the group, serve on the mesh, leave."""
+               world: int, store_path: Optional[str], threads: int) -> None:
+    """One TP rank: join the group, serve on the mesh, leave (``threads``:
+    the launching process's intra-op threads)."""
     if device_type == "cpu":
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        torch.set_num_threads(rank_threads(threads, world))
     device, backend, why = join_ranks(rank, world, device_type, store_path)
     try:
         if rank == 0:
@@ -235,13 +236,17 @@ def main(argv=None) -> None:
         if world % args.tp:
             raise ValueError(f"world {world} does not split into --tp "
                              f"{args.tp}")
-        _rank_main(int(os.environ["RANK"]), args, device.type, world, None)
+        # torchrun's ranks are peers, none the parent of the others: they
+        # share the host's cores
+        _rank_main(int(os.environ["RANK"]), args, device.type, world, None,
+                   os.cpu_count() or 1)
         return
     tmp = tempfile.mkdtemp(prefix="repro_torch_serve_")
     try:
         torch.multiprocessing.start_processes(
             _rank_main, args=(args, device.type, args.tp,
-                              os.path.join(tmp, "store")),
+                              os.path.join(tmp, "store"),
+                              torch.get_num_threads()),
             nprocs=args.tp, start_method="spawn")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu  # noqa: F401  (one intra-op thread: see its docstring)
 from repro.optim import adamw as jadamw
 from repro_torch.optim import adamw as tadamw
 from repro_torch.tree import tree_flatten

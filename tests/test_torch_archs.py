@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu  # noqa: F401  (one intra-op thread: see its docstring)
 from repro_torch.configs import get_config
 from repro_torch.models import layers as tlayers
 from repro_torch.models.transformer import init_params

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu  # noqa: F401  (one intra-op thread: see its docstring)
 from repro.core.bucketing import CommPlan as JCommPlan
 from repro.core.bucketing import plan_buckets as jplan_buckets
 from repro.kernels import bucket_pack as jbp

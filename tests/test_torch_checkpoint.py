@@ -12,16 +12,13 @@ reference's (``repro.checkpoint.io``): the same files, both ways.
   spawned gloo ranks load on 1, 2 and 4 ranks, save again to the same
   bytes, and step on: on the same 2 ranks the resumed step equals the
   uninterrupted one bit for bit, on 1 and 4 within ``tests/
-  test_torch_train.py``'s rules (another sum order of the gradients).
+  _torch_train.py``'s rules (another sum order of the gradients).
 * The tree and shape mismatch errors are the reference's.
-* The CLI resumes from ``--ckpt-dir`` and prints ``resumed from step N``;
-  its loss lines after the resume equal an uninterrupted run's.
+* The CLI's resume is ``tests/test_torch_checkpoint_cli.py``'s.
 """
 
 import filecmp
 import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu  # noqa: F401  (one intra-op thread: see its docstring)
+from _torch_train import assert_params_close
 from repro.checkpoint.io import load_checkpoint as jax_load_checkpoint
 from repro.checkpoint.io import save_checkpoint as jax_save_checkpoint
 from repro.configs import get_config as jax_get_config
@@ -43,9 +42,7 @@ from repro_torch.train.trainer import make_train_step, train_state_init
 from repro_torch.tree import tree_flatten, tree_flatten_with_paths
 
 from test_torch_ranks import run_ranks
-from test_torch_train import _assert_params_close
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "olmo-1b-smoke"
 
 
@@ -161,20 +158,14 @@ def test_mismatches_raise_as_the_reference_does(tmp_path, case):
     assert str(got.value) == str(ref.value)
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op thread for the test: this CPU build of PyTorch sums
-    some gradients (the embedding's) in another order from one threaded
-    run to the next, so two runs of one step differ in their last bits."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def test_resume_equals_an_uninterrupted_run(tmp_path, one_thread):
+def test_resume_equals_an_uninterrupted_run(tmp_path):
     """One rank, gspmd: two steps, against one step, a save, a load into a
-    fresh state (the saved bits) and a second step: the same bits."""
+    fresh state (the saved bits) and a second step: the same bits. On
+    ``_torch_cpu``'s one intra-op thread: threaded, this CPU build of
+    PyTorch sums some gradients (the embedding's) in another order from
+    one run to the next, so two runs of one step differ in their last
+    bits."""
+    assert torch.get_num_threads() == 1
     cfg = get_config(ARCH)
     batches = [jax_synthetic_batch(jax_get_config(ARCH), 4, 32, seed=0,
                                    step=i) for i in range(2)]
@@ -241,48 +232,12 @@ def test_states_round_trip_across_rank_counts(loaded, layout):
                     d / f"resume_{layout}_{n}" / "step_00000002")
     elif full is not None:
         resumed = load_checkpoint(str(d / f"resume_{layout}_{n}"), 2, like)
-        _assert_params_close(tree_flatten(resumed.params)[0],
-                             tree_flatten(full.params)[0],
-                             f"{layout} on {n}", steps=1)
+        assert_params_close(tree_flatten(resumed.params)[0],
+                            tree_flatten(full.params)[0],
+                            f"{layout} on {n}", steps=1)
     else:
         # ZeRO-1's buckets: the f32 masters, by the same rules
         a = np.load(d / "full_zero1" / "step_00000002" / "leaf_00000.npy")
         b = np.load(d / f"resume_zero1_{n}" / "step_00000002" /
                     "leaf_00000.npy")
-        _assert_params_close([b], [a], f"zero1 on {n}", steps=1)
-
-
-def _cli(*extra):
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep + \
-        env.get("PYTHONPATH", "")
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device",
-           "cpu", "--arch", ARCH, "--batch", "4", "--seq", "32",
-           "--log-every", "1", *extra]
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
-                       env=env)
-    assert r.returncode == 0, r.stdout + r.stderr
-    return r.stdout
-
-
-def _loss_lines(out):
-    return [ln.split()[:4] for ln in out.splitlines()
-            if ln.startswith("step ")]
-
-
-def test_cli_resumes_from_its_checkpoint_dir(tmp_path):
-    """``--steps 4 --ckpt-every 2`` on 2 ranks, then ``--steps 6`` on one
-    in the same directory: ``resumed from step 4``, and steps 5-6 print
-    the loss lines of an uninterrupted 6-step run."""
-    ck = str(tmp_path / "ck")
-    first = _cli("--steps", "4", "--ckpt-every", "2", "--mesh", "2",
-                 "--ckpt-dir", ck)
-    assert f"checkpoint -> {ck}" in first
-    assert latest_step(ck) == 4 and os.path.isdir(
-        os.path.join(ck, "step_00000002"))
-    second = _cli("--steps", "6", "--ckpt-dir", ck)
-    assert "resumed from step 4" in second
-    assert latest_step(ck) == 6
-    full = _loss_lines(_cli("--steps", "6"))
-    assert _loss_lines(first) == full[:4]
-    assert _loss_lines(second) == full[4:]
+        assert_params_close([b], [a], f"zero1 on {n}", steps=1)

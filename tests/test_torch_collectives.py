@@ -10,11 +10,11 @@ frame aborts the process ("terminate called without an active exception").
 destructors join their workers while the interpreter still serves the GIL.
 """
 
-import os
 import subprocess
 import sys
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from _torch_cpu import cli_env  # one intra-op thread: see its docstring
+
 
 # one gloo rank: an all_gather on VCI 1, destroy_process_group, then exit;
 # prints the live gloo worker threads after the destroy and in an exit
@@ -52,9 +52,7 @@ print("after destroy", workers(), flush=True)
 
 def test_vci_groups_join_their_workers_before_the_interpreter_finalizes(
         tmp_path):
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep + \
-        env.get("PYTHONPATH", "")
+    env = cli_env()
     r = subprocess.run([sys.executable, "-c", _SCRIPT,
                         str(tmp_path / "store")], capture_output=True,
                        text=True, timeout=240, env=env)
@@ -79,9 +77,7 @@ def test_mesh_axis_groups_join_their_workers_too(tmp_path):
         "rt = CommRuntime(world, mesh=RankMesh(1, 1))\n"
         "out = rt.wait(rt.all_gather(torch.arange(8.0), ctx, axis='model'))")
     assert "axis='model'" in script
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep + \
-        env.get("PYTHONPATH", "")
+    env = cli_env()
     r = subprocess.run([sys.executable, "-c", script,
                         str(tmp_path / "store")], capture_output=True,
                        text=True, timeout=240, env=env)

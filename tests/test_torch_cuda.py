@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu  # noqa: F401  (one intra-op thread: see its docstring)
 from repro_torch.configs import get_config
 from repro_torch.kernels import bucket_pack, moe_gather, paged_kv, ssd_scan
 from repro_torch.kernels import flash_attention as fa

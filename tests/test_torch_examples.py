@@ -1,7 +1,7 @@
 """The port's examples (``examples_torch/``) and its collective critical
 depth (``launch/roofline.py::CollectiveDepth``), in this process on a
 one-rank gloo group; the paper's applications on 8 ranks are in
-``tests/test_torch_bucketing.py`` (the ``collectives`` world of
+``tests/test_torch_bucketing_ranks.py`` (the ``collectives`` world of
 ``tests/test_torch_ranks.py``).
 
 The reference reads its depth from compiled HLO, where XLA's all-reduce
@@ -19,8 +19,8 @@ import sys
 import numpy as np
 import pytest
 import torch
-import torch.distributed as dist
 
+from _torch_cpu import one_rank  # noqa: F401  (one intra-op thread: see its docstring)
 from repro_torch.checkpoint.io import load_state
 from repro_torch.core import progress as tprogress
 from repro_torch.core.collectives import CommRuntime
@@ -33,27 +33,6 @@ from test_torch_ranks import APP_DEPTHS, PROGRESS, example
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for this module: its steps are tiny, and the
-    test run's workers share the host's cores, where a threaded step of
-    each worker oversubscribes them (a test of 2 s took 2 minutes)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-@pytest.fixture(scope="module")
-def one_rank(tmp_path_factory):
-    """A one-rank gloo data group in this process."""
-    store = tmp_path_factory.mktemp("store") / "store"
-    dist.init_process_group("gloo", store=dist.FileStore(str(store), 1),
-                            rank=0, world_size=1)
-    yield
-    dist.destroy_process_group()
 
 
 def _app_run(app: str, progress: str) -> dict:
@@ -77,6 +56,19 @@ def test_example_depth_on_one_rank(one_rank, app, progress):
         APP_DEPTHS[app][progress]
     assert res["parallelism"] == pytest.approx(
         res["collective_count"] / res["critical_depth"])
+
+
+@pytest.mark.parametrize("app", ("stencil_halo", "ebms_bands",
+                                 "bspmm_accumulate"))
+def test_app_command_line_gives_its_rank_body_arguments(app):
+    """Each application's command line, parsed by its ``parser``, gives
+    its rank body what it takes after the device (``rank_args``, as
+    ``main`` hands them to ``spawn_ranks``), ``--json`` last."""
+    import inspect
+    mod = example(app)
+    got = mod.rank_args(mod.parser().parse_args(["--json", "out.json"]))
+    inspect.signature(mod._rank).bind(CPU, *got)
+    assert got[-1] == "out.json"
 
 
 def test_collective_depth_edges(one_rank):

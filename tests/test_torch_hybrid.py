@@ -16,7 +16,7 @@ logits within 1e-4; prefill + decode logits, the SSM and KV caches within
 1e-4; the grouped engine's greedy tokens and ``cache_bytes_resident``
 equal to the JAX engine's. ``start`` offsets stay refused; the serve CLI
 serves the smoke arch. Hybrid training is held against the reference in
-``tests/test_torch_train.py``.
+``tests/test_torch_train_families.py``.
 """
 
 import dataclasses
@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-import _torch_cpu  # noqa: F401  (warms torch.exp: see its docstring)
+import _torch_cpu  # noqa: F401  (one intra-op thread: see its docstring)
 from repro.configs import get_config as jax_get_config
 from repro.models import transformer as jtf
 from repro.serve import engine as jengine

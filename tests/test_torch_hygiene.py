@@ -1,16 +1,21 @@
 """The port stands alone: no module of ``src/repro_torch/``, no script of
 ``examples_torch/`` and not ``chip_smoke.py`` imports JAX, anything of the JAX package ``repro``, or
 ``ml_dtypes`` (the card's machine has none; the checkpoint reads and
-writes bfloat16 itself). Only the tests import them."""
+writes bfloat16 itself). Only the tests import them. And every test file of
+the port imports ``tests/_torch_cpu.py`` (one intra-op thread a test
+process: see its docstring)."""
 
 import ast
 import os
 
 import pytest
 
+import _torch_cpu  # noqa: F401  (one intra-op thread: see its docstring)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
 EXAMPLES = os.path.join(REPO, "examples_torch")
+TESTS = os.path.join(REPO, "tests")
 
 
 def _port_files():
@@ -62,3 +67,23 @@ def test_port_package_is_scanned():
     for name in sorted(os.listdir(os.path.join(REPO, "examples"))):
         if name.endswith(".py"):
             assert os.path.join("..", "..", "examples_torch", name) in rel
+
+
+def _port_tests():
+    return sorted(os.path.join(TESTS, f) for f in os.listdir(TESTS)
+                  if f.startswith("test_torch_") and f.endswith(".py"))
+
+
+@pytest.mark.parametrize("path", _port_tests(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_tests_import_the_one_thread_setup(path):
+    """A top-level ``import _torch_cpu`` before the file's first import of
+    the port, the reference or another test module (which may compute)."""
+    tree = ast.parse(open(path).read(), filename=path)
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    names = [a.name if isinstance(n, ast.Import) else n.module or ""
+             for n in top for a in n.names]
+    assert "_torch_cpu" in names, path
+    local = [i for i, m in enumerate(names) if m.split(".")[0] in
+             ("repro", "repro_torch") or m.startswith("test_torch_")]
+    assert not local or names.index("_torch_cpu") < local[0], path

@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-import _torch_cpu  # noqa: F401  (warms torch.exp: see its docstring)
+import _torch_cpu  # noqa: F401  (one intra-op thread: see its docstring)
 from repro.configs import get_config as jax_get_config
 from repro.data.pipeline import synthetic_batch
 from repro.models import attention as jattn

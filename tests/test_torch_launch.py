@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu  # noqa: F401  (one intra-op thread: see its docstring)
 from repro.configs import config_for_shape as jax_config_for_shape
 from repro.data.pipeline import batch_spec as jax_batch_spec
 from repro.data.pipeline import synthetic_batches as jax_synthetic_batches

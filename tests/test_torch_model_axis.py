@@ -1,10 +1,10 @@
-"""Training and serving on a ``data x model`` mesh: 4 spawned gloo ranks
-as data 2 x model 2, against the reference's single-device steps.
+"""Training on a ``data x model`` mesh: 4 spawned gloo ranks as data 2 x
+model 2, against the reference's single-device steps.
 
 Same params (the reference's ``init_params`` through the rank files, in
 leaf order), same numpy batches, float32 smoke configs on the CPU. One
 spawned world (``tests/test_torch_ranks.py model_axis``) runs every case
-in both comm modes:
+in both comm modes while the reference computes:
 
 * ``comm="gspmd"`` is FSDP over data times tensor parallelism over model,
   held against the reference's ``make_train_step(cfg, mesh=None,
@@ -25,25 +25,25 @@ channels) and both multimodal archs; under gspmd also the hybrid (its
 Mamba2 blocks and its shared attention tensor-parallel), gemma (one KV
 head: attention replicated over model) and the MoE with ``moe_dispatch``
 (its experts over model).
-Tolerances are ``tests/test_torch_train.py``'s (its module doc): metrics
+Tolerances are ``tests/_torch_train.py``'s (its module doc): metrics
 rtol 1e-5, params by its rules, the VLM's with its noise rule. The same
-world also checkpoints and restores, trains olmo on the pod mesh ``2 x 1
-x 2`` (bit for bit the ``2 x 2`` step: the same lines), and serves every
-family through the GSPMD route.
+world also checkpoints and restores, and trains olmo on the pod mesh
+``2 x 1 x 2`` (bit for bit the ``2 x 2`` step: the same lines). Serving on
+the mesh is ``tests/test_torch_model_axis_serve.py`` and
+``tests/test_torch_model_axis_ssm.py``; the CLI's ``--mesh 2x2`` is
+``tests/test_torch_model_axis_cli.py``.
 """
 
-import json
 import os
-import subprocess
-import sys
 from types import SimpleNamespace
 
 import jax
 import numpy as np
 import pytest
-import torch
 
-import _torch_cpu  # noqa: F401  (warms torch.exp: see its docstring)
+import _torch_cpu  # noqa: F401  (one intra-op thread: see its docstring)
+from _torch_model_axis import N, ranks_running
+from _torch_train import METRIC_RTOL, assert_params_close
 from repro.configs import get_config as jax_get_config
 from repro.data.pipeline import PAD_LABEL
 from repro.data.pipeline import synthetic_batch as jax_synthetic_batch
@@ -54,20 +54,11 @@ from repro_torch.core.collectives import RankMesh
 from repro_torch.dist.sharding import Sharder, is_spec, param_shapes
 from repro_torch.tree import tree_flatten_with_paths
 
-from test_torch_ranks import (AXIS_FP8, AXIS_SERVE, AXIS_SPLIT,
-                              AXIS_SPLIT_LOGITS, AXIS_SSM, axis_logits,
-                              axis_serve_requests, axis_split_cfg,
-                              axis_split_requests, axis_split_rows,
-                              axis_vlm_tokens)
-from test_torch_train import METRIC_RTOL, _assert_params_close
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-STEPS, BATCH, N = 2, 8, 4
+STEPS, BATCH = 2, 8
 MESH = RankMesh(2, 2)
 KEYS = ("loss", "ce", "grad_norm", "tokens", "load_balance", "router_z",
         "lr")
 MODES = ("gspmd", "vci", "zero1")
-SSM_REFERENCE = "ssm serve"   # the world's reference key of _ssm_reference
 # case -> (arch, seq, opts, modes)
 CASES = {
     "olmo": ("olmo-1b-smoke", 32, "", MODES),
@@ -119,9 +110,8 @@ def _reference_run(jcfg, state, batches, accum):
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """The reference's runs of every case (one batch, and the rows as two
-    microbatches; under ``SSM_REFERENCE`` the SSM serve cases' yardsticks,
-    :func:`_ssm_reference`) and the 2 x 2 world's outputs: ``(reference,
-    dir)``. The ranks run while the reference computes."""
+    microbatches) and the 2 x 2 world's outputs: ``(reference, dir)``. The
+    ranks run while the reference computes."""
     d = tmp_path_factory.mktemp("axis")
     todo = []
     for case, (arch, seq, opts, modes) in CASES.items():
@@ -141,24 +131,11 @@ def world(tmp_path_factory):
             inputs.update({f"{k}{i}": np.asarray(v) for k, v in b.items()})
         np.savez(d / f"axis_{case}.npz", **inputs)
         todo.append((case, jcfg, state, batches, modes))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep + \
-        env.get("PYTHONPATH", "")
-    ranks = subprocess.Popen(
-        [sys.executable, os.path.join(REPO, "tests", "test_torch_ranks.py"),
-         "model_axis", str(d), str(N)], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True, env=env)
-    try:
+    with ranks_running("model_axis", d):
         ref = {case: {"gspmd": _reference_run(jcfg, state, batches, 1),
                       "vci": (_reference_run(jcfg, state, batches, 2)
                               if "vci" in modes else None)}
                for case, jcfg, state, batches, modes in todo}
-        ref[SSM_REFERENCE] = _ssm_reference()
-        log, _ = ranks.communicate(timeout=600)
-    finally:
-        if ranks.poll() is None:
-            ranks.kill()
-    assert ranks.returncode == 0, log
     return ref, d
 
 
@@ -193,9 +170,9 @@ def test_2x2_step_matches_reference(world, case, mode):
                                        err_msg=f"{case} {mode} step {i} {k}")
     if case == "mixtral":
         assert (out["metrics"][:, KEYS.index("load_balance")] > 0).all()
-    _assert_params_close([out[f"p{i}"] for i in range(len(want.params))],
-                         want.params, f"{case} {mode} 2x2", steps=STEPS,
-                         ref_v=want.v if case == "phi3v" else None)
+    assert_params_close([out[f"p{i}"] for i in range(len(want.params))],
+                        want.params, f"{case} {mode} 2x2", steps=STEPS,
+                        ref_v=want.v if case == "phi3v" else None)
 
 
 def _stored(cfg):
@@ -306,250 +283,6 @@ def test_2x2_checkpoint_restores_on_one_and_on_4x1(world):
         assert bool(np.load(d / f"axis_ckpt_flat_r{r}.npy")), r
 
 
-SERVE_CASES = [pytest.param(a, lay, "", id=f"{a}-{lay}")
-               for a, lays in AXIS_SERVE.items() for lay in lays] + [
-    pytest.param(AXIS_FP8, lay, "kv_fp8", id=f"{AXIS_FP8}-{lay}-kv_fp8")
-    for lay in ("contiguous", "paged")]
-
-
-@pytest.mark.parametrize("arch,layout,opt", SERVE_CASES)
-def test_gspmd_serve_route_tokens_equal_single_device(world, arch, layout,
-                                                      opt):
-    """The GSPMD route (a 2 x 2 mesh without a comm plan: FSDP weights
-    gathered over data where they run, TP collectives on the model line's
-    one group) gives the single-device contiguous engine's greedy tokens
-    (batch 4) on every rank, and a paged run also the single-device paged
-    engine's (batch 2, the same pool): dense and MoE paged and contiguous,
-    gemma's one KV head (its attention whole over model, its contiguous
-    cache's sequence split over model; its paged pool, which keeps every
-    position, is refused by name), yi-9b (its heads split), the SSM, the
-    hybrid and audio on the grouped path, and yi-9b under ``kv_fp8`` with
-    a bf16 cache (fp8 over the same splits)."""
-    from repro_torch.models.transformer import init_params
-    from repro_torch.serve.engine import ServeEngine
-    _, d = world
-    key = f"{arch} {layout} {opt}".strip()
-    if (arch, layout) == ("gemma-2b-smoke", "paged"):
-        for r in range(N):
-            got = json.load(open(d / f"axis_serve_r{r}.json"))[key]
-            assert "paged pool" in got["refused"], got
-            assert "contiguous route" in got["refused"], got
-        return
-    cfg = get_config(arch)
-    params = init_params(cfg, 0, device="cpu")
-    kw = {}
-    if opt:
-        cfg = cfg.with_opts(opt)
-        kw["cache_dtype"] = torch.bfloat16
-    layouts = [dict(batch_size=4)]
-    if layout == "paged":
-        layouts.append(dict(batch_size=2, paged=True, page_size=8,
-                            num_pages=11))
-    wants = []
-    for lay in layouts:
-        eng = ServeEngine(cfg, params, max_len=48, device="cpu", **kw, **lay)
-        reqs = axis_serve_requests(cfg)
-        eng.generate(reqs)
-        wants.append([r.generated.tolist() for r in reqs])
-    for r in range(N):
-        got = json.load(open(d / f"axis_serve_r{r}.json"))[key]
-        for want in wants:
-            assert got["tokens"] == want, (r, got["tokens"], want)
-        assert got["tally"]["model_all_reduce"] > 0
-        assert ("tokens" in got["tally"]) == (layout == "contiguous")
-
-
-def _jax_engine_tokens(cfg, params, batch, reqs):
-    """The reference's single-device engine's greedy tokens for ``reqs``,
-    from the port's ``params`` (the same tree, carried over as arrays)."""
-    import jax.numpy as jnp
-    from repro.serve import engine as jengine
-
-    def arrays(t):
-        return {k: arrays(v) for k, v in t.items()} if isinstance(t, dict) \
-            else jnp.asarray(t.numpy())
-
-    jcfg = jax_get_config(cfg.name.split("-swa")[0])
-    if cfg.sliding_window is not None:
-        jcfg = jcfg.with_sliding_window(cfg.sliding_window)
-    eng = jengine.ServeEngine(jcfg, arrays(params), batch_size=batch,
-                              max_len=48)
-    done = eng.generate([jengine.Request(prompt=r.prompt,
-                                         max_new_tokens=r.max_new_tokens)
-                         for r in reqs])
-    return [np.asarray(r.generated).tolist() for r in done]
-
-
-@pytest.mark.parametrize("case", list(AXIS_SPLIT))
-def test_gspmd_split_cache_tokens_equal_reference(world, case):
-    """The GSPMD route's sequence-split decode cache gives the reference's
-    single-device engine's greedy tokens on every rank: gemma-2b and
-    yi-9b (one and two KV heads) on 1 x 4 split the sequence over model,
-    one request on 2 x 2 over all four ranks (olmo: its tensor-parallel
-    KV heads gathered whole into the cache), gemma's ring of 16 slots over
-    model on 2 x 2. Each rank holds its slice: ``1/N`` of the cache's
-    positions and of its bytes; a decode step gathers the slices' partial
-    attention once a layer, on the line that holds the split."""
-    from repro_torch.models.attention import kv_cache_shape
-    from repro_torch.models.transformer import init_params
-    _, d = world
-    arch, dims, batch, window = AXIS_SPLIT[case]
-    cfg = axis_split_cfg(case)
-    params = init_params(cfg, 0, device="cpu")
-    reqs = axis_split_requests(case, cfg)
-    want = _jax_engine_tokens(cfg, params, batch, reqs)
-    n = dims[1] if batch % dims[0] == 0 else dims[0] * dims[1]
-    s_cache = kv_cache_shape(cfg, 1, 48)[1]
-    line = "model" if n == dims[1] else "world"
-    for r in range(N):
-        got = json.load(open(d / f"axis_split_r{r}.json"))[case]
-        assert got["tokens"] == want, (r, got["tokens"], want)
-        # (layers, rows, S / n, every KV head, hd), f32 K and V
-        for shape in got["shapes"]:
-            assert shape[0] == cfg.num_layers and shape[2] * n == s_cache \
-                and shape[3:] == [cfg.num_kv_heads, cfg.head_dim], got
-        assert got["bytes"] - 8 == max(
-            2 * 4 * int(np.prod(x)) for x in got["shapes"]), got
-        assert got["tally"][f"{line}_all_gather"] >= \
-            cfg.num_layers * got["steps"], got["tally"]
-
-
-@pytest.mark.parametrize("case", AXIS_SPLIT_LOGITS)
-def test_gspmd_split_cache_logits_match_whole_cache(world, case):
-    """f32 logits of a prefill and 4 greedy decode steps through the
-    sequence-split cache (gemma on 1 x 4: over model; one row on 2 x 2:
-    over every rank) lie within 1e-4 of the port's whole-cache decode."""
-    from repro_torch.models.transformer import init_params
-    _, d = world
-    cfg = axis_split_cfg(case)
-    want = axis_logits(cfg, init_params(cfg, 0, device="cpu"),
-                       axis_split_rows(case))[0]
-    for r in range(N):
-        got = np.load(d / f"axis_split_{case.replace(' ', '_')}_r{r}.npy")
-        np.testing.assert_allclose(got, want, atol=1e-4, rtol=0,
-                                   err_msg=f"rank {r}")
-
-
-def _ssm_reference():
-    """Per SSM arch of :data:`AXIS_SSM`: the reference's single-device
-    engine's greedy tokens and the port's f32 logits with the block
-    replicated (one rank, the whole state)."""
-    from repro_torch.models.transformer import init_params
-    out = {}
-    for arch in sorted({a for a, _ in AXIS_SSM.values()}):
-        cfg = get_config(arch)
-        params = init_params(cfg, 0, device="cpu")
-        out[arch] = (_jax_engine_tokens(cfg, params, 4,
-                                        axis_serve_requests(cfg)),
-                     axis_logits(cfg, params, 2)[0])
-    return out
-
-
-@pytest.fixture(scope="module")
-def ssm_reference(world):
-    return world[0][SSM_REFERENCE]
-
-
-def _ssm_dims(cfg):
-    """(conv channels, heads) of the whole Mamba2 block."""
-    c = cfg.ssm
-    d_in = c.d_inner(cfg.d_model)
-    return d_in + 2 * c.ngroups * c.d_state, c.num_heads(cfg.d_model)
-
-
-@pytest.mark.parametrize("case", list(AXIS_SSM))
-def test_gspmd_ssm_block_tokens_and_state_slices(world, ssm_reference,
-                                                 case):
-    """The tensor-parallel Mamba2 block on the GSPMD route (mamba2-780m
-    and zamba2-7b smoke, 2 x 2 and 1 x 4) gives the reference's
-    single-device engine's greedy tokens on every rank, and a rank's
-    state is its slice by the reference's ``cache_shardings``: each
-    group's rows over data where they divide (the engine's groups of 2
-    and 1 rows), conv ``(L, B_r, W-1, CH/tp)``, SSD ``(L, B_r, H/tp, N,
-    P)``, a ``tp``-th of one rank's bytes for the same rows."""
-    from repro_torch.models.transformer import init_cache
-    _, d = world
-    arch, (dn, tp) = AXIS_SSM[case]
-    cfg = get_config(arch)
-    c, (ch, h) = cfg.ssm, _ssm_dims(cfg)
-    L = cfg.num_layers
-    rows = [g // dn if g % dn == 0 else g for g in (2, 1)]
-    for r in range(N):
-        got = json.load(open(d / f"axis_ssm_r{r}.json"))[case]
-        assert got["tokens"] == ssm_reference[arch][0], (r, got["tokens"])
-        assert [conv[1] for conv, _ in got["shapes"]] == rows, got
-        state = []
-        for (conv, ssd), b in zip(got["shapes"], rows):
-            assert conv == [L, b, c.conv_width - 1, ch // tp], conv
-            assert ssd == [L, b, h // tp, c.d_state, c.head_dim], ssd
-            whole = init_cache(cfg, b, 48, dtype=torch.float32,
-                               device="cpu").ssm
-            state.append(4 * (int(np.prod(conv)) + int(np.prod(ssd))))
-            assert state[-1] * tp == whole.conv.nbytes + whole.ssd.nbytes
-        if cfg.family == "ssm":   # the cursor and the largest state
-            assert got["bytes"] == 4 + max(state), (got["bytes"], state)
-
-
-@pytest.mark.parametrize("case", list(AXIS_SSM))
-def test_gspmd_ssm_block_logits_match_replicated_block(world, ssm_reference,
-                                                       case):
-    """f32 logits of a prefill (2 rows of 10 tokens) and 4 greedy decode
-    steps through the tensor-parallel block and its sliced state lie
-    within 1e-4 of the port's replicated block on one rank (the whole
-    state), each rank's rows."""
-    _, d = world
-    arch, _ = AXIS_SSM[case]
-    want = ssm_reference[arch][1]
-    name = case.replace(" ", "_")
-    for r in range(N):
-        got = np.load(d / f"axis_ssm_{name}_r{r}.npy")
-        first = json.load(open(d / f"axis_ssm_r{r}.json"))[case]["first"]
-        np.testing.assert_allclose(got, want[first:first + got.shape[0]],
-                                   atol=1e-4, rtol=0, err_msg=f"rank {r}")
-
-
-# the model line's collectives of a decode step: a tensor-parallel Mamba2
-# block gathers in_proj whole and its conv output once, and all-reduces
-# its gated norm's sum of squares and its out_proj's partial sums (2 + 2);
-# the vocab-parallel lookup all-reduces once and the head's logits gather
-# once; zamba2's shared-attention site all-reduces attention's and the
-# FFN's outputs on 2 x 2; on 1 x 4 its two KV heads do not divide model,
-# so the site gathers its 4 attention leaves whole, all-reduces the FFN's
-# output and gathers its sequence-split cache's partial attention once
-SSM_STEP = {"mamba2 2x2": (2 * 2 + 1, 2 * 2 + 1),
-            "mamba2 1x4": (2 * 2 + 1, 2 * 2 + 1),
-            "zamba2 2x2": (2 * 2 + 1, 2 * 2 + 2 + 1),
-            "zamba2 1x4": (2 * 2 + 4 + 1 + 1, 2 * 2 + 1 + 1)}
-
-
-@pytest.mark.parametrize("case", list(AXIS_SSM))
-def test_gspmd_ssm_block_collectives_a_decode_step(world, case):
-    """A decode step's collectives on the model line, equal on every rank
-    (see :data:`SSM_STEP`): 2 gathers and 2 all-reduces a Mamba2 block
-    (both smoke archs have 2 layers)."""
-    _, d = world
-    gathers, reduces = SSM_STEP[case]
-    for r in range(N):
-        step = json.load(open(d / f"axis_ssm_r{r}.json"))[case]["step"]
-        assert step.get("model_all_gather") == gathers and \
-            step.get("model_all_reduce") == reduces and \
-            not step.get("model_reduce_scatter"), (r, step)
-
-
-def test_gspmd_serve_route_vlm_tokens_equal_single_device(world):
-    """phi-3-vision through ``make_prefill`` (tokens and image embeddings)
-    and ``make_serve_step`` on the 2 x 2 GSPMD route: its single-device
-    greedy tokens on every rank (its ``img_proj`` gathered whole over
-    model, its batch rows split over data)."""
-    from repro_torch.models.transformer import init_params
-    _, d = world
-    cfg = get_config("phi-3-vision-4.2b-smoke")
-    want = axis_vlm_tokens(cfg, init_params(cfg, 0, device="cpu"))
-    for r in range(N):
-        got = json.load(open(d / f"axis_serve_r{r}.json"))[cfg.name]
-        assert got["tokens"] == want, (r, got["tokens"])
-
-
 def test_2x1x2_gspmd_step_and_checkpoint_equal_2x2_bit_for_bit(world):
     """The pod axis: on ``2 x 1 x 2`` (pod x data x model) the data line is
     the two pods, the ranks and their lines are those of ``2 x 2``, so
@@ -574,28 +307,3 @@ def test_2x1x2_gspmd_step_and_checkpoint_equal_2x2_bit_for_bit(world):
     assert names == sorted(os.listdir(b)) and len(names) > 2
     for name in names:
         assert (a / name).read_bytes() == (b / name).read_bytes(), name
-
-
-def _cli(*extra, timeout=300):
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep + \
-        env.get("PYTHONPATH", "")
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device",
-           "cpu", "--arch", "olmo-1b-smoke", "--steps", "2", "--batch", "4",
-           "--seq", "32", "--log-every", "1", *extra]
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
-                       env=env)
-    assert r.returncode == 0, r.stdout + r.stderr
-    return r.stdout
-
-
-@pytest.mark.parametrize("comm", ["gspmd", "vci"])
-def test_cli_trains_on_a_2x2_mesh(comm):
-    """``--mesh 2x2`` spawns 4 ranks as data 2 x model 2 in both modes; the
-    loss lines are the one-rank run's (``tests/test_torch_gspmd.py``
-    prints these for ``--mesh none`` and ``--mesh 2``)."""
-    out = _cli("--mesh", "2x2", "--comm", comm)
-    assert "devices=4 mesh=2x2" in out and f"comm={comm}" in out
-    steps = [ln.split()[3] for ln in out.splitlines()
-             if ln.startswith("step ")]
-    assert steps == ["6.2922", "6.2704"], out

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu  # noqa: F401  (one intra-op thread: see its docstring)
 from repro.configs import get_config as jax_get_config
 from repro.models import attention as jattn
 from repro.models import layers as jlayers

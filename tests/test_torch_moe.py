@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_cpu import cli_env  # one intra-op thread: see its docstring
 from repro.configs import get_config as jax_get_config
 from repro.kernels.moe_gather import row_gather_pallas, row_gather_ref
 from repro.models import moe as jmoe
@@ -638,9 +639,7 @@ def test_assignment_table_only_where_autograd_reads_it(monkeypatch, mode):
 
 
 def test_cli_serves_moe_on_cpu():
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep + \
-        env.get("PYTHONPATH", "")
+    env = cli_env()
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
                         "--device", "cpu", "--arch", ARCH, "--max-len", "64",
                         "--paged", "--vary-prompts"],

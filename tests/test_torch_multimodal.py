@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu  # noqa: F401  (one intra-op thread: see its docstring)
 from repro.configs import get_config as jax_get_config
 from repro.data.pipeline import synthetic_batch as jax_synthetic_batch
 from repro.models import transformer as jtf
@@ -288,7 +289,7 @@ def test_vlm_engine_is_refused():
 @pytest.mark.parametrize("arch", [VLM, AUDIO])
 def test_training_is_refused(arch, tmp_path, monkeypatch):
     """Once refused (ROADMAP item 13c); now both train (the steps are held
-    against the reference in ``tests/test_torch_train.py``). Here: the
+    against the reference in ``tests/test_torch_train_families.py``). Here: the
     bucket plan holds every leaf whole (the VLM's ``img_proj.w``, audio's
     ``(K,V,d)`` embeddings and ``(K,d,V)`` heads); a rank's slice and each
     microbatch take the same rows of every batch key (``image_embeds``

@@ -6,27 +6,22 @@ The reference's own overlap check (``check_overlap_matches_post``) fails
 on every run of its tests, so the port's post schedule is held to the
 reference's ``schedule="post"`` step, and the overlap schedule to the
 port's post schedule: loss and grad norm rtol 1e-5, params rtol 2e-5 /
-atol 1e-6 (the reference's tolerances).
+atol 1e-6 (the reference's tolerances). Here on one rank; on 4 gloo ranks
+in ``tests/test_torch_overlap_ranks.py``, the CLI in
+``tests/test_torch_overlap_cli.py``.
 """
 
-import os
-import subprocess
-import sys
 import weakref
 
 import jax
 import numpy as np
 import pytest
 import torch
-import torch.distributed as dist
-from jax.sharding import Mesh
 
-from repro.compat import set_mesh
+from _torch_cpu import one_rank  # noqa: F401  (one intra-op thread: see its docstring)
 from repro.configs import get_config as jax_get_config
 from repro.core import bucketing as jbk
 from repro.models.transformer import init_params as jax_init_params
-from repro.train.trainer import make_train_step as jax_make_train_step
-from repro.train.trainer import train_state_init as jax_train_state_init
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.core import bucketing as tbk
@@ -36,22 +31,7 @@ from repro_torch.train.losses import total_loss
 from repro_torch.train.trainer import make_train_step, train_state_init
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
-from test_torch_ranks import run_ranks
-from test_torch_train import _assert_params_close
-from test_torch_zero1 import _held, _write_inputs
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ["olmo-1b-smoke", "gemma-2b-smoke"]
-
-
-@pytest.fixture(scope="module")
-def one_rank(tmp_path_factory):
-    """A one-rank gloo data group in this process."""
-    store = tmp_path_factory.mktemp("store") / "store"
-    dist.init_process_group("gloo", store=dist.FileStore(str(store), 1),
-                            rank=0, world_size=1)
-    yield
-    dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -205,68 +185,3 @@ def test_moe_zero1_overlap_equals_replicated_post(one_rank):
     for a, b in zip(runs["overlap"][1], runs["post"][1]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-5,
                                    atol=1e-6)
-
-
-def test_overlap_over_4_ranks_matches_post_and_reference(tmp_path):
-    """5 steps on gemma-2b-smoke over 4 gloo ranks with 2 microbatches
-    (the analogue of ``check_overlap_matches_post``): overlap against
-    post for both optimizers, the hooks issuing in ready order inside the
-    backward; and each post run against the reference's ``schedule=
-    "post"`` step of that optimizer on one device over the whole batch
-    (two frameworks: ``tests/test_torch_train.py``'s params tolerance)."""
-    arch, n, steps = "gemma-2b-smoke", 4, 5
-    params, batches = _write_inputs(tmp_path, arch, n, steps)
-    r = run_ranks("overlap", tmp_path, n=n)
-    assert r.returncode == 0, r.stdout + r.stderr
-    out = np.load(tmp_path / "out_overlap.npz")
-    jcfg = jax_get_config(arch)
-    mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
-    for optimizer in ("replicated", "zero1"):
-        post, ovl = f"{optimizer}/post/2", f"{optimizer}/overlap/2"
-        leaves = _held(out, ovl, post, f"{optimizer} overlap")
-        np.testing.assert_array_equal(out[f"{ovl}/order"],
-                                      out[f"{ovl}/ready_order"])
-        assert int(out[f"{ovl}/in_backward"]) == len(out[f"{ovl}/order"])
-        knobs = dict(comm="vci", pack="pallas", num_streams=4, num_vcis=4,
-                     optimizer=optimizer, accum_steps=2)
-        jstate = jax_train_state_init(jcfg, jax.random.PRNGKey(0),
-                                      optimizer=optimizer, mesh=mesh,
-                                      num_streams=4, pack="pallas")
-        jstep = jax.jit(jax_make_train_step(jcfg, mesh=mesh,
-                                            token_impl="data", **knobs))
-        with set_mesh(mesh):
-            for i in range(steps):
-                jstate, jm = jstep(jstate, {
-                    "tokens": batches[f"tokens{i}"],
-                    "labels": batches[f"labels{i}"]})
-                np.testing.assert_allclose(
-                    out[f"{post}/metrics"][i],
-                    [float(jm["loss"]), float(jm["grad_norm"])], rtol=1e-5,
-                    err_msg=f"{optimizer} step {i}")
-        _assert_params_close([out[f"{post}/p{i}"] for i in range(leaves)],
-                             jax.tree_util.tree_leaves(jstate.params),
-                             optimizer)
-
-
-def _cli(*extra):
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device",
-           "cpu", "--arch", "olmo-1b-smoke", "--steps", "2", "--batch", "8",
-           "--seq", "32", "--mesh", "2", "--comm", "vci", "--pack", "pallas",
-           "--num-streams", "4", "--accum", "2", "--log-every", "1", *extra]
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep + \
-        env.get("PYTHONPATH", "")
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=240,
-                       env=env)
-    assert r.returncode == 0, r.stdout + r.stderr
-    return [ln.split()[:6] for ln in r.stdout.splitlines()
-            if ln.startswith("step ")]
-
-
-@pytest.mark.parametrize("optimizer", ["replicated", "zero1"])
-def test_cli_overlap_prints_the_post_lines(optimizer):
-    """``--overlap`` on 2 CPU ranks with ``--accum 2`` prints the post
-    schedule's loss and grad norm lines, for both optimizers."""
-    post = _cli("--optimizer", optimizer)
-    assert len(post) == 2
-    assert _cli("--optimizer", optimizer, "--overlap") == post

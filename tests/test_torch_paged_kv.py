@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cpu  # noqa: F401  (one intra-op thread: see its docstring)
 from repro.kernels.paged_kv import paged_gather_pallas, paged_gather_ref
 from repro_torch.bridge import tensor_from_numpy
 from repro_torch.kernels import paged_kv

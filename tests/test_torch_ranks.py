@@ -11,7 +11,8 @@ the script that runs the ranks:
 of ``check_bucket_fastpath_matches_pmean``); ``train`` runs one port train
 step per progress mode from the params and batch in ``<dir>/in.npz`` and
 writes rank 0's results to ``<dir>/out_<progress>.npz``, which
-``tests/test_torch_train.py`` holds against the reference; ``seqshard``
+``tests/test_torch_train_families.py`` holds against the reference;
+``seqshard``
 holds the flash-decode combine over a sequence-sharded KV cache against
 ``decode_attention`` (the analogue of
 ``check_flash_decode_sequence_sharded``) and writes rank 0's error to
@@ -24,10 +25,11 @@ data group against numpy; ``collectives`` holds the runtime's collectives
 and its window/p2p ops against numpy and writes their op counts;
 ``collectives`` also runs the paper's applications of ``examples_torch/``
 (stencil, EBMS, BSPMM) under each progress mode and writes rank 0's
-results and their collective depths (``tests/test_torch_bucketing.py``);
-``zero1`` and ``overlap`` train 5 steps from ``in.npz`` as ZeRO-1 and
-replicated, and post and overlap for both optimizers, and write rank 0's
-results (``tests/test_torch_zero1.py``, ``tests/test_torch_overlap.py``);
+results and their collective depths
+(``tests/test_torch_bucketing_ranks.py``); ``zero1`` and ``overlap`` train
+5 steps from ``in.npz`` as ZeRO-1 and replicated, and post and overlap for
+both optimizers, and write rank 0's results
+(``tests/test_torch_zero1_ranks.py``, ``tests/test_torch_overlap_ranks.py``);
 ``gspmd`` trains each ``gspmd_<case>.npz`` with ``comm="gspmd"`` (FSDP
 over the ranks) and writes every rank's metrics, bytes and collectives
 and rank 0's gathered params (``tests/test_torch_gspmd.py``);
@@ -36,9 +38,12 @@ autograd of the whole leaves; ``ckpt_save`` and ``ckpt_load`` save the
 replicated, ZeRO-1 and FSDP states of ``ckpt.npz`` and restore them on
 another count of ranks (``tests/test_torch_checkpoint.py``);
 ``model_axis`` trains each ``axis_<case>.npz`` on a ``(ranks // 2) x 2``
-``data x model`` mesh in both comm modes, checkpoints, restores and
-serves through the GSPMD route, the tensor-parallel Mamba2 block on
-``2 x 2`` and ``1 x 4`` among it (``tests/test_torch_model_axis.py``).
+``data x model`` mesh in both comm modes, checkpoints and restores
+(``tests/test_torch_model_axis.py``); ``model_axis_serve`` serves through
+the GSPMD route, its sequence-split cache among it
+(``tests/test_torch_model_axis_serve.py``), and ``model_axis_ssm`` the
+tensor-parallel Mamba2 block on ``2 x 2`` and ``1 x 4``
+(``tests/test_torch_model_axis_ssm.py``).
 """
 
 import faulthandler
@@ -47,8 +52,11 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 import torch.distributed as dist
+
+from _torch_cpu import cli_env  # one intra-op thread: see its docstring
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 1e-5, 1e-6   # tests/_multidev_checks.py reduce tolerances
@@ -985,8 +993,7 @@ def check_model_axis(rank: int, n: int, out_dir: str) -> None:
     every rank restores it as a data-only ``n x 1`` mesh and checks its
     slices bit for bit against the whole leaves; then olmo's gspmd steps
     and checkpoint on the pod mesh ``2 x (n // 4) x 2``
-    (``axis_out_pod_r<rank>.npz``, ``axis_ckpt_pod``); then the GSPMD
-    serve route (``_axis_serve``)."""
+    (``axis_out_pod_r<rank>.npz``, ``axis_ckpt_pod``)."""
     from repro_torch.checkpoint import load_state, save_state
     from repro_torch.core.collectives import RankMesh
     from repro_torch.dist.sharding import Sharder
@@ -1055,8 +1062,19 @@ def check_model_axis(rank: int, n: int, out_dir: str) -> None:
     state, step, _, _ = _axis_train(cfg, {**data, "steps": 1}, pod, "gspmd")
     save_state(os.path.join(out_dir, "axis_ckpt_pod"), 1, state,
                shard=step.sharder())
-    _axis_serve(rank, mesh, out_dir)
+
+
+def check_model_axis_serve(rank: int, n: int, out_dir: str) -> None:
+    """The GSPMD serve route on a ``(n // 2) x 2`` mesh (``_axis_serve``),
+    then the sequence-split decode cache (``_axis_split``)."""
+    from repro_torch.core.collectives import RankMesh
+    _axis_serve(rank, RankMesh(n // 2, 2), out_dir)
     _axis_split(rank, out_dir)
+
+
+def check_model_axis_ssm(rank: int, n: int, out_dir: str) -> None:
+    """The tensor-parallel Mamba2 block on the GSPMD route
+    (``_axis_ssm``)."""
     _axis_ssm(rank, out_dir)
 
 
@@ -1066,13 +1084,15 @@ CHECKS = {"reduce": check_reduce, "train": check_train,
           "zero1": check_zero1, "overlap": check_overlap,
           "gspmd": check_gspmd, "gather_grad": check_gather_grad,
           "ckpt_save": check_ckpt_save, "ckpt_load": check_ckpt_load,
-          "model_axis": check_model_axis}
+          "model_axis": check_model_axis,
+          "model_axis_serve": check_model_axis_serve,
+          "model_axis_ssm": check_model_axis_ssm}
 
 
 def _rank_main(rank: int, check: str, n: int, out_dir: str) -> None:
-    # a rank that dies of a signal prints its Python stack
+    # a rank that dies of a signal prints its Python stack; its one
+    # intra-op thread is _torch_cpu's, imported with this module
     faulthandler.enable(all_threads=True)
-    torch.set_num_threads(1)
     dist.init_process_group(
         "gloo", store=dist.FileStore(os.path.join(out_dir, "store"), n),
         rank=rank, world_size=n)
@@ -1089,12 +1109,51 @@ def _rank_main(rank: int, check: str, n: int, out_dir: str) -> None:
 def run_ranks(check: str, out_dir: str, n: int = 4,
               timeout: int = 240) -> subprocess.CompletedProcess:
     """Run ``check`` on ``n`` spawned gloo ranks in a fresh process."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep + \
-        env.get("PYTHONPATH", "")
+    env = cli_env()
     return subprocess.run([sys.executable, os.path.abspath(__file__), check,
                            str(out_dir), str(n)], capture_output=True,
                           text=True, timeout=timeout, env=env)
+
+
+def _record_threads(device, out_dir: str) -> None:
+    """A spawned rank's body: write its intra-op thread count."""
+    with open(os.path.join(out_dir, f"threads{dist.get_rank()}"), "w") as f:
+        f.write(str(torch.get_num_threads()))
+
+
+@pytest.mark.parametrize("parent,world,want", [(1, 2, 1), (8, 4, 2)],
+                         ids=["parent1-2ranks", "parent8-4ranks"])
+def test_spawned_cpu_ranks_share_the_parents_threads(tmp_path, parent, world,
+                                                     want):
+    """``spawn_ranks`` on the CPU: each rank takes its share of the
+    parent's intra-op threads (``rank_threads``), not of the machine's
+    cores, which a fresh process would start on."""
+    from repro_torch.launch.ranks import rank_threads, spawn_ranks
+    assert rank_threads(parent, world) == want
+    before = torch.get_num_threads()
+    torch.set_num_threads(parent)
+    try:
+        spawn_ranks(_record_threads, world, torch.device("cpu"),
+                    str(tmp_path))
+    finally:
+        torch.set_num_threads(before)
+    got = [int((tmp_path / f"threads{r}").read_text()) for r in range(world)]
+    assert got == [want] * world
+
+
+def test_tp_serve_launcher_passes_the_parents_threads(monkeypatch):
+    """The TP serve CLI hands its ranks this process's thread count (each
+    rank then calls ``rank_threads`` with it)."""
+    from repro_torch.launch import serve
+    seen = {}
+
+    def start(fn, args, nprocs, start_method):
+        seen.update(fn=fn, args=args, nprocs=nprocs)
+
+    monkeypatch.setattr(torch.multiprocessing, "start_processes", start)
+    serve.main(["--tp", "2", "--device", "cpu"])
+    assert seen["fn"] is serve._rank_main and seen["nprocs"] == 2
+    assert seen["args"][-1] == torch.get_num_threads() == 1
 
 
 if __name__ == "__main__":

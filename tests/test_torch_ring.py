@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-import _torch_cpu  # noqa: F401  (warms torch.exp: see its docstring)
+import _torch_cpu  # noqa: F401  (one intra-op thread: see its docstring)
 from repro.configs import get_config as jax_get_config
 from repro.models import attention as jattn
 from repro.models import transformer as jtf

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_cpu import cli_env  # one intra-op thread: see its docstring
 from repro.configs import get_config as jax_get_config
 from repro.models.transformer import init_params as jax_init_params
 from repro.serve import engine as jengine
@@ -152,9 +153,7 @@ def test_temperature_rows(olmo):
 
 
 def _cli(*args):
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep + \
-        env.get("PYTHONPATH", "")
+    env = cli_env()
     return subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
                            *args], capture_output=True, text=True, cwd=REPO,
                           env=env, timeout=300)

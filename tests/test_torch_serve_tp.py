@@ -10,30 +10,24 @@ expert-parallel MoE (mixtral-8x22b-smoke: 4 experts, 2 a rank) and an
 ff-TP MoE (the same with 3 experts, which do not divide tp 2), on a data 2
 x model 2 mesh (4 ranks) and a data 1 x model 2 mesh (2 ranks), at
 num_vcis 1 (every context on the fallback VCI) and 8, contiguous (batch 4)
-and paged (batch 2, 11 pages of 8: admission under the mesh). Beside it,
-in one process: ``serve_param_specs`` and ``serve_tp_validate`` against
-the reference's, and ``decode_kv_expand`` against the JAX model.
+and paged (batch 2, 11 pages of 8: admission under the mesh).
+``serve_param_specs`` and ``serve_tp_validate`` against the reference's
+are ``tests/test_torch_serve_tp_specs.py``; ``shard_params``,
+``decode_kv_expand`` and the all-to-all on gloo ranks are
+``tests/test_torch_serve_tp_layout.py``.
 """
 
-import dataclasses
-
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
-from jax.sharding import PartitionSpec
 
-from repro.configs import all_configs as jax_all_configs
-from repro.configs import get_config as jax_get_config
-from repro.data.pipeline import synthetic_batch as jax_synthetic_batch
+import _torch_cpu  # noqa: F401  (one intra-op thread: see its docstring)
+from _torch_serve_tp import case_cfgs
 from repro.models import transformer as jtf
-from repro.serve import comm as jcomm
 from repro.serve.engine import Request as JaxRequest
 from repro.serve.engine import ServeEngine as JaxEngine
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
-from repro_torch.models import transformer as ttf
 from repro_torch.serve import comm as tcomm
 from repro_torch.tree import tree_flatten
 
@@ -44,17 +38,6 @@ CASES = ("olmo-1b-smoke:0", "mixtral-8x22b-smoke:0", "mixtral-8x22b-smoke:3")
 MESHES = {"data2xmodel2": 4, "data1xmodel2": 2}
 LAYOUTS = ("contiguous", "paged")
 TP = 2
-
-
-def _cfgs(case):
-    arch, experts = case.split(":")
-    jcfg, cfg = jax_get_config(arch), get_config(arch)
-    if int(experts):
-        jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
-            jcfg.moe, num_experts=int(experts)))
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, num_experts=int(experts)))
-    return jcfg, cfg
 
 
 def _requests(vocab):
@@ -71,7 +54,7 @@ def served(tmp_path_factory):
     ``(reference, {mesh: [rank outputs]})``."""
     ref, inputs = {}, {"cases": np.asarray(CASES)}
     for case in CASES:
-        jcfg, cfg = _cfgs(case)
+        jcfg, cfg = case_cfgs(case)
         jparams = jtf.init_params(jcfg, jax.random.PRNGKey(0))
         solo = JaxEngine(jcfg, jparams, batch_size=4, max_len=48)
         reqs = _requests(jcfg.vocab_size)
@@ -157,144 +140,3 @@ def test_smoke_archs_are_refused_at_tp_4():
     for arch in ("olmo-1b-smoke", "mixtral-8x22b-smoke"):
         with pytest.raises(ValueError, match="num_kv_heads 2 % tp"):
             tcomm.serve_tp_validate(get_config(arch), 4)
-
-
-# ---------------------------------------------------------------------------
-# in one process: specs, the TP contract, decode_kv_expand
-# ---------------------------------------------------------------------------
-
-def _ref_dims(spec_tree):
-    """The reference's PartitionSpec tree -> the dim naming 'model'."""
-    def dim(p):
-        return next((i for i, a in enumerate(p) if a == "model"), None)
-    return jax.tree_util.tree_map(dim, spec_tree,
-                                  is_leaf=lambda x: isinstance(
-                                      x, PartitionSpec))
-
-
-@pytest.mark.parametrize("case,tp", [
-    ("olmo-1b-smoke:0", 2), ("mixtral-8x22b-smoke:0", 2),
-    ("mixtral-8x22b-smoke:3", 2), ("olmo-1b-smoke:0", 4),
-    ("mixtral-8x22b-smoke:0", 4), ("mixtral-8x22b-smoke:3", 4),
-    ("arctic-480b-smoke:0", 2), ("yi-9b-smoke:0", 2)])
-def test_param_specs_equal_reference(case, tp):
-    """Every leaf's sharded dim equals the reference's PartitionSpec: the
-    dense, expert-parallel and ff-TP smoke trees (tp 4 with num_kv_heads
-    widened to 4), untied lm_head and the arctic dense residual."""
-    jcfg, cfg = _cfgs(case)
-    if tp == 4:
-        jcfg = dataclasses.replace(jcfg, num_kv_heads=4)
-        cfg = dataclasses.replace(cfg, num_kv_heads=4)
-    jparams = jax.eval_shape(lambda: jtf.init_params(
-        jcfg, jax.random.PRNGKey(0)))
-    want = _ref_dims(jcomm.serve_param_specs(jcfg, jparams, tp))
-    params = ttf.init_params(cfg, 0, device="cpu")
-    got = tcomm.serve_param_specs(cfg, params, tp)
-    assert got == want
-
-
-@pytest.mark.parametrize("arch", sorted(jax_all_configs()) + [
-    a + "-smoke" for a in sorted(jax_all_configs())])
-def test_tp_validate_equals_reference(arch):
-    """``serve_tp_validate`` raises, or not, with the reference's message,
-    for every registered config (and its smoke variant) at tp 2, 4, 8."""
-    jcfg, cfg = jax_get_config(arch), get_config(arch)
-    for tp in (2, 4, 8):
-        msgs = []
-        for fn, c in ((jcomm.serve_tp_validate, jcfg),
-                      (tcomm.serve_tp_validate, cfg)):
-            try:
-                fn(c, tp)
-                msgs.append(None)
-            except ValueError as e:
-                msgs.append(str(e))
-        assert msgs[0] == msgs[1], (arch, tp, msgs)
-
-
-def test_shard_params_cuts_by_the_specs():
-    """``shard_params`` and ``init_params(shard=param_sharder(...))`` give
-    the same rank shards, and the shards put back together along the spec
-    dims give the full tree."""
-    cfg = get_config("mixtral-8x22b-smoke")
-    full = ttf.init_params(cfg, 0, device="cpu")
-    specs = tcomm.serve_param_specs(cfg, full, 2)
-    shards = [tcomm.shard_params(cfg, full, 2, i) for i in range(2)]
-    made = [ttf.init_params(cfg, 0, device="cpu",
-                            shard=tcomm.param_sharder(cfg, 2, i))
-            for i in range(2)]
-    f = tree_flatten(full)[0]
-    s_leaves = [tree_flatten(t)[0] for t in shards]
-    m_leaves = [tree_flatten(t)[0] for t in made]
-    dims = _dims_in_order(specs)
-    assert len(dims) == len(f)
-    for i, (leaf, dim) in enumerate(zip(f, dims)):
-        for r in range(2):
-            assert torch.equal(s_leaves[r][i], m_leaves[r][i])
-        if dim is None:
-            assert all(torch.equal(s[i], leaf) for s in s_leaves)
-        else:
-            assert torch.equal(torch.cat([s[i] for s in s_leaves], dim),
-                               leaf)
-
-
-def _dims_in_order(tree):
-    if isinstance(tree, dict):
-        return [d for k in sorted(tree) for d in _dims_in_order(tree[k])]
-    return [tree]
-
-
-@pytest.mark.parametrize("expand", [1, 2, 4])
-def test_decode_kv_expand_equals_reference(expand):
-    """``decode_kv_expand`` stores each KV head ``e`` times, a pure layout
-    change: the cache holds ``KV * e`` heads, and prefill + 10 decode
-    steps give the JAX model's logits at the same ``e`` (f32, 1e-5), and
-    those at ``e = 1`` (yi-9b-smoke with 8 query heads, so that 4 x 2 KV
-    heads still divide them; the reference's
-    ``test_decode_kv_expand_numerics``)."""
-    base = dataclasses.replace(jax_get_config("yi-9b-smoke"), num_heads=8)
-    tbase = dataclasses.replace(get_config("yi-9b-smoke"), num_heads=8)
-    S = 20
-    jparams = jtf.init_params(base, jax.random.PRNGKey(0))
-    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
-                               "cpu")
-    toks = np.asarray(jax_synthetic_batch(base, 2, S, seed=2)["tokens"])
-    outs = {}
-    for e in sorted({1, expand}):
-        jcfg = dataclasses.replace(base, decode_kv_expand=e)
-        cfg = dataclasses.replace(tbase, decode_kv_expand=e)
-        jmodel, model = jtf.Model(jcfg), ttf.Model(cfg)
-        jcache = jtf.init_cache(jcfg, 2, S + 1, dtype=jnp.float32)
-        cache = ttf.init_cache(cfg, 2, S + 1, dtype=torch.float32,
-                               device="cpu")
-        assert cache.kv.k.shape == jcache.kv.k.shape
-        assert cache.kv.k.shape[3] == cfg.num_kv_heads * e
-        _, _, jcache = jmodel.forward(jparams,
-                                      {"tokens": jnp.asarray(toks[:, :10])},
-                                      cache=jcache)
-        with torch.inference_mode():
-            _, _, cache = model.forward(
-                params, {"tokens": torch.from_numpy(toks[:, :10])},
-                cache=cache)
-            jl, tl = [], []
-            for t in range(10, S):
-                lg, jcache = jmodel.decode_step(
-                    jparams, jnp.asarray(toks[:, t: t + 1]), jcache)
-                jl.append(np.asarray(lg))
-                lg, cache = model.decode_step(
-                    params, torch.from_numpy(toks[:, t: t + 1]), cache)
-                tl.append(lg.numpy())
-        got, want = np.concatenate(tl, 1), np.concatenate(jl, 1)
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(cache.kv.k),
-                                   np.asarray(jcache.kv.k), rtol=1e-5,
-                                   atol=1e-5)
-        outs[e] = got
-    np.testing.assert_allclose(outs[expand], outs[1], rtol=1e-5, atol=1e-5)
-
-
-def test_all_to_all_on_gloo_ranks(tmp_path):
-    """``CommRuntime.all_to_all`` on 4 gloo ranks, along the data group and
-    both axes of a 2 x 2 mesh, against numpy."""
-    r = run_ranks("all_to_all", tmp_path, 4)
-    assert r.returncode == 0, r.stderr[-3000:]
-    assert int(np.load(tmp_path / "out_all_to_all.npz")["ok"]) == 1

@@ -19,6 +19,7 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as JP
 
+import _torch_cpu  # noqa: F401  (one intra-op thread: see its docstring)
 from repro.configs import ARCH_IDS
 from repro.configs import get_config as jax_get_config
 from repro.dist import sharding as jsh

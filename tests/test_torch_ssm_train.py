@@ -43,7 +43,7 @@ import numpy as np
 import pytest
 import torch
 
-import _torch_cpu  # noqa: F401  (warms torch.exp: see its docstring)
+import _torch_cpu  # noqa: F401  (one intra-op thread: see its docstring)
 from repro.kernels.ref import ssd_chunk_batched_ref
 from repro.models import ssm as jssm
 from repro_torch.configs import get_config

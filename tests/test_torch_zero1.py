@@ -4,24 +4,20 @@ reduce_scatter and the param all_gather) against the JAX reference.
 The flat-space units are ``tests/test_zero1.py``'s, held against the
 reference's functions on the same seeded numpy inputs (equal, or within
 1e-6). The step is held against the reference's ``optimizer="zero1"``
-step on one rank, and against the port's replicated step on 4 gloo
-ranks (``test_torch_ranks.py zero1``), with the reference's
-``check_zero1_matches_replicated`` tolerances: loss and grad norm rtol
-1e-5, params rtol 2e-5 / atol 1e-6.
+step on one rank (``tests/_torch_train.py``'s rules). The step on 4
+gloo ranks against the replicated optimizer, and the CLI, are
+``tests/test_torch_zero1_ranks.py``'s.
 """
-
-import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.distributed as dist
 from jax.sharding import Mesh, PartitionSpec as P
 
+from _torch_cpu import one_rank  # noqa: F401  (one intra-op thread: see its docstring)
+from _torch_train import assert_params_close
 from repro.compat import set_mesh, shard_map
 from repro.configs import get_config as jax_get_config
 from repro.core import bucketing as jbk
@@ -36,21 +32,6 @@ from repro_torch.core import bucketing as tbk
 from repro_torch.optim import adamw as tadamw
 from repro_torch.train.trainer import make_train_step, train_state_init
 from repro_torch.tree import tree_flatten, tree_unflatten
-
-from test_torch_ranks import run_ranks
-from test_torch_train import _assert_params_close
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(scope="module")
-def one_rank(tmp_path_factory):
-    """A one-rank gloo data group in this process."""
-    store = tmp_path_factory.mktemp("store") / "store"
-    dist.init_process_group("gloo", store=dist.FileStore(str(store), 1),
-                            rank=0, world_size=1)
-    yield
-    dist.destroy_process_group()
 
 
 def _param_tree(seed=0):
@@ -292,7 +273,7 @@ def test_shards_and_gather_on_one_rank(one_rank, progress, pack):
 def test_zero1_step_matches_reference_zero1_step(one_rank):
     """3 steps of the port's ZeRO-1 step (pack "pallas") on a one-rank
     group against the reference's ``optimizer="zero1"`` step on a
-    one-device mesh, with ``tests/test_torch_train.py``'s tolerances: loss
+    one-device mesh, with ``tests/_torch_train.py``'s tolerances: loss
     and grad norm rtol 1e-5, params two frameworks apart."""
     arch = "olmo-1b-smoke"
     jcfg, cfg = jax_get_config(arch), get_config(arch)
@@ -317,89 +298,7 @@ def test_zero1_step_matches_reference_zero1_step(one_rank):
                 np.testing.assert_allclose(float(m[k]), float(jm[k]),
                                            rtol=1e-5, err_msg=f"{i} {k}")
     assert int(state.step) == 3 and int(state.opt.count) == 3
-    _assert_params_close(tree_flatten(state.params)[0],
-                         jax.tree_util.tree_leaves(jstate.params), "zero1")
+    assert_params_close(tree_flatten(state.params)[0],
+                        jax.tree_util.tree_leaves(jstate.params), "zero1")
     for t, j in zip(state.opt.master, jstate.opt.master):
-        _assert_params_close([t.numpy()], [np.asarray(j)], "master")
-
-
-def _write_inputs(path, arch, n, steps):
-    """The reference's params (leaf order) and ``steps`` batches of 2 rows
-    a rank, for ``test_torch_ranks.py``'s train runs."""
-    jcfg = jax_get_config(arch)
-    params = jax_train_state_init(jcfg, jax.random.PRNGKey(0)).params
-    leaves = [np.asarray(l) for l in jax.tree_util.tree_leaves(params)]
-    batches = {}
-    for i in range(steps):
-        b = jax_synthetic_batch(jcfg, 2 * n, 32, seed=i)
-        batches[f"tokens{i}"], batches[f"labels{i}"] = (b["tokens"],
-                                                        b["labels"])
-    np.savez(path / "in.npz", arch=arch, n_leaves=len(leaves), steps=steps,
-             **{f"p{i}": l for i, l in enumerate(leaves)}, **batches)
-    return params, batches
-
-
-def _held(out, a, b, what):
-    """Run ``a`` against run ``b`` with the reference's zero1/overlap
-    tolerances; returns the number of param leaves compared."""
-    np.testing.assert_allclose(out[f"{a}/metrics"], out[f"{b}/metrics"],
-                               rtol=1e-5, err_msg=what)
-    i = 0
-    while f"{a}/p{i}" in out:
-        np.testing.assert_allclose(out[f"{a}/p{i}"], out[f"{b}/p{i}"],
-                                   rtol=2e-5, atol=1e-6,
-                                   err_msg=f"{what} leaf {i}")
-        i += 1
-    return i
-
-
-def test_zero1_over_4_ranks_matches_replicated(tmp_path):
-    """5 steps on gemma-2b-smoke over 4 gloo ranks: ZeRO-1 against the
-    replicated optimizer (the analogue of ``check_zero1_matches_
-    replicated``), and a rank's optimizer state 1/N of the replicated
-    state's up to the buckets' padding."""
-    n = 4
-    _write_inputs(tmp_path, "gemma-2b-smoke", n, 5)
-    r = run_ranks("zero1", tmp_path, n=n)
-    assert r.returncode == 0, r.stdout + r.stderr
-    out = np.load(tmp_path / "out_zero1.npz")
-    assert _held(out, "zero1/post/1", "replicated/post/1", "zero1") > 0
-    cfg = get_config("gemma-2b-smoke")
-    from repro_torch.models.transformer import init_params
-    params = init_params(cfg, 0, device="cpu")
-    plan = tbk.plan_buckets(params, 4, slot_align=tbk.TILE)
-    full = sum(p.numel() for p in tree_flatten(params)[0])
-    rep, z1 = int(out["replicated/post/1/opt_bytes"]), \
-        int(out["zero1/post/1/opt_bytes"])
-    # replicated: f32 m and v of every element (+ the int32 count); ZeRO-1:
-    # f32 master, m and v of 1/N of the padded buckets, the padding less
-    # than a tile a bucket
-    assert rep == 8 * full + 4
-    assert z1 == 12 * plan.total_padded // n + 4
-    assert 0 <= plan.total_padded - full < plan.num_buckets * tbk.TILE
-
-
-def _cli(*extra):
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device",
-           "cpu", "--arch", "olmo-1b-smoke", "--steps", "2", "--batch", "4",
-           "--seq", "32", "--mesh", "2", "--comm", "vci", "--pack", "pallas",
-           "--num-streams", "4", "--log-every", "1", *extra]
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep + \
-        env.get("PYTHONPATH", "")
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=240,
-                       env=env)
-    assert r.returncode == 0, r.stdout + r.stderr
-    return [ln.split()[:6] for ln in r.stdout.splitlines()
-            if ln.startswith("step ")]
-
-
-def test_cli_zero1_on_two_cpu_ranks():
-    """``--optimizer zero1`` with f32 wire prints the replicated run's
-    loss and grad norm lines; with ``--zero1-wire bfloat16`` it trains
-    (finite losses)."""
-    rep = _cli()
-    assert len(rep) == 2
-    assert _cli("--optimizer", "zero1") == rep
-    bf16 = _cli("--optimizer", "zero1", "--zero1-wire", "bfloat16")
-    assert len(bf16) == 2 and all(np.isfinite(float(ln[3])) for ln in bf16)
+        assert_params_close([t.numpy()], [np.asarray(j)], "master")
