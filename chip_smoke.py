@@ -60,7 +60,23 @@ Phases, each a check that exits non-zero when it fails:
    ``scaled_dot_product_attention`` and bound times (at (i) SDPA takes
    the window as an explicit boolean mask and K/V repeated to the 48
    query heads; the plain version runs one batch row at a time where its
-   f32 logits would pass 8 GB);
+   f32 logits would pass 8 GB). Then the backward kernel
+   (``flash_attention_bwd``) against ``flash_attention_bwd_plain`` on the
+   forward kernel's (o, lse), at ``FLASH_BWD_CASES``: (a), gemma-2b's
+   training shape (4,1024,8 / 1 KV,256), (f), (g), (k), (n), (d) in f32
+   with a window, (2,300,8 / 2 KV,128) bf16 with a window of 40, where
+   rows past Skv + 39 have no valid key, and the f32 training runs'
+   shapes (olmo-1b at hd 128: phase 15's one-rank 8 x 1,024 and the
+   15b, 16a and 16b ranks' shares of it; olmo-100m, 8 x 256 at hd 64,
+   phase 19a); dq, dk and dv at the
+   forward's rules (f32 2e-5 x max(1, max |plain|); bf16 1.25 x the
+   plain bf16 backward's error + 1e-3 x max |f32|), equal bits on a
+   second launch, one launch counted a call; at the bf16 training shapes
+   kernel, plain, SDPA's own flash backward (one aten call on its
+   forward's saved tensors, K/V repeated where they are fewer) and bound
+   times (10 x hd FLOPs a valid pair at 989 TFLOP/s; q, o, dO, k, v, lse
+   read and dq, dk, dv written once at 3.35 TB/s), and a profiled call's
+   device ms by launch (delta, dK/dV, dQ);
 5. serve: full-width olmo-1b (16 layers, bf16 params from a seed) through
    ``ServeEngine`` with the paged cache — 8 requests on 4 slots, so slots
    are recycled — with the launch counts zeroed just before and read just
@@ -223,17 +239,22 @@ Phases, each a check that exits non-zero when it fails:
    one-rank NCCL group, batch 8 x seq 1024: a warm-up step, then 5 timed
    steps with the launch counts zeroed just before and read just after
    (pack once a bucket a step, unpack once a step, the flash kernel twice a
-   layer a step: the forward and remat's recompute), finite loss and grad
+   layer a step: the forward and remat's recompute, its backward kernel
+   once a layer a step), finite loss and grad
    norm; ``reduce_gradients`` with ``pack="pallas"`` equal bit for bit to
-   ``pack="xla"`` on one real gradient tree; a profile of 2 steps; then
+   ``pack="xla"`` on one real gradient tree; a profile of 2 steps (the
+   flash backward's three kernels' share of device time among the
+   others); then
    one step at ``remat="dots"`` (the matmul outputs and the flash op's
-   (o, lse) kept for the backward): the flash kernel once a layer, its
+   (o, lse) kept for the backward): the flash kernel and its backward
+   once a layer, its
    peak memory printed beside ``remat="block"``'s; the bytes one forward
    keeps for its backward (saved-tensor hooks plus the selective
    checkpoint's store) under "block", "dots" and "none", "dots" strictly
    between the two;
 10. reference training: olmo-1b-smoke in float32 (TF32 off), 3 steps of the
-   same train step on the card (attention through the flash kernel) and on
+   same train step on the card (attention through the flash kernels, the
+   backward on its f32 FFMA route once a layer a step) and on
    the CPU from the same params and batches: loss and grad norm within rtol 1e-5, params within rtol 2e-5 /
    atol 1e-4 with at most 1 element in 10^4 outside atol 1e-6 (AdamW turns
    summation-order noise in a near-zero gradient into an update of up to
@@ -501,7 +522,8 @@ Phases, each a check that exits non-zero when it fails:
    zeroed just before and read just after: (a) ``train_e2e.py`` at its
    full size (``olmo-100m``: 12 layers, d 768, f32, ``remat="none"``; vci
    buckets, ``pack="pallas"``), 200 steps of 8 x 256 and its checkpoint:
-   ce at step 200 below step 1's, flash L a step, the packs and one
+   ce at step 200 below step 1's, flash and its backward L a step, the
+   packs and one
    unpack a step; ce first -> last, tok/s, peak memory, checkpoint
    bytes; (b) ``quickstart.py`` (gemma-2b-smoke, 30 steps, then 4
    requests of 12 tokens) and (c) ``serve_batch.py`` (the smoke archs of
@@ -516,6 +538,10 @@ Phases, each a check that exits non-zero when it fails:
    print ``OK``, its error within the example's tolerance,
    its host staging copies, its collective count and critical depth at
    the values the CPU tests hold, and its seconds.
+
+Every training phase also counts the flash backward kernel's launches
+(once an attention layer a step) and checks them where it checks the
+forward's; the ``kernels`` line sums them.
 
 It prints a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Without CUDA, or without the package beside it, it fails and prints no
@@ -604,6 +630,29 @@ FLASH_CASES = (
     # variant for Sq <= 64, with pad rows
     ("p", "bfloat16", (4, 64, 64, 8, 1, 256), True, None, (0, 9, 33, 63),
      True),
+)
+# phase 4's backward: name, dtype, (B, Sq, Skv, H, KV, hd), causal, window,
+# timed; (a), (f), (g), (k), (n) and (d) are the forward's shapes, then
+# gemma-2b's training shape (hd 256, one KV head), rows without a valid
+# key (Sq >= Skv + window), and the f32 training runs' shapes: olmo-1b's
+# one-rank run of phase 15 (8 x 1,024), a 15b rank's rows (2 of 8), a 16a
+# rank's (4 rows, 8 of 16 heads on model 2), a 16b rank's (4 rows, every
+# head), and train_e2e.py's olmo-100m (phase 19a: 8 x 256, hd 64)
+FLASH_BWD_CASES = (
+    ("a", "bfloat16", (8, 1024, 1024, 16, 16, 128), True, None, True),
+    ("gemma-2b", "bfloat16", (4, 1024, 1024, 8, 1, 256), True, None, True),
+    ("f", "bfloat16", (2, 1024, 1024, 32, 32, 96), True, None, True),
+    ("g", "bfloat16", (2, 1024, 1024, 32, 32, 112), True, None, True),
+    ("k", "bfloat16", (4, 1000, 1000, 32, 32, 64), True, None, True),
+    ("n", "bfloat16", (8, 1024, 1024, 12, 2, 128), True, None, True),
+    ("d", "float32", (2, 100, 100, 4, 2, 64), True, 32, False),
+    ("empty rows", "bfloat16", (2, 300, 100, 8, 2, 128), True, 40, False),
+    ("15 one rank", "float32", (8, 1024, 1024, 16, 16, 128), True, None,
+     False),
+    ("15b", "float32", (2, 1024, 1024, 16, 16, 128), True, None, False),
+    ("16a", "float32", (4, 1024, 1024, 8, 8, 128), True, None, False),
+    ("16b", "float32", (4, 1024, 1024, 16, 16, 128), True, None, False),
+    ("olmo-100m", "float32", (8, 256, 256, 12, 12, 64), True, None, False),
 )
 # phase 12: ZeRO-1 on ranks sharing the one card, spawned once
 ZERO1_WORLD, ZERO1_LAYERS, ZERO1_STEPS, ZERO1_TIMEOUT_S = 4, 2, 2, 420
@@ -1146,6 +1195,166 @@ def phase_flash() -> dict:
                   flush=True)
             del qt, kt, vt, lib_kw
         del q, k, v, o, lse, o2, lse2
+    torch.cuda.empty_cache()
+    return res
+
+
+def flash_bwd_work(q, k, kw) -> tuple:
+    """(FLOPs, bytes) the backward of these inputs needs: the forward's
+    pairs (:func:`flash_work`) at 10 * hd FLOPs each (S, dP, dV, dK, dQ);
+    q, o, dO, k, v, lse read once and dq, dk, dv written once."""
+    flops, _ = flash_work(q, k, dict(kw, start=None))
+    b, sq, h, _ = q.shape
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + \
+        b * h * sq * 4
+    return flops * 10 // 4, nbytes
+
+
+FLASH_BWD_LAUNCHES = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
+
+
+def flash_bwd_split(call, pairs_hd: int, n: int = 3) -> str:
+    """``n`` profiled calls of the flash backward (``call()``): each of its
+    three launches' device ms a call, the dK/dV and dQ launches beside the
+    FLOPs they do (dK/dV: S, dV, dP, dK, 8 x hd a valid pair; dQ: S, dP,
+    dQ, 6 x hd) at 989 TFLOP/s; "not measured" where the profiler recorded
+    no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    ms = {k: sum(e.self_device_time_total for e in kern if k in e.key)
+          / 1e3 / n for k in FLASH_BWD_LAUNCHES}
+    if sum(ms.values()) <= 0:
+        return "by launch: the profiler recorded no kernel (not measured)"
+    floor = {"flash_bwd_dkdv": 8 * pairs_hd, "flash_bwd_dq": 6 * pairs_hd}
+    parts = []
+    for k in FLASH_BWD_LAUNCHES:
+        part = f"{k} {ms[k]:.5f} ms"
+        if k in floor:
+            f_ms = floor[k] / BF16_FLOPS_PER_S * 1e3
+            part += (f" (floor {f_ms:.5f} ms, {f_ms / ms[k]:.3f} of it, "
+                     f"{floor[k] / ms[k] / 1e9:.1f} TFLOP/s)")
+        parts.append(part)
+    return (f"by launch (profiler, {n} calls): a call "
+            f"{sum(ms.values()):.5f} ms = " + "; ".join(parts))
+
+
+def phase_flash_bwd() -> dict:
+    """Phase 4's backward: the kernel's (dq, dk, dv) against the plain
+    backward at ``FLASH_BWD_CASES``, on the forward kernel's (o, lse);
+    times at the timed cases, and a profiled call's split by launch."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    res = {"max_abs_err": 0.0}
+    sdpa_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    for (name, dt, (b, sq, skv, h, kvh, hd), causal, window,
+         timed) in FLASH_BWD_CASES:
+        dtype = getattr(torch, dt)
+        q, do = (torch.randn((b, sq, h, hd), generator=gen,
+                             device=dev).to(dtype) for _ in range(2))
+        k, v = (torch.randn((b, skv, kvh, hd), generator=gen,
+                            device=dev).to(dtype) for _ in range(2))
+        kw = dict(causal=causal, window=window)
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        n0 = fa.flash_attention_bwd.launches
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        what = (f"flash bwd ({name}) {dt} q{tuple(q.shape)} "
+                f"kv{tuple(k.shape)} causal={causal} window={window}")
+        check(fa.flash_attention_bwd.launches == n0 + 2,
+              f"{what}: 2 calls counted "
+              f"{fa.flash_attention_bwd.launches - n0}")
+        check(all(torch.equal(_bits(x), _bits(y))
+                  for x, y in zip(got, again)),
+              f"{what}: a second launch gave other bits")
+        check(all(bool(torch.isfinite(x).all()) for x in got),
+              f"{what}: non-finite output")
+        errs = []
+        if dtype == torch.float32:
+            want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+            for gname, x, w in zip(("dq", "dk", "dv"), got, want):
+                err = (x - w).abs().max().item()
+                tol = 2e-5 * max(1.0, w.abs().max().item())
+                errs.append((gname, err, tol))
+            rule = "vs plain f32, tol 2e-5 x max(1, max |plain|)"
+            del want
+        else:
+            ref = fa.flash_attention_bwd_plain(
+                *(t.float() for t in (q, k, v, o)), lse, do.float(), **kw)
+            plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+            perrs = []
+            for gname, x, pl, r in zip(("dq", "dk", "dv"), got, plain, ref):
+                err = (x.float() - r).abs().max().item()
+                perr = (pl.float() - r).abs().max().item()
+                tol = 1.25 * perr + 1e-3 * r.abs().max().item()
+                errs.append((gname, err, tol))
+                perrs.append(f"{gname} {perr:.3e}")
+            rule = (f"vs plain f32 on upcast inputs; plain {dt} errs "
+                    f"{', '.join(perrs)}")
+            del ref, plain
+        for gname, err, tol in errs:
+            check(err <= tol, f"{what}: {gname} err {err:.3e} (tol "
+                  f"{tol:.3e})")
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+        print(f"kernel {what}: " + ", ".join(
+            f"{gname} err {err:.3e} (tol {tol:.3e})"
+            for gname, err, tol in errs) + f" [{rule}]; second launch "
+            f"bit-equal", flush=True)
+        if timed:
+            # the library yardstick: SDPA's own flash backward, one aten
+            # call on its forward's saved tensors (K/V repeated to the
+            # query heads where they are fewer)
+            qt, kt, vt, dot = (fa.repeat_kv(t, h // t.shape[2]).transpose(
+                1, 2).contiguous() for t in (q, k, v, do))
+            (out_t, lse_t, cq, ck, mq, mk, seed,
+             offset) = torch.ops.aten._scaled_dot_product_flash_attention(
+                qt, kt, vt, 0.0, causal)[:8]
+            lib = lambda i: sdpa_bwd(  # noqa: E731
+                dot, qt, kt, vt, out_t, lse_t, cq, ck, mq, mk, 0.0, causal,
+                seed, offset)
+            lib_dq = lib(0)[0].transpose(1, 2).float()
+            lib_err = (lib_dq - got[0].float()).abs().max().item()
+            kernel_ms, library_ms, wins = paired_ms(
+                lambda i: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                lib, n_iter=20, reps=3)
+            plain_ms = time_ms(lambda i: fa.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, **kw), n_iter=3, reps=2)
+            flops, nbytes = flash_bwd_work(q, k, kw)
+            flop_ms = flops / BF16_FLOPS_PER_S * 1e3
+            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ms = max(flop_ms, byte_ms)
+            bound_by = "operations" if flop_ms > byte_ms else "bytes"
+            res[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
+            rep_note = f", K/V repeated {kvh}->{h} heads" if kvh != h else ""
+            print(f"kernel flash bwd ({name}) times: kernel_ms="
+                  f"{kernel_ms:.5f} plain_ms={plain_ms:.5f} library_ms("
+                  f"sdpa flash backward{rep_note})={library_ms:.5f} (medians "
+                  f"of {PAIRS} alternating pairs, the kernel faster in "
+                  f"{wins}; its dq within {lib_err:.3e} of ours) "
+                  f"bound_ms={bound_ms:.5f} ({bound_by}: {flops} FLOPs -> "
+                  f"{flop_ms:.5f} ms, {nbytes} B -> {byte_ms:.5f} ms; "
+                  f"{bound_ms / kernel_ms:.3f} of the bound, "
+                  f"{flops / kernel_ms / 1e9:.1f} TFLOP/s)", flush=True)
+            print(f"kernel flash bwd ({name}) " + flash_bwd_split(
+                lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                flops // 10), flush=True)
+            del qt, kt, vt, dot, out_t, lse_t, lib_dq
+        del q, k, v, o, lse, do, got, again
     torch.cuda.empty_cache()
     return res
 
@@ -2593,7 +2802,8 @@ def phase_train() -> dict:
     from repro_torch.core import get_comm_plan, reduce_gradients
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.kernels.bucket_pack import bucket_pack, bucket_unpack
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.train.trainer import make_train_step, train_state_init
     from repro_torch.tree import tree_flatten
 
@@ -2625,7 +2835,7 @@ def phase_train() -> dict:
     times, losses, norms = [], [], []
     torch.cuda.synchronize()
     bucket_pack.launches = bucket_unpack.launches = 0
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention_bwd.launches = 0
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         state, m = step(state, batches[1 + i])
@@ -2634,7 +2844,7 @@ def phase_train() -> dict:
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     launches = (bucket_pack.launches, bucket_unpack.launches)
-    flash = flash_attention.launches
+    flash, flash_bwd = flash_attention.launches, flash_attention_bwd.launches
     # phase 11 holds the overlap schedule against these steps' results
     post = dict(metrics=[first] + list(zip(losses, norms)),
                 params=[t.clone() for t in tree_flatten(state.params)[0]])
@@ -2643,10 +2853,13 @@ def phase_train() -> dict:
           f"({n_buckets} x {TRAIN_STEPS}, {TRAIN_STEPS})")
     # each layer's attention runs once in the forward and once more when
     # the non-reentrant checkpoint of remat="block" reruns the block's
-    # forward in the backward (the backward itself is the plain recompute)
+    # forward in the backward; its backward kernel once
     want = 2 * cfg.num_layers * TRAIN_STEPS
     check(flash == want, f"{TRAIN_STEPS} steps launched flash_attention "
           f"{flash} times, want 2 x {cfg.num_layers} x {TRAIN_STEPS} = {want}")
+    check(flash_bwd == cfg.num_layers * TRAIN_STEPS,
+          f"{TRAIN_STEPS} steps launched flash_attention_bwd {flash_bwd} "
+          f"times, want {cfg.num_layers} x {TRAIN_STEPS}")
     check(all(map(math.isfinite, losses + norms)),
           f"non-finite loss/gnorm {losses} {norms}")
     ms = sum(times) / len(times)
@@ -2657,8 +2870,8 @@ def phase_train() -> dict:
           f"{[round(v, 4) for v in norms]}, max_memory_allocated {peak} B; "
           f"plan {n_buckets} buckets, {cp.plan.total_padded // 1024} packed "
           f"tiles, arena {cp.tables[2] // 1024} tiles; launches pack "
-          f"{launches[0]} unpack {launches[1]} flash_attention {flash}",
-          flush=True)
+          f"{launches[0]} unpack {launches[1]} flash_attention {flash} "
+          f"flash_attention_bwd {flash_bwd}", flush=True)
 
     grads = _grads(cfg, state.params, batches[0])
     red = {}
@@ -2685,18 +2898,19 @@ def phase_train() -> dict:
                             **TRAIN_KNOBS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention_bwd.launches = 0
     t0 = time.perf_counter()
     state, m = dstep(state, batches[-1])
     torch.cuda.synchronize()
     dms = (time.perf_counter() - t0) * 1e3
     dpeak = torch.cuda.max_memory_allocated()
-    dflash = flash_attention.launches
+    dflash, dbwd = flash_attention.launches, flash_attention_bwd.launches
     check(math.isfinite(float(m["loss"])), f"remat='dots': loss {m['loss']}")
     # the selective checkpoint keeps the flash op's (o, lse): no second
     # forward in the backward
-    check(dflash == cfg.num_layers, f"a remat='dots' step launched "
-          f"flash_attention {dflash} times, want {cfg.num_layers}")
+    check((dflash, dbwd) == (cfg.num_layers,) * 2, f"a remat='dots' step "
+          f"launched flash_attention / flash_attention_bwd {(dflash, dbwd)} "
+          f"times, want {cfg.num_layers} each")
     print(f"train: remat='dots' one step {dms:.3f} ms (its first), loss "
           f"{float(m['loss']):.4f}, max_memory_allocated {dpeak} B beside "
           f"remat='block''s {peak} B ({dpeak / peak:.3f}x); flash_attention "
@@ -2719,8 +2933,8 @@ def phase_train() -> dict:
           f"'block' {saved['block'][0]} and 'none' {saved['none'][0]}")
     del state
     torch.cuda.empty_cache()
-    return dict(kern, launches=launches, flash=flash + dflash, step_ms=ms,
-                post=post, peak=peak)
+    return dict(kern, launches=launches, flash=flash + dflash,
+                flash_bwd=flash_bwd + dbwd, step_ms=ms, post=post, peak=peak)
 
 
 def _f32_leaves(plan, masters) -> list:
@@ -2742,7 +2956,8 @@ def phase_train_zero1(rep: dict) -> dict:
     from repro_torch.core import get_comm_plan
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.kernels.bucket_pack import bucket_pack, bucket_unpack
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.train.trainer import (make_train_step, optimizer_bytes,
                                            train_state_init)
     from repro_torch.tree import tree_flatten
@@ -2777,7 +2992,7 @@ def phase_train_zero1(rep: dict) -> dict:
         times = []
         torch.cuda.synchronize()
         bucket_pack.launches = bucket_unpack.launches = 0
-        flash_attention.launches = 0
+        flash_attention.launches = flash_attention_bwd.launches = 0
         for i in range(TRAIN_STEPS):
             t0 = time.perf_counter()
             state, m = step(state, batches[1 + i])
@@ -2785,7 +3000,7 @@ def phase_train_zero1(rep: dict) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
             metrics.append((float(m["loss"]), float(m["grad_norm"])))
         packs, unpacks = bucket_pack.launches, bucket_unpack.launches
-        flash = flash_attention.launches
+        flash, bwd = flash_attention.launches, flash_attention_bwd.launches
         peak = torch.cuda.max_memory_allocated()
         opt_bytes = optimizer_bytes(state.opt)
         check(all(map(math.isfinite, sum(metrics, ()))),
@@ -2801,8 +3016,10 @@ def phase_train_zero1(rep: dict) -> dict:
         check((packs, unpacks) == (want_packs, 0),
               f"{name}: {TRAIN_STEPS} steps launched pack/unpack "
               f"{(packs, unpacks)}, want ({want_packs}, 0)")
-        check(flash == 2 * cfg.num_layers * TRAIN_STEPS,
-              f"{name}: flash_attention launched {flash} times")
+        check((flash, bwd) == (2 * cfg.num_layers * TRAIN_STEPS,
+                               cfg.num_layers * TRAIN_STEPS),
+              f"{name}: flash_attention / flash_attention_bwd launched "
+              f"{(flash, bwd)} times")
         issue = ""
         if schedule == "overlap":
             last = step.last_issue
@@ -2851,7 +3068,7 @@ def phase_train_zero1(rep: dict) -> dict:
               f"pack {packs} unpack {unpacks} flash_attention {flash}{issue}",
               flush=True)
         out[name] = dict(metrics=metrics, ms=ms, peak=peak, packs=packs,
-                         flash=flash, opt_bytes=opt_bytes)
+                         flash=flash, flash_bwd=bwd, opt_bytes=opt_bytes)
         leaves = tree_flatten(state.params)[0]
         if name == "replicated/overlap":
             # one rank's reduce is exact: equal bits, unless the backward's
@@ -2919,6 +3136,8 @@ def profile_train(step, state, batches) -> None:
                   if "bucket_pack_kernel" in e.key) / 1e3
     flash_ms = sum(e.self_device_time_total for e in kern
                    if "flash_fwd_" in e.key) / 1e3
+    flash_bwd_ms = sum(e.self_device_time_total for e in kern
+                       if "flash_bwd_" in e.key) / 1e3
     gather_ms = sum(e.self_device_time_total for e in kern
                     if "row_gather_kernel" in e.key) / 1e3
     gsum_ms = sum(e.self_device_time_total for e in kern
@@ -2929,13 +3148,16 @@ def profile_train(step, state, batches) -> None:
                      if "ssd_chunk_bwd_kernel" in e.key
                      or "ssd_group_sum_kernel" in e.key
                      or "ssd_bwd_" in e.key) / 1e3
-    ports = pack_ms + flash_ms + gather_ms + gsum_ms + ssd_ms + ssd_bwd_ms
+    ports = pack_ms + flash_ms + flash_bwd_ms + gather_ms + gsum_ms + \
+        ssd_ms + ssd_bwd_ms
     print(f"profile train: {len(batches)} steps: wall {wall_ms:.2f} ms "
           f"({prof_wall_ms:.2f} under the profiler), device busy "
           f"{busy_ms:.2f} ms, device idle share {1 - busy_ms / wall_ms:.4f};"
           f" pack+unpack {pack_ms:.3f} ms = {pack_ms / busy_ms:.4f} of "
           f"device time; flash_attention {flash_ms:.3f} ms = "
-          f"{flash_ms / busy_ms:.4f} of device time; row_gather "
+          f"{flash_ms / busy_ms:.4f} of device time; flash_attention_bwd "
+          f"(its three kernels) {flash_bwd_ms:.3f} ms = "
+          f"{flash_bwd_ms / busy_ms:.4f}; row_gather "
           f"{gather_ms:.3f} ms = {gather_ms / busy_ms:.4f}; row_gather_sum "
           f"{gsum_ms:.3f} ms = {gsum_ms / busy_ms:.4f}; ssd_chunk "
           f"{ssd_ms:.3f} ms = {ssd_ms / busy_ms:.4f}; ssd_chunk_bwd (both "
@@ -2967,9 +3189,10 @@ def _first_noise(moments, i):
     return np.asarray(first, bool)
 
 
-def phase_reference_train(arch: str = "olmo-1b-smoke") -> None:
+def phase_reference_train(arch: str = "olmo-1b-smoke") -> int:
     """``arch`` (a smoke arch, f32): 3 steps of the same train step on the
-    card and on the CPU, from the same params and batches; an MoE arch's
+    card and on the CPU, from the same params and batches (returns the
+    card's flash backward launches); an MoE arch's
     load balance and router z too, and its row moves through both row
     gather kernels; an SSM or hybrid arch's SSD step through its forward
     and backward kernels."""
@@ -2977,7 +3200,8 @@ def phase_reference_train(arch: str = "olmo-1b-smoke") -> None:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import synthetic_batch
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.moe_gather import row_gather, row_gather_sum
     from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_bwd
     from repro_torch.models.transformer import init_params
@@ -2995,7 +3219,7 @@ def phase_reference_train(arch: str = "olmo-1b-smoke") -> None:
             lambda t: t.clone().to(dev), params))
         step = make_train_step(cfg, **TRAIN_KNOBS)
         metrics = []
-        flash_attention.launches = 0
+        flash_attention.launches = flash_attention_bwd.launches = 0
         row_gather.launches = row_gather_sum.launches = 0
         ssd_chunk.launches = ssd_chunk_bwd.launches = 0
         for i in range(3):
@@ -3005,10 +3229,16 @@ def phase_reference_train(arch: str = "olmo-1b-smoke") -> None:
                 moments.append([t.clone() for t in
                                 tree_flatten(state.opt.m)[0]])
         if dev == "cuda":
-            flash = flash_attention.launches
+            flash, bwd = flash_attention.launches, flash_attention_bwd.launches
             check(cfg.family == "ssm" or flash > 0,
                   f"{arch}: the card's train steps launched no flash "
                   f"attention")
+            # the backward once an attention site a step (f32 on the card:
+            # the kernel's FFMA route)
+            sites = {"ssm": 0, "hybrid": cfg.num_layers // max(
+                cfg.hybrid_attn_every, 1)}.get(cfg.family, cfg.num_layers)
+            check(bwd == 3 * sites, f"{arch}: the card's 3 steps launched "
+                  f"flash_attention_bwd {bwd} times, want 3 x {sites}")
             moved = (row_gather.launches, row_gather_sum.launches)
             check(cfg.moe is None or min(moved) > 0,
                   f"{arch}: the card's steps launched row_gather / "
@@ -3059,10 +3289,11 @@ def phase_reference_train(arch: str = "olmo-1b-smoke") -> None:
         ssd_note = (f", {first} first-noise elements, max abs diff "
                     f"{nworst:.3e} (tol 3 x lr)")
     print(f"reference train: {arch} f32, 3 steps card (flash launches "
-          f"{flash}{extra}) vs CPU: {'/'.join(keys)} max rel diff "
+          f"{flash}, flash_attention_bwd {bwd}{extra}) vs CPU: {'/'.join(keys)} max rel diff "
           f"{worst:.3e} (tol 1e-5), params max abs diff {pworst:.3e} (tol "
           f"1e-4 + 2e-5 rel), {off} of {total} elements beyond {atol:.3e} + "
           f"2e-5 rel{ssd_note}", flush=True)
+    return bwd
 
 
 # ---------------------------------------------------------------------------
@@ -3080,7 +3311,8 @@ def _zero1_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     from repro_torch.core import get_comm_plan
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.kernels.bucket_pack import bucket_pack
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.launch.serve import join_ranks
     from repro_torch.train.trainer import (make_train_step, optimizer_bytes,
                                            train_state_init)
@@ -3109,6 +3341,7 @@ def _zero1_rank(rank: int, world: int, store: str, out_dir: str) -> None:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             bucket_pack.launches = flash_attention.launches = 0
+            flash_attention_bwd.launches = 0
             times, metrics = [], []
             for i, b in enumerate(batches):
                 dist.barrier()
@@ -3134,6 +3367,7 @@ def _zero1_rank(rank: int, world: int, store: str, out_dir: str) -> None:
             run = dict(metrics=metrics, ms=times,
                        packs=bucket_pack.launches,
                        flash=flash_attention.launches,
+                       flash_bwd=flash_attention_bwd.launches,
                        buckets=cp.plan.num_buckets,
                        total_padded=cp.plan.total_padded,
                        opt_bytes=optimizer_bytes(state.opt),
@@ -3178,7 +3412,7 @@ def phase_zero1_ranks(card: str) -> dict:
           f" CUDA tensors; {TRAIN_ARCH} at full width, {ZERO1_LAYERS} "
           f"layers, global batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
           f"{ZERO1_STEPS} steps, {TRAIN_KNOBS}", flush=True)
-    launches = dict(packs=0, flash=0)
+    launches = dict(packs=0, flash=0, flash_bwd=0)
     for schedule in ("post", "overlap"):
         runs = [r["runs"][schedule] for r in ranks]
         run = runs[0]
@@ -3196,11 +3430,13 @@ def phase_zero1_ranks(card: str) -> dict:
             want = n_b * ZERO1_STEPS if schedule == "post" else 0
             check(got["packs"] == want, f"zero1 {schedule}: rank {r} "
                   f"launched bucket_pack {got['packs']} times, want {want}")
-            check(got["flash"] == 2 * ZERO1_LAYERS * ZERO1_STEPS,
-                  f"zero1 {schedule}: rank {r} launched flash "
-                  f"{got['flash']} times")
+            check((got["flash"], got["flash_bwd"]) ==
+                  (2 * ZERO1_LAYERS * ZERO1_STEPS, ZERO1_LAYERS * ZERO1_STEPS),
+                  f"zero1 {schedule}: rank {r} launched flash / flash bwd "
+                  f"{(got['flash'], got['flash_bwd'])} times")
             launches["packs"] += got["packs"]
             launches["flash"] += got["flash"]
+            launches["flash_bwd"] += got["flash_bwd"]
         check(all(map(math.isfinite, sum(map(tuple, run["metrics"]), ()))),
               f"zero1 {schedule}: non-finite {run['metrics']}")
         extra = ""
@@ -3236,7 +3472,8 @@ def phase_zero1_ranks(card: str) -> dict:
               f"a rank {[r['opt_bytes'] for r in runs]} B (one rank's "
               f"ZeRO-1 state {one} B / {ZERO1_WORLD}); peak a rank "
               f"{[r['peak'] for r in runs]} B; launches a rank: pack "
-              f"{run['packs']}, flash {run['flash']}{extra}", flush=True)
+              f"{run['packs']}, flash {run['flash']}, flash bwd "
+              f"{run['flash_bwd']}{extra}", flush=True)
     return launches
 
 
@@ -4160,7 +4397,8 @@ def _train_run(cfg, batches, what: str, profile: bool = False,
     import torch
     from repro_torch.core import get_comm_plan
     from repro_torch.kernels.bucket_pack import bucket_pack, bucket_unpack
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.moe_gather import row_gather, row_gather_sum
     from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_bwd
     from repro_torch.train.trainer import (make_train_step, optimizer_bytes,
@@ -4186,9 +4424,10 @@ def _train_run(cfg, batches, what: str, profile: bool = False,
     n_buckets = get_comm_plan(state.params, num_streams=8, num_vcis=8,
                               pack="pallas").plan.num_buckets
     kernels = {"bucket_pack": bucket_pack, "bucket_unpack": bucket_unpack,
-               "flash_attention": flash_attention, "row_gather": row_gather,
-               "row_gather_sum": row_gather_sum, "ssd_chunk": ssd_chunk,
-               "ssd_chunk_bwd": ssd_chunk_bwd}
+               "flash_attention": flash_attention,
+               "flash_attention_bwd": flash_attention_bwd,
+               "row_gather": row_gather, "row_gather_sum": row_gather_sum,
+               "ssd_chunk": ssd_chunk, "ssd_chunk_bwd": ssd_chunk_bwd}
     for fn in kernels.values():
         fn.launches = 0
     row_gather.read_once_launches = 0
@@ -4210,7 +4449,7 @@ def _train_run(cfg, batches, what: str, profile: bool = False,
     attn = {"ssm": 0, "hybrid": layers // max(cfg.hybrid_attn_every, 1)
             }.get(cfg.family, layers)
     # a layer's attention runs in the forward and again in remat's
-    # recompute; an MoE layer's two row moves likewise, plus the combine's
+    # recompute, its backward once; an MoE layer's two row moves likewise, plus the combine's
     # backward (the gather over asg) and the dispatch's (the gather-sum);
     # the dispatch takes the read-once route at 8 x 1,024 tokens; a Mamba2
     # layer's SSD step runs in the forward and the recompute, its backward
@@ -4218,6 +4457,7 @@ def _train_run(cfg, batches, what: str, profile: bool = False,
     # runs once a site
     want = {"bucket_pack": n_buckets * steps, "bucket_unpack": steps,
             "flash_attention": 2 * attn * steps,
+            "flash_attention_bwd": attn * steps,
             "row_gather": 5 * layers * steps if moe else 0,
             "row_gather_sum": layers * steps if moe else 0,
             "ssd_chunk": 2 * ssm * steps, "ssd_chunk_bwd": ssm * steps,
@@ -4261,7 +4501,7 @@ def phase_train_moe() -> dict:
     batches = [synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=i)
                for i in range(TRAIN_STEPS + 3)]
     run = _train_run(cfg, batches, "train moe", profile=True)
-    phase_reference_train(MOE_ARCH + "-smoke")
+    run["ref_bwd"] = phase_reference_train(MOE_ARCH + "-smoke")
     return run
 
 
@@ -4283,7 +4523,7 @@ def phase_train_mm() -> dict:
         batches = [synthetic_batch(cfg, MM_TRAIN_BATCH, seq, seed=0, step=i)
                    for i in range(MM_TRAIN_STEPS + 1)]
         runs[arch] = _train_run(cfg, batches, f"train {cfg.modality}")
-        phase_reference_train(arch + "-smoke")
+        runs[arch]["ref_bwd"] = phase_reference_train(arch + "-smoke")
     return runs
 
 # ---------------------------------------------------------------------------
@@ -4414,7 +4654,7 @@ def phase_train_ssm() -> dict:
     batches = [synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=i)
                for i in range(TRAIN_STEPS + 3)]
     run = _train_run(cfg, batches, "train ssm", profile=True)
-    phase_reference_train(SSM_TRAIN_ARCH + "-smoke")
+    run["ref_bwd"] = phase_reference_train(SSM_TRAIN_ARCH + "-smoke")
     return run
 
 
@@ -4430,7 +4670,7 @@ def phase_train_hybrid() -> dict:
     batches = [synthetic_batch(cfg, MM_TRAIN_BATCH, TRAIN_SEQ, seed=0,
                                step=i) for i in range(MM_TRAIN_STEPS + 3)]
     run = _train_run(cfg, batches, "train hybrid", profile=True)
-    phase_reference_train(HYB_ARCH + "-smoke")
+    run["ref_bwd"] = phase_reference_train(HYB_ARCH + "-smoke")
     return run
 
 
@@ -4444,14 +4684,15 @@ def phase_gspmd(train_ms: float) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import synthetic_batch
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.train.trainer import make_train_step, train_state_init
 
     _fresh("gspmd 1 rank")
     cfg = get_config(TRAIN_ARCH)
     batches = [synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=i)
                for i in range(GSPMD_STEPS + 1)]
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention_bwd.launches = 0
     # the paper's mode from the same state and batch: on one rank the two
     # steps are the same math
     state = train_state_init(cfg, 0, device="cuda")
@@ -4479,10 +4720,12 @@ def phase_gspmd(train_ms: float) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
     check(all(map(math.isfinite, losses)), f"gspmd: loss {losses}")
-    flash = flash_attention.launches
+    flash, bwd = flash_attention.launches, flash_attention_bwd.launches
     want_flash = 2 * cfg.num_layers * (GSPMD_STEPS + 2)
     check(flash == want_flash, f"gspmd: flash_attention launched {flash} "
           f"times, want 2 x {cfg.num_layers} x {GSPMD_STEPS + 2}")
+    check(bwd == want_flash // 2, f"gspmd: flash_attention_bwd launched "
+          f"{bwd} times, want {cfg.num_layers} x {GSPMD_STEPS + 2}")
     check(all(v == 0 for v in step.comm_tally.values()),
           f"gspmd on one rank issued collectives {step.comm_tally}")
     ms = sum(times) / len(times)
@@ -4494,11 +4737,12 @@ def phase_gspmd(train_ms: float) -> dict:
           f"{[round(t, 3) for t in times]} (mean {ms:.3f}; phase 9's vci "
           f"step {train_ms:.3f}), {TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.1f} "
           f"tok/s, max_memory_allocated {peak} B, flash_attention launches "
-          f"{flash} (the vci step, the warm-up and {GSPMD_STEPS} steps), "
+          f"{flash}, flash_attention_bwd {bwd} (the vci step, the warm-up "
+          f"and {GSPMD_STEPS} steps), "
           f"collectives {step.comm_tally}", flush=True)
     del state, step
     _fresh("gspmd 1 rank, done")
-    return dict(flash=flash, ms=ms, peak=peak)
+    return dict(flash=flash, flash_bwd=bwd, ms=ms, peak=peak)
 
 
 def _digest(t) -> str:
@@ -4540,7 +4784,8 @@ def _axis_moe(rank: int, world: int, device) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core.collectives import RankMesh
     from repro_torch.data.pipeline import synthetic_batch
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.moe_gather import row_gather, row_gather_sum
     from repro_torch.train.trainer import make_train_step, train_state_init
     from repro_torch.tree import tree_flatten
@@ -4554,7 +4799,7 @@ def _axis_moe(rank: int, world: int, device) -> dict:
                        ("4x1", RankMesh(world, 1))):
         torch.cuda.reset_peak_memory_stats()
         flash_attention.launches = row_gather.launches = 0
-        row_gather_sum.launches = 0
+        row_gather_sum.launches = flash_attention_bwd.launches = 0
         state = train_state_init(cfg, 0, device=device, comm="gspmd",
                                  mesh=mesh)
         step = make_train_step(cfg, mesh=mesh)
@@ -4570,6 +4815,7 @@ def _axis_moe(rank: int, world: int, device) -> dict:
         out[name] = dict(
             losses=losses, ms=times, tally=dict(step.comm_tally),
             experts=list(experts), flash=flash_attention.launches,
+            flash_bwd=flash_attention_bwd.launches,
             rows=row_gather.launches, rows_sum=row_gather_sum.launches,
             ep=shard.expert_parallel(("layers", "moe", "w_gate")),
             param_bytes=sum(t.nbytes for t in tree_flatten(state.params)[0]),
@@ -4597,13 +4843,14 @@ def _axis_ssm(rank: int, world: int, device) -> dict:
     import torch.distributed as dist
     from repro_torch.core.collectives import RankMesh
     from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_bwd
     from repro_torch.train.trainer import make_train_step, train_state_init
 
     cfg = _ssm_axis_cfg()
     mesh = RankMesh(2, world // 2)
     torch.cuda.reset_peak_memory_stats()
-    ssd_chunk.launches = 0
+    ssd_chunk.launches = flash_attention_bwd.launches = 0
     ssd_chunk_bwd.launches = ssd_chunk_bwd.tc_launches = 0
     state = train_state_init(cfg, 0, device=device, comm="gspmd", mesh=mesh)
     step = make_train_step(cfg, mesh=mesh)
@@ -4620,6 +4867,7 @@ def _axis_ssm(rank: int, world: int, device) -> dict:
                heads=sorted(heads), ssd=ssd_chunk.launches,
                ssd_bwd=ssd_chunk_bwd.launches,
                ssd_bwd_tc=ssd_chunk_bwd.tc_launches,
+               flash_bwd=flash_attention_bwd.launches,
                peak=torch.cuda.max_memory_allocated())
     del state, step
     torch.cuda.empty_cache()
@@ -4638,7 +4886,8 @@ def _gspmd_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.dist.sharding import param_shapes
     from repro_torch.kernels.bucket_pack import bucket_pack, bucket_unpack
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.launch.serve import join_ranks
     from repro_torch.train.trainer import make_train_step, train_state_init
     from repro_torch.tree import tree_flatten, tree_flatten_with_paths
@@ -4659,7 +4908,7 @@ def _gspmd_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         # 15b: FSDP in f32 against the one-rank run
         wait_for(os.path.join(out_dir, "ref.pt"))
         ref = torch.load(os.path.join(out_dir, "ref.pt"), mmap=True)
-        flash_attention.launches = 0
+        flash_attention.launches = flash_attention_bwd.launches = 0
         state = train_state_init(f32, 0, device=device, comm="gspmd")
         step = make_train_step(f32)
         shard = step.sharder()
@@ -4689,6 +4938,7 @@ def _gspmd_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         out["b"] = dict(
             metrics=metrics, ms=times, tally=tallies,
             flash=flash_attention.launches,
+            flash_bwd=flash_attention_bwd.launches,
             param_bytes=sum(t.nbytes for t in tree_flatten(state.params)[0]),
             moment_bytes=sum(t.nbytes for t in tree_flatten(
                 (state.opt.m, state.opt.v))[0]),
@@ -4702,7 +4952,7 @@ def _gspmd_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         # the data lines, TP over the model lines)
         mesh = RankMesh(2, world // 2)
         ref = torch.load(os.path.join(out_dir, "ref.pt"), mmap=True)
-        flash_attention.launches = 0
+        flash_attention.launches = flash_attention_bwd.launches = 0
         torch.cuda.reset_peak_memory_stats()
         state = train_state_init(f32, 0, device=device, comm="gspmd",
                                  mesh=mesh)
@@ -4724,6 +4974,7 @@ def _gspmd_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         out["a"] = dict(
             metrics=metrics, ms=times, tally=tallies,
             flash=flash_attention.launches,
+            flash_bwd=flash_attention_bwd.launches,
             param_bytes=sum(t.nbytes for t in tree_flatten(state.params)[0]),
             moment_bytes=sum(t.nbytes for t in tree_flatten(
                 (state.opt.m, state.opt.v))[0]),
@@ -4738,7 +4989,7 @@ def _gspmd_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         # 16a on the pod mesh 2 x 1 x 2: the data line is the two pods, the
         # lines those of 2 x 2, so its first step is 16a's bit for bit
         pod = RankMesh(2, 1, world // 2)
-        flash_attention.launches = 0
+        flash_attention.launches = flash_attention_bwd.launches = 0
         state = train_state_init(f32, 0, device=device, comm="gspmd",
                                  mesh=pod)
         step = make_train_step(f32, mesh=pod)
@@ -4747,13 +4998,14 @@ def _gspmd_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         out["a"]["pod"] = dict(
             loss=float(m["loss"]), loss_2x2=metrics[0][0],
             same=[_digest(t) for t in leaves(state.params)] == first,
-            flash=flash_attention.launches)
+            flash=flash_attention.launches,
+            flash_bwd=flash_attention_bwd.launches)
         del state, step
         torch.cuda.empty_cache()
 
         # 16b: comm="vci" on the same mesh: the model whole on every rank,
         # the buckets reduced over the data lines
-        flash_attention.launches = 0
+        flash_attention.launches = flash_attention_bwd.launches = 0
         bucket_pack.launches = bucket_unpack.launches = 0
         torch.cuda.reset_peak_memory_stats()
         knobs = dict(comm="vci", pack="pallas", num_streams=8)
@@ -4768,6 +5020,7 @@ def _gspmd_rank(rank: int, world: int, store: str, out_dir: str) -> None:
             times.append((time.perf_counter() - t0) * 1e3)
         out["vci"] = dict(
             metrics=metrics, ms=times, flash=flash_attention.launches,
+            flash_bwd=flash_attention_bwd.launches,
             packs=bucket_pack.launches, unpacks=bucket_unpack.launches,
             param_bytes=sum(t.nbytes for t in tree_flatten(state.params)[0]),
             peak=torch.cuda.max_memory_allocated())
@@ -4775,7 +5028,7 @@ def _gspmd_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         torch.cuda.empty_cache()
 
         # 15c: bf16 FSDP, a checkpoint after step 2, a resume, step 3
-        flash_attention.launches = 0
+        flash_attention.launches = flash_attention_bwd.launches = 0
         state = train_state_init(bf16, 0, device=device, comm="gspmd")
         step = make_train_step(bf16)
         shard = step.sharder()
@@ -4811,7 +5064,8 @@ def _gspmd_rank(rank: int, world: int, store: str, out_dir: str) -> None:
                             _digest(a) == _digest(b) for a, b in
                             zip(leaves(back), full)),
                         resume_max_diff=max(diffs),
-                        flash=flash_attention.launches)
+                        flash=flash_attention.launches,
+                        flash_bwd=flash_attention_bwd.launches)
         del back, full, saved
         torch.cuda.empty_cache()
         out["moe"] = _axis_moe(rank, world, device)
@@ -4833,7 +5087,8 @@ def phase_gspmd_ranks(card: str) -> dict:
     from repro_torch.core.collectives import RankMesh
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.dist.sharding import Sharder
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.train.trainer import make_train_step, train_state_init
     from repro_torch.tree import tree_flatten, tree_flatten_with_paths
 
@@ -4846,13 +5101,17 @@ def phase_gspmd_ranks(card: str) -> dict:
         batches = [synthetic_batch(f32, TRAIN_BATCH, TRAIN_SEQ, seed=0,
                                    step=i) for i in range(3)]
         # the one-rank run (no group: one rank) the ranks are held against
-        flash_attention.launches = 0
+        flash_attention.launches = flash_attention_bwd.launches = 0
         state = train_state_init(f32, 0, device="cuda", comm="gspmd")
         step = make_train_step(f32)
         ref_metrics = []
         for b in batches[:GSPMD_RANK_STEPS]:
             state, m = step(state, b)
             ref_metrics.append([float(m["loss"]), float(m["grad_norm"])])
+        one_bwd = flash_attention_bwd.launches
+        check(one_bwd == GSPMD_LAYERS * GSPMD_RANK_STEPS, f"15b: the "
+              f"one-rank run launched flash_attention_bwd {one_bwd} times, "
+              f"want once a layer a step")
         ref = [t.cpu() for t in tree_flatten(state.params)[0]]
         # the yardstick: the same math with another order of the same sums,
         # one rank taking the ranks' rows as GSPMD_WORLD microbatches
@@ -4862,7 +5121,8 @@ def phase_gspmd_ranks(card: str) -> dict:
             alt, _ = astep(alt, b)
         order = [_params_off(a, w) for a, w in zip(
             tree_flatten(alt.params)[0], tree_flatten(state.params)[0])]
-        flash = flash_attention.launches
+        flash, flash_bwd = (flash_attention.launches,
+                            flash_attention_bwd.launches)
         del state, step, alt, astep
         _fresh("gspmd ranks, after the one-rank run")
         # 16e's yardstick: the mamba2 training run's first step on one rank
@@ -4896,6 +5156,21 @@ def phase_gspmd_ranks(card: str) -> dict:
               f"{b['want_param_bytes']} and {b['want_moment_bytes']}")
         flash += b["flash"] + rk["c"]["flash"] + rk["a"]["flash"] \
             + rk["a"]["pod"]["flash"] + rk["vci"]["flash"] + sum(x["flash"] for x in rk["moe"].values())
+        # each training run's steps launch the backward once a layer (15c:
+        # 2 steps, step 3, step 3 after the resume; mamba2 has no attention)
+        runs = {"15b": b, "16a": rk["a"], "16a pod": rk["a"]["pod"],
+                "16b": rk["vci"], "15c": rk["c"], "16e": rk["ssm"]}
+        runs.update({f"16c {n}": x for n, x in rk["moe"].items()})
+        want_bwd = {"15b": GSPMD_LAYERS * GSPMD_RANK_STEPS,
+                    "16a": GSPMD_LAYERS * GSPMD_RANK_STEPS,
+                    "16a pod": GSPMD_LAYERS,
+                    "16b": GSPMD_LAYERS * GSPMD_RANK_STEPS,
+                    "15c": GSPMD_LAYERS * 4, "16e": 0}
+        for name, x in runs.items():
+            n = want_bwd.get(name, AXIS_MOE_LAYERS * GSPMD_RANK_STEPS)
+            check(x["flash_bwd"] == n, f"{name}: rank {r} launched "
+                  f"flash_attention_bwd {x['flash_bwd']} times, want {n}")
+            flash_bwd += x["flash_bwd"]
     for got, want in zip(b0["metrics"], ref_metrics):
         for a, w in zip(got, want):
             check(abs(a - w) <= 1e-5 * abs(w), f"15b: {GSPMD_WORLD} ranks' "
@@ -4991,7 +5266,12 @@ def phase_gspmd_ranks(card: str) -> dict:
     launches = _check_axis(ranks, ref_metrics, yard, total, card)
     launches.update(_check_axis_ssm(ranks, ssm_loss, card))
     _fresh("gspmd ranks, done")
-    return dict(flash=flash, bitwise=bitwise, **launches)
+    print(f"gspmd ranks: flash_attention_bwd launches {flash_bwd} (the "
+          f"one-rank runs and the {GSPMD_WORLD} ranks' training runs; each "
+          f"run's count zeroed before it and held to once a layer a step)",
+          flush=True)
+    return dict(flash=flash, flash_bwd=flash_bwd, bitwise=bitwise,
+                **launches)
 
 
 def _check_axis(ranks, ref_metrics, yard, total: int, card: str) -> dict:
@@ -5630,7 +5910,8 @@ def _arch_train(cfg, holder: dict, batch: int, seq: int) -> dict:
     pallas, remat block) by :func:`_train_run`, then one ``comm="gspmd"``
     step (phase 15a's) from the trained params. Returns the numbers."""
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.train.trainer import make_train_step, train_state_init
     cfg = dataclasses.replace(cfg, remat="block")
     batches = _arch_batches(cfg, batch, seq, ARCH_TRAIN_STEPS + 2)
@@ -5642,19 +5923,22 @@ def _arch_train(cfg, holder: dict, batch: int, seq: int) -> dict:
     state = train_state_init(cfg, params=params, comm="gspmd")
     del params
     step = make_train_step(cfg)            # comm="gspmd", the default
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention_bwd.launches = 0
     t0 = time.perf_counter()
     state, m = step(state, batches[-1])
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     loss = float(m["loss"])
     check(math.isfinite(loss), f"18 {cfg.name}: gspmd step loss {loss}")
-    check(flash_attention.launches == 2 * cfg.num_layers,
-          f"18 {cfg.name}: the gspmd step launched flash "
-          f"{flash_attention.launches} times, want 2 x {cfg.num_layers}")
+    check((flash_attention.launches, flash_attention_bwd.launches) ==
+          (2 * cfg.num_layers, cfg.num_layers),
+          f"18 {cfg.name}: the gspmd step launched flash / flash bwd "
+          f"{(flash_attention.launches, flash_attention_bwd.launches)} "
+          f"times, want 2 x {cfg.num_layers} / {cfg.num_layers}")
     run["gspmd"] = dict(ms=ms, loss=loss,
                         peak=torch.cuda.max_memory_allocated(),
-                        flash=flash_attention.launches)
+                        flash=flash_attention.launches,
+                        flash_bwd=flash_attention_bwd.launches)
     print(f"train {cfg.name}: one comm=\"gspmd\" step (one rank) {ms:.3f} ms "
           f"(its first: warm-up included), loss {loss:.4f}, "
           f"max_memory_allocated {run['gspmd']['peak']} B, flash "
@@ -5686,9 +5970,10 @@ def _arctic_grad(cfg, params) -> dict:
     block), no optimizer step: the loss's gradient of every param leaf
     (bf16, as the params), ``ARCTIC_GRAD_STEPS`` timed after a warm-up,
     the launches counted over the timed ones: the row gather 5 a layer (2
-    on the read-once route), the gather-sum 1, flash 2."""
+    on the read-once route), the gather-sum 1, flash 2, its backward 1."""
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.moe_gather import row_gather, row_gather_sum
     from repro_torch.models.transformer import Model
     from repro_torch.train.trainer import _loss_fn
@@ -5706,6 +5991,7 @@ def _arctic_grad(cfg, params) -> dict:
         if i == 1:
             flash_attention.launches = row_gather.launches = 0
             row_gather.read_once_launches = row_gather_sum.launches = 0
+            flash_attention_bwd.launches = 0
         batch = {k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
         t0 = time.perf_counter()
         loss, _ = _loss_fn(model, cfg, params, batch)
@@ -5724,9 +6010,10 @@ def _arctic_grad(cfg, params) -> dict:
     got = dict(row_gather=row_gather.launches,
                read_once=row_gather.read_once_launches,
                row_gather_sum=row_gather_sum.launches,
-               flash=flash_attention.launches)
+               flash=flash_attention.launches,
+               flash_bwd=flash_attention_bwd.launches)
     want = dict(row_gather=5 * steps, read_once=2 * steps,
-                row_gather_sum=steps, flash=2 * steps)
+                row_gather_sum=steps, flash=2 * steps, flash_bwd=steps)
     check(got == want, f"18 {cfg.name}: {steps} forward + backward "
           f"launched {got}, want {want}")
     check(all(map(math.isfinite, losses + norms)),
@@ -5813,12 +6100,14 @@ def phase_yi_train() -> dict:
     return {"yi train": _arch_train(cfg, _arch_init(cfg), 8, 1024)}
 
 
-def phase_smoke_train() -> None:
+def phase_smoke_train() -> int:
     """18e: the four archs' smoke configs trained on the card against the
-    CPU (phase 10's rules; bf16 moments carried for arctic)."""
-    for arch in ("yi-9b", GEMMA_ARCH, CMDR_ARCH, ARCTIC_ARCH):
-        phase_reference_train(arch + "-smoke")
+    CPU (phase 10's rules; bf16 moments carried for arctic); returns their
+    flash backward launches."""
+    bwd = sum(phase_reference_train(arch + "-smoke")
+              for arch in ("yi-9b", GEMMA_ARCH, CMDR_ARCH, ARCTIC_ARCH))
     _fresh("18, done")
+    return bwd
 
 
 def _example(name: str):
@@ -5836,11 +6125,13 @@ def _example_counts(reset: bool = False) -> dict:
     """The launch counts of the kernels the examples' paths run (zeroed
     with ``reset``)."""
     from repro_torch.kernels.bucket_pack import bucket_pack, bucket_unpack
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.paged_kv import paged_gather
     from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_bwd
     kernels = {"bucket_pack": bucket_pack, "bucket_unpack": bucket_unpack,
                "flash_attention": flash_attention,
+               "flash_attention_bwd": flash_attention_bwd,
                "paged_gather": paged_gather, "ssd_chunk": ssd_chunk,
                "ssd_chunk_bwd": ssd_chunk_bwd}
     if reset:
@@ -5877,6 +6168,7 @@ def phase_examples_train() -> dict:
     want = {"bucket_pack": n_buckets * E2E_STEPS,
             "bucket_unpack": E2E_STEPS,
             "flash_attention": cfg.num_layers * E2E_STEPS,
+            "flash_attention_bwd": cfg.num_layers * E2E_STEPS,
             "paged_gather": 0, "ssd_chunk": 0, "ssd_chunk_bwd": 0}
     check(counts == want, f"19a: launched {counts}, want {want}")
     out = dict(ce_first=ces[0], ce_last=ces[-1], tok_s=res["tok_s"],
@@ -5909,7 +6201,8 @@ def phase_examples_one_rank() -> dict:
           "19b: quickstart did not serve 4 x 12 tokens")
     quick = dict(counts=_example_counts(), seconds=time.time() - t0,
                  loss_first=losses[0], loss_last=losses[-1])
-    check(quick["counts"]["flash_attention"] > 0,
+    check(quick["counts"]["flash_attention"] > 0 and
+          quick["counts"]["flash_attention_bwd"] > 0,
           f"19b: quickstart launched {quick['counts']}")
     print(f"19b quickstart: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
           f"{quick['seconds']:.1f}s, launches {quick['counts']}",
@@ -6089,6 +6382,7 @@ def main() -> None:
     kern = timed(phase_kernels)
     rows = timed(phase_row_gather)
     flash = timed(phase_flash)
+    flash_bwd = timed(phase_flash_bwd)
     from repro_torch.configs import get_config
     runs = timed(phase_serve, get_config(SERVE_ARCH))
     timed(phase_reference)
@@ -6107,7 +6401,7 @@ def main() -> None:
     tmp = init_data_group()
     try:
         train = timed(phase_train)
-        timed(phase_reference_train)
+        ref_bwd = timed(phase_reference_train)
         zero1 = timed(phase_train_zero1, train.pop("post"))
     finally:
         dist.destroy_process_group()
@@ -6133,7 +6427,7 @@ def main() -> None:
         archs = {}
         for fn in (phase_gemma, phase_cmdr, phase_arctic, phase_yi_train):
             archs.update(timed(fn))
-        timed(phase_smoke_train)
+        smoke_bwd = timed(phase_smoke_train)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -6288,6 +6582,35 @@ def main() -> None:
         "rank_ms": ssd_bwd["rank tp2"]["ms"],
         "rank_plain_ms": ssd_bwd["rank tp2"]["plain_ms"],
         "rank_bound_ms": ssd_bwd["rank tp2"]["bound_ms"],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        # no TPU kernel: flash_attention_pallas has no backward (XLA
+        # differentiates the reference's attention); this is flash's
+        "replaces": None,
+        "backward_of": "src/repro/kernels/flash_attention.py:95",
+        # every training phase: 9, 10, 11, 12, 13b-c, 14c, 15a-16, 18, 19
+        "launches": train["flash_bwd"] + ref_bwd + smoke_bwd
+        + sum(r["flash_bwd"] for r in zero1.values()) + ranks["flash_bwd"]
+        + sum(r["counts"]["flash_attention_bwd"] + r.get("ref_bwd", 0)
+              for r in trained)
+        + gspmd["flash_bwd"] + gspmd_ranks["flash_bwd"]
+        + grad["flash_bwd"]
+        + sum(archs[k]["gspmd"]["flash_bwd"] for k in
+              ("gemma train", "command-r train", "yi train"))
+        + sum(c["flash_attention_bwd"] for c in ex_counts),
+        "max_abs_err": flash_bwd["max_abs_err"],
+        "ms": flash_bwd["a"]["ms"],
+        "plain_ms": flash_bwd["a"]["plain_ms"],
+        "bound_ms": flash_bwd["a"]["bound_ms"],
+        "bound_by": flash_bwd["a"]["bound_by"],
+        "library_ms": flash_bwd["a"]["library_ms"],
+        # gemma-2b's training shape: head_dim 256 on one KV head
+        "gemma_ms": flash_bwd["gemma-2b"]["ms"],
+        "gemma_plain_ms": flash_bwd["gemma-2b"]["plain_ms"],
+        "gemma_bound_ms": flash_bwd["gemma-2b"]["bound_ms"],
+        "gemma_library_ms": flash_bwd["gemma-2b"]["library_ms"],
     }]}
     print(f"row_gather on the main path: {line['kernels'][4]['launches']} "
           f"launches, {moe_runs['long']['read_once']} (long prompts) + "

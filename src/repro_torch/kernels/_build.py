@@ -35,6 +35,9 @@ KERNELS: Dict[str, tuple] = {
                     [_P, _P, _P, _P, _LL, _LL, _LL, _I, _P]),
     "flash_attention": ("flash_attention", "flash_attention_fwd_launch",
                         [_P] * 6 + [_LL] * 9 + [_I] * 9 + [_P]),
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            "flash_attention_bwd_launch",
+                            [_P] * 10 + [_LL] * 9 + [_I] * 9 + [_P]),
     "row_gather": ("row_gather", "row_gather_launch",
                    [_P, _P, _P, _P, _LL, _LL, _I, _LL, _P]),
     "row_gather_sum": ("row_gather", "row_gather_sum_launch",

@@ -1,4 +1,5 @@
-"""Flash attention: hand-written CUDA forward kernel + plain versions.
+"""Flash attention: hand-written CUDA forward and backward kernels + plain
+versions.
 
 Port of ``repro.kernels.flash_attention`` (the blockwise online-softmax
 forward) for every full-sequence attention of the dense models: serve
@@ -21,11 +22,16 @@ uniform softmax: the mean of V over all ``Skv`` keys.
   ``sm_90a`` kernel of ``csrc/flash_attention.cu`` (which replaces
   ``flash_attention_pallas``; f32 or bf16, head_dim in
   ``_KERNEL_HEAD_DIMS``) and adds one to ``flash_attention.launches``;
-  on a CPU tensor it runs :func:`flash_attention_fwd_plain`. There is no
-  fallback: a CUDA call launches the kernel or raises. The backward is
-  :func:`flash_attention_bwd_plain` on both devices (the TPU kernel has no
-  backward; the reference differentiates its XLA math).
+  on a CPU tensor it runs :func:`flash_attention_fwd_plain`. Its backward
+  is the dispatcher op :func:`flash_bwd` (``repro_torch::flash_bwd``, with
+  a fake for meta tensors): on a CUDA tensor the kernel of
+  ``csrc/flash_attention_bwd.cu`` (the TPU kernel has no backward; the
+  reference differentiates its XLA math), counted in
+  ``flash_attention_bwd.launches``; on a CPU tensor
+  :func:`flash_attention_bwd_plain`. There is no fallback: a CUDA call
+  launches the kernel or raises.
 * :func:`flash_attention_fwd` — that forward alone, ``(o, lse)``.
+* :func:`flash_attention_bwd` — that backward alone, ``(dq, dk, dv)``.
 * :func:`flash_attention_fwd_plain` — the model's materialising math;
   returns ``(o, lse)``.
 * :func:`flash_attention_bwd_plain` — recomputes the probabilities from
@@ -172,6 +178,33 @@ def _check_cuda_args(q, k, v, start, window) -> None:
                          f"{tuple(start.shape)} {start.dtype}")
 
 
+def _check_bwd_args(q, k, v, o, lse, do, window) -> None:
+    """What the backward kernel takes beyond the forward's q/k/v: ``o`` and
+    ``do`` contiguous in q's shape and dtype, ``lse`` (B,H,Sq) contiguous
+    f32, each 16-byte aligned."""
+    _check_cuda_args(q, k, v, None, window)
+    b, sq, h, _ = q.shape
+    for name, t in (("o", o), ("lse", lse), ("do", do)):
+        if t.device != q.device:
+            raise ValueError(f"{name} must be on {q.device}, got {t.device}")
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape:
+            raise ValueError(f"{name} must have q's shape {tuple(q.shape)}, "
+                             f"got {tuple(t.shape)}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} must be in q's dtype {q.dtype}, got "
+                            f"{t.dtype}")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({b}, {h}, {sq}) float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    for name, t in (("o", o), ("lse", lse), ("do", do)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must have a contiguous last dim")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             f"aligned, got strides {t.stride()}")
+
+
 def _fwd_kernel(q, k, v, causal: bool, window: Optional[int],
                 start: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -217,6 +250,58 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     return _fwd_kernel(q, k, v, causal, window, start)
 
 
+def _bwd_kernel(q, k, v, o, lse, do, causal: bool, window: Optional[int]
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the CUDA backward on the current stream: (dq, dk, dv), each
+    contiguous in q's dtype. A strided ``do`` (autograd may give one) is
+    copied contiguous first."""
+    if not q.is_cuda:
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    from repro_torch.kernels._build import load
+    do = do.contiguous()
+    _check_bwd_args(q, k, v, o, lse, do, window)
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    launch = load("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                     b, h, kvh, sq, skv, hd, int(causal),
+                     0 if window is None else int(window),
+                     _KERNEL_DTYPES[q.dtype],
+                     torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: Optional[int] = None, start=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of :func:`flash_attention` given the forward's ``(o,
+    lse)`` and ``do``: the kernel on a CUDA tensor (counted),
+    :func:`flash_attention_bwd_plain` on a CPU tensor; any other device
+    raises. Training has no ``start``: passing one raises."""
+    if start is not None:
+        raise ValueError("flash_attention_bwd takes no start: the backward "
+                         "is for training, which has no pad rows")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window)
+    return _bwd_kernel(q, k, v, o, lse, do, causal, window)
+
+
 @torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               start: Optional[torch.Tensor], causal: bool,
@@ -236,6 +321,22 @@ def _flash_fwd_fake(q, k, v, start, causal, window):
             q.new_empty((b, h, sq), dtype=torch.float32))
 
 
+@torch.library.custom_op("repro_torch::flash_bwd", mutates_args=())
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+              causal: bool, window: Optional[int]
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_bwd` as one dispatcher op, so that a meta
+    tensor (the dry-run's step) gets its fake's shapes and no arithmetic."""
+    return flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                               window=window)
+
+
+@flash_bwd.register_fake
+def _flash_bwd_fake(q, k, v, o, lse, do, causal, window):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
 def _flash_setup(ctx, inputs, output):
     q, k, v, start, causal, window = inputs
     o, lse = output
@@ -248,9 +349,7 @@ def _flash_backward(ctx, do, dlse):
     if ctx.has_start:
         raise ValueError("flash_attention has no backward with start")
     q, k, v, o, lse = ctx.saved_tensors
-    dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                           causal=ctx.causal,
-                                           window=ctx.window)
+    dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.causal, ctx.window)
     return dq, dk, dv, None, None, None
 
 
@@ -267,3 +366,4 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

@@ -157,7 +157,10 @@ def meta_kernels():
     step's dispatcher ops (whose registered fakes give its shapes) and
     their backwards give meta gradients of the inputs' shapes. The
     wrappers themselves refuse a tensor that is on neither the CPU nor a
-    card; a CPU or CUDA tensor goes through them unchanged here."""
+    card; a CPU or CUDA tensor goes through them unchanged here. Flash
+    attention needs no patch: the model calls its forward op, and the
+    op's backward calls the backward op ``repro_torch::flash_bwd``, so a
+    meta tensor takes both ops' fakes."""
     from repro_torch.kernels import moe_gather, ssd_scan
     from repro_torch.models import moe, ssm
     orig = (moe.row_gather, ssm.ssd_chunk, moe_gather.row_gather_sum,

@@ -6,7 +6,8 @@ forward is held against the model's ``repro.models.attention.attention``
 where ``start`` masks pad rows, and its log-sum-exp against numpy. The
 recompute backward is held against ``jax.vjp`` of
 ``repro.kernels.ref.attention_ref`` and against torch autograd of the plain
-forward (f32: 1e-5, the same math summed in another order). A windowed
+forward (f32: 1e-5, the same math summed in another order), with GQA,
+MQA, windows with empty rows and every head dim the kernels take. A windowed
 olmo-1b-smoke is held against the JAX model at ``_torch_train.py``'s
 tolerances. The forward against the Pallas kernel in interpret mode is
 ``tests/test_torch_flash_attention.py``'s.
@@ -107,15 +108,24 @@ def test_lse_matches_numpy(causal, sq, sk, window, start):
 # (4) the recompute backward
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("causal,sq,sk,h,kv,window", [
-    (True, 32, 32, 4, 2, 8),
-    (True, 24, 24, 4, 1, None),
-    (False, 20, 28, 4, 2, 6),
-    (False, 24, 8, 2, 2, 4),            # rows with no valid key
+@pytest.mark.parametrize("causal,sq,sk,h,kv,window,hd", [
+    (True, 32, 32, 4, 2, 8, 16),
+    (True, 24, 24, 4, 1, None, 16),
+    (False, 20, 28, 4, 2, 6, 16),
+    (False, 24, 8, 2, 2, 4, 16),        # rows with no valid key
+    (True, 24, 24, 12, 2, None, 16),    # GQA 6:1 (mixtral at tp 4)
+    (True, 20, 20, 8, 1, 6, 16),        # MQA 8:1 (gemma-2b)
+    (True, 24, 8, 4, 2, 3, 16),         # causal, rows with no valid key
+    # every head dim the kernels take, at a small Sq
+    (True, 12, 12, 4, 2, None, 64),
+    (True, 12, 12, 4, 2, None, 96),
+    (True, 12, 12, 4, 2, 5, 112),
+    (True, 12, 12, 4, 4, None, 128),
+    (False, 12, 12, 4, 1, None, 256),
 ])
 def test_backward_matches_jax_vjp_and_autograd(causal, sq, sk, h, kv,
-                                               window):
-    q, k, v = qkv(7, 2, h, kv, sq, sk, 16)
+                                               window, hd):
+    q, k, v = qkv(7, 2, h, kv, sq, sk, hd)
     do = np.random.default_rng(8).normal(size=q.shape).astype(np.float32)
     out, vjp = jax.vjp(lambda a, b_, c: jref.attention_ref(
         a, b_, c, causal=causal, window=window),
